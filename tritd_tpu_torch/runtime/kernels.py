@@ -1,0 +1,41 @@
+"""ctypes binding of the library built by :mod:`tritd_tpu_torch.runtime.build`.
+
+Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
+scalars by value in the element type. Loading the library builds it, so the
+first CUDA call pays the nvcc compile; importing this module does not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+from . import build
+
+_P = ctypes.c_void_p
+
+
+def _block_argtypes(scalar):
+    # d, l, e, y_l, y_o, o, e', y_l', y_o', t', nl, no, partials
+    return [_P] * 13 + [ctypes.c_int64] + [scalar] * 4 + [_P]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build()))
+    lib.tritd_partials_len.argtypes = []
+    lib.tritd_partials_len.restype = ctypes.c_int
+    lib.tritd_error_string.argtypes = [ctypes.c_int]
+    lib.tritd_error_string.restype = ctypes.c_char_p
+    lib.tritd_elementwise_block_f32.argtypes = _block_argtypes(ctypes.c_float)
+    lib.tritd_elementwise_block_f32.restype = ctypes.c_int
+    lib.tritd_elementwise_block_f64.argtypes = _block_argtypes(ctypes.c_double)
+    lib.tritd_elementwise_block_f64.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().tritd_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

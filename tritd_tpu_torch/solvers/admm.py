@@ -1,0 +1,223 @@
+"""Robust TriTD-ADMM solver.
+
+PyTorch counterpart of `tritd_tpu/solvers/admm.py`, with the semantics of
+`fast_robust_triple_tensor/triple_decomp_ADMM.m:31-66`:
+
+  per iteration k:
+    T   = D - O + Y_L / muL
+    A  <- ridge-LS rows of unfold(T,1) against design F(B, C)   (alpha = lambda2)
+    B  <- ridge-LS against G(A, C)                              (alpha = lambda2)
+    C  <- ridge-LS against H(A, B)                              (alpha = 1e-9)
+    L   = triple_product(A, B, C)
+    O, E, Y_L, Y_O, ||D-L-O||^2, ||O-E||^2 <- fused elementwise block
+    muL = min(muL*rho, mu*1e6); muO likewise
+    err[k] = (||D-L-O|| + ||O-E||) / ||D||
+    stop when |err[k] - err[k-1]| < tol * err[k-1]
+
+Everything runs on the device of `d`. The loop is a host loop; the penalties
+and the counter are host numbers (numpy scalars of cfg.dtype, so the
+annealing rounds as the reference's float32 `min(mu*rho, cap)` does), and
+the only device-to-host read is the sticky stop flag, once per block of
+`cfg.unroll` iterations. On a CUDA device the elementwise block is the
+hand-written kernel; it also writes the next iteration's T.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import interop
+from ..ops import designs, normal_eq
+from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
+from ..ops.hopper_kernels import elementwise_block
+from .base import TriTDConfig, TriTDResult, TriTDState
+
+
+def init_factors(
+    generator: torch.Generator,
+    shape: tuple[int, int, int],
+    rank: int,
+    dtype: torch.dtype,
+    device: torch.device | str = "cpu",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Standard-normal factor init (reference: `randn`,
+    `triple_decomp_ADMM.m:24`). Drawn on the CPU from `generator`, so one
+    seed gives one init on every device, then moved to `device`."""
+    n1, n2, n3 = shape
+    dims = ((n1, rank, rank), (rank, n2, rank), (rank, rank, n3))
+    return tuple(
+        torch.randn(s, generator=generator, dtype=dtype).to(device) for s in dims
+    )
+
+
+def update_factors(t, a, b, c, cfg: TriTDConfig):
+    """One Gauss-Seidel sweep of the three ridge mode solves
+    (`triple_decomp_ADMM.m:73-95`); each later solve sees the fresh factors."""
+    r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
+    k1, rhs1 = normal_eq.gram_and_rhs(1, t, a, b, c, variant=variant)
+    a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
+    k2, rhs2 = normal_eq.gram_and_rhs(2, t, a, b, c, variant=variant)
+    b = core_b_from_mat(normal_eq.ridge_solve(k2, rhs2, cfg.lambda2, method), r)
+    k3, rhs3 = normal_eq.gram_and_rhs(3, t, a, b, c, variant=variant)
+    c = core_c_from_mat(normal_eq.ridge_solve(k3, rhs3, cfg.alpha_c, method), r)
+    return a, b, c
+
+
+def admm_iteration(
+    d: torch.Tensor,
+    state: TriTDState,
+    cfg: TriTDConfig,
+    mask: torch.Tensor | None = None,
+    origin: torch.Tensor | None = None,
+    norm_d: torch.Tensor | None = None,
+    norm_origin: torch.Tensor | None = None,
+    disp_log: list | None = None,
+) -> TriTDState:
+    """One ADMM iteration (`triple_decomp_ADMM.m:31-66`). The histories are
+    written in place (entry k). With cfg.disp, every 10th iteration appends
+    (k, errL, errO) to `disp_log` as device scalars, for the caller to print."""
+    a, b, c = state.a, state.b, state.c
+    o, e, y_l, y_o = state.o, state.e, state.y_l, state.y_o
+    mu_l, mu_o, k = state.mu_l, state.mu_o, state.k
+    if norm_d is None:
+        norm_d = torch.linalg.vector_norm(d)
+
+    masked = cfg.masked and mask is not None
+    if masked:
+        # Impute unobserved entries with the current estimate, so the data
+        # term binds on observed entries only; T is built from that D.
+        l_prev = designs.triple_product(a, b, c, variant=cfg.variant)
+        d = torch.where(mask, d, l_prev + o)
+        t = d - o + y_l / float(mu_l)
+    else:
+        t = state.t
+
+    a, b, c = update_factors(t, a, b, c, cfg)
+    l = designs.triple_product(a, b, c, variant=cfg.variant)
+
+    dt = cfg.np_dtype().type
+    mu_cap = dt(cfg.mu * cfg.mu_cap_factor)
+    mu_l_next = np.minimum(mu_l * dt(cfg.rho), mu_cap)
+    mu_o_next = np.minimum(mu_o * dt(cfg.rho), mu_cap)
+
+    # Masked mode rebuilds T from the freshly imputed D each iteration, so
+    # the block skips T' and the state's T passes through.
+    o, e, y_l, y_o, sq_l, sq_o, t_next = elementwise_block(
+        d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1,
+        mu_l_next=None if masked else mu_l_next,
+    )
+    if masked:
+        t_next = state.t
+
+    root_l, root_o = torch.sqrt(sq_l), torch.sqrt(sq_o)
+    err = (root_l + root_o) / norm_d
+    if cfg.disp and disp_log is not None and (k + 1) % 10 == 0:
+        disp_log.append((k + 1, root_l / norm_d, root_o / norm_d))
+    err_hist = state.err_hist
+    err_hist[k] = err
+
+    rre_hist = state.rre_hist
+    if origin is not None:
+        if norm_origin is None:
+            norm_origin = torch.linalg.vector_norm(origin)
+        rre_hist[k] = torch.linalg.vector_norm(l - origin) / norm_origin
+
+    # relative-change stopping rule (`:63-65`); sticky, so that a block of
+    # unrolled iterations cannot un-converge
+    done = state.done
+    if k >= 1:
+        err_prev = err_hist[k - 1]
+        done = done | (torch.abs(err - err_prev) < cfg.tol * err_prev)
+
+    return TriTDState(
+        a=a, b=b, c=c, o=o, e=e, y_l=y_l, y_o=y_o, t=t_next,
+        mu_l=mu_l_next, mu_o=mu_o_next, k=k + 1,
+        err_hist=err_hist, rre_hist=rre_hist, done=done,
+    )
+
+
+def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
+    """Initial state for data `d` with factor init `factors` = (a, b, c)."""
+    dtype = cfg.torch_dtype()
+    d = d.to(dtype)
+    a, b, c = interop.factors_from_numpy(*factors, device=d.device, dtype=dtype)
+    zeros = torch.zeros_like(d)
+    # padded to a multiple of cfg.unroll: a block may overshoot max_iter by
+    # up to unroll-1 iterations
+    hist_len = -(-cfg.max_iter // cfg.unroll) * cfg.unroll
+    nan_hist = torch.full((hist_len,), float("nan"), dtype=dtype, device=d.device)
+    mu = cfg.np_dtype().type(cfg.mu)
+    return TriTDState(
+        a=a, b=b, c=c, o=zeros, e=zeros, y_l=zeros, y_o=zeros, t=d,
+        mu_l=mu, mu_o=mu, k=0,
+        err_hist=nan_hist, rre_hist=nan_hist.clone(),
+        done=torch.zeros((), dtype=torch.bool, device=d.device),
+    )
+
+
+def tritd_admm(
+    d,
+    cfg: TriTDConfig = TriTDConfig(),
+    mask=None,
+    origin=None,
+    init=None,
+    generator: torch.Generator | None = None,
+) -> TriTDResult:
+    """Run robust TriTD-ADMM on a 3-way tensor, on the device of `d`.
+
+    Args:
+      d: observed (possibly corrupted/zero-filled) tensor (n1, n2, n3).
+      cfg: hyperparameters; defaults = completion driver preset.
+      mask: bool tensor of *observed* entries (required iff cfg.masked).
+      origin: optional ground truth; per-iteration ||L - origin||/||origin||
+        is recorded in rre_hist.
+      init: optional factor init (a0, b0, c0), numpy arrays or tensors, e.g.
+        the reference's `init_factors` draw carried over with
+        :mod:`tritd_tpu_torch.interop`.
+      generator: CPU generator for the init when `init` is None (default:
+        seed 0, mirroring the reference's `rng(0)`).
+    """
+    for name in ("einsum_dtype", "storage_dtype"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(
+                f"cfg.{name} is not ported yet (ROADMAP queue 1, narrow-storage "
+                "and einsum_dtype item)"
+            )
+    if cfg.masked and mask is None:
+        raise ValueError("cfg.masked=True requires a mask argument")
+    if mask is not None and not cfg.masked:
+        raise ValueError("mask given but cfg.masked=False — pass TriTDConfig(masked=True)")
+    dtype = cfg.torch_dtype()
+    d = torch.as_tensor(d).to(dtype)
+    device = d.device
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).to(torch.bool)
+    norm_origin = None
+    if origin is not None:
+        origin = torch.as_tensor(origin, device=device).to(dtype)
+        norm_origin = torch.linalg.vector_norm(origin)
+    norm_d = torch.linalg.vector_norm(d)
+    if init is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init = init_factors(generator, tuple(d.shape), cfg.rank, dtype)
+    state = init_state(d, cfg, init)
+
+    disp_log: list = []
+    while state.k < cfg.max_iter and not bool(state.done):
+        for _ in range(cfg.unroll):
+            state = admm_iteration(
+                d, state, cfg, mask=mask, origin=origin,
+                norm_d=norm_d, norm_origin=norm_origin, disp_log=disp_log,
+            )
+        for it, el, eo in disp_log:
+            print(f"Iter {it}, errL={float(el):.2e}, errO={float(eo):.2e}")
+        disp_log.clear()
+
+    return TriTDResult(
+        a=state.a, b=state.b, c=state.c, o=state.o, e=state.e,
+        err_hist=state.err_hist[: cfg.max_iter],
+        rre_hist=state.rre_hist[: cfg.max_iter],
+        n_iters=min(state.k, cfg.max_iter),
+    )

@@ -1,0 +1,28 @@
+"""Result-artifact store mirroring the reference's .mat naming scheme.
+
+Counterpart of `tritd_tpu/utils/artifacts.py`: the drivers save
+`<dataset>_<method>_errHist.mat` (`traffic_triple_comparison.m:58-60`); the
+same stems are kept with .npz, so both packages write interchangeable files.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+def artifact_path(out_dir: str, dataset: str, method: str, what: str) -> str:
+    return os.path.join(out_dir, f"{dataset}_{method}_{what}.npz")
+
+
+def save_artifact(out_dir: str, dataset: str, method: str, what: str, value) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    path = artifact_path(out_dir, dataset, method, what)
+    np.savez_compressed(path, **{what: np.asarray(value)})
+    return path
+
+
+def load_artifact(out_dir: str, dataset: str, method: str, what: str) -> np.ndarray:
+    with np.load(artifact_path(out_dir, dataset, method, what)) as f:
+        return f[what]
