@@ -45,6 +45,16 @@ SHAPE = (12, 10, 14)
 RANK = 3
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps the test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(seed=0, missing=0.1):
     """Low-TriTD-rank truth + noise + sparse spikes, 10% missing, zero-filled."""
     rng = np.random.default_rng(seed)
@@ -191,7 +201,9 @@ def test_default_init_is_seeded_and_device_independent():
 
 @pytest.mark.parametrize("field", ["einsum_dtype", "storage_dtype"])
 def test_unported_options_raise(field):
-    cfg = dataclasses.replace(COMPLETION_TRITD, **{field: "bfloat16"})
+    """bfloat16 is ported (tests/test_torch_narrow.py); other narrow dtypes
+    are not, and say where they are listed."""
+    cfg = dataclasses.replace(COMPLETION_TRITD, **{field: "float16"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tritd_admm(torch.zeros(SHAPE), cfg)
 

@@ -35,6 +35,16 @@ TOL = {  # dtype: (tensor rtol, norm rtol)
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps the test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(shape, dtype, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(dtype) for _ in range(5)]

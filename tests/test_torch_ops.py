@@ -44,6 +44,16 @@ R = 3
 VARIANTS = ("hadamard", "full")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps the test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cores(seed=0, shape=SHAPE, r=R):
     rng = np.random.default_rng(seed)
     n1, n2, n3 = shape

@@ -10,12 +10,16 @@ the CPU it runs its plain PyTorch version. Importing the package builds
 nothing.
 
 Layers:
-  ops/       folds, designs, normal equations, shrinkage, the Hopper kernel
+  ops/       folds, designs (and the explicit-Kronecker kron_*), normal
+             equations (with the bf16 einsum_dtype), shrinkage, the Hopper
+             kernel and its narrow-storage variants
   runtime/   nvcc build and ctypes binding of csrc/
-  solvers/   TriTD-ADMM
-  data/      synthetic stand-ins + .mat ingest
-  metrics/   RRE
-  cli/       completion driver
+  solvers/   TriTD-ADMM (f32/f64, bf16 storage), checkpointed, nonconvex
+             outlier, ALS/MALS
+  data/      synthetic stand-ins + .mat ingest (v7.3 too) + ground truth
+  metrics/   RRE, PSNR/SSIM/MSAM, CDnet foreground scores
+  cli/       completion and video drivers, figures
+  utils/     presets, artifacts, checkpoints, the published tables
   interop    factors and state carried over from the JAX package
 """
 

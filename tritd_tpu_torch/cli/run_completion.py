@@ -4,7 +4,8 @@ Counterpart of `tritd_tpu/cli/run_completion.py` for the `triple` and
 `triple_masked` methods: for each dataset draw a uniform missing mask of
 `missing_ratio * numel` entries, zero-fill, run TriTD-ADMM, report RRE over
 all entries and wall-clock as one JSON row, and save the
-`<dataset>_<method>_errHist` artifact. The other methods are not ported yet.
+`<dataset>_<method>_errHist` artifact. `--verify-parity` holds the rows to
+the reference's published tables. The other methods are not ported yet.
 
 Usage:
   python -m tritd_tpu_torch.cli.run_completion --datasets taxi \\
@@ -26,6 +27,7 @@ from ..metrics.recon import evaluate
 from ..ops.designs import triple_product
 from ..solvers import trim_history, tritd_admm
 from ..utils import artifacts
+from ..utils.published import DEFAULT_RRE_GAP, check_parity
 from ..utils.config import COMPLETION_DATASETS, COMPLETION_MISSING_RATIO, COMPLETION_TRITD
 
 METHOD_NAMES = ("triple", "triple_masked", "ttnn", "ring", "fctn", "sofia")
@@ -44,6 +46,15 @@ def run_method(method, y, x, mask, generator, max_iter):
     res = tritd_admm(y, cfg, mask=mask if masked else None, origin=x, generator=generator)
     x_hat = triple_product(res.a, res.b, res.c)
     return x_hat, res.o, trim_history(res.err_hist, res.n_iters)
+
+
+def timed(device: torch.device, fn):
+    """(fn(), seconds on the host clock), the device's work included."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
 
 
 def resolve_device(name: str) -> torch.device:
@@ -67,12 +78,21 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; fails if absent)")
+    p.add_argument(
+        "--verify-parity", action="store_true",
+        help="after the run, assert every row's RRE is within --parity-gap"
+        " of the reference's published number (README.md:57-63) and exit"
+        " nonzero otherwise; requires the real .mat datasets (synthetic"
+        " stand-ins fail loudly, see docs/DATA.md)",
+    )
+    p.add_argument("--parity-gap", type=float, default=None,
+                   help="absolute RRE tolerance for --verify-parity")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 
     rows = []
     for name in args.datasets:
-        x_np, _spec, provenance = load_dataset(name, args.data_dir)
+        x_np, spec, provenance = load_dataset(name, args.data_dir)
         x = torch.as_tensor(x_np, dtype=torch.float32, device=device)
         mask_np = uniform_missing_mask(np.random.default_rng(args.seed), x.shape, args.missing_ratio)
         mask = torch.as_tensor(mask_np, device=device)
@@ -80,19 +100,25 @@ def main(argv=None) -> list[dict]:
         print(f"===== Dataset: {name} ({provenance}) shape={tuple(x.shape)} "
               f"missing={args.missing_ratio} device={device} =====")
         for method in args.methods:
-            generator = torch.Generator().manual_seed(args.seed)
-            t0 = time.perf_counter()
-            x_hat, _o, err_hist = run_method(method, y, x, mask, generator, args.max_iter)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            elapsed = time.perf_counter() - t0
+            def solve():
+                generator = torch.Generator().manual_seed(args.seed)
+                return timed(device, lambda: run_method(method, y, x, mask, generator, args.max_iter))
+
+            (x_hat, _o, err_hist), elapsed = solve()
+            first_call_s, timing = elapsed, "first_call"
+            if args.verify_parity and spec.kind == "video":
+                # video cells are judged on wall-clock, and the published
+                # MATLAB times hold no one-time set-up: re-time a warm solve
+                (x_hat, _o, err_hist), elapsed = solve()
+                timing = "warm"
             _, rre_all = evaluate(x_hat, x, None)
             row = {
                 "dataset": name,
                 "method": method,
                 "rre": float(rre_all),
                 "seconds": round(elapsed, 3),
-                "timing": "first_call",
+                "timing": timing,
+                **({"seconds_first_call": round(first_call_s, 3)} if timing == "warm" else {}),
                 "iters": int(len(err_hist)),
                 "provenance": provenance,
                 "device": str(device),
@@ -100,6 +126,15 @@ def main(argv=None) -> list[dict]:
             rows.append(row)
             artifacts.save_artifact(args.out_dir, name, method, "errHist", err_hist)
             print(json.dumps(row))
+
+    if args.verify_parity:
+        gap = DEFAULT_RRE_GAP if args.parity_gap is None else args.parity_gap
+        failures = check_parity(rows, gap=gap, max_iter=args.max_iter, missing_ratio=args.missing_ratio)
+        if failures:
+            for msg in failures:
+                print(f"PARITY FAIL {msg}")
+            raise SystemExit(1)
+        print(f"PARITY OK: {len(rows)} rows within gap {gap} of README.md:57-63")
     return rows
 
 

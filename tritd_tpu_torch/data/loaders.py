@@ -71,9 +71,41 @@ def _load_mat_variable(path: str, variable: str) -> np.ndarray:
     raise KeyError(f"{variable} not in {path}; has {candidates}")
 
 
+def save_mat73(path: str, variables: dict[str, np.ndarray]) -> str:
+    """Write a MATLAB v7.3-compatible .mat: an HDF5 file with the 128-byte
+    MAT header in a userblock (116 bytes of text, an 8-byte subsystem
+    offset, version 0x0200, little-endian tag 'IM') and arrays stored
+    dim-reversed (column-major), so scipy defers to the HDF5 reader as for a
+    real `save -v7.3` file. Counterpart of `tritd_tpu/data/loaders.py:84-108`."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w", userblock_size=512) as f:
+        for name, arr in variables.items():
+            a = np.asarray(arr)
+            ds = f.create_dataset(name, data=a.transpose(tuple(reversed(range(a.ndim)))))
+            ds.attrs["MATLAB_class"] = np.bytes_("double")
+    header = b"MATLAB 7.3 MAT-file, written by tritd_tpu_torch save_mat73"
+    with open(path, "r+b") as fh:
+        fh.write(header[:116].ljust(116, b"\x20"))
+        fh.write(b"\x00" * 8)          # subsystem data offset
+        fh.write(b"\x00\x02")          # version 0x0200 = v7.3
+        fh.write(b"IM")                # little-endian indicator
+    return path
+
+
 def dataset_seed(name: str) -> int:
     """Deterministic per-dataset seed (crc32: stable across processes)."""
     return zlib.crc32(name.encode())
+
+
+def synthetic_video_truth(spec: DatasetSpec):
+    """(observed, background, fg_mask) of the port's seeded video stand-in,
+    regenerated from the same draw as `synthetic_fallback`, so metric code
+    can score against the stand-in's own moving-object truth. Counterpart
+    of `tritd_tpu/data/loaders.py:117-122`; the JAX stand-in's draw is not
+    reproducible here, so scores are taken against this port's truth."""
+    return synthetic_video(np.random.default_rng(dataset_seed(spec.name)), spec.shape)
 
 
 def synthetic_traffic(spec: DatasetSpec, rng: np.random.Generator) -> np.ndarray:
@@ -117,3 +149,13 @@ def load_dataset(
     if spec.truncate_frames is not None and x.shape[-1] > spec.truncate_frames:
         x = x[..., : spec.truncate_frames]
     return x, spec, provenance
+
+
+def load_groundtruth(name: str, data_dir: str | None = None) -> np.ndarray | None:
+    """CDnet ground-truth label frames (`<name>_gt.mat`, variable
+    `groundtruth`, labels 0/170/255) if present, else None. Counterpart of
+    `tritd_tpu/data/loaders.py:182-191`."""
+    path = os.path.join(data_dir or DEFAULT_DATA_DIR, f"{name}_gt.mat")
+    if not os.path.exists(path):
+        return None
+    return _load_mat_variable(path, "groundtruth")

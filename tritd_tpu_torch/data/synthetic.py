@@ -1,6 +1,6 @@
 """Synthetic fixtures: low-TriTD-rank tensors, sparse outliers, missing masks.
 
-Counterpart of `tritd_tpu/data/synthetic.py:19-137`, drawn with a
+Counterpart of `tritd_tpu/data/synthetic.py`, drawn with a
 `numpy.random.Generator` (`numpy.random.default_rng(seed)`) instead of
 `jax.random`. The recipes and shapes are the reference's; the numbers are
 not, so a stand-in made here is not the JAX stand-in of the same seed.
@@ -114,3 +114,34 @@ def synthetic_video(
     )
     observed = (bg + fg_magnitude * fg_mask).astype(dtype)
     return observed, bg.astype(dtype), fg_mask
+
+
+def make_completion_problem(
+    rng: np.random.Generator,
+    shape: tuple[int, int, int] = (30, 30, 40),
+    rank: int = 3,
+    missing_ratio: float = 0.1,
+    outlier_density: float = 0.0,
+    outlier_magnitude: float = 10.0,
+    noise_std: float = 0.0,
+    variant: str = "hadamard",
+    dtype=np.float32,
+):
+    """End-to-end synthetic problem mirroring the driver protocol
+    (`traffic_triple_comparison.m:27-35`): clean low-TriTD-rank X, optional
+    sparse corruption and Gaussian noise, a uniform missing mask and the
+    zero-filled observation Y. Counterpart of
+    `tritd_tpu/data/synthetic.py:140`.
+
+    Returns a dict with x (truth), y (observed, zero-filled), mask
+    (observed), outliers and the generating cores, as numpy."""
+    x, cores = random_tritd(rng, shape, rank, variant=variant, dtype=dtype)
+    o = (
+        sparse_outliers(rng, shape, outlier_density, outlier_magnitude, dtype)
+        if outlier_density > 0
+        else np.zeros(shape, dtype)
+    )
+    noise = noise_std * rng.standard_normal(shape).astype(dtype) if noise_std > 0 else 0.0
+    mask = uniform_missing_mask(rng, shape, missing_ratio)
+    y = np.where(mask, x + o + noise, 0.0).astype(dtype)
+    return {"x": x, "y": y, "mask": mask, "outliers": o, "cores": cores}

@@ -29,13 +29,23 @@ def factors_from_numpy(a, b, c, device="cpu", dtype=torch.float32):
     )
 
 
+def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype, bfloat16 included (numpy
+    holds it as the `ml_dtypes` extension type, which torch cannot read:
+    its bits are carried over as int16)."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
 def state_from_numpy(arrays: Mapping[str, Any], device="cpu") -> TriTDState:
     """A `TriTDState` from a mapping of its fields to numpy arrays, as from
     ``{f: np.asarray(getattr(s, f)) for f in s._fields}`` of the reference's
     state. Tensors keep their dtype; mu_l/mu_o become numpy scalars, k a
     Python int and done a 0-d device bool."""
     fields = {
-        f: torch.as_tensor(np.array(arrays[f]), device=device)
+        f: tensor_from_numpy(arrays[f], device=device)
         for f in TriTDState._fields if f not in _HOST_FIELDS
     }
     return TriTDState(

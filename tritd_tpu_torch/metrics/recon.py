@@ -1,6 +1,6 @@
 """Reconstruction metrics: RMSE / NRMSE (RRE) over masked entries.
 
-PyTorch counterpart of `evaluate` and `rre` in `tritd_tpu/metrics/recon.py`
+PyTorch counterpart of `tritd_tpu/metrics/recon.py`
 (reference: `traffic_triple_comparison.m:194-202`): rmse is the l2 distance
 over the selected entries (un-normalized, despite the name), nrmse divides
 it by the l2 norm of the selected ground truth — the "RRE" of the tables.
@@ -24,3 +24,9 @@ def evaluate(x_hat: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = 
 def rre(x_hat: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = None):
     """Relative reconstruction error — the headline metric."""
     return evaluate(x_hat, gt, mask)[1]
+
+
+def relative_change(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """||new - old|| / ||old||, the baselines' convergence probe
+    (`TT_TRPCA.m:73`, `RTRC.m:69-70`, `RC_FCTN.m:103`)."""
+    return torch.linalg.vector_norm(new - old) / torch.linalg.vector_norm(old)

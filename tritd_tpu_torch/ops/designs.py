@@ -1,7 +1,7 @@
 """TriTD design matrices and triple-product reconstruction.
 
-PyTorch counterpart of `tritd_tpu/ops/designs.py` (the explicit-Kronecker
-`kron_*` baselines are not ported yet). Two contraction semantics:
+PyTorch counterpart of `tritd_tpu/ops/designs.py`. Two contraction
+semantics:
 
 * **hadamard** (every exercised reference path,
   `fast_robust_triple_tensor/triple_decomp_ADMM.m:132-160`):
@@ -97,3 +97,37 @@ def triple_product_naive(
     if variant == "hadamard":
         return torch.einsum("iqs,qjs,qst->ijt", a, b, c)
     return torch.einsum("iqs,pjs,pqt->ijt", a, b, c)
+
+
+def kron_f(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Explicit-Kronecker baseline for the full variant
+    (`origin_triple_tensor/kronF.m:4-6`): the same matrix as
+    ``build_f(b, c, "full")``, F[(q,s),(t,j)] = sum_p B[p,j,s] C[p,q,t]."""
+    r, n2, _ = b.shape
+    n3 = c.shape[2]
+    bm = b.permute(2, 1, 0).reshape(r * n2, r)  # [(s,j), p]
+    cm = c.reshape(r, r * n3)  # [p, (q,t)]
+    f = (bm @ cm).reshape(r, n2, r, n3)  # [s, j, q, t]
+    return f.permute(2, 0, 3, 1).reshape(r * r, n3 * n2)
+
+
+def kron_g(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Explicit-Kronecker counterpart of ``build_g(a, c, "full")``
+    (`origin_triple_tensor/kronG.m`): G[(p,s),(t,i)] = sum_q A[i,q,s] C[p,q,t]."""
+    n1, r, _ = a.shape
+    n3 = c.shape[2]
+    am = a.permute(2, 0, 1).reshape(r * n1, r)  # [(s,i), q]
+    cm = c.permute(1, 0, 2).reshape(r, r * n3)  # [q, (p,t)]
+    g = (am @ cm).reshape(r, n1, r, n3)  # [s, i, p, t]
+    return g.permute(2, 0, 3, 1).reshape(r * r, n3 * n1)
+
+
+def kron_h(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Explicit-Kronecker counterpart of ``build_h(a, b, "full")``
+    (`origin_triple_tensor/kronH.m`): H[(p,q),(j,i)] = sum_s A[i,q,s] B[p,j,s]."""
+    n1, r, _ = a.shape
+    n2 = b.shape[1]
+    am = a.permute(1, 0, 2).reshape(r * n1, r)  # [(q,i), s]
+    bm = b.permute(2, 0, 1).reshape(r, r * n2)  # [s, (p,j)]
+    h = (am @ bm).reshape(r, n1, r, n2)  # [q, i, p, j]
+    return h.permute(2, 0, 3, 1).reshape(r * r, n2 * n1)

@@ -18,6 +18,16 @@ index t for mode 1, the first index i for modes 2 and 3, so X is read in
 place), then an O(n^2 r^2) (hadamard) or O(n^2 r^3) (full) two-operand
 contraction with the remaining core. Accumulation stays in the factor dtype,
 so a float64 run is float64 throughout.
+
+With `einsum_dtype` (bfloat16), as in the reference
+(`tritd_tpu/ops/normal_eq.py:150-163`), X and the cores are rounded to it,
+the contraction accumulates in float32 and the result comes back in the
+factor dtype; the Grams and the solves stay full precision. The form taken
+is a float32 GEMM on operands rounded to bf16: the product of two bf16
+values is exact in float32, so this is the reference's bf16 einsum with
+`preferred_element_type=float32`. A bf16 `torch.matmul` would round its
+output to bf16, which is not the reference. It needs TF32 off on CUDA
+(PyTorch's default for matmul).
 """
 
 from __future__ import annotations
@@ -99,15 +109,24 @@ def rhs_mode(
     b: torch.Tensor,
     c: torch.Tensor,
     variant: str = "hadamard",
+    einsum_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Right-hand side unfold(X, mode) @ design^T, shape (n_mode, r^2)."""
+    """Right-hand side unfold(X, mode) @ design^T, shape (n_mode, r^2), in
+    the factor dtype."""
     _check_variant(variant)
     if mode not in (1, 2, 3):
         raise ValueError(f"mode must be 1, 2 or 3, got {mode}")
+    if einsum_dtype is not None:
+        out_dtype = a.dtype
+        x, a, b, c = (u.to(einsum_dtype).to(torch.float32) for u in (x, a, b, c))
+        return _rhs(mode, x, a, b, c, variant).to(out_dtype)
+    return _rhs(mode, x.to(a.dtype), a, b, c, variant)
+
+
+def _rhs(mode, x, a, b, c, variant):
     n1, n2, n3 = x.shape
     r = a.shape[1]
     rr = r * r
-    x = x.to(a.dtype)
     if mode == 1:
         # Y[i,j,(p,q)] = sum_t X[i,j,t] C[p,q,t]: GEMM over t
         y = torch.matmul(x.reshape(n1 * n2, n3), c.reshape(rr, n3).T)
@@ -146,11 +165,12 @@ def gram_and_rhs(
     b: torch.Tensor,
     c: torch.Tensor,
     variant: str = "hadamard",
+    einsum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(K, rhs) for the ridge system of the given mode update."""
     return (
         gram_mode(mode, a, b, c, variant=variant),
-        rhs_mode(mode, x, a, b, c, variant=variant),
+        rhs_mode(mode, x, a, b, c, variant=variant, einsum_dtype=einsum_dtype),
     )
 
 

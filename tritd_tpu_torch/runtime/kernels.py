@@ -1,7 +1,7 @@
 """ctypes binding of the library built by :mod:`tritd_tpu_torch.runtime.build`.
 
 Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
-scalars by value in the element type. Loading the library builds it, so the
+scalars by value in the compute type. Loading the library builds it, so the
 first CUDA call pays the nvcc compile; importing this module does not.
 """
 
@@ -10,9 +10,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import torch
+
+from ..ops.hopper_kernels import KERNEL_VARIANTS
 from . import build
 
 _P = ctypes.c_void_p
+
+# The compute type of a kernel variant, which its scalars are passed in.
+_SCALAR_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
 def _block_argtypes(scalar):
@@ -27,10 +33,10 @@ def library() -> ctypes.CDLL:
     lib.tritd_partials_len.restype = ctypes.c_int
     lib.tritd_error_string.argtypes = [ctypes.c_int]
     lib.tritd_error_string.restype = ctypes.c_char_p
-    lib.tritd_elementwise_block_f32.argtypes = _block_argtypes(ctypes.c_float)
-    lib.tritd_elementwise_block_f32.restype = ctypes.c_int
-    lib.tritd_elementwise_block_f64.argtypes = _block_argtypes(ctypes.c_double)
-    lib.tritd_elementwise_block_f64.restype = ctypes.c_int
+    for (compute, *_), variant in KERNEL_VARIANTS.items():
+        fn = getattr(lib, f"tritd_elementwise_block_{variant}")
+        fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute])
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -20,6 +20,11 @@ annealing rounds as the reference's float32 `min(mu*rho, cap)` does), and
 the only device-to-host read is the sticky stop flag, once per block of
 `cfg.unroll` iterations. On a CUDA device the elementwise block is the
 hand-written kernel; it also writes the next iteration's T.
+
+Narrow storage (`cfg.storage_dtype`) keeps D, O, E, Y_L, Y_O and T in bf16;
+the factors, penalties, sums and histories stay in cfg.dtype, and the
+block widens its inputs and rounds its stores. `cfg.einsum_dtype` stores T
+in bf16 and rounds the RHS contractions' operands to it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,18 @@ from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.hopper_kernels import elementwise_block
 from .base import TriTDConfig, TriTDResult, TriTDState
+
+
+def t_dtype_of(cfg: TriTDConfig) -> torch.dtype | None:
+    """Dtype the carried factor-solve target `t` is stored in: the einsum
+    dtype when set, else the narrow storage dtype when set, else None
+    (= cfg.dtype). Counterpart of `tritd_tpu/solvers/admm.py:47-55`; shared
+    with checkpoint load so that a resumed state carries the same dtypes."""
+    ed = cfg.torch_einsum_dtype()
+    if ed is not None:
+        return ed
+    sd = cfg.torch_storage_dtype()
+    return sd if sd != cfg.torch_dtype() else None
 
 
 def init_factors(
@@ -55,13 +72,22 @@ def update_factors(t, a, b, c, cfg: TriTDConfig):
     """One Gauss-Seidel sweep of the three ridge mode solves
     (`triple_decomp_ADMM.m:73-95`); each later solve sees the fresh factors."""
     r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
-    k1, rhs1 = normal_eq.gram_and_rhs(1, t, a, b, c, variant=variant)
+    ed = cfg.torch_einsum_dtype()
+    if ed is None:
+        # a narrow T is widened once per sweep, not once per mode
+        t = t.to(a.dtype)
+    k1, rhs1 = normal_eq.gram_and_rhs(1, t, a, b, c, variant=variant, einsum_dtype=ed)
     a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
-    k2, rhs2 = normal_eq.gram_and_rhs(2, t, a, b, c, variant=variant)
+    k2, rhs2 = normal_eq.gram_and_rhs(2, t, a, b, c, variant=variant, einsum_dtype=ed)
     b = core_b_from_mat(normal_eq.ridge_solve(k2, rhs2, cfg.lambda2, method), r)
-    k3, rhs3 = normal_eq.gram_and_rhs(3, t, a, b, c, variant=variant)
+    k3, rhs3 = normal_eq.gram_and_rhs(3, t, a, b, c, variant=variant, einsum_dtype=ed)
     c = core_c_from_mat(normal_eq.ridge_solve(k3, rhs3, cfg.alpha_c, method), r)
-    return a, b, c
+    # The solves hand back strided views. Carried as they are, the next
+    # iteration's GEMMs would see other layouts than the contiguous factors
+    # of a loaded checkpoint, and cuBLAS picks its kernel, and so its
+    # rounding, by layout: contiguous factors make a resumed run bitwise
+    # equal to one that never stopped.
+    return a.contiguous(), b.contiguous(), c.contiguous()
 
 
 def admm_iteration(
@@ -84,12 +110,18 @@ def admm_iteration(
         norm_d = torch.linalg.vector_norm(d)
 
     masked = cfg.masked and mask is not None
+    td = t_dtype_of(cfg)
     if masked:
         # Impute unobserved entries with the current estimate, so the data
-        # term binds on observed entries only; T is built from that D.
+        # term binds on observed entries only; T is built from that D. With
+        # narrow storage the imputed D is in the compute dtype, as the
+        # reference's jnp.where promotes it.
         l_prev = designs.triple_product(a, b, c, variant=cfg.variant)
-        d = torch.where(mask, d, l_prev + o)
-        t = d - o + y_l / float(mu_l)
+        cd = l_prev.dtype
+        d = torch.where(mask, d.to(cd), l_prev + o.to(cd))
+        t = d - o.to(cd) + y_l.to(cd) / float(mu_l)
+        if td is not None:
+            t = t.to(td)
     else:
         t = state.t
 
@@ -105,7 +137,7 @@ def admm_iteration(
     # the block skips T' and the state's T passes through.
     o, e, y_l, y_o, sq_l, sq_o, t_next = elementwise_block(
         d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1,
-        mu_l_next=None if masked else mu_l_next,
+        mu_l_next=None if masked else mu_l_next, t_dtype=td,
     )
     if masked:
         t_next = state.t
@@ -142,14 +174,18 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
     dtype = cfg.torch_dtype()
     d = d.to(dtype)
     a, b, c = interop.factors_from_numpy(*factors, device=d.device, dtype=dtype)
-    zeros = torch.zeros_like(d)
+    # data-sized state in the (possibly narrow) storage dtype; factors,
+    # penalties and histories in the solver dtype
+    zeros = torch.zeros_like(d, dtype=cfg.torch_storage_dtype())
     # padded to a multiple of cfg.unroll: a block may overshoot max_iter by
     # up to unroll-1 iterations
     hist_len = -(-cfg.max_iter // cfg.unroll) * cfg.unroll
     nan_hist = torch.full((hist_len,), float("nan"), dtype=dtype, device=d.device)
     mu = cfg.np_dtype().type(cfg.mu)
+    td = t_dtype_of(cfg)
     return TriTDState(
-        a=a, b=b, c=c, o=zeros, e=zeros, y_l=zeros, y_o=zeros, t=d,
+        a=a, b=b, c=c, o=zeros, e=zeros, y_l=zeros, y_o=zeros,
+        t=d if td is None else d.to(td),  # T_0 = D - 0 + 0/mu = D
         mu_l=mu, mu_o=mu, k=0,
         err_hist=nan_hist, rre_hist=nan_hist.clone(),
         done=torch.zeros((), dtype=torch.bool, device=d.device),
@@ -178,12 +214,6 @@ def tritd_admm(
       generator: CPU generator for the init when `init` is None (default:
         seed 0, mirroring the reference's `rng(0)`).
     """
-    for name in ("einsum_dtype", "storage_dtype"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"cfg.{name} is not ported yet (ROADMAP queue 1, narrow-storage "
-                "and einsum_dtype item)"
-            )
     if cfg.masked and mask is None:
         raise ValueError("cfg.masked=True requires a mask argument")
     if mask is not None and not cfg.masked:
@@ -203,6 +233,9 @@ def tritd_admm(
             generator = torch.Generator().manual_seed(0)
         init = init_factors(generator, tuple(d.shape), cfg.rank, dtype)
     state = init_state(d, cfg, init)
+    # the loop reads D every iteration: store it narrow too (norm_d above
+    # is taken from the full-precision copy)
+    d = d.to(cfg.torch_storage_dtype())
 
     disp_log: list = []
     while state.k < cfg.max_iter and not bool(state.done):
@@ -216,7 +249,7 @@ def tritd_admm(
         disp_log.clear()
 
     return TriTDResult(
-        a=state.a, b=state.b, c=state.c, o=state.o, e=state.e,
+        a=state.a, b=state.b, c=state.c, o=state.o.to(dtype), e=state.e.to(dtype),
         err_hist=state.err_hist[: cfg.max_iter],
         rre_hist=state.rre_hist[: cfg.max_iter],
         n_iters=min(state.k, cfg.max_iter),

@@ -14,6 +14,20 @@ import numpy as np
 import torch
 
 
+NARROW_DTYPES = ("bfloat16",)
+
+
+def _narrow_dtype(field: str, name: str | None) -> torch.dtype | None:
+    if name is None:
+        return None
+    if name not in NARROW_DTYPES:
+        raise NotImplementedError(
+            f"cfg.{field}={name!r}: the port takes None or one of {NARROW_DTYPES}; "
+            "other narrow dtypes are not ported (ROADMAP queue 1, narrow dtypes)"
+        )
+    return getattr(torch, name)
+
+
 @dataclasses.dataclass(frozen=True)
 class TriTDConfig:
     """Hyperparameters of the TriTD solvers.
@@ -46,8 +60,14 @@ class TriTDConfig:
                                     # its plain PyTorch version.
     disp: bool = False              # print residuals every 10 iterations
                                     # (host print at block boundaries)
-    einsum_dtype: str | None = None   # not ported yet: tritd_admm raises
-    storage_dtype: str | None = None  # not ported yet: tritd_admm raises
+    einsum_dtype: str | None = None   # "bfloat16": the RHS contractions
+                                      # read bf16-rounded operands and
+                                      # accumulate in float32; the carried T
+                                      # is stored in bf16
+    storage_dtype: str | None = None  # "bfloat16": D, O, E, Y_L, Y_O (and T)
+                                      # are stored in bf16; the elementwise
+                                      # block widens them, computes in
+                                      # cfg.dtype and rounds the stores
     unroll: int = 1                 # iterations per block; the stopping
                                     # rule is read on the host only between
                                     # blocks, so an early-stopped run may do
@@ -55,6 +75,14 @@ class TriTDConfig:
 
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def torch_einsum_dtype(self) -> torch.dtype | None:
+        return _narrow_dtype("einsum_dtype", self.einsum_dtype)
+
+    def torch_storage_dtype(self) -> torch.dtype:
+        """Dtype of the data-sized tensors (cfg.dtype unless narrowed)."""
+        narrow = _narrow_dtype("storage_dtype", self.storage_dtype)
+        return self.torch_dtype() if narrow is None else narrow
 
     def np_dtype(self) -> np.dtype:
         return np.dtype(self.dtype)
@@ -73,7 +101,8 @@ class TriTDState(NamedTuple):
     y_l: torch.Tensor      # dual for D - L - O
     y_o: torch.Tensor      # dual for O - E
     t: torch.Tensor        # factor-solve target D - O + Y_L/muL for the
-                           # next iteration, written by the elementwise block
+                           # next iteration, written by the elementwise
+                           # block; in t_dtype_of(cfg) when that is set
     mu_l: np.floating      # penalty (annealed), numpy scalar of cfg.dtype
     mu_o: np.floating
     k: int                 # iterations done

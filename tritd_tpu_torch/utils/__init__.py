@@ -1,1 +1,2 @@
-"""Presets and artifacts. Counterpart of `tritd_tpu/utils/`."""
+"""Presets, artifacts, checkpoints and the published tables. Counterpart of
+`tritd_tpu/utils/`."""
