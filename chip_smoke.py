@@ -12,16 +12,18 @@ Phases, each of which fails the run by raising:
      float32 and float64 at the taxi, video, a ragged and a one-element
      shape, with and without T'; the narrow variants (bf16 storage with bf16
      T', float32 storage with bf16 T', masked bf16 storage without T') at
-     the taxi and video shapes, where T' must also be bitwise the rounding
-     of D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
-     Time both with CUDA events.
+     the taxi and video shapes, and their float64-compute twins at the taxi
+     shape, where T' must also be bitwise the rounding of
+     D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
+     Time both with CUDA events, beside the least time the card could take.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
      (100x100x500, r=5, 10% missing, COMPLETION_TRITD, 100 iterations, f32),
      checked against a float64 CPU rerun of its first 10 iterations, and on
      the video stand-in (240x320x300, VIDEO_TRITD, 100 iterations); then
      taxi and highway with storage_dtype="bfloat16", taxi with
      einsum_dtype="bfloat16", and masked taxi in float32 and bf16 storage,
-     each held to its float32 run's RRE within 0.03.
+     each held to its float32 run's RRE within 0.03; then the four taxi
+     solves again with float64 compute, 20 iterations each.
   4. the completion CLI in a subprocess.
   5. checkpointed resume: a subprocess dies right after its step-25
      checkpoint (exit 17); the resume here is bitwise equal to an
@@ -29,11 +31,29 @@ Phases, each of which fails the run by raising:
   6. the other solvers: tritd_admm_outlier on the highway stand-in,
      tritd_als and tritd_mals on the taxi stand-in.
   7. the video CLI in a subprocess at 240x320x300, 100 iterations.
+  8. the SVT routes on the card, float32, at 100x50000 and 1000x5000: gram
+     and a warm refresh against the svd route within 1e-4 of ||M||, and
+     lowrank:64 on a matrix with 20 components above the gate; the host
+     proximal library must have built; times of the torch.linalg calls the
+     baselines lean on (eigh, svd, the batched complex svd of prox_tnn).
+  9. the SVT baselines (ttnn, ring, fctn) through run_method at the full taxi
+     shape, 10% missing, gram route, 100 iterations, each with an svd control
+     of 10 iterations (err_hist within rtol 1e-3); fctn again with warm:8
+     (final RRE within 1e-3 of gram's); sofia for 10 epochs.
+ 10. RC-FCTN's video driver at 240x320x300 with its default route (auto:512)
+     for 10 iterations; trpca_tnn on a 64x64x32 slab and rnc_fctn on a
+     16x16x8x8 problem, 20 iterations each.
+ 11. the completion CLI in-process: triple, ttnn, ring and fctn on taxi.
+
+Phases 8-11 launch no kernel of this package but the one inside `triple`:
+the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
+torch.matmul, as the reference leaves them to its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration. The line before the last is a JSON object with
-one record per kernel variant of the main path; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX or tritd_tpu.
+one record per kernel variant, all eight on the main path (float32 and
+float64 compute); the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX or tritd_tpu.
 """
 
 from __future__ import annotations
@@ -83,17 +103,29 @@ KERNEL_SHAPES = {
     "ragged": (17, 23, 31),
     "one": (1, 1, 1),
 }
-# narrow variants: (D, storage, T') dtypes, compute float32; T' None = no T'
+# narrow variants: (compute, D, storage, T') dtypes; T' None = no T'
 NARROW = {
-    "c32_dbf16_sbf16_tbf16": (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-    "c32_d32_s32_tbf16": (torch.float32, torch.float32, torch.bfloat16),
-    "c32_d32_sbf16_tbf16": (torch.float32, torch.bfloat16, None),
+    f"c{bits}_dbf16_sbf16_tbf16": (cd, torch.bfloat16, torch.bfloat16, torch.bfloat16)
+    for bits, cd in ((32, torch.float32), (64, torch.float64))
+} | {
+    f"c{bits}_d{bits}_s{bits}_tbf16": (cd, cd, cd, torch.bfloat16)
+    for bits, cd in ((32, torch.float32), (64, torch.float64))
+} | {
+    f"c{bits}_d{bits}_sbf16_tbf16": (cd, cd, torch.bfloat16, None)
+    for bits, cd in ((32, torch.float32), (64, torch.float64))
 }
 SCALARS = (0.5, 0.7, 1.8)  # mu_l, mu_o, lam
 MU_NEXT = 0.625
 REPS = 20
 BATCH = 10
 RRE_FAMILY = 0.03  # bf16 vs f32 RRE bound of the reference's own test
+# The card's published peaks (H100 SXM data sheet): device memory rate, and
+# the float32 and float64 rates outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# Arithmetic of the block per element: r1 3, r2 2, o 4, the shrink 5, the
+# two residuals 3, the duals 4, the two sums of squares 4, T' 3.
+BLOCK_FLOPS_PER_ELEMENT = 28
 
 
 def phase0() -> dict:
@@ -151,11 +183,26 @@ def _block_bytes(args, t_dtype) -> int:
     return per * d.numel()
 
 
-def _report(tag, args, t_dtype, max_abs, ms, plain_ms) -> None:
+def _block_bound(args, t_dtype) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    one call of the block on these tensors, the larger of its bytes over the
+    memory rate and its arithmetic over the compute dtype's peak rate."""
+    by_bytes = _block_bytes(args, t_dtype) / PEAK_BYTES_PER_S * 1e3
+    by_ops = BLOCK_FLOPS_PER_ELEMENT * args[0].numel() / PEAK_FLOPS[args[1].dtype] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _report(tag, args, t_dtype, max_abs, ms, plain_ms) -> dict:
+    """Print one kernel-against-plain line; returns the variant's record. No
+    single PyTorch call computes the block, so `library_ms` is null."""
     n_bytes = _block_bytes(args, t_dtype)
+    bound_ms, bound_by = _block_bound(args, t_dtype)
     print(f"phase2 {tag} max_abs_err={max_abs:.3e} kernel={ms * 1e3:9.1f} us "
           f"({n_bytes / ms / 1e6:7.1f} GB/s) plain={plain_ms * 1e3:9.1f} us "
-          f"({n_bytes / plain_ms / 1e6:7.1f} GB/s) bytes/elem={n_bytes // args[0].numel()}")
+          f"({n_bytes / plain_ms / 1e6:7.1f} GB/s) bytes/elem={n_bytes // args[0].numel()} "
+          f"bound={bound_ms * 1e3:.1f} us by {bound_by} ({bound_ms / ms:.0%} reached)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase2() -> dict:
@@ -190,21 +237,21 @@ def phase2() -> dict:
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next),
             )
             t_dtype = None if mu_next is None else dtype
-            _report(f"{name:6s} {str(dtype)[6:]:7s} t'={'yes' if mu_next else 'no '}",
-                    args, t_dtype, max_abs, ms, plain_ms)
-            if name == "taxi" and dtype == torch.float32 and mu_next is not None:
-                records["f32"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            record = _report(f"{name:6s} {str(dtype)[6:]:7s} t'={'yes' if mu_next else 'no '}",
+                             args, t_dtype, max_abs, ms, plain_ms)
+            if name == "taxi" and mu_next is not None:
+                records[str(dtype)[6:].replace("float", "f")] = record
 
-    for seed, (variant, (d_dt, s_dt, t_dt)) in enumerate(NARROW.items(), start=100):
-        for name in ("taxi", "video"):
+    for seed, (variant, (cd, d_dt, s_dt, t_dt)) in enumerate(NARROW.items(), start=100):
+        for name in ("taxi", "video") if cd == torch.float32 else ("taxi",):
             gen = torch.Generator(device="cuda").manual_seed(seed)
             raw = [torch.randn(KERNEL_SHAPES[name], generator=gen, device="cuda") * 3 for _ in range(5)]
-            args = [raw[0].to(d_dt), raw[1], *(x.to(s_dt) for x in raw[2:])]
+            args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
                 raise AssertionError(f"{variant}: dtypes route to another variant")
             mu_next = None if t_dt is None else MU_NEXT
             kw = dict(mu_l_next=mu_next, t_dtype=t_dt)
-            plain_kw = dict(mu_l_next=mu_next, compute_dtype=torch.float32, store_dtype=s_dt, t_dtype=t_dt)
+            plain_kw = dict(mu_l_next=mu_next, compute_dtype=cd, store_dtype=s_dt, t_dtype=t_dt)
             got = hopper_kernels._block_cuda(*args, *SCALARS, **kw)
             want = hopper_kernels._block_torch(*args, *SCALARS, **plain_kw)
             torch.cuda.synchronize()
@@ -216,12 +263,12 @@ def phase2() -> dict:
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw),
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw),
             )
-            _report(f"{name:6s} {variant}", args, t_dt, max_abs, ms, plain_ms)
+            record = _report(f"{name:6s} {variant}", args, t_dt, max_abs, ms, plain_ms)
             print(f"phase2 {name:6s} {variant} bf16 elements rounded otherwise than the plain version: "
                   f"share {agree['flip_share']:.3e} (limit {hopper_kernels.NARROW_FLIP_SHARE:.0e}); "
                   f"T' bitwise from the stored O', Y_L'")
             if name == "taxi":
-                records[variant] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+                records[variant] = record
     return records
 
 
@@ -256,9 +303,9 @@ def _check_run(tag, res, launches, variant, dev_s, wall, truth) -> tuple[float, 
         raise AssertionError(f"{tag}: launches {launches}, want {{{variant!r}: {n}}}")
     if not (np.isfinite(err).all() and err[-1] < err[0]):
         raise AssertionError(f"{tag}: err_hist not finite and falling: {err}")
-    if res.o.dtype != torch.float32:
-        raise AssertionError(f"{tag}: O comes back in {res.o.dtype}")
-    rre_truth = float(rre(triple_product(res.a, res.b, res.c), truth))
+    if res.o.dtype != res.a.dtype or res.o.device.type != "cuda":
+        raise AssertionError(f"{tag}: O comes back in {res.o.dtype} on {res.o.device}")
+    rre_truth = float(rre(triple_product(res.a, res.b, res.c), truth.to(res.a.dtype)))
     if not (np.isfinite(rre_truth) and rre_truth < 1.0):
         raise AssertionError(f"{tag}: RRE vs truth {rre_truth}")
     print(f"phase3 {tag}: iters={n} launches={launches} solve={dev_s:.4f} s (events) {wall:.4f} s (wall) "
@@ -328,6 +375,19 @@ def phase3() -> dict:
                        init, "c32_d32_sbf16_tbf16", x, origin=x, mask=mask)
     if abs(mrre16 - mrre32) > RRE_FAMILY:
         raise AssertionError(f"taxi masked: bf16 RRE {mrre16} vs f32 {mrre32}, beyond {RRE_FAMILY}")
+
+    # the same four taxi solves with float64 compute, cut to 20 iterations
+    cfg64 = dataclasses.replace(cfg, dtype="float64", max_iter=20)
+    for tag, fields, variant, masked in (
+        ("f64", {}, "f64", False),
+        ("f64 storage=bf16", {"storage_dtype": "bfloat16"}, "c64_dbf16_sbf16_tbf16", False),
+        ("f64 einsum=bf16", {"einsum_dtype": "bfloat16"}, "c64_d64_s64_tbf16", False),
+        ("f64 masked storage=bf16", {"storage_dtype": "bfloat16", "masked": True}, "c64_d64_sbf16_tbf16", True),
+    ):
+        res64, _, _ = run(f"taxi {tag}", y, dataclasses.replace(cfg64, **fields), init, variant, x,
+                          origin=x, mask=mask if masked else None)
+        if res64.a.dtype != torch.float64:
+            raise AssertionError(f"taxi {tag}: factors come back in {res64.a.dtype}")
     return total
 
 
@@ -458,6 +518,276 @@ def phase7() -> None:
         print(f"phase7 video cli ({time.perf_counter() - t0:.1f} s in all): {json.dumps(row)}")
 
 
+def _events(fn) -> tuple:
+    """(fn(), seconds between CUDA events around it, peak MiB allocated in it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _on_card(tag, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise AssertionError(f"{tag}: a result lies on {t.device}")
+
+
+def _matrix_with_spectrum(p: int, q: int, spectrum: torch.Tensor, seed: int) -> torch.Tensor:
+    """A float32 (p, q) matrix on the card with the given singular values
+    (min(p, q) of them), its singular vectors drawn from `seed`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = min(p, q)
+    u = torch.linalg.qr(torch.randn((p, k), generator=gen, device="cuda"))[0]
+    v = torch.linalg.qr(torch.randn((q, k), generator=gen, device="cuda"))[0]
+    return (u * spectrum.to("cuda")[None, :]) @ v.T
+
+
+SVT_TAU = 2.0  # the ref-compat gate then sits at 3: the spectra below keep away from both
+LINALG_EIGH_SIZES = (512, 1024, 2016, 4800)
+# the unfoldings the SVT baselines cut the taxi tensor into (ttnn, ring, fctn)
+LINALG_SVD_SHAPES = ((100, 50000), (10000, 500), (50000, 100), (5000, 1000), (1000, 5000))
+
+
+def phase8() -> None:
+    """The SVT routes on the card, and the torch.linalg calls under them."""
+    from tritd_tpu_torch.baselines.trpca import prox_tnn
+    from tritd_tpu_torch.ops import svt as svt_ops
+    from tritd_tpu_torch.runtime import native
+
+    if not native.available():
+        raise AssertionError("the host proximal library (csrc/proximal.cpp) did not build")
+    got = native.flsa(np.array([3.0, 3.2, -1.0, -1.1, 4.0]), 0.1, 0.2)
+    if got.shape != (5,) or not np.isfinite(got).all():
+        raise AssertionError(f"native flsa: {got}")
+    print("phase8 host proximal library: built, flsa answers")
+
+    for seed, (p, q) in enumerate(((100, 50000), (1000, 5000))):
+        k = min(p, q)
+        spectrum = torch.cat([torch.linspace(60.0, 12.0, 20), torch.linspace(1.5, 0.1, k - 20)])
+        m = _matrix_with_spectrum(p, q, spectrum, seed)
+        atol = 1e-4 * float(torch.linalg.vector_norm(m))
+        for name, exact, warm in (("svt_ref_compat", svt_ops.svt_ref_compat, svt_ops.svt_ref_compat_warm),
+                                  ("svt", svt_ops.svt, svt_ops.svt_warm)):
+            methods = ("svd", "gram", "lowrank:64") if name == "svt_ref_compat" else ("svd", "gram")
+            for method in methods:  # the library's one-time set-up stays out of the times
+                exact(m, SVT_TAU, method)
+            want, svd_s, _ = _events(lambda: exact(m, SVT_TAU, "svd"))
+            gram, gram_s, _ = _events(lambda: exact(m, SVT_TAU, "gram"))
+            fresh, basis = warm(m, SVT_TAU, torch.eye(k, device="cuda"), True)
+            stale, _ = warm(m, SVT_TAU, basis, False)
+            routes = {"gram": gram, "warm refresh": fresh, "warm stale on the same matrix": stale}
+            if name == "svt_ref_compat":
+                routes["lowrank:64"], low_s, _ = _events(lambda: exact(m, SVT_TAU, "lowrank:64"))
+            _on_card(f"phase8 {name} {p}x{q}", want, *routes.values())
+            diffs = {r: float((out - want).abs().max()) for r, out in routes.items()}
+            bad = {r: d for r, d in diffs.items() if not d <= atol}
+            # both operators keep the 20 large components, each less tau: the
+            # svd route itself is held to that known norm
+            norm, norm_want = float(torch.linalg.vector_norm(want)), float(torch.linalg.vector_norm(spectrum[:20] - SVT_TAU))
+            if bad or abs(norm - norm_want) > 1e-3 * norm_want:
+                raise AssertionError(f"phase8 {name} {p}x{q}: beyond atol {atol:.3e} of the svd route: {bad}; "
+                                     f"||svd route|| {norm} against {norm_want} from the spectrum")
+            times = f"svd {svd_s * 1e3:.1f} ms, gram {gram_s * 1e3:.1f} ms" + (
+                f", lowrank:64 {low_s * 1e3:.1f} ms" if name == "svt_ref_compat" else "")
+            print(f"phase8 {name} {p}x{q} f32 against the svd route (atol {atol:.3e} = 1e-4 ||M||): "
+                  + ", ".join(f"{r} {d:.3e}" for r, d in diffs.items()) + f"; {times} (events, second call)")
+
+    # the library calls the baselines lean on, each timed once after a warm-up call
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for n in LINALG_EIGH_SIZES:
+        a = torch.randn((n, 2 * n), generator=gen, device="cuda")
+        g = a @ a.T
+        torch.linalg.eigh(g)
+        _, sec, _ = _events(lambda: torch.linalg.eigh(g))
+        print(f"phase8 torch.linalg.eigh f32 {n}x{n}: {sec * 1e3:.1f} ms")
+    for p, q in LINALG_SVD_SHAPES:
+        a = torch.randn((p, q), generator=gen, device="cuda")
+        torch.linalg.svd(a, full_matrices=False)
+        _, sec, _ = _events(lambda: torch.linalg.svd(a, full_matrices=False))
+        print(f"phase8 torch.linalg.svd f32 {p}x{q}: {sec * 1e3:.1f} ms")
+    video = torch.randn(KERNEL_SHAPES["video"], generator=gen, device="cuda")
+    out, sec, _ = _events(lambda: prox_tnn(video, 1.0))
+    _on_card("phase8 prox_tnn", out)
+    if out.shape != video.shape or not torch.isfinite(out).all():
+        raise AssertionError("phase8 prox_tnn at the video shape: not finite")
+    n1, n2, n3 = video.shape
+    _, again, _ = _events(lambda: prox_tnn(video, 1.0))
+    print(f"phase8 prox_tnn f32 {n1}x{n2}x{n3} (fft, {n3} complex64 svds of {n1}x{n2}, ifft): "
+          f"first call {sec * 1e3:.1f} ms, second {again * 1e3:.1f} ms")
+
+
+def _falling(tag, hist) -> np.ndarray:
+    hist = np.asarray(hist, dtype=np.float64)
+    if not (hist.size > 1 and np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError(f"{tag}: err_hist not finite and falling: {hist}")
+    return hist
+
+
+def phase9() -> None:
+    """The baselines at the full taxi shape, through the CLI's dispatch."""
+    from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
+    from tritd_tpu_torch.cli.run_completion import run_method
+
+    x, mask, y, prov = _taxi()
+    _x_np, spec, _prov = load_dataset("taxi")
+    shape = "x".join(map(str, x.shape))
+
+    def solve(method, max_iter, svt_method):
+        gen = torch.Generator().manual_seed(0)
+        (x_hat, o, hist), sec, mib = _events(
+            lambda: run_method(method, y, x, mask, spec, gen, max_iter, svt_method=svt_method))
+        _on_card(f"phase9 {method} {svt_method}", x_hat, o)
+        if x_hat.shape != x.shape or not torch.isfinite(x_hat).all():
+            raise AssertionError(f"phase9 {method} {svt_method}: X not finite at the input's shape")
+        return float(rre(x_hat, x)), np.asarray(hist, dtype=np.float64), sec, mib
+
+    # ring's host float64 ranks, once: the solves below find them cached
+    t0 = time.perf_counter()
+    precompute_freedom_ratio(y, mask)
+    print(f"phase9 ring freedom ratio (host float64 matrix_rank of 10000x500 and 50000x100): "
+          f"{time.perf_counter() - t0:.2f} s")
+    final = {}
+    for method in ("ttnn", "ring", "fctn"):
+        _, control, csec, _ = solve(method, 10, "svd")
+        final[method], hist, sec, mib = solve(method, 100, "gram")
+        if _falling(f"phase9 {method} gram", hist).shape != (100,):
+            raise AssertionError(f"phase9 {method}: {hist.shape[0]} iterations")
+        np.testing.assert_allclose(hist[:10], control, rtol=1e-3)
+        print(f"phase9 {method} taxi ({prov}) {shape} 10% missing f32 gram: iters=100 "
+              f"solve={sec:.3f} s (events) {sec * 10:.2f} ms/iter peak_mem={mib:.1f} MiB rre={final[method]:.6f} "
+              f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; svd control, 10 iterations {csec:.3f} s, "
+              f"max rel diff {np.max(np.abs(hist[:10] - control) / control):.2e} (rtol 1e-3)")
+    warm_rre, hist, sec, mib = solve("fctn", 100, "warm:8")
+    if abs(warm_rre - final["fctn"]) > 1e-3:
+        raise AssertionError(f"phase9 fctn warm:8 RRE {warm_rre} vs gram {final['fctn']}, beyond 1e-3")
+    print(f"phase9 fctn taxi warm:8: solve={sec:.3f} s (events) peak_mem={mib:.1f} MiB rre={warm_rre:.6f} "
+          f"(gram {final['fctn']:.6f}, |diff| {abs(warm_rre - final['fctn']):.2e}, limit 1e-3)")
+    # sofia's error against the truth need not fall: the outlier peel anneals
+    sofia_rre, hist, sec, mib = solve("sofia", 10, "svd")
+    if not (hist.size and np.isfinite(hist).all() and sofia_rre < 1.0):
+        raise AssertionError(f"phase9 sofia: rre {sofia_rre}, err_hist {hist}")
+    print(f"phase9 sofia taxi r=3 m={spec.sofia_period}: epochs={hist.shape[0]} solve={sec:.3f} s (events) "
+          f"peak_mem={mib:.1f} MiB rre={sofia_rre:.6f} err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+    _sofia_loops()
+
+
+def _sofia_loops() -> None:
+    """SOFIA's two sequential loops at the taxi sizes, each a chain of tiny
+    launches: the Gauss-Seidel sweep over the 500 time rows (one per ALS
+    iteration) and the streaming step per 100x100 frame, float32 on the
+    card against the same code in float64 on the CPU."""
+    from tritd_tpu_torch.baselines import sofia
+
+    gen = torch.Generator().manual_seed(9)
+    n3, r, m = 500, 3, 7
+    half = torch.randn((n3, r, 4), generator=gen, dtype=torch.float64)
+    args = (torch.randn((n3, r), generator=gen, dtype=torch.float64),
+            torch.randn((n3, r), generator=gen, dtype=torch.float64), half @ half.transpose(1, 2))
+    want = sofia._mode3_gauss_seidel(*args, 0.1, 0.001, m)
+    on_card = [a.float().cuda() for a in args]
+    sofia._mode3_gauss_seidel(*on_card, 0.1, 0.001, m)
+    got, sec, _ = _events(lambda: sofia._mode3_gauss_seidel(*on_card, 0.1, 0.001, m))
+    _on_card("phase9 gauss-seidel sweep", got)
+    torch.testing.assert_close(got.cpu().double(), want, rtol=1e-3, atol=1e-4)
+    print(f"phase9 sofia gauss-seidel sweep n3={n3} r={r} m={m}: {sec * 1e3:.2f} ms a sweep, "
+          f"{sec / n3 * 1e6:.1f} us a row (events); against float64 on the CPU rtol 1e-3, atol 1e-4")
+
+    n, frames = 100, 50
+    u1, u2 = (torch.linalg.qr(torch.randn((n, r), generator=gen, dtype=torch.float64))[0] for _ in range(2))
+    w = 5.0 + torch.rand((frames + m, r), generator=gen, dtype=torch.float64)
+    y = torch.einsum("ir,jr,tr->tij", u1, u2, w[m:]) + 0.01 * torch.randn((frames, n, n), generator=gen,
+                                                                           dtype=torch.float64)
+    omega = (torch.rand((frames, n, n), generator=gen) > 0.1).double()
+    state = (y, omega, u1, u2, w[:m], w[m - 1], torch.zeros(r, dtype=torch.float64),
+             torch.zeros((m, r), dtype=torch.float64), torch.full((3, r), 0.1, dtype=torch.float64),
+             torch.full((n, n), 0.1, dtype=torch.float64))
+    rest = (m, 0.1, 0.001, 0.1, 0.05, True)
+    want = sofia._stream_scan(*state, *rest)
+    on_card = [a.float().cuda() for a in state]
+    sofia._stream_scan(*on_card, *rest)
+    got, sec, _ = _events(lambda: sofia._stream_scan(*on_card, *rest))
+    _on_card("phase9 stream step", *got)
+    scale = float(want[3].abs().max())
+    for name, g, w_ in zip(("u1", "u2", "W", "X_hat", "O"), got, want):
+        torch.testing.assert_close(g.cpu().double(), w_, rtol=1e-3, atol=1e-3 * scale, msg=lambda s_, n_=name: f"{n_}: {s_}")
+    print(f"phase9 sofia stream step {n}x{n} r={r} m={m}: {sec / frames * 1e3:.3f} ms a frame over {frames} frames "
+          f"(events); against float64 on the CPU rtol 1e-3, atol 1e-3 max|X|")
+
+
+def phase10() -> None:
+    """RC-FCTN's video protocol at full width, and the two baselines off the
+    CLI's path at small shapes."""
+    from tritd_tpu_torch.baselines import fctn_compose, rc_fctn_driver_video, rnc_fctn, trpca_tnn
+    from tritd_tpu_torch.baselines.rc_fctn import resolve_video_svt_method
+    from tritd_tpu_torch.ops.svt import auto_method
+
+    v_np, vspec, vprov = load_dataset("highway")
+    v = torch.as_tensor(v_np, dtype=torch.float32, device="cuda")
+    n4 = v.shape[2] // vspec.fctn_subdim
+    cuts = ((v.shape[0] * v.shape[1], v.shape[2]), (v.shape[0] * vspec.fctn_subdim, v.shape[1] * n4),
+            (v.shape[0] * n4, v.shape[1] * vspec.fctn_subdim))
+    route = resolve_video_svt_method("auto")
+    routes = [auto_method(p, q, int(route.partition(":")[2])) for p, q in cuts]
+    if route != "auto:512" or routes != ["gram", "lowrank:512", "lowrank:512"]:
+        raise AssertionError(f"phase10: the video driver's default resolves to {route}, cuts {cuts} to {routes}")
+    (x_hat, sparse, hist), sec, mib = _events(
+        lambda: rc_fctn_driver_video(v, torch.ones_like(v, dtype=torch.bool), vspec.fctn_subdim, origin=v,
+                                     max_iter=10))
+    _on_card("phase10 fctn video", x_hat, sparse, hist)
+    hist = _falling("phase10 fctn video", hist.cpu().numpy())
+    if x_hat.shape != v.shape or not torch.isfinite(x_hat).all():
+        raise AssertionError("phase10 fctn video: X not finite at the input's shape")
+    print(f"phase10 fctn video highway ({vprov}) {'x'.join(map(str, v.shape))} f32 {route} "
+          f"({', '.join(f'{p}x{q} {r}' for (p, q), r in zip(cuts, routes))}): iters=10 solve={sec:.3f} s (events) "
+          f"{sec * 100:.1f} ms/iter peak_mem={mib:.1f} MiB err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+    del x_hat, sparse
+
+    slab = v[:64, :64, :32].contiguous()
+    (low, sp, hist), sec, _ = _events(lambda: trpca_tnn(slab, origin=slab, mu=1e-3, max_iter=20))
+    _on_card("phase10 trpca_tnn", low, sp, hist)
+    hist = _falling("phase10 trpca_tnn", hist.cpu().numpy())
+    print(f"phase10 trpca_tnn 64x64x32 slab: iters=20 solve={sec:.3f} s (events) "
+          f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+
+    gen = torch.Generator().manual_seed(10)
+    cores = [torch.rand(shape, generator=gen) for shape in ((16, 2, 2, 2), (2, 16, 2, 2), (2, 2, 8, 2), (2, 2, 2, 8))]
+    truth = fctn_compose([c.cuda() for c in cores])
+    omega = (torch.rand(truth.shape, generator=gen) > 0.2).cuda()
+    data = torch.where(omega, truth, torch.zeros_like(truth))
+    (x4, gs, e4, hist, n_it), sec, _ = _events(
+        lambda: rnc_fctn(data, 0.1, omega, origin=truth, max_iter=20, generator=torch.Generator().manual_seed(0)))
+    _on_card("phase10 rnc_fctn", x4, e4, *gs)
+    hist = _falling("phase10 rnc_fctn", hist)
+    print(f"phase10 rnc_fctn 16x16x8x8, 20% missing: iters={n_it} solve={sec:.3f} s (events) "
+          f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+
+
+def phase11() -> None:
+    """The completion CLI in this process: TriTD beside three baselines."""
+    from tritd_tpu_torch.cli import run_completion
+
+    methods = ["triple", "ttnn", "ring", "fctn"]
+    hopper_kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        rows = run_completion.main(["--datasets", "taxi", "--methods", *methods, "--svt-method", "gram",
+                                    "--missing-ratio", "0.10", "--out-dir", out])
+        for row in rows:
+            with np.load(os.path.join(out, f"taxi_{row['method']}_errHist.npz")) as f:
+                if f["errHist"].shape != (row["iters"],) or not np.isfinite(f["errHist"]).all():
+                    raise AssertionError(f"phase11 artifact of {row['method']}: {f['errHist'].shape}")
+    launches = _launches()
+    bad = [r for r in rows if not (r["device"] == "cuda" and r["dataset"] == "taxi" and 0.0 < r["rre"] < 1.0
+                                   and r.get("svt_method") == (None if r["method"] == "triple" else "gram"))]
+    if [r["method"] for r in rows] != methods or bad or launches != {"f32": rows[0]["iters"]}:
+        raise AssertionError(f"phase11 cli rows: {rows}; launches {launches}")
+    print(f"phase11 cli: {len(rows)} rows on cuda, seconds "
+          + ", ".join(f"{r['method']} {r['seconds']}" for r in rows) + f"; kernel launches {launches}")
+
+
 def main() -> None:
     device = phase0()
     phase1()
@@ -467,6 +797,10 @@ def main() -> None:
     phase5()
     phase6()
     phase7()
+    phase8()
+    phase9()
+    phase10()
+    phase11()
     missing = sorted(set(records) - set(launches))
     if missing:
         raise AssertionError(f"kernel variants not launched by the main path: {missing}")

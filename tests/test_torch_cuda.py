@@ -17,7 +17,13 @@ version in the dtype, in another order. The narrow variants also go
 through `hopper_kernels.check_narrow_against_plain`: at most a share
 NARROW_FLIP_SHARE of each bf16 output rounded otherwise than the plain
 version (or NARROW_FLIP_FLOOR elements), and T' bitwise the rounding of
-D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'."""
+D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
+
+The SVT routes and the baselines launch no kernel of this package (they run
+on torch.linalg and torch.matmul); their cases here hold the float32 CUDA
+run to a float64 CPU run of the same code: SVT outputs rtol 1e-4 of ||M||,
+err_hist of 10 iterations rtol 1e-3 (float32 rounding carried through the
+discontinuous `>1` gate)."""
 
 import dataclasses
 
@@ -26,7 +32,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tritd_tpu_torch.cli.run_completion import run_method  # noqa: E402
+from tritd_tpu_torch.data.loaders import DatasetSpec, synthetic_traffic  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
+from tritd_tpu_torch.ops import svt as svt_ops  # noqa: E402
+from tritd_tpu_torch.runtime import native  # noqa: E402
 from tritd_tpu_torch.solvers import init_factors, tritd_admm  # noqa: E402
 from tritd_tpu_torch.utils.config import COMPLETION_TRITD  # noqa: E402
 
@@ -157,3 +167,96 @@ def test_narrow_solve_launches_its_variant(cuda_device, fields, masked, variant)
     assert narrow.o.dtype == torch.float32 and torch.isfinite(narrow.err_hist).all()
     wide = tritd_admm(y, cfg, mask=mask, origin=x, init=init)
     assert abs(float(narrow.rre_hist[-1]) - float(wide.rre_hist[-1])) < 0.03
+
+
+def _spectrum_matrix(p, q, spectrum, seed=0):
+    rng = np.random.default_rng(seed)
+    k = min(p, q)
+    u = np.linalg.qr(rng.standard_normal((p, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((q, k)))[0]
+    s = np.zeros(k)
+    s[: len(spectrum)] = spectrum
+    return torch.from_numpy((u * s) @ v.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 2000), (2000, 64), (300, 300)], ids=str)
+def test_svt_routes_on_the_card(cuda_device, shape):
+    """gram, the randomized route (20 survivors in a budget of 32) and a
+    warm refresh against the float64 SVD route on the CPU; the spectrum
+    stays away from tau and tau + 1."""
+    m64 = _spectrum_matrix(*shape, np.concatenate([np.linspace(60.0, 12.0, 20), np.linspace(1.5, 0.1, 20)]))
+    want = svt_ops.svt_ref_compat(m64, 2.0, "svd")
+    m = m64.float().to(cuda_device)
+    atol = 1e-4 * float(torch.linalg.vector_norm(m64))
+    eye = torch.eye(min(shape), device=cuda_device)
+    outs = {
+        "svd": svt_ops.svt_ref_compat(m, 2.0, "svd"),
+        "gram": svt_ops.svt_ref_compat(m, 2.0, "gram"),
+        "lowrank:32": svt_ops.svt_ref_compat(m, 2.0, "lowrank:32"),
+        "warm refresh": svt_ops.svt_ref_compat_warm(m, 2.0, eye, True)[0],
+        "plain gram": None,
+    }
+    for name, got in outs.items():
+        if got is None:
+            got, ref = svt_ops.svt(m, 2.0, "gram"), svt_ops.svt(m64, 2.0, "svd")
+        else:
+            ref = want
+        assert got.device.type == "cuda" and got.dtype == torch.float32, name
+        torch.testing.assert_close(got.cpu().double(), ref, rtol=0, atol=atol, msg=lambda s: f"{name}: {s}")
+    assert torch.equal(outs["lowrank:32"], svt_ops.svt_ref_compat(m, 2.0, "lowrank:32"))  # a fixed sketch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("svt_method", ["svd", "gram", "warm:4"])
+@pytest.mark.parametrize("method", ["ttnn", "ring", "fctn"])
+def test_svt_baselines_on_the_card(cuda_device, method, svt_method):
+    spec = DatasetSpec("tiny", "traffic", "T", (24, 20, 32), fctn_subdim=4, sofia_period=4)
+    x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(1)))
+    mask = torch.from_numpy(np.random.default_rng(2).random(spec.shape) > 0.1)
+    y = torch.where(mask, x, torch.zeros_like(x))
+    gen = torch.Generator().manual_seed(0)
+    _xh, _o, want = run_method(method, y, x, mask, spec, gen, 10, svt_method=svt_method)
+    xh, o, got = run_method(method, y.float().to(cuda_device), x.float().to(cuda_device),
+                            mask.to(cuda_device), spec, gen, 10, svt_method=svt_method)
+    assert xh.device.type == o.device.type == "cuda" and xh.dtype == torch.float32
+    assert got.shape == (10,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sofia_and_the_other_baselines_on_the_card(cuda_device):
+    from tritd_tpu_torch.baselines import rnc_fctn, sofia_init, trpca_snn, trpca_tnn
+
+    spec = DatasetSpec("tiny", "traffic", "T", (16, 14, 28), fctn_subdim=4, sofia_period=7)
+    x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(3)))
+    xc = x.float().to(cuda_device)
+    ones = torch.ones(spec.shape, dtype=torch.bool)
+    init = tuple(torch.rand((n, 3), generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+                 for n in spec.shape)
+    _u, want_x, _o, want = sofia_init(x, ones, 3, 7, origin=x, max_epoch=4, u_init=init, dtype=torch.float64)
+    u, xh, o, got = sofia_init(xc, ones.to(cuda_device), 3, 7, origin=xc, max_epoch=4, u_init=init)
+    assert xh.device.type == o.device.type == u[2].device.type == "cuda"
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    for fn, kw in ((trpca_tnn, dict(origin=xc, mu=1e-3)), (trpca_snn, dict(mu=1e-3))):
+        low, sparse, hist = fn(xc, max_iter=8, **kw)
+        ref = fn(x, max_iter=8, **{k: (x if k == "origin" else v) for k, v in kw.items()})[2]
+        assert low.device.type == sparse.device.type == "cuda"
+        np.testing.assert_allclose(hist.cpu().numpy(), ref.numpy(), rtol=1e-3)
+    f4 = torch.rand((8, 7, 6, 5), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    om = torch.rand((8, 7, 6, 5), generator=torch.Generator().manual_seed(3)) > 0.2
+    # one seed draws other numbers in float32 than in float64: hand both runs the same factors
+    cores = [torch.rand(shape, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+             for shape in ((8, 2, 2, 2), (2, 7, 2, 2), (2, 2, 6, 2), (2, 2, 2, 5))]
+    draws = dict(init=cores, pad_values=[0.25, 0.5, 0.75, 0.35, 0.65, 0.45])
+    ref = rnc_fctn(f4, 0.1, om, origin=f4, max_iter=12, **draws)
+    out = rnc_fctn(f4.float().to(cuda_device), 0.1, om.to(cuda_device), origin=f4.float().to(cuda_device),
+                   max_iter=12, **draws)
+    assert out[0].device.type == "cuda" and out[4] == ref[4]
+    np.testing.assert_allclose(out[3], ref[3], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_host_proximal_library_builds_beside_the_kernels(cuda_device):
+    assert native.available()
+    np.testing.assert_allclose(native.soft_threshold(np.array([-3.0, 0.5, 2.0]), 1.0), [-2.0, 0.0, 1.0])

@@ -175,8 +175,10 @@ def test_video_cli_missing_entries_and_refusals(tmp_path):
               "--out-dir", str(tmp_path / "r")]
     row = run_video.main([*common, "--max-iter", "5", "--missing-ratio", "0.2"])[0]
     assert row["rmse_missing"] > 0 and np.isfinite(row["nrmse_missing"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_video.main([*common, "--method", "ttnn", "--max-iter", "1"])
+    with pytest.raises(SystemExit):  # a name the reference does not know
+        run_video.main([*common, "--method", "nope", "--max-iter", "1"])
+    baseline = run_video.main([*common, "--method", "ttnn", "--max-iter", "2", "--svt-method", "gram"])[0]
+    assert baseline["method"] == "ttnn" and baseline["svt_method"] == "gram" and baseline["iters"] == 2
     # 10 iterations is not the published protocol: parity fails whatever the clock
     with pytest.raises(SystemExit):
         run_video.main([*common, "--max-iter", "10", "--verify-parity"])

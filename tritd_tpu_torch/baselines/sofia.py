@@ -1,0 +1,643 @@
+"""SOFIA (ICDE'21): streaming robust CP factorization with seasonal patterns.
+
+PyTorch counterpart of `tritd_tpu/baselines/sofia.py`. Reference:
+`other_methods/sofia/{sofia_init,sofia_als,sofia}.m` plus the Holt-Winters
+helpers `hw_add_add_{fit,forecast,update}.m`, `huber.m`, `biweight.m`,
+`thres_soft.m`.
+
+Three phases:
+  1. **sofia_als** (`sofia_als.m:51-140`): masked CP-ALS with per-row ridge
+     systems. Modes 1-2 are row-parallel: the reference's per-row loops
+     with pinv on observed-column Grams (`:55-68`) become one masked-Gram
+     GEMM and a batched pinv. Mode 3 is GAUSS-SEIDEL in the time index (the
+     reference updates U3 rows in place, so row t sees the NEW t-1/t-m and
+     the OLD t+1/t+m) with temporal (lambda1) and seasonal (lambda2)
+     Tikhonov coupling (`:100-122`): a sequential sweep over time.
+  2. **sofia_init** (`sofia_init.m:60-101`): outer loop of ALS + outlier
+     peel O = soft(Y - X, lambda3) with lambda3 annealed 0.85x, floored at
+     lambda3/100 (`:68-71`).
+  3. **sofia (streaming)** (`sofia.m:89-130`): per time step, forecast the
+     time factor by additive Holt-Winters, Huber-clean the residual, scaled
+     SGD on all factors, update the HW state. The HW fitting
+     (`hw_add_add_fit.m:77-90`) replaces MATLAB's fmincon/BFGS with scipy
+     L-BFGS-B on the identical SSE objective and bounds. `sofia_stream` runs
+     the stream in numpy on the host and is the oracle of
+     `sofia_stream_device`, which runs it in tensors on a device.
+
+The ALS stop (fit change) and the epoch stop (relative change) are read on
+the host once per ALS iteration and once per epoch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.shrinkage import soft_threshold
+from .penalty import host_scalar_type
+
+
+def _normalize_into_last(us: list, eps: float = 1e-30):
+    """Push column norms of the non-temporal factors into the last factor
+    (`sofia_als.m:33-38`)."""
+    *front, last = us
+    out = []
+    for u in front:
+        w = torch.sqrt(torch.sum(u**2, dim=0))
+        out.append(u / (w + eps))
+        last = last * w
+    return out + [last]
+
+
+def _khatri_rao(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(n_a, n_b, R) with entry [a, b, r] = u[a, r] * v[b, r]."""
+    return u[:, None, :] * v[None, :, :]
+
+
+def _masked_row_systems(y, omega, wkr):
+    """For each row i of the mode: rhs[i] = sum_obs y * w, gram[i] =
+    sum_obs w w^T, where wkr is the (n_a, n_b, R) khatri-rao of the other
+    two factors and y/omega are laid out with the solved mode as axis 0.
+    Two GEMMs over the flattened (a, b) axis: the pairwise products
+    w_r * w_R are formed once, then summed under each row's mask."""
+    n, r = y.shape[0], wkr.shape[-1]
+    w = wkr.reshape(-1, r)
+    rhs = y.reshape(n, -1) @ w
+    pairs = (w[:, :, None] * w[:, None, :]).reshape(-1, r * r)
+    gram = (omega.reshape(n, -1) @ pairs).reshape(n, r, r)
+    return rhs, gram
+
+
+def _pinv_rows(rhs, gram):
+    """row_i <- rhs_i @ pinv(gram_i) (the reference's per-row pinv solve).
+
+    Kept as true SVD pinv: the mode-1/2 masked Grams carry no Tikhonov
+    diagonal, so an all-missing (or degenerate) slice is genuinely singular
+    and the reference's min-norm behavior must be preserved, with the
+    reference's cut-off 10 * r * eps (torch's default is ten times
+    smaller). The mode-3 batch uses the SPD closed form below instead (its
+    systems are provably PD)."""
+    r = gram.shape[-1]
+    pinv = torch.linalg.pinv(gram, rtol=10.0 * r * torch.finfo(gram.dtype).eps)
+    return (rhs[:, None, :] @ pinv)[:, 0, :]
+
+
+def _spd_inverse(mats: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of symmetric positive-definite r x r matrices.
+
+    The mode-3 systems are gram (PSD) + diag_coef * I with diag_coef >=
+    lambda1 > 0, so pinv == inv exactly (no singular-value truncation can
+    trigger); the closed adjugate form for r <= 3 is then equivalent to the
+    reference's pinv up to rounding, in a few elementwise operations. r > 3
+    goes through a Cholesky factorization."""
+    r = mats.shape[-1]
+    if r == 1:
+        return 1.0 / mats
+    a = mats
+    if r == 2:
+        det = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+        adj = torch.stack(
+            [a[..., 1, 1], -a[..., 0, 1], -a[..., 1, 0], a[..., 0, 0]], -1
+        ).reshape(a.shape)
+        return adj / det[..., None, None]
+    if r == 3:
+        det = (
+            a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
+            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
+            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0])
+        )
+        adj = torch.stack(
+            [
+                a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1],
+                a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2],
+                a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1],
+                a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2],
+                a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0],
+                a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2],
+                a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0],
+                a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1],
+                a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0],
+            ],
+            -1,
+        ).reshape(a.shape)
+        return adj / det[..., None, None]
+    return torch.cholesky_inverse(torch.linalg.cholesky(a))
+
+
+def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
+    """Sequential time-mode update with temporal/seasonal Tikhonov coupling
+    (`sofia_als.m:100-122`). Row t uses updated rows t-1, t-m and old rows
+    t+1, t+m.
+
+    The t-1 chain makes the sweep sequential, but everything else is done
+    for all rows at once before it:
+
+    * the per-row system (Gram + boundary-dependent lam1/lam2 diagonal)
+      does not depend on the swept state: all n3 inverses come from one
+      call of the SPD closed form (the systems are PD, diag_coef >= lam1);
+    * reads of NOT-yet-updated rows (t+1, t+m) are reads of the INPUT
+      state, folded into rhs0 for all rows at once;
+    * reads of already-updated rows (t-1, t-m) are rows of the output
+      written so far.
+
+    A step is then two scaled adds of r-vectors and one r x r product,
+    each a launch of its own on a device: the sweep is bound by launches."""
+    n3, r = u3.shape
+    dtype, device = u3.dtype, u3.device
+    eye = torch.eye(r, dtype=dtype, device=device)
+    t_idx = torch.arange(n3, device=device)
+
+    has_prev = (t_idx > 0).to(dtype)
+    has_next = (t_idx < n3 - 1).to(dtype)
+    # seasonal: t < m -> only +m; m <= t <= n3-m-1 -> both; else only -m
+    use_fwd = (t_idx < n3 - m).to(dtype)
+    use_bwd = (t_idx >= m).to(dtype)
+    diag_coef = lam1 * (has_prev + has_next) + lam2 * (use_fwd + use_bwd)
+    inv_all = _spd_inverse(gram_base + diag_coef[:, None, None] * eye[None])
+
+    # old-row contributions (rows t+1 / t+m of the INPUT state)
+    rhs0 = (
+        rhs_base
+        + lam1 * has_next[:, None] * torch.roll(u3, -1, dims=0)
+        + lam2 * use_fwd[:, None] * torch.roll(u3, -m, dims=0)
+    )
+    out = torch.empty_like(u3)
+    for t in range(n3):
+        rhs = rhs0[t]
+        if t > 0:
+            rhs = torch.add(rhs, out[t - 1], alpha=lam1)
+        if t >= m:
+            rhs = torch.add(rhs, out[t - m], alpha=lam2)
+        out[t] = rhs @ inv_all[t]
+    return out
+
+
+def _recon(u1, u2, u3):
+    """full(ktensor(U)): X[i, j, t] = sum_r u1[i, r] u2[j, r] u3[t, r]."""
+    n1, n2, n3 = u1.shape[0], u2.shape[0], u3.shape[0]
+    return (_khatri_rao(u1, u2).reshape(n1 * n2, -1) @ u3.T).reshape(n1, n2, n3)
+
+
+def _als_loop(y, omega, u1, u2, u3, m, lam1, lam2, max_iters, fitchangetol):
+    """The masked CP-ALS loop, shared by `sofia_als` and `sofia_init`."""
+    y = torch.where(omega, y, torch.zeros_like(y))
+    omega_f = omega.to(y.dtype)
+    norm_y = torch.linalg.vector_norm(y)
+    u1, u2, u3 = _normalize_into_last([u1, u2, u3])
+    y2, omega2 = y.transpose(0, 1), omega_f.transpose(0, 1)
+    y3, omega3 = torch.movedim(y, 2, 0), torch.movedim(omega_f, 2, 0)
+
+    def fit_of(u1, u2, u3):
+        return float(1.0 - torch.linalg.vector_norm(omega_f * (y - _recon(u1, u2, u3))) / norm_y)
+
+    fit = fit_of(u1, u2, u3)
+    it, done = 0, False
+    while it < max_iters and not done:
+        # Mode 1
+        rhs, gram = _masked_row_systems(y, omega_f, _khatri_rao(u2, u3))
+        u1 = _pinv_rows(rhs, gram)
+        u1, u3 = _normalize_into_last([u1, u3])
+        # Mode 2
+        rhs, gram = _masked_row_systems(y2, omega2, _khatri_rao(u1, u3))
+        u2 = _pinv_rows(rhs, gram)
+        u2, u3 = _normalize_into_last([u2, u3])
+        # Mode 3 (temporal, Gauss-Seidel)
+        rhs_base, gram_base = _masked_row_systems(y3, omega3, _khatri_rao(u1, u2))
+        u3 = _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m)
+
+        fit_new = fit_of(u1, u2, u3)
+        done = it >= 1 and abs(fit - fit_new) < fitchangetol
+        fit = fit_new
+        it += 1
+    return u1, u2, u3, _recon(u1, u2, u3)
+
+
+def sofia_als(y, omega, r, m, lam1, lam2, u_init, max_iters=300, fitchangetol=1e-3):
+    """One masked smoothed CP-ALS solve. u_init = (u1, u2, u3). Returns
+    (u1, u2, u3, X_hat), on the device of `y`."""
+    y = torch.as_tensor(y)
+    omega = torch.as_tensor(omega, device=y.device).to(torch.bool)
+    u1, u2, u3 = (torch.as_tensor(u, dtype=y.dtype, device=y.device) for u in u_init)
+    return _als_loop(y, omega, u1, u2, u3, int(m), float(lam1), float(lam2),
+                     int(max_iters), float(fitchangetol))
+
+
+def sofia_init(
+    y,
+    omega,
+    r: int = 3,
+    m: int = 168,
+    lam1: float = 0.1,
+    lam2: float = 0.001,
+    lam3: float = 10.0,
+    origin=None,
+    max_epoch: int = 100,
+    tol: float = 1e-5,
+    als_max_iters: int = 300,
+    generator: torch.Generator | None = None,
+    u_init=None,
+    dtype=torch.float32,
+):
+    """Batch initialization (`sofia_init.m:60-101`), on the device of `y`.
+
+    Returns (U=(u1,u2,u3), X_hat, O, errHist vs origin as numpy). omega
+    True=observed. Factor init is uniform [0, 1) (`rand`,
+    `sofia_init.m:46`), drawn on the CPU from `generator` (default seed 0),
+    unless an explicit `u_init=(u1, u2, u3)` is given (a parity harness
+    hands both sides identical inits that way)."""
+    y = torch.as_tensor(y).to(dtype)
+    device = y.device
+    omega = torch.as_tensor(omega, device=device).to(torch.bool)
+    shape = tuple(y.shape)
+    if u_init is not None:
+        u1, u2, u3 = (torch.as_tensor(u, device=device).to(dtype) for u in u_init)
+    else:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        u1, u2, u3 = (torch.rand((n, r), generator=generator, dtype=dtype).to(device) for n in shape)
+
+    norm_origin = None
+    if origin is not None:
+        origin = torch.as_tensor(origin, device=device).to(dtype)
+        norm_origin = torch.linalg.vector_norm(origin)
+    o = x = torch.zeros_like(y)
+    # the threshold anneals on the host, in the run's dtype
+    dt = host_scalar_type(dtype)
+    lam3_k, lam3_floor = dt(lam3), dt(lam3 / 100.0)
+    err_hist = torch.full((max_epoch,), float("nan"), dtype=dtype, device=device)
+    n_epochs = 0
+    for epoch in range(max_epoch):
+        x_pre = x
+        u1, u2, u3, x = _als_loop(y - o, omega, u1, u2, u3, int(m), float(lam1), float(lam2),
+                                  int(als_max_iters), 1e-3)
+        o = soft_threshold(y - x, float(lam3_k))
+        lam3_k = max(lam3_k * dt(0.85), lam3_floor)
+        if origin is not None:
+            err_hist[epoch] = torch.linalg.vector_norm(origin - x) / norm_origin
+        n_epochs = epoch + 1
+        if epoch > 0:
+            rel = torch.linalg.vector_norm(x_pre - x) / torch.clamp(torch.linalg.vector_norm(x_pre), min=1e-30)
+            if float(rel) < tol:
+                break
+    hist = err_hist[:n_epochs].cpu().numpy() if origin is not None else np.zeros((0,))
+    return (u1, u2, u3), x, o, hist
+
+
+# ---------------------------------------------------------------------------
+# Holt-Winters (additive/additive): host-side numpy + scipy L-BFGS-B
+# ---------------------------------------------------------------------------
+
+
+def _hw_init_values(w: np.ndarray, m: int):
+    """`hw_add_add_init_values`: l0 from every-m samples, b0 from first two
+    cycles, s0 from the first cycle."""
+    l0 = float(np.mean(w[0::m]))
+    b0 = float(np.mean((w[m : 2 * m] - w[:m]) / m))
+    s0 = w[:m] - l0
+    return l0, b0, s0
+
+
+def _hw_recursion(x: np.ndarray, y: np.ndarray, m: int, steps: int):
+    """The one-step-ahead HW recursion over `steps` observations: level and
+    trend of length steps+1, season of length steps+m."""
+    alpha, beta, gamma = x[0], x[1], x[2]
+    l = np.zeros(steps + 1)
+    b = np.zeros(steps + 1)
+    s = np.zeros(steps + m)
+    l[0], b[0] = x[3], x[4]
+    s[:m] = x[5:]
+    ac, bc, gc = 1 - alpha, 1 - beta, 1 - gamma
+    for i in range(1, steps + 1):
+        l[i] = alpha * y[i - 1] - alpha * s[i - 1] + ac * (l[i - 1] + b[i - 1])
+        b[i] = beta * (l[i] - l[i - 1]) + bc * b[i - 1]
+        s[i + m - 1] = gamma * y[i - 1] - gamma * (l[i - 1] + b[i - 1]) + gc * s[i - 1]
+    return l, b, s
+
+
+def _hw_sse(x: np.ndarray, y: np.ndarray, m: int, max_fval: float) -> float:
+    """`hw_add_add_sse_fun`: SSE of the one-step-ahead HW recursion, with the
+    reference's soft constraints (alpha*beta != 0, beta <= alpha,
+    gamma <= 1 - alpha)."""
+    alpha, beta, gamma = x[0], x[1], x[2]
+    if alpha * beta == 0:
+        return max_fval
+    if beta > alpha or gamma > 1 - alpha:
+        return max_fval
+    n = len(y)
+    l, b, s = _hw_recursion(x, y, m, n - 1)
+    resid = (l + b + s[:n]) - y
+    return float(resid @ resid)
+
+
+def _hw_predict(x: np.ndarray, y: np.ndarray, m: int):
+    """`hw_add_add_predict`: run the recursion one step past the data."""
+    n = len(y)
+    l, b, s = _hw_recursion(x, y, m, n)
+    y_hat = l[:n] + b[:n] + s[:n]
+    return y_hat, l[1:], b[1:], s[m:]
+
+
+def hw_fit(w: np.ndarray, m: int):
+    """`hw_add_add_fit`: per-column HW parameter fit. Returns
+    (y_hat, L, B, S, F) with L/B/S the state trajectories and F the (3, R)
+    smoothing factors. L-BFGS-B stands in for fmincon/BFGS."""
+    from scipy.optimize import minimize
+
+    w = np.asarray(w, np.float64)
+    n, r = w.shape
+    y_hat = np.zeros_like(w)
+    ls = np.zeros_like(w)
+    bs = np.zeros_like(w)
+    ss = np.zeros_like(w)
+    fs = np.zeros((3, r))
+    max_fval = 1e30
+    for c in range(r):
+        y = w[:, c]
+        l0, b0, s0 = _hw_init_values(y, m)
+        alpha0 = 0.5 / m
+        x0 = np.concatenate([[alpha0, 0.1 * alpha0, 0.05 * (1 - alpha0), l0, b0], s0])
+        bounds = [(0.0, 1.0)] * 3 + [(None, None)] * 2 + [(None, None)] * m
+        res = minimize(
+            _hw_sse, x0, args=(y, m, max_fval), method="L-BFGS-B",
+            bounds=bounds, options={"maxiter": 200},
+        )
+        x = res.x if np.isfinite(res.fun) else x0
+        fs[:, c] = x[:3]
+        y_hat[:, c], ls[:, c], bs[:, c], ss[:, c] = _hw_predict(x, y, m)
+    return y_hat, ls, bs, ss, fs
+
+
+def hw_forecast(ls, bs, ss, m: int, h: int = 1) -> np.ndarray:
+    """`hw_add_add_forecast`: h-step-ahead forecast from the state tails."""
+    r = ls.shape[1]
+    out = np.zeros((h, r))
+    for t in range(1, h + 1):
+        out[t - 1] = ls[-1] + t * bs[-1] + ss[-m + ((t - 1) % m)]
+    return out
+
+
+def hw_update(y_new: np.ndarray, ls, bs, ss, fs, m: int):
+    """`hw_add_add_update`: append HW state rows for new observations."""
+    alpha, beta, gamma = fs[0], fs[1], fs[2]
+    ac, bc, gc = 1 - alpha, 1 - beta, 1 - gamma
+    y_new = np.atleast_2d(y_new)
+    for t in range(y_new.shape[0]):
+        l_new = alpha * y_new[t] - alpha * ss[-m] + ac * (ls[-1] + bs[-1])
+        b_new = beta * (l_new - ls[-1]) + bc * bs[-1]
+        s_new = gamma * y_new[t] - gamma * (ls[-1] + bs[-1]) + gc * ss[-m]
+        ls = np.vstack([ls, l_new])
+        bs = np.vstack([bs, b_new])
+        ss = np.vstack([ss, s_new])
+    return ls, bs, ss
+
+
+def tensor2stream(y: np.ndarray):
+    """`tensor2stream.m`: iterate mode-3 slices of a tensor as a stream."""
+    for t in range(y.shape[-1]):
+        yield y[..., t]
+
+
+def compute_nre(x_hat, x) -> float:
+    """`compute_nre.m`: ||x - x_hat||_F / ||x||_F."""
+    x_hat = np.asarray(x_hat)
+    x = np.asarray(x)
+    return float(np.linalg.norm(x - x_hat) / np.linalg.norm(x))
+
+
+def compute_rmse(x_hat, x) -> float:
+    """`compute_rmse.m`: sqrt(mean((x - x_hat)^2))."""
+    x_hat = np.asarray(x_hat)
+    x = np.asarray(x)
+    return float(np.sqrt(np.mean((x - x_hat) ** 2)))
+
+
+def _huber(x: np.ndarray, k: float = 2.0) -> np.ndarray:
+    return np.clip(x, -k, k)
+
+
+def _biweight(x: np.ndarray, k: float = 4.685) -> np.ndarray:
+    inside = np.abs(x) <= k
+    return np.where(inside, x * (1.0 - (x / k) ** 2) ** 2, 0.0)
+
+
+def _stream_scan(
+    y_tail, omega_tail, u1, u2, w_ring, l_last, b_last, ss_ring, fs, sigma0,
+    m, lam1, lam2, mu, phi, need_outlier,
+):
+    """The streaming phase in tensors (`sofia.m:89-130`): one step per
+    incoming frame: HW forecast, Huber residual clean, biweight sigma
+    update, norm-clipped scaled SGD on (u1, u2, w_t), factor
+    renormalization, HW state update. The HW level and trend are
+    scalars-per-rank, and the season and time-factor histories only ever
+    look back m steps, so the state holds (m, r) rings (written round-robin)
+    instead of the full trajectories. Returns (u1, u2, W, X_hat, O) with one
+    entry per frame stacked along axis 0.
+
+    The host numpy path (sofia_stream) is the oracle; the tests pin these
+    steps against it step for step."""
+    n_frames = y_tail.shape[0]
+    r = u1.shape[1]
+    sqrt_r = float(r) ** 0.5
+    alpha, beta, gamma = fs[0], fs[1], fs[2]
+    sigma = sigma0
+    w_ring, ss_ring = w_ring.clone(), ss_ring.clone()
+    w_out = torch.empty((n_frames, r), dtype=u1.dtype, device=u1.device)
+    x_out = torch.empty_like(y_tail)
+    o_out = torch.zeros_like(y_tail)
+
+    for t in range(n_frames):
+        yt, omt = y_tail[t], omega_tail[t]
+        slot = t % m  # the ring slot that holds step t-m, and takes step t
+        s_old = ss_ring[slot]
+        # forecast (`hw_add_add_forecast.m`, h=1): l + b + s_{t-m}
+        ut = l_last + b_last + s_old
+        yt_hat = (u1 * ut) @ u2.T
+        rt = yt - yt_hat
+        z = rt / sigma
+        crt = torch.clamp(z, -2.0, 2.0) * sigma            # huber.m, k=2
+        inside = torch.abs(z) <= 4.685                     # biweight.m
+        rho = torch.where(inside, z * (1.0 - (z / 4.685) ** 2) ** 2, torch.zeros_like(z))
+        sigma_new = torch.sqrt(phi * rho * sigma**2 + (1 - phi) * sigma**2)
+        sigma = omt * sigma_new + (1 - omt) * sigma
+        crt = omt * crt
+        # gradients with temporal (w_{t-1}) + seasonal (w_{t-m}) coupling
+        cu2 = crt @ u2
+        g1 = cu2 * ut
+        g2 = (crt.T @ u1) * ut
+        g3 = torch.sum(u1 * cu2, dim=0)
+        g3 = g3 + lam1 * (w_ring[(t - 1) % m] - ut) + lam2 * (w_ring[slot] - ut)
+        new = []
+        for u, g in ((u1, g1), (u2, g2), (ut, g3)):
+            scale = torch.clamp(mu * sqrt_r / (torch.linalg.vector_norm(g) + 1e-30), max=1.0)
+            new.append(u + mu * g * scale)
+        ut = new[2]
+        for i in range(2):
+            wts = torch.sqrt(torch.sum(new[i] ** 2, dim=0))
+            new[i] = new[i] / (wts + 1e-30)
+            ut = ut * wts
+        u1, u2 = new[0], new[1]
+        # HW update (`hw_add_add_update.m`)
+        l_new = alpha * ut - alpha * s_old + (1 - alpha) * (l_last + b_last)
+        b_new = beta * (l_new - l_last) + (1 - beta) * b_last
+        s_new = gamma * ut - gamma * (l_last + b_last) + (1 - gamma) * s_old
+        ss_ring[slot] = s_new
+        w_ring[slot] = ut
+        l_last, b_last = l_new, b_new
+        w_out[t] = ut
+        x_out[t] = (u1 * ut) @ u2.T
+        if need_outlier:
+            o_out[t] = yt - (yt_hat + crt)
+    return u1, u2, w_out, x_out, o_out
+
+
+def _stream_setup(y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device):
+    """What both streaming paths share: the zero-filled float64 stream on
+    the host, the batch init on its first m*cycles frames (on `device`),
+    and the normalized factors with their Holt-Winters fit."""
+    y = torch.as_tensor(y).cpu().numpy().astype(np.float64)
+    omega_np = torch.as_tensor(omega).cpu().numpy().astype(bool)
+    y = np.where(omega_np, y, 0.0)
+    ti = m * cycles
+    (u1, u2, u3), x_init, o_init, _ = sofia_init(
+        torch.as_tensor(y[:, :, :ti], device=device), omega_np[:, :, :ti], r, m, lam1, lam2, lam3,
+        max_epoch=max_epoch, tol=tol, generator=generator, dtype=dtype,
+    )
+    u1 = u1.cpu().numpy().astype(np.float64)
+    u2 = u2.cpu().numpy().astype(np.float64)
+    w_init = u3.cpu().numpy().astype(np.float64)
+    for u in (u1, u2):
+        wts = np.sqrt(np.sum(u**2, axis=0))
+        u /= wts + 1e-30
+        w_init = w_init * wts
+    hw = hw_fit(w_init, m)[1:]
+    return y, omega_np, ti, u1, u2, w_init, x_init.cpu().numpy(), o_init.cpu().numpy(), hw
+
+
+def sofia_stream_device(
+    y,
+    omega,
+    r: int = 3,
+    m: int = 168,
+    cycles: int = 3,
+    lam1: float = 0.1,
+    lam2: float = 0.001,
+    lam3: float = 10.0,
+    mu: float = 0.1,
+    phi: float = 0.05,
+    max_epoch: int = 100,
+    tol: float = 1e-3,
+    need_outlier: bool = True,
+    generator: torch.Generator | None = None,
+    dtype=torch.float32,
+    device=None,
+):
+    """Streaming SOFIA with the per-step phase in tensors on `device` (by
+    default the device of `y`). Same protocol as :func:`sofia_stream`:
+    batch init on the first m*cycles frames, host-side HW fit (scipy
+    L-BFGS-B, one-time), then the steps. Returns (U=(u1, u2), W, X_hat, O)
+    as numpy, like the numpy path."""
+    if device is None:
+        device = y.device if isinstance(y, torch.Tensor) else torch.device("cpu")
+    y, omega_np, ti, u1, u2, w_init, x_init, o_init, (ls, bs, ss, fs) = _stream_setup(
+        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device)
+    n1, n2, ntimes = y.shape
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+    u1_d, u2_d, w_out, x_out, o_out = _stream_scan(
+        dev(np.moveaxis(y[:, :, ti:], 2, 0)),
+        dev(np.moveaxis(omega_np[:, :, ti:], 2, 0).astype(np.float64)),
+        dev(u1), dev(u2), dev(w_init[-m:]), dev(ls[-1]), dev(bs[-1]), dev(ss[-m:]), dev(fs),
+        dev(0.1 * np.ones((n1, n2))),
+        int(m), float(lam1), float(lam2), float(mu), float(phi), bool(need_outlier),
+    )
+
+    def host(a):
+        return a.cpu().numpy().astype(np.float64)
+
+    w = np.zeros((ntimes, r))
+    w[:ti] = w_init
+    w[ti:] = host(w_out)
+    x_hat = np.zeros_like(y)
+    x_hat[:, :, :ti] = x_init
+    x_hat[:, :, ti:] = np.moveaxis(host(x_out), 0, 2)
+    o = np.zeros_like(y) if need_outlier else None
+    if need_outlier:
+        o[:, :, :ti] = o_init
+        o[:, :, ti:] = np.moveaxis(host(o_out), 0, 2)
+    return (u1_d.cpu().numpy(), u2_d.cpu().numpy()), w, x_hat, o
+
+
+def sofia_stream(
+    y,
+    omega,
+    r: int = 3,
+    m: int = 168,
+    cycles: int = 3,
+    lam1: float = 0.1,
+    lam2: float = 0.001,
+    lam3: float = 10.0,
+    mu: float = 0.1,
+    phi: float = 0.05,
+    max_epoch: int = 100,
+    tol: float = 1e-3,
+    need_outlier: bool = True,
+    generator: torch.Generator | None = None,
+):
+    """Streaming SOFIA (`sofia.m`) with the stream in numpy on the host:
+    batch init on the first m*cycles frames, HW fit, then per-step forecast
+    / Huber-clean / scaled-SGD / HW-update.
+
+    Returns (U=(u1,u2), W, X_hat, O)."""
+    y, omega_np, ti, u1, u2, w_init, x_init, o_init, (ls, bs, ss, fs) = _stream_setup(
+        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, torch.float32, "cpu")
+    n1, n2, ntimes = y.shape
+
+    w = np.zeros((ntimes, r))
+    w[:ti] = w_init
+    x_hat = np.zeros_like(y)
+    x_hat[:, :, :ti] = x_init
+    o = np.zeros_like(y) if need_outlier else None
+    if need_outlier:
+        o[:, :, :ti] = o_init
+    sigma = 0.1 * np.ones((n1, n2))
+
+    for t in range(ti, ntimes):
+        yt = y[:, :, t]
+        omt = omega_np[:, :, t].astype(np.float64)
+        ut = hw_forecast(ls, bs, ss, m, 1)[0]  # forecast time-factor row
+        yt_hat = u1 @ np.diag(ut) @ u2.T
+        rt = yt - yt_hat
+        crt = _huber(rt / sigma) * sigma  # cleaned residuals
+        # sigma update (`sofia.m:sigma_update`)
+        rho = _biweight(rt / sigma)
+        new = np.sqrt(phi * rho * sigma**2 + (1 - phi) * sigma**2)
+        sigma = omt * new + (1 - omt) * sigma
+        crt = omt * crt
+
+        g1 = crt @ u2 @ np.diag(ut)
+        g2 = crt.T @ u1 @ np.diag(ut)
+        khatri = np.einsum("ir,jr->ijr", u1, u2).reshape(-1, r)
+        g3 = crt.reshape(1, -1) @ khatri
+        g3 = g3[0] + lam1 * (w[t - 1] - ut) + lam2 * (w[t - m] - ut)
+
+        us = [u1, u2, ut]
+        gs = [g1, g2, g3]
+        for n in range(3):
+            gn = gs[n]
+            scale = min(1.0, mu * np.sqrt(r) / (np.linalg.norm(gn) + 1e-30))
+            us[n] = us[n] + mu * gn * scale
+        u1, u2, ut = us
+        for u in (u1, u2):
+            wts = np.sqrt(np.sum(u**2, axis=0))
+            u /= wts + 1e-30
+            ut = ut * wts
+
+        ls, bs, ss = hw_update(ut, ls, bs, ss, fs, m)
+        w[t] = ut
+        x_hat[:, :, t] = np.einsum("ir,jr,r->ij", u1, u2, ut)
+        if need_outlier:
+            o[:, :, t] = yt - (yt_hat + crt)
+
+    return (u1, u2), w, x_hat, o

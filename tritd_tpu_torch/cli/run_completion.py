@@ -1,11 +1,11 @@
 """Tensor-completion driver — `traffic_triple_comparison.m` protocol.
 
-Counterpart of `tritd_tpu/cli/run_completion.py` for the `triple` and
-`triple_masked` methods: for each dataset draw a uniform missing mask of
-`missing_ratio * numel` entries, zero-fill, run TriTD-ADMM, report RRE over
-all entries and wall-clock as one JSON row, and save the
-`<dataset>_<method>_errHist` artifact. `--verify-parity` holds the rows to
-the reference's published tables. The other methods are not ported yet.
+Counterpart of `tritd_tpu/cli/run_completion.py`: for each dataset draw a
+uniform missing mask of `missing_ratio * numel` entries, zero-fill, run the
+enabled methods (TriTD-ADMM plain or masked, and the baselines TTNN, RING,
+FCTN, SOFIA), report RRE over all entries and wall-clock as one JSON row,
+and save the `<dataset>_<method>_errHist` artifact. `--verify-parity` holds
+the rows to the reference's published tables.
 
 Usage:
   python -m tritd_tpu_torch.cli.run_completion --datasets taxi \\
@@ -28,24 +28,59 @@ from ..ops.designs import triple_product
 from ..solvers import trim_history, tritd_admm
 from ..utils import artifacts
 from ..utils.published import DEFAULT_RRE_GAP, check_parity
-from ..utils.config import COMPLETION_DATASETS, COMPLETION_MISSING_RATIO, COMPLETION_TRITD
+from ..utils.config import (
+    COMPLETION_DATASETS,
+    COMPLETION_MISSING_RATIO,
+    COMPLETION_TRITD,
+    RING_PRESET,
+    SOFIA_PRESET,
+)
 
 METHOD_NAMES = ("triple", "triple_masked", "ttnn", "ring", "fctn", "sofia")
-PORTED_METHODS = ("triple", "triple_masked")
+SVT_METHODS = ("ttnn", "ring", "fctn")
 
 
-def run_method(method, y, x, mask, generator, max_iter):
-    """Run one method; returns (x_hat, o, err_hist as numpy)."""
-    if method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not yet ported to tritd_tpu_torch; "
-            f"ported: {PORTED_METHODS}"
-        )
-    masked = method == "triple_masked"
-    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=max_iter, masked=masked)
-    res = tritd_admm(y, cfg, mask=mask if masked else None, origin=x, generator=generator)
-    x_hat = triple_product(res.a, res.b, res.c)
-    return x_hat, res.o, trim_history(res.err_hist, res.n_iters)
+def run_method(method, y, x, mask, spec, generator, max_iter, svt_method="svd"):
+    """Run one method; returns (x_hat, o, err_hist as numpy).
+
+    Preset selection follows the dataset kind: traffic datasets use the
+    traffic-driver baseline presets (`traffic_triple_comparison.m:116-168`),
+    video datasets the video-driver ones: RTRC mu=1e-3
+    (`video_triple_comparison.m:150`), the FCTN video reshape/lambda
+    (`:240-262`), SOFIA period m=1 (`:83`; carried in spec.sofia_period).
+    `svt_method` picks the SVT route of ttnn/ring/fctn (ops/svt.py)."""
+    video = spec.kind == "video"
+    if method in ("triple", "triple_masked"):
+        masked = method == "triple_masked"
+        cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=max_iter, masked=masked)
+        res = tritd_admm(y, cfg, mask=mask if masked else None, origin=x, generator=generator)
+        x_hat = triple_product(res.a, res.b, res.c)
+        return x_hat, res.o, trim_history(res.err_hist, res.n_iters)
+    if method == "ttnn":
+        from ..baselines.ttnn import tt_trpca
+
+        z, s, err_hist, n = tt_trpca(y, origin=x, max_iter=max_iter, svt_method=svt_method)
+        return z, s, err_hist[: int(n)].cpu().numpy()
+    if method == "ring":
+        from ..baselines.rtrc import rtrc
+
+        mu = RING_PRESET.mu_video if video else RING_PRESET.mu_completion
+        xh, o, err_hist, n = rtrc(y, mask, mu=mu, origin=x, max_iter=max_iter, svt_method=svt_method)
+        return xh, o, err_hist[: int(n)].cpu().numpy()
+    if method == "fctn":
+        from ..baselines.rc_fctn import rc_fctn_driver_traffic, rc_fctn_driver_video
+
+        driver = rc_fctn_driver_video if video else rc_fctn_driver_traffic
+        xh, s, err_hist = driver(y, mask, spec.fctn_subdim, origin=x, max_iter=max_iter,
+                                 svt_method=svt_method)
+        return xh, s, err_hist.cpu().numpy()
+    if method == "sofia":
+        from ..baselines.sofia import sofia_init
+
+        _u, x_hat, o, err_hist = sofia_init(y, mask, SOFIA_PRESET.rank, spec.sofia_period,
+                                            origin=x, max_epoch=max_iter, generator=generator)
+        return x_hat, o, err_hist
+    raise ValueError(f"unknown method {method!r}; known: {METHOD_NAMES}")
 
 
 def timed(device: torch.device, fn):
@@ -79,6 +114,19 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; fails if absent)")
     p.add_argument(
+        "--svt-method", default="svd",
+        help="SVT route for the SVT-ADMM baselines: 'svd' (exact-reference"
+        " numerics, default), 'gram' (thin-side Gram eigh), 'auto'/'lowrank:<b>'"
+        " (shape-routed randomized top-k; see ops/svt.py), 'warm:<K>'"
+        " (warm-started basis, exact Gram-eigh refresh every K-th"
+        " iteration, for big unfoldings whose retained spectrum is NOT"
+        " low-rank). The randomized route is only valid for the"
+        " tail-truncating baselines (ttnn/fctn); plain-SVT methods (ring)"
+        " reject it and accept 'auto' only when it resolves to gram. 'auto'"
+        " is the recommended (and fctn-driver default) route for fctn on"
+        " video shapes.",
+    )
+    p.add_argument(
         "--verify-parity", action="store_true",
         help="after the run, assert every row's RRE is within --parity-gap"
         " of the reference's published number (README.md:57-63) and exit"
@@ -102,7 +150,8 @@ def main(argv=None) -> list[dict]:
         for method in args.methods:
             def solve():
                 generator = torch.Generator().manual_seed(args.seed)
-                return timed(device, lambda: run_method(method, y, x, mask, generator, args.max_iter))
+                return timed(device, lambda: run_method(
+                    method, y, x, mask, spec, generator, args.max_iter, svt_method=args.svt_method))
 
             (x_hat, _o, err_hist), elapsed = solve()
             first_call_s, timing = elapsed, "first_call"
@@ -119,6 +168,7 @@ def main(argv=None) -> list[dict]:
                 "seconds": round(elapsed, 3),
                 "timing": timing,
                 **({"seconds_first_call": round(first_call_s, 3)} if timing == "warm" else {}),
+                **({"svt_method": args.svt_method} if method in SVT_METHODS else {}),
                 "iters": int(len(err_hist)),
                 "provenance": provenance,
                 "device": str(device),

@@ -1,15 +1,15 @@
 """Video background-modeling driver — `video_triple_comparison.m` protocol.
 
-Counterpart of `tritd_tpu/cli/run_video.py` for the `triple` and `outlier`
-methods: CDnet sequences as (H, W, T) grayscale tensors, missing rate 0 by
-default, the robust solver with the video preset (`--method triple`,
-`VIDEO_TRITD`) or the nonconvex variant (`--method outlier`,
-`OutlierConfig`). Each dataset gives one JSON row with RMSE/NRMSE on the
+Counterpart of `tritd_tpu/cli/run_video.py`: CDnet sequences as (H, W, T)
+grayscale tensors, missing rate 0 by default, the robust solver with the
+video preset (`--method triple`, `VIDEO_TRITD`), the nonconvex variant
+(`--method outlier`, `OutlierConfig`), or a baseline under its video-driver
+preset (`ttnn`, `ring`, `fctn`, `sofia`; see run_completion.run_method).
+Each dataset gives one JSON row with RMSE/NRMSE on the
 missing entries, of the sparse part against the observed entries and of the
 total reconstruction, PSNR/SSIM, and F1/PWC/mAP foreground scores when
 ground-truth labels exist (for a synthetic stand-in, its own moving-object
-truth). It saves `<name>_raw` and `<name>_<method>_{errHist,Xhat,O}`. The
-other methods are not ported yet.
+truth). It saves `<name>_raw` and `<name>_<method>_{errHist,Xhat,O}`.
 
 Usage:
   python -m tritd_tpu_torch.cli.run_video --datasets highway \\
@@ -34,13 +34,12 @@ from ..solvers import OutlierConfig, trim_history, tritd_admm, tritd_admm_outlie
 from ..utils import artifacts
 from ..utils.config import VIDEO_DATASETS, VIDEO_TRITD
 from ..utils.published import check_parity
-from .run_completion import resolve_device, timed
+from .run_completion import SVT_METHODS, resolve_device, run_method, timed
 
 METHOD_NAMES = ("triple", "outlier", "ttnn", "ring", "fctn", "sofia")
-PORTED_METHODS = ("triple", "outlier")
 
 
-def solve(method, y, x, seed, max_iter):
+def solve(method, y, x, mask, spec, seed, max_iter, svt_method="svd"):
     """Run one method; returns (x_hat, o, err_hist as numpy)."""
     generator = torch.Generator().manual_seed(seed)
     if method == "triple":
@@ -49,9 +48,7 @@ def solve(method, y, x, seed, max_iter):
     elif method == "outlier":
         res = tritd_admm_outlier(y, OutlierConfig(rank=5, max_iter=max_iter), generator=generator)
     else:
-        raise NotImplementedError(
-            f"method {method!r} is not yet ported to tritd_tpu_torch; ported: {PORTED_METHODS}"
-        )
+        return run_method(method, y, x, mask, spec, generator, max_iter, svt_method=svt_method)
     return triple_product(res.a, res.b, res.c), res.o, trim_history(res.err_hist, res.n_iters)
 
 
@@ -67,6 +64,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--fg-threshold", type=float, default=50.0)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; fails if absent)")
+    p.add_argument("--svt-method", default="svd",
+                   help="SVT route for the SVT-ADMM baselines (see run_completion)")
     p.add_argument(
         "--verify-parity", action="store_true",
         help="after the run, assert every row beats the reference's"
@@ -90,7 +89,8 @@ def main(argv=None) -> list[dict]:
         artifacts.save_raw(args.out_dir, name, y.cpu().numpy())
         print(f"===== Dataset: {name} ({provenance}) shape={tuple(x.shape)} device={device} =====")
 
-        run = lambda: solve(args.method, y, x, args.seed, args.max_iter)  # noqa: E731
+        run = lambda: solve(args.method, y, x, mask, spec, args.seed, args.max_iter,  # noqa: E731
+                            svt_method=args.svt_method)
         (x_hat, o, err_hist), elapsed = timed(device, run)
         first_call_s, timing = elapsed, "first_call"
         if args.verify_parity:
@@ -110,6 +110,7 @@ def main(argv=None) -> list[dict]:
             "seconds": round(elapsed, 3),
             "timing": timing,
             **({"seconds_first_call": round(first_call_s, 3)} if timing == "warm" else {}),
+            **({"svt_method": args.svt_method} if args.method in SVT_METHODS else {}),
             "iters": int(len(err_hist)),
             "rmse_missing": float(rmse_m),
             "nrmse_missing": float(nrmse_m),

@@ -5,6 +5,10 @@ The library is built on first CUDA use, never at import, from
 a hash of the sources and flags, so an edited source builds anew. Unlike
 `tritd_tpu/runtime/build.py`, which returns None and lets callers fall back,
 a failed build raises with nvcc's output: a CUDA tensor has no other route.
+
+The host proximal library (`csrc/proximal.cpp`, g++) is built the same way by
+:func:`build_host_library`, which returns None without a toolchain: its
+callers in :mod:`tritd_tpu_torch.runtime.native` then use `ops/prox.py`.
 """
 
 from __future__ import annotations
@@ -75,3 +79,36 @@ def build() -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+HOST_SOURCES = ("proximal.cpp",)
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def build_host_library() -> Path | None:
+    """Compile (if needed) the host proximal library with g++ and return its
+    path, or None where no g++ is to be had. `-march=native` is tried first
+    and dropped if the compiler refuses it."""
+    srcs = [SRC_DIR / name for name in HOST_SOURCES]
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in srcs:
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libtritd_host_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        for extra in (("-march=native",), ()):
+            cmd = [gxx, *HOST_FLAGS, *extra, *map(str, srcs), "-o", tmp]
+            if subprocess.run(cmd, capture_output=True).returncode == 0:
+                os.replace(tmp, out)
+                return out
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
