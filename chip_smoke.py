@@ -10,7 +10,9 @@ Phases, each of which fails the run by raising:
   1. build the hand-written kernel (csrc/elementwise_block.cu) with nvcc.
   2. hold each kernel variant against its plain PyTorch version on the card:
      float32 and float64 at the taxi, video, a ragged and a one-element
-     shape, with and without T'; the narrow variants (bf16 storage with bf16
+     shape and at the slab shapes phases 12-14 run (a half, a padded third
+     and a quarter of taxi along mode 1, a quarter of video along mode 3),
+     with and without T'; the narrow variants (bf16 storage with bf16
      T', float32 storage with bf16 T', masked bf16 storage without T') at
      the taxi and video shapes, and their float64-compute twins at the taxi
      shape, where T' must also be bitwise the rounding of
@@ -44,13 +46,35 @@ Phases, each of which fails the run by raising:
      for 10 iterations; trpca_tnn on a 64x64x32 slab and rnc_fctn on a
      16x16x8x8 problem, 20 iterations each.
  11. the completion CLI in-process: triple, ttnn, ring and fctn on taxi.
+ 12. the parallel layer with one rank on NCCL, in this process:
+     tritd_admm_sharded on the taxi stand-in (f32, 100 iterations, origin
+     given) in mode 1 and mode 3, err_hist and rre_hist within rtol 1e-6 of
+     tritd_admm on the same data and init, one kernel launch per iteration,
+     the counted all_reduce words per iteration within the design budget.
+ 13. several ranks on the one card, as worker processes of
+     tritd_tpu_torch.parallel.distributed with --backend gloo --device
+     cuda:0, at full width: taxi in mode 1 at 2, 3 (n1 padded to 102) and 4
+     ranks, masked taxi with bf16 storage at 2 ranks, the video stand-in in
+     mode 3 at 4 ranks. Each is held to the single-process solve on the same
+     data (err_hist, rre_hist: rtol 2e-3, atol 1e-5; rtol 2e-2, atol 1e-4
+     with bf16 storage; atol 2e-4 where the video's err_hist nears its
+     float32 floor, below 4e-3; n_iters equal; the workers run a fixed
+     count of iterations, tol 0); every rank must have launched its
+     kernel variant once per iteration, and the replicated factors must
+     agree across ranks.
+ 14. DP x TP: four ranks as a 2x2 mesh, a batch of two taxi problems from
+     two seeds through tritd_admm_batch_sharded, each entry held to its own
+     single-process solve as in phase 13.
+
+The ranks of phases 13-14 share one card and are time-sliced: the seconds
+they print are not scaling numbers.
 
 Phases 8-11 launch no kernel of this package but the one inside `triple`:
 the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
 torch.matmul, as the reference leaves them to its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
-variant once per iteration. The line before the last is a JSON object with
+variant once per iteration (in phases 13-14 every rank counts its own). The line before the last is a JSON object with
 one record per kernel variant, all eight on the main path (float32 and
 float64 compute); the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX or tritd_tpu.
@@ -102,6 +126,12 @@ KERNEL_SHAPES = {
     "video": (240, 320, 300),
     "ragged": (17, 23, 31),
     "one": (1, 1, 1),
+    # the slabs the sharded solves hold on a rank: taxi over 2, 3 (102 rows)
+    # and 4 ranks along mode 1, video over 4 ranks along mode 3
+    "slab2": (50, 100, 500),
+    "slab3": (34, 100, 500),
+    "slab4": (25, 100, 500),
+    "frames4": (240, 320, 75),
 }
 # narrow variants: (compute, D, storage, T') dtypes; T' None = no T'
 NARROW = {
@@ -243,7 +273,7 @@ def phase2() -> dict:
                 records[str(dtype)[6:].replace("float", "f")] = record
 
     for seed, (variant, (cd, d_dt, s_dt, t_dt)) in enumerate(NARROW.items(), start=100):
-        for name in ("taxi", "video") if cd == torch.float32 else ("taxi",):
+        for name in ("taxi", "video", "slab2") if cd == torch.float32 else ("taxi",):
             gen = torch.Generator(device="cuda").manual_seed(seed)
             raw = [torch.randn(KERNEL_SHAPES[name], generator=gen, device="cuda") * 3 for _ in range(5)]
             args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
@@ -788,6 +818,202 @@ def phase11() -> None:
           + ", ".join(f"{r['method']} {r['seconds']}" for r in rows) + f"; kernel launches {launches}")
 
 
+def _budget_words(shape, rank: int, mode: int) -> int:
+    """Design budget of one sharded iteration's all_reduce traffic: the
+    sharded core's Gram (r^4), the two reduced right-hand sides and the
+    residual sums, with room for one more r^4 and a few scalars."""
+    n1, n2, n3 = shape
+    r2 = rank * rank
+    return 2 * r2 * r2 + ((n2 + n3) if mode == 1 else (n1 + n2)) * r2 + 8
+
+
+def _hist_diff(tag, got, want, n, rtol, atol, floor=None) -> str:
+    """Hold a history's first n entries to another's within rtol and atol;
+    entries of `want` below 20 * floor, where float32 rounding and not the
+    algorithm sets the value, within floor instead of atol. Returns the
+    largest absolute and relative differences as text."""
+    got, want = np.asarray(got, np.float64)[:n], np.asarray(want, np.float64)[:n]
+    diff = np.abs(got - want)
+    text = f"max |diff| {diff.max():.3e}"
+    if floor is not None:
+        above = want >= 20 * floor
+        text += (f", max rel {np.max(diff[above] / want[above]):.3e} over the {int(above.sum())} entries above "
+                 f"{20 * floor:g}")
+        atol = np.where(above, atol, floor)
+    else:
+        text += f", max rel {np.max(diff / np.abs(want)):.3e}"
+    if not (diff <= atol + rtol * np.abs(want)).all():
+        raise AssertionError(f"{tag}: beyond rtol {rtol:g}, atol {atol} ({text}):\n{got}\nagainst\n{want}")
+    return text
+
+
+def phase12() -> dict:
+    """One rank on NCCL, in this process; returns its kernel launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
+    from tritd_tpu_torch.parallel.distributed import initialize_distributed
+
+    x, _mask, y, _prov = _taxi()
+    cfg = COMPLETION_TRITD
+    init = init_factors(torch.Generator().manual_seed(0), x.shape, cfg.rank, torch.float32)
+    ref = tritd_admm(y, cfg, origin=x, init=init)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", device="cuda:0",
+                           timeout_s=120.0)
+    total: dict = {}
+    try:
+        mesh = make_mesh(device_type="cuda")
+        y_host, x_host = y.cpu(), x.cpu()
+        for mode in (1, 3):
+            tritd_admm_sharded(y_host, dataclasses.replace(cfg, max_iter=3), mesh, shard_tensor_mode=mode,
+                               origin=x_host, init=init)  # NCCL's set-up stays out of the time
+            hopper_kernels.reset_launch_counts()
+            audit: dict = {}
+            res = tritd_admm_sharded(y_host, cfg, mesh, shard_tensor_mode=mode, origin=x_host, init=init, audit=audit)
+            torch.cuda.synchronize()
+            launches = _launches()
+            n = res.n_iters
+            budget = _budget_words(x.shape, cfg.rank, mode)
+            words = audit["per_iter"]["words"]
+            if n != ref.n_iters or launches != {"f32": n} or res.o.device.type != "cuda" or res.o.shape != x.shape:
+                raise AssertionError(f"phase12 mode {mode}: n_iters {n} vs {ref.n_iters}, launches {launches}, "
+                                     f"O {tuple(res.o.shape)} on {res.o.device}")
+            if not (audit["per_iter"]["calls"] == 4 and 0 < words <= budget):
+                raise AssertionError(f"phase12 mode {mode}: all_reduce per iteration {audit['per_iter']}, budget {budget} words")
+            err = _hist_diff(f"phase12 mode {mode} err_hist", res.err_hist.cpu(), ref.err_hist.cpu(), n, 1e-6, 0.0)
+            rre_ = _hist_diff(f"phase12 mode {mode} rre_hist", res.rre_hist.cpu(), ref.rre_hist.cpu(), n, 1e-6, 0.0)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            print(f"phase12 nccl 1 rank taxi mode {mode}: iters={n} launches={launches} loop={audit['loop_seconds']:.4f} s "
+                  f"(host clock, synchronized) all_reduce/iter: {audit['per_iter']['calls']} calls, {words} words "
+                  f"(budget {budget}), {audit['per_iter']['bytes']} bytes; vs tritd_admm (rtol 1e-6): err_hist {err} "
+                  f"(bitwise: {bool(torch.equal(res.err_hist, ref.err_hist))}), rre_hist {rre_} "
+                  f"(bitwise: {bool(torch.equal(res.rre_hist, ref.rre_hist))})")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+WORKER_TIMEOUT_S = 300.0
+# twice the largest distance seen between the single-process float32 run's
+# err_hist and the float64 trajectory on the video stand-in (1e-4)
+VIDEO_F32_FLOOR = 2e-4
+
+
+def _single_process(prob: dict, init=None, entry: int | None = None):
+    """The single-process solve of a worker's problem (or of one entry of
+    its batch) on the card, from the worker's default init."""
+    pick = (lambda v: v) if entry is None else (lambda v: None if v is None else v[entry])
+    on_card = lambda v: None if v is None else torch.as_tensor(pick(v), device="cuda")  # noqa: E731
+    return tritd_admm(on_card(prob["d"]), prob["cfg"], mask=on_card(prob["mask"]), origin=on_card(prob["origin"]),
+                      init=init)
+
+
+def _run_workers(tag: str, world: int, args: list[str], out: str) -> dict:
+    """`world` workers on cuda:0 over gloo; returns rank 0's .npz as a dict."""
+    from tritd_tpu_torch.parallel.distributed import launch_local
+
+    t0 = time.perf_counter()
+    launch_local(world, ["--backend", "gloo", "--device", "cuda:0", "--max-iter", "100", "--bench-repeats", "1",
+                         "--out", out, *args], timeout_s=WORKER_TIMEOUT_S)
+    with np.load(out) as f:
+        got = dict(f)
+    got["spawn_seconds"] = time.perf_counter() - t0
+    if int(got["world_size"]) != world or str(got["backend"]) != "gloo" or str(got["device"]) != "cuda:0":
+        raise AssertionError(f"{tag}: ran as {got['world_size']} ranks on {got['device']} over {got['backend']}")
+    return got
+
+
+def _check_ranks(tag, got, variant, iters_by_rank, factor_scale) -> str:
+    """Every rank launched `variant` once per iteration and nothing else, and
+    the replicated factors agree across ranks."""
+    names = [str(n)[len("elementwise_block["):-1] for n in got["launch_names"]]
+    for rank, (row, n) in enumerate(zip(got["launches"], iters_by_rank)):
+        counts = {k: int(v) for k, v in zip(names, row) if v}
+        if counts != {variant: n}:
+            raise AssertionError(f"{tag}: rank {rank} launched {counts}, want {{{variant!r}: {n}}}")
+    drift = float(got["replica_max_diff"])
+    if not drift <= 1e-6 * factor_scale:
+        raise AssertionError(f"{tag}: the factors differ by {drift} between ranks")
+    return f"every rank launched {variant} once per iteration; factors across ranks differ by {drift:.1e}"
+
+
+def phase13() -> None:
+    """Several ranks on the one card, each held to the single-process solve."""
+    from tritd_tpu_torch.parallel.distributed import build_problem
+
+    runs = (
+        # tag, ranks, problem, worker arguments, kernel variant, (rtol, atol, floor)
+        ("taxi mode 1", 2, dict(dataset="taxi"), [], "f32", (2e-3, 1e-5, None)),
+        ("taxi mode 1 (n1 padded to 102)", 3, dict(dataset="taxi"), [], "f32", (2e-3, 1e-5, None)),
+        ("taxi mode 1", 4, dict(dataset="taxi"), [], "f32", (2e-3, 1e-5, None)),
+        ("taxi masked storage=bf16 mode 1", 2, dict(dataset="taxi", masked=True, storage_dtype="bfloat16"),
+         ["--masked", "--storage-dtype", "bfloat16"], "c32_d32_sbf16_tbf16", (2e-2, 1e-4, None)),
+        # On the video data (values up to 295) float32 holds err_hist no
+        # lower than 4e-5 to 1e-4: a float64 run falls to 1e-8, a float32 run
+        # stays on that floor from iteration 40 on, in one process as on
+        # four ranks, and the order of sums decides its digits.
+        ("video highway mode 3", 4, dict(dataset="highway"), ["--shard-mode", "3"], "f32", (2e-3, 1e-5, VIDEO_F32_FLOOR)),
+    )
+    refs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, world, problem, args, variant, (rtol, atol, floor) in runs:
+            key = json.dumps(problem, sort_keys=True)
+            if key not in refs:
+                prob = build_problem(max_iter=100, **problem)
+                refs[key] = (_single_process(prob), prob["cfg"], prob["d"].shape)
+            ref, cfg, shape = refs[key]
+            tag = f"phase13 gloo {world} ranks on cuda:0, {tag}"
+            got = _run_workers(tag, world, ["--dataset", problem["dataset"], *args], os.path.join(tmp, "out.npz"))
+            n = int(got["n_iters"])
+            if n != ref.n_iters:
+                raise AssertionError(f"{tag}: n_iters {n}, single process {ref.n_iters}")
+            err = _hist_diff(f"{tag} err_hist", got["err_hist"], ref.err_hist.cpu(), n, rtol, atol, floor)
+            rre_ = _hist_diff(f"{tag} rre_hist", got["rre_hist"], ref.rre_hist.cpu(), n, rtol, atol)
+            mode = 3 if "--shard-mode" in args else 1
+            words, budget = int(got["all_reduce_words_per_iter"]), _budget_words(shape, cfg.rank, mode)
+            if not 0 < words <= budget:
+                raise AssertionError(f"{tag}: {words} all_reduce words per iteration, budget {budget}")
+            ranks = _check_ranks(tag, got, variant, [n] * world, float(ref.b.abs().max()))
+            print(f"{tag}: iters={n} {float(got['best_loop_seconds']) / n * 100:.3f} s per 100 iterations (second run, "
+                  f"slowest rank's loop; the ranks share the card: no scaling number), first run "
+                  f"{float(got['loop_seconds']) / n * 100:.3f}; spawn to result {got['spawn_seconds']:.1f} s; all_reduce/iter: "
+                  f"{int(got['all_reduce_calls_per_iter'])} calls, {words} words (budget {budget}); vs single process "
+                  f"(rtol {rtol:g}, atol {atol:g}{f', {floor:g} on the float32 floor' if floor else ''}): err_hist {err}, rre_hist {rre_}; {ranks}")
+
+
+def phase14() -> None:
+    """DP x TP on a 2x2 mesh of ranks sharing the card."""
+    from tritd_tpu_torch.parallel.distributed import batch_init, build_problem
+
+    tag = "phase14 gloo 2x2 ranks on cuda:0, batch of 2 taxi problems"
+    prob = build_problem("taxi", max_iter=100, batch=2)
+    inits = batch_init(2, prob["d"].shape[1:], prob["cfg"].rank, torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = _run_workers(tag, 4, ["--dataset", "taxi", "--n-data", "2", "--batch", "2"], os.path.join(tmp, "out.npz"))
+    iters, texts = [], []
+    for i in range(2):
+        ref = _single_process(prob, init=inits[i], entry=i)
+        n = int(got["n_iters"][i])
+        if n != ref.n_iters:
+            raise AssertionError(f"{tag}: entry {i} n_iters {n}, single process {ref.n_iters}")
+        iters.append(n)
+        texts.append(f"entry {i} iters={n} err_hist "
+                     + _hist_diff(f"{tag} entry {i} err_hist", got["err_hist"][i], ref.err_hist.cpu(), n, 2e-3, 1e-5)
+                     + ", rre_hist "
+                     + _hist_diff(f"{tag} entry {i} rre_hist", got["rre_hist"][i], ref.rre_hist.cpu(), n, 2e-3, 1e-5))
+    # rank r sits in data group r // 2 and solves that group's one entry
+    ranks = _check_ranks(tag, got, "f32", [iters[r // 2] for r in range(4)], float(ref.b.abs().max()))
+    print(f"{tag}: loop {float(got['best_loop_seconds']):.3f} s (second run, slowest rank; the ranks share the card: "
+          f"no scaling number); spawn to result {got['spawn_seconds']:.1f} s; vs each entry's single process "
+          f"(rtol 2e-3, atol 1e-5): {'; '.join(texts)}; {ranks}")
+
+
 def main() -> None:
     device = phase0()
     phase1()
@@ -801,6 +1027,10 @@ def main() -> None:
     phase9()
     phase10()
     phase11()
+    for variant, count in phase12().items():
+        launches[variant] = launches.get(variant, 0) + count
+    phase13()
+    phase14()
     missing = sorted(set(records) - set(launches))
     if missing:
         raise AssertionError(f"kernel variants not launched by the main path: {missing}")

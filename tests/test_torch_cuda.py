@@ -55,7 +55,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_t", [False, True], ids=["no_t", "t"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("shape", [(17, 23, 31), (8, 128, 4), (1, 1, 1), (100, 100, 500)])
+@pytest.mark.parametrize("shape", [(17, 23, 31), (8, 128, 4), (1, 1, 1), (100, 100, 500),
+                                   # the slabs a rank of a sharded solve holds: a quarter and a
+                                   # padded third of taxi along mode 1, a quarter of video along mode 3
+                                   (25, 100, 500), (34, 100, 500), (240, 320, 75)])
 def test_kernel_matches_plain(cuda_device, shape, dtype, with_t):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     args = [torch.randn(shape, generator=gen, dtype=dtype, device=cuda_device) for _ in range(5)]
@@ -102,6 +105,44 @@ def test_solve_launches_the_kernel_every_iteration(cuda_device):
     assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == gpu.n_iters == 15
     cpu = tritd_admm(y, dataclasses.replace(cfg, dtype="float64"), init=init)
     np.testing.assert_allclose(gpu.err_hist.cpu().numpy(), cpu.err_hist.numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
+    """The parallel layer with one rank on NCCL: the slab (padded by
+    nothing) lives on the card, the kernel runs once per iteration, and the
+    histories are tritd_admm's within rtol 1e-6 (one rank reduces nothing;
+    the norms are roots of reduced sums of squares, there vector norms)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
+    from tritd_tpu_torch.parallel.distributed import initialize_distributed
+
+    rng = np.random.default_rng(1)
+    shape = (22, 16, 27)
+    y = rng.standard_normal(shape).astype(np.float32) * 10
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=15, tol=0.0)
+    init = init_factors(torch.Generator().manual_seed(0), shape, cfg.rank, torch.float32)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", device="cuda:0",
+                           timeout_s=120.0)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        want = tritd_admm(torch.from_numpy(y).to(cuda_device), cfg, origin=torch.from_numpy(y).to(cuda_device), init=init)
+        for mode in (1, 3):
+            hopper_kernels.reset_launch_counts()
+            audit = {}
+            got = tritd_admm_sharded(y, cfg, mesh, shard_tensor_mode=mode, origin=y, init=init, audit=audit)
+            assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == got.n_iters == 15
+            assert got.o.device.type == "cuda" and audit["per_iter"]["calls"] == 4
+            torch.testing.assert_close(got.err_hist, want.err_hist, rtol=1e-6, atol=0)
+            torch.testing.assert_close(got.rre_hist, want.rre_hist, rtol=1e-6, atol=0)
+    finally:
+        dist.destroy_process_group()
 
 
 # (D, storage, T', with T') of the narrow variants, by the solver path

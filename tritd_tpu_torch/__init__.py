@@ -16,10 +16,14 @@ Layers:
   runtime/   nvcc build and ctypes binding of csrc/
   solvers/   TriTD-ADMM (f32/f64, bf16 storage), checkpointed, nonconvex
              outlier, ALS/MALS
+  parallel/  mode-1 slab, mode-3 frame and DP x TP sharded TriTD-ADMM over a
+             torch.distributed process group, the multi-process bootstrap
+             and worker
   data/      synthetic stand-ins + .mat ingest (v7.3 too) + ground truth
   metrics/   RRE, PSNR/SSIM/MSAM, CDnet foreground scores
   cli/       completion and video drivers, figures
-  utils/     presets, artifacts, checkpoints, the published tables
+  utils/     presets, artifacts, checkpoints, the published tables,
+             timers, debug switches, the roofline models
   interop    factors and state carried over from the JAX package
 """
 

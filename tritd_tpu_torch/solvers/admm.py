@@ -68,14 +68,22 @@ def init_factors(
     )
 
 
-def update_factors(t, a, b, c, cfg: TriTDConfig):
+def update_factors(t, a, b, c, cfg: TriTDConfig, shard=None):
     """One Gauss-Seidel sweep of the three ridge mode solves
-    (`triple_decomp_ADMM.m:73-95`); each later solve sees the fresh factors."""
+    (`triple_decomp_ADMM.m:73-95`); each later solve sees the fresh factors.
+
+    `shard` says where sums are completed when `t` is one shard of the
+    tensor: an object with `shard_mode` (1: `t` holds mode-1 slabs and `a`
+    their rows; 3: `t` holds mode-3 frames and `c` those frames) and
+    `all_reduce(tensor)`, which sums over the shards and returns the sum.
+    None means `t` is the whole tensor."""
     r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
     ed = cfg.torch_einsum_dtype()
     if ed is None:
         # a narrow T is widened once per sweep, not once per mode
         t = t.to(a.dtype)
+    if shard is not None:
+        return _update_factors_sharded(t, a, b, c, cfg, shard)
     k1, rhs1 = normal_eq.gram_and_rhs(1, t, a, b, c, variant=variant, einsum_dtype=ed)
     a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
     k2, rhs2 = normal_eq.gram_and_rhs(2, t, a, b, c, variant=variant, einsum_dtype=ed)
@@ -90,6 +98,41 @@ def update_factors(t, a, b, c, cfg: TriTDConfig):
     return a.contiguous(), b.contiguous(), c.contiguous()
 
 
+def _update_factors_sharded(t, a, b, c, cfg: TriTDConfig, shard):
+    """The sweep on one shard, with the collective placement of
+    `tritd_tpu/parallel/sharded_admm.py:62-114`. A sum over the sharded
+    index is completed by `shard.all_reduce`; a sum over the other indices
+    is whole on every shard. Mode-1 slabs shard i: GramA and the mode-2/3
+    right-hand sides are reduced and the A solve is local. Mode-3 frames
+    shard t: GramC (before the first solve) and the mode-1/2 right-hand
+    sides are reduced and the C solve is local. Solves on reduced inputs
+    give the same B, C (mode 1) or A, B (mode 3) on every shard."""
+    r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
+    ed = cfg.torch_einsum_dtype()
+    if shard.shard_mode not in (1, 3):
+        raise ValueError(f"shard_mode must be 1 or 3, got {shard.shard_mode}")
+    over_i, over_t = (shard.all_reduce, _whole) if shard.shard_mode == 1 else (_whole, shard.all_reduce)
+
+    gc = over_t(normal_eq.gram_c(c))
+    k1 = normal_eq.combine_grams(1, None, normal_eq.gram_b(b), gc, variant)
+    rhs1 = over_t(normal_eq.rhs_mode(1, t, a, b, c, variant=variant, einsum_dtype=ed))
+    a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
+
+    ga = over_i(normal_eq.gram_a(a))
+    k2 = normal_eq.combine_grams(2, ga, None, gc, variant)
+    rhs2 = shard.all_reduce(normal_eq.rhs_mode(2, t, a, b, c, variant=variant, einsum_dtype=ed))
+    b = core_b_from_mat(normal_eq.ridge_solve(k2, rhs2, cfg.lambda2, method), r)
+
+    k3 = normal_eq.combine_grams(3, ga, normal_eq.gram_b(b), None, variant)
+    rhs3 = over_i(normal_eq.rhs_mode(3, t, a, b, c, variant=variant, einsum_dtype=ed))
+    c = core_c_from_mat(normal_eq.ridge_solve(k3, rhs3, cfg.alpha_c, method), r)
+    return a.contiguous(), b.contiguous(), c.contiguous()
+
+
+def _whole(x):
+    return x
+
+
 def admm_iteration(
     d: torch.Tensor,
     state: TriTDState,
@@ -99,13 +142,23 @@ def admm_iteration(
     norm_d: torch.Tensor | None = None,
     norm_origin: torch.Tensor | None = None,
     disp_log: list | None = None,
+    shard=None,
 ) -> TriTDState:
     """One ADMM iteration (`triple_decomp_ADMM.m:31-66`). The histories are
     written in place (entry k). With cfg.disp, every 10th iteration appends
-    (k, errL, errO) to `disp_log` as device scalars, for the caller to print."""
+    (k, errL, errO) to `disp_log` as device scalars, for the caller to print.
+
+    With `shard` (see :func:`update_factors`), `d`, `mask`, `origin` and the
+    data-sized state are one shard; `norm_d` and `norm_origin` must then be
+    given, taken over the whole tensor. The two sums of squares, and the
+    RRE numerator when `origin` is given, are reduced as sums in one small
+    vector before their roots are taken, so the error and the stop flag are
+    equal on every shard."""
     a, b, c = state.a, state.b, state.c
     o, e, y_l, y_o = state.o, state.e, state.y_l, state.y_o
     mu_l, mu_o, k = state.mu_l, state.mu_o, state.k
+    if shard is not None and (norm_d is None or (origin is not None and norm_origin is None)):
+        raise ValueError("a sharded iteration needs norm_d (and norm_origin) of the whole tensor")
     if norm_d is None:
         norm_d = torch.linalg.vector_norm(d)
 
@@ -125,7 +178,7 @@ def admm_iteration(
     else:
         t = state.t
 
-    a, b, c = update_factors(t, a, b, c, cfg)
+    a, b, c = update_factors(t, a, b, c, cfg, shard=shard)
     l = designs.triple_product(a, b, c, variant=cfg.variant)
 
     dt = cfg.np_dtype().type
@@ -142,6 +195,14 @@ def admm_iteration(
     if masked:
         t_next = state.t
 
+    sq_rre = None
+    if shard is not None:
+        sums = [sq_l, sq_o]
+        if origin is not None:
+            diff = l - origin
+            sums.append(torch.sum(diff * diff))
+        sq_l, sq_o, *rest = shard.all_reduce(torch.stack(sums))
+        sq_rre = rest[0] if rest else None
     root_l, root_o = torch.sqrt(sq_l), torch.sqrt(sq_o)
     err = (root_l + root_o) / norm_d
     if cfg.disp and disp_log is not None and (k + 1) % 10 == 0:
@@ -150,7 +211,9 @@ def admm_iteration(
     err_hist[k] = err
 
     rre_hist = state.rre_hist
-    if origin is not None:
+    if sq_rre is not None:
+        rre_hist[k] = torch.sqrt(sq_rre) / norm_origin
+    elif origin is not None:
         if norm_origin is None:
             norm_origin = torch.linalg.vector_norm(origin)
         rre_hist[k] = torch.linalg.vector_norm(l - origin) / norm_origin
@@ -190,6 +253,25 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
         err_hist=nan_hist, rre_hist=nan_hist.clone(),
         done=torch.zeros((), dtype=torch.bool, device=d.device),
     )
+
+
+def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
+             norm_d=None, norm_origin=None, shard=None) -> TriTDState:
+    """Iterate from `state` to cfg.max_iter or the stop rule, in blocks of
+    cfg.unroll iterations; the sticky stop flag is the only device-to-host
+    read, once per block. With `shard` (see :func:`admm_iteration`) the flag
+    comes from reduced sums, so every shard leaves the loop together."""
+    disp_log: list = []
+    while state.k < cfg.max_iter and not bool(state.done):
+        for _ in range(cfg.unroll):
+            state = admm_iteration(
+                d, state, cfg, mask=mask, origin=origin,
+                norm_d=norm_d, norm_origin=norm_origin, disp_log=disp_log, shard=shard,
+            )
+        for it, el, eo in disp_log:
+            print(f"Iter {it}, errL={float(el):.2e}, errO={float(eo):.2e}")
+        disp_log.clear()
+    return state
 
 
 def tritd_admm(
@@ -237,16 +319,7 @@ def tritd_admm(
     # is taken from the full-precision copy)
     d = d.to(cfg.torch_storage_dtype())
 
-    disp_log: list = []
-    while state.k < cfg.max_iter and not bool(state.done):
-        for _ in range(cfg.unroll):
-            state = admm_iteration(
-                d, state, cfg, mask=mask, origin=origin,
-                norm_d=norm_d, norm_origin=norm_origin, disp_log=disp_log,
-            )
-        for it, el, eo in disp_log:
-            print(f"Iter {it}, errL={float(el):.2e}, errO={float(eo):.2e}")
-        disp_log.clear()
+    state = run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin)
 
     return TriTDResult(
         a=state.a, b=state.b, c=state.c, o=state.o.to(dtype), e=state.e.to(dtype),

@@ -9,7 +9,8 @@ the share of the byte bound a kernel reaches is stated against them.
 Two parts, both float32 unless a variant says otherwise, TF32 off:
 
 * every variant of `csrc/elementwise_block.cu` at the taxi (100x100x500)
-  and video (240x320x300) shapes: device microseconds of the block kernel
+  and video (240x320x300) shapes, and the variants the sharded solves run
+  at the slab shapes a rank holds: device microseconds of the block kernel
   and of its second-pass reduction (a launch of its own), beside the
   variant's bytes over the card's memory rate;
 * the baselines at the full taxi shape through `run_method` (ttnn, ring and
@@ -37,6 +38,10 @@ from ..data import load_dataset, uniform_missing_mask
 from ..ops import hopper_kernels
 
 SHAPES = {"taxi": (100, 100, 500), "video": (240, 320, 300)}
+# what one rank of a sharded solve holds (`parallel/sharded_admm.py`): taxi
+# over 2, 3 (102 rows) and 4 ranks along mode 1, video over 4 along mode 3
+SLAB_SHAPES = {"slab2": (50, 100, 500), "slab3": (34, 100, 500), "slab4": (25, 100, 500), "frames4": (240, 320, 75)}
+SLAB_VARIANTS = {"f32": tuple(SLAB_SHAPES), "c32_d32_sbf16_tbf16": ("slab2",)}
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SCALARS = (0.5, 0.7, 1.8)   # mu_l, mu_o, lam
 MU_NEXT = 0.625
@@ -84,9 +89,11 @@ def profile_block(reps: int) -> list[dict]:
     for (cd, d_dt, s_dt, t_dt), variant in hopper_kernels.KERNEL_VARIANTS.items():
         if d_dt == cd and s_dt != cd:
             t_dt = None  # masked narrow storage carries no T'
-        for name in ("taxi", "video") if cd == torch.float32 else ("taxi",):
+        names = ("taxi", "video") if cd == torch.float32 else ("taxi",)
+        for name in names + SLAB_VARIANTS.get(variant, ()):
             gen = torch.Generator(device="cuda").manual_seed(0)
-            raw = [torch.randn(SHAPES[name], generator=gen, device="cuda") * 3 for _ in range(5)]
+            shape = SHAPES.get(name) or SLAB_SHAPES[name]
+            raw = [torch.randn(shape, generator=gen, device="cuda") * 3 for _ in range(5)]
             args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
             kw = dict(mu_l_next=None if t_dt is None else MU_NEXT, t_dtype=t_dt)
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
@@ -100,7 +107,7 @@ def profile_block(reps: int) -> list[dict]:
             bound = per * args[0].numel() / PEAK_BYTES_PER_S * 1e6
             rows.append({"variant": variant, "shape": name, "bytes_per_element": per, "block_us": block,
                          "finalize_us": final, "bound_us": bound, "share_of_bound": bound / (block + final)})
-            print(f"block {variant:24s} {name:5s} {per:3d} B/elem: kernel {block:7.1f} us + second pass "
+            print(f"block {variant:24s} {name:7s} {per:3d} B/elem: kernel {block:7.1f} us + second pass "
                   f"{final:5.1f} us (device), bound {bound:6.1f} us, {bound / (block + final):.0%} reached", flush=True)
     return rows
 

@@ -1,2 +1,2 @@
-"""Presets, artifacts, checkpoints and the published tables. Counterpart of
-`tritd_tpu/utils/`."""
+"""Presets, artifacts, checkpoints, the published tables, timers, debug
+switches and the roofline models. Counterpart of `tritd_tpu/utils/`."""
