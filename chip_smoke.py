@@ -17,7 +17,14 @@ Phases, each of which fails the run by raising:
      the taxi and video shapes, and their float64-compute twins at the taxi
      shape, where T' must also be bitwise the rounding of
      D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
-     Time both with CUDA events, beside the least time the card could take.
+     Time both with CUDA events, beside the least time the card could take,
+     the host's enqueue time per call and one device-to-device copy_ of the
+     same bytes. Then the cases the kernel's design can get wrong, each
+     against the plain version at the same tolerances: 1, 7, 8, 9, 255, 257
+     elements and an odd count above one wave of groups; views whose
+     pointers are 4-byte (float32) or 2-byte (bf16) but not 16-byte aligned;
+     the two sums bitwise equal over 20 calls; two streams launching the
+     kernel at once, 50 turns.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
      (100x100x500, r=5, 10% missing, COMPLETION_TRITD, 100 iterations, f32),
      checked against a float64 CPU rerun of its first 10 iterations, and on
@@ -181,26 +188,37 @@ def phase1() -> None:
     print(f"phase1 build: {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
-def _time_pair(plain, kernel) -> tuple[float, float]:
-    """ms per call of each: CUDA events around BATCH back-to-back calls,
-    median over REPS turns, alternating which goes first."""
+def _time_pair(plain, kernel, n_bytes) -> tuple[float, float, float, float]:
+    """ms per call of the kernel, the plain version and one device-to-device
+    `copy_` that moves `n_bytes` (half read, half written): CUDA events
+    around BATCH back-to-back calls, median over REPS turns, alternating
+    which of the first two goes first. Also the kernel wrapper's enqueue time
+    in ms: the host's clock around the same BATCH calls, before the
+    synchronize (what a call costs the host, whatever the card does)."""
+    src = torch.empty(n_bytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
     for _ in range(3):
         plain()
         kernel()
+        dst.copy_(src)
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
+    times = {"plain": [], "kernel": [], "copy": [], "host": []}
     for i in range(REPS):
         order = (("plain", plain), ("kernel", kernel))
-        for name, fn in order if i % 2 == 0 else order[::-1]:
+        for name, fn in (*(order if i % 2 == 0 else order[::-1]), ("copy", lambda: dst.copy_(src))):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             for _ in range(BATCH):
                 fn()
+            host = time.perf_counter() - t0
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / BATCH)
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+            if name == "kernel":
+                times["host"].append(host / BATCH * 1e3)
+    return tuple(statistics.median(times[k]) for k in ("kernel", "plain", "copy", "host"))
 
 
 def _block_bytes(args, t_dtype) -> int:
@@ -222,17 +240,125 @@ def _block_bound(args, t_dtype) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _report(tag, args, t_dtype, max_abs, ms, plain_ms) -> dict:
-    """Print one kernel-against-plain line; returns the variant's record. No
-    single PyTorch call computes the block, so `library_ms` is null."""
+def _report(tag, args, t_dtype, max_abs, plain, kernel) -> dict:
+    """Time the pair, print one kernel-against-plain line and return the
+    variant's record. No single PyTorch call computes the block, so
+    `library_ms` is null; `copy_ms` is the rate the card really gives a pass
+    that reads and writes in equal parts, a yardstick the port never calls."""
     n_bytes = _block_bytes(args, t_dtype)
+    ms, plain_ms, copy_ms, host_ms = _time_pair(plain, kernel, n_bytes)
     bound_ms, bound_by = _block_bound(args, t_dtype)
     print(f"phase2 {tag} max_abs_err={max_abs:.3e} kernel={ms * 1e3:9.1f} us "
-          f"({n_bytes / ms / 1e6:7.1f} GB/s) plain={plain_ms * 1e3:9.1f} us "
-          f"({n_bytes / plain_ms / 1e6:7.1f} GB/s) bytes/elem={n_bytes // args[0].numel()} "
+          f"({n_bytes / ms / 1e6:7.1f} GB/s) host_enqueue={host_ms * 1e3:6.1f} us plain={plain_ms * 1e3:9.1f} us "
+          f"({n_bytes / plain_ms / 1e6:7.1f} GB/s) copy_us={copy_ms * 1e3:7.1f} ({n_bytes / copy_ms / 1e6:7.1f} GB/s) "
+          f"bytes/elem={n_bytes // args[0].numel()} "
           f"bound={bound_ms * 1e3:.1f} us by {bound_by} ({bound_ms / ms:.0%} reached)")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "copy_ms": copy_ms, "host_enqueue_ms": host_ms}
+
+
+def _hold_same_dtype(args, mu_next) -> tuple[tuple, float]:
+    """One kernel call on same-dtype tensors held against the plain version
+    at phase 2's tolerances; returns the kernel's outputs and the largest
+    absolute difference."""
+    atol = 1e-6 * max(float(a.abs().max()) for a in args)
+    got = hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next)
+    want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next)
+    torch.cuda.synchronize()
+    idx = (0, 1, 2, 3) if mu_next is None else (0, 1, 2, 3, 6)
+    for i in idx:
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=atol)
+    for i in (4, 5):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+    return got, max(float((got[i] - want[i]).abs().max()) for i in idx)
+
+
+def _narrow_args(shape, dtypes, seed, offset=0) -> list:
+    """Five inputs of a narrow variant; with `offset`, each is a view that
+    starts that many elements into its buffer."""
+    cd, d_dt, s_dt, _ = dtypes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    raw = [torch.randn(n + offset, generator=gen, device="cuda") * 3 for _ in range(5)]
+    return [x.to(dt)[offset:].view(shape) for x, dt in zip(raw, (d_dt, cd, s_dt, s_dt, s_dt))]
+
+
+# An odd count above one resident wave of the widest groups (8 elements).
+ODD_ABOVE_A_WAVE = 2 * hopper_kernels.RESIDENT_BLOCKS * hopper_kernels.BLOCK_THREADS * 8 + 13
+EDGE_COUNTS = (1, 7, 8, 9, 255, 257, ODD_ABOVE_A_WAVE)
+
+
+def _phase2_edges() -> None:
+    """What 16-byte accesses, the grid plan and the folded sum can get
+    wrong. Tolerances as in `phase2`."""
+    storage = NARROW["c32_dbf16_sbf16_tbf16"]
+    for n in EDGE_COUNTS:
+        for dtype in (torch.float32, torch.float64):
+            gen = torch.Generator(device="cuda").manual_seed(n % 1000)
+            args = [torch.randn(n, generator=gen, dtype=dtype, device="cuda") for _ in range(5)]
+            worst = max(_hold_same_dtype(args, mu_next)[1] for mu_next in (None, MU_NEXT))
+            # the same numbers behind pointers one element off a 16-byte boundary
+            off = [torch.cat([a.new_zeros(1), a])[1:] for a in args]
+            if any(a.data_ptr() % 16 == 0 for a in off):
+                raise AssertionError("the shifted views are still 16-byte aligned")
+            got, _ = _hold_same_dtype(args, MU_NEXT)
+            got_off, worst_off = _hold_same_dtype(off, MU_NEXT)
+            for i in (0, 1, 2, 3, 6):  # the same arithmetic per element on either path
+                if not torch.equal(got[i], got_off[i]):
+                    raise AssertionError(f"n={n} {dtype}: output {i} differs between aligned and shifted inputs")
+            # the partition of the two sums may differ between the paths: not bitwise
+            rtol = 1e-12 if dtype == torch.float64 else 1e-6
+            for i in (4, 5):
+                torch.testing.assert_close(got[i], got_off[i], rtol=rtol, atol=0.0)
+            print(f"phase2 edge n={n:8d} {str(dtype)[6:]:7s} max_abs_err={max(worst, worst_off):.3e}; pointers "
+                  f"off by {args[0].element_size()} B: tensors bitwise equal to the aligned call, sums rtol {rtol:g}")
+        for offset in (0, 1):
+            args = _narrow_args((n,), storage, n % 1000, offset)
+            if offset and any(a.data_ptr() % 16 == 0 for a in args):
+                raise AssertionError("the shifted views are still 16-byte aligned")
+            kw = dict(mu_l_next=MU_NEXT, t_dtype=storage[3])
+            got = hopper_kernels._block_cuda(*args, *SCALARS, **kw)
+            want = hopper_kernels._block_torch(*args, *SCALARS, compute_dtype=storage[0], store_dtype=storage[2], **kw)
+            torch.cuda.synchronize()
+            agree = hopper_kernels.check_narrow_against_plain(args, got, want, MU_NEXT)
+            for i in (4, 5):
+                torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+            print(f"phase2 edge n={n:8d} bf16 storage, pointers {'2 B off' if offset else 'aligned'}: "
+                  f"max_abs_err={agree['max_abs_err']:.3e} flip share {agree['flip_share']:.3e}")
+
+    # bitwise equal sums from call to call: the order of additions is fixed
+    for shape in (KERNEL_SHAPES["slab4"], KERNEL_SHAPES["ragged"], (ODD_ABOVE_A_WAVE,)):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        args = [torch.randn(shape, generator=gen, device="cuda") for _ in range(5)]
+        sums = {tuple(float(x) for x in hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=MU_NEXT)[4:6])
+                for _ in range(20)}
+        if len(sums) != 1:
+            raise AssertionError(f"{shape}: the two sums differ between 20 calls on the same inputs: {sums}")
+        print(f"phase2 sums {shape}: bitwise equal over 20 calls")
+
+    # two streams at once: each has its own scratch and counter
+    for shape in (KERNEL_SHAPES["slab4"], KERNEL_SHAPES["ragged"]):
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        cases = []
+        for seed in (11, 12):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            args = [torch.randn(shape, generator=gen, device="cuda") for _ in range(5)]
+            cases.append((args, _hold_same_dtype(args, MU_NEXT)[0]))
+        torch.cuda.synchronize()
+        for _ in range(50):
+            got = []
+            for stream, (args, _first) in zip(streams, cases):
+                with torch.cuda.stream(stream):
+                    got.append(hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=MU_NEXT))
+            torch.cuda.synchronize()
+            for out, (_args, first) in zip(got, cases):
+                if not all(torch.equal(out[i], first[i]) for i in (0, 1, 2, 3, 4, 5, 6)):
+                    raise AssertionError(f"{shape}: a call beside another stream's differs from the call alone")
+        keys = {key for key in hopper_kernels._SCRATCH if key[1] in {st.cuda_stream for st in streams}}
+        if len(keys) != 2:
+            raise AssertionError(f"the two streams do not have a scratch each: {sorted(hopper_kernels._SCRATCH)}")
+        print(f"phase2 streams {shape}: 50 turns of two streams at once, each bitwise equal to its call alone "
+              f"(held against the plain version)")
 
 
 def phase2() -> dict:
@@ -251,32 +377,20 @@ def phase2() -> dict:
     ):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         args = [torch.randn(shape, generator=gen, dtype=dtype, device="cuda") for _ in range(5)]
-        atol = 1e-6 * max(float(a.abs().max()) for a in args)
         for mu_next in (None, MU_NEXT):
-            got = hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next)
-            want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next)
-            torch.cuda.synchronize()
-            idx = (0, 1, 2, 3) if mu_next is None else (0, 1, 2, 3, 6)
-            max_abs = max(float((got[i] - want[i]).abs().max()) for i in idx)
-            for i in idx:
-                torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=atol)
-            for i in (4, 5):
-                torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
-            ms, plain_ms = _time_pair(
+            _, max_abs = _hold_same_dtype(args, mu_next)
+            t_dtype = None if mu_next is None else dtype
+            record = _report(
+                f"{name:6s} {str(dtype)[6:]:7s} t'={'yes' if mu_next else 'no '}", args, t_dtype, max_abs,
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next),
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next),
             )
-            t_dtype = None if mu_next is None else dtype
-            record = _report(f"{name:6s} {str(dtype)[6:]:7s} t'={'yes' if mu_next else 'no '}",
-                             args, t_dtype, max_abs, ms, plain_ms)
             if name == "taxi" and mu_next is not None:
                 records[str(dtype)[6:].replace("float", "f")] = record
 
     for seed, (variant, (cd, d_dt, s_dt, t_dt)) in enumerate(NARROW.items(), start=100):
         for name in ("taxi", "video", "slab2") if cd == torch.float32 else ("taxi",):
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            raw = [torch.randn(KERNEL_SHAPES[name], generator=gen, device="cuda") * 3 for _ in range(5)]
-            args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
+            args = _narrow_args(KERNEL_SHAPES[name], (cd, d_dt, s_dt, t_dt), seed)
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
                 raise AssertionError(f"{variant}: dtypes route to another variant")
             mu_next = None if t_dt is None else MU_NEXT
@@ -289,16 +403,17 @@ def phase2() -> dict:
             max_abs = agree["max_abs_err"]
             for i in (4, 5):
                 torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
-            ms, plain_ms = _time_pair(
+            record = _report(
+                f"{name:6s} {variant}", args, t_dt, max_abs,
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw),
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw),
             )
-            record = _report(f"{name:6s} {variant}", args, t_dt, max_abs, ms, plain_ms)
             print(f"phase2 {name:6s} {variant} bf16 elements rounded otherwise than the plain version: "
                   f"share {agree['flip_share']:.3e} (limit {hopper_kernels.NARROW_FLIP_SHARE:.0e}); "
                   f"T' bitwise from the stored O', Y_L'")
             if name == "taxi":
                 records[variant] = record
+    _phase2_edges()
     return records
 
 

@@ -19,6 +19,11 @@ NARROW_FLIP_SHARE of each bf16 output rounded otherwise than the plain
 version (or NARROW_FLIP_FLOOR elements), and T' bitwise the rounding of
 D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
 
+The kernel cases run three ways at the same tolerances: on tensors as
+PyTorch allocates them (16-byte accesses), on views one element past a
+16-byte boundary (the kernel's one-element path), and from two streams at
+once (each stream has its own partial sums and ticket counter).
+
 The SVT routes and the baselines launch no kernel of this package (they run
 on torch.linalg and torch.matmul); their cases here hold the float32 CUDA
 run to a float64 CPU run of the same code: SVT outputs rtol 1e-4 of ||M||,
@@ -44,6 +49,33 @@ SCALARS = (0.5, 0.7, 1.8)
 MU_NEXT = 0.625
 
 
+# an odd count above one resident wave of the widest groups (8 elements)
+ODD_ABOVE_A_WAVE = 2 * hopper_kernels.RESIDENT_BLOCKS * hopper_kernels.BLOCK_THREADS * 8 + 13
+HOW = ["aligned", "shifted", "two_streams"]
+
+
+def _shifted(x):
+    """The same values behind a pointer one element past a 16-byte boundary."""
+    view = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+def _run(how, fn):
+    """The outputs of `fn()`: one call, or five turns of one call on each of
+    two streams without a synchronize between them."""
+    if how != "two_streams":
+        return [fn()]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(5):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                outs.append(fn())
+    return outs
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -53,41 +85,63 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("how", HOW)
 @pytest.mark.parametrize("with_t", [False, True], ids=["no_t", "t"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("shape", [(17, 23, 31), (8, 128, 4), (1, 1, 1), (100, 100, 500),
                                    # the slabs a rank of a sharded solve holds: a quarter and a
                                    # padded third of taxi along mode 1, a quarter of video along mode 3
-                                   (25, 100, 500), (34, 100, 500), (240, 320, 75)])
-def test_kernel_matches_plain(cuda_device, shape, dtype, with_t):
+                                   (25, 100, 500), (34, 100, 500), (240, 320, 75),
+                                   # around a group, a warp and a block, and past one wave
+                                   (7,), (8,), (9,), (255,), (257,), (ODD_ABOVE_A_WAVE,)], ids=str)
+def test_kernel_matches_plain(cuda_device, shape, dtype, with_t, how):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     args = [torch.randn(shape, generator=gen, dtype=dtype, device=cuda_device) for _ in range(5)]
+    if how == "shifted":
+        args = [_shifted(a) for a in args]
     mu_next = MU_NEXT if with_t else None
     key = f"elementwise_block[{hopper_kernels.kernel_variant(*args)}]"
     before = hopper_kernels.LAUNCHES[key]
-    got = hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=mu_next)
+    outs = _run(how, lambda: hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=mu_next))
     torch.cuda.synchronize()
-    assert hopper_kernels.LAUNCHES[key] == before + 1
+    assert hopper_kernels.LAUNCHES[key] == before + len(outs)
     want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next)
     atol = 1e-6 * max(float(a.abs().max()) for a in args)
-    for i in (0, 1, 2, 3):
-        assert got[i].dtype == dtype and got[i].shape == shape
-        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=atol)
-    for i in (4, 5):
-        assert got[i].shape == () and got[i].device.type == "cuda"
-        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
-    if with_t:
-        torch.testing.assert_close(got[6], want[6], rtol=1e-6, atol=atol)
-    else:
-        assert got[6] is None
+    for got in outs:
+        for i in (0, 1, 2, 3):
+            assert got[i].dtype == dtype and got[i].shape == shape and got[i].is_contiguous()
+            torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=atol)
+        for i in (4, 5):
+            assert got[i].shape == () and got[i].device.type == "cuda"
+            torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+        if with_t:
+            torch.testing.assert_close(got[6], want[6], rtol=1e-6, atol=atol)
+        else:
+            assert got[6] is None
 
 
 @pytest.mark.cuda
 def test_kernel_sums_are_deterministic(cuda_device):
     args = [torch.randn(240, 320, 30, device=cuda_device) for _ in range(5)]
     first = hopper_kernels.elementwise_block(*args, *SCALARS)
-    again = hopper_kernels.elementwise_block(*args, *SCALARS)
-    assert float(first[4]) == float(again[4]) and float(first[5]) == float(again[5])
+    for _ in range(20):
+        again = hopper_kernels.elementwise_block(*args, *SCALARS)
+        assert float(first[4]) == float(again[4]) and float(first[5]) == float(again[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_shifted_inputs_give_the_same_elements(cuda_device, dtype):
+    """Both paths of the kernel do the same arithmetic per element; only the
+    partition of the two sums differs, so those agree to rounding in double
+    (rtol 1e-12 at float64, 1e-6 where the sums come back in float32)."""
+    args = [torch.randn(ODD_ABOVE_A_WAVE, dtype=dtype, device=cuda_device) for _ in range(5)]
+    got = hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=MU_NEXT)
+    off = hopper_kernels.elementwise_block(*map(_shifted, args), *SCALARS, mu_l_next=MU_NEXT)
+    for i in (0, 1, 2, 3, 6):
+        assert torch.equal(got[i], off[i])
+    for i in (4, 5):
+        torch.testing.assert_close(got[i], off[i], rtol=1e-12 if dtype == torch.float64 else 1e-6, atol=0.0)
 
 
 @pytest.mark.cuda
@@ -155,33 +209,38 @@ NARROW = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("how", HOW)
 @pytest.mark.parametrize("case", list(NARROW))
 @pytest.mark.parametrize("compute", [torch.float32, torch.float64], ids=["c32", "c64"])
-@pytest.mark.parametrize("shape", [(17, 23, 31), (1, 1, 1), (100, 100, 500)])
-def test_narrow_kernel_matches_plain(cuda_device, shape, compute, case):
+@pytest.mark.parametrize("shape", [(17, 23, 31), (1, 1, 1), (100, 100, 500), (7,), (9,), (257,),
+                                   (ODD_ABOVE_A_WAVE,)], ids=str)
+def test_narrow_kernel_matches_plain(cuda_device, shape, compute, case, how):
     d_dt, s_dt, t_dt, with_t = NARROW[case]
     d_dt, s_dt = d_dt or compute, s_dt or compute
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     raw = [torch.randn(shape, generator=gen, dtype=compute, device=cuda_device) * 3 for _ in range(5)]
     args = [raw[0].to(d_dt), raw[1], *(x.to(s_dt) for x in raw[2:])]
+    if how == "shifted":
+        args = [_shifted(a) for a in args]  # bf16 views start 2 bytes past a 16-byte boundary
     variant = hopper_kernels.kernel_variant(*args, t_dtype=t_dt)
     mu_next = MU_NEXT if with_t else None
     before = hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"]
-    got = hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+    outs = _run(how, lambda: hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=mu_next, t_dtype=t_dt))
     torch.cuda.synchronize()
-    assert hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"] == before + 1
+    assert hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"] == before + len(outs)
     want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next, compute_dtype=compute,
                                        store_dtype=s_dt, t_dtype=t_dt)
-    for i in (0, 1, 2, 3):
-        assert got[i].dtype == s_dt and got[i].shape == shape
-    hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
-    for i in (4, 5):
-        assert got[i].dtype == compute
-        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
-    if with_t:
-        assert got[6].dtype == t_dt
-    else:
-        assert got[6] is None
+    for got in outs:
+        for i in (0, 1, 2, 3):
+            assert got[i].dtype == s_dt and got[i].shape == shape and got[i].is_contiguous()
+        hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
+        for i in (4, 5):
+            assert got[i].dtype == compute
+            torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+        if with_t:
+            assert got[6].dtype == t_dt
+        else:
+            assert got[6] is None
 
 
 @pytest.mark.cuda

@@ -24,9 +24,19 @@ Routing is by device, with no fallback: CPU tensors take `_block_torch`,
 CUDA tensors take `_block_cuda`, the kernel in `csrc/elementwise_block.cu`.
 The scalars are host numbers; they are rounded to the compute dtype and
 combined in it (lam/muO, muL+muO), as the reference does in float32.
+
+The kernel's launch plan is made here, in plain functions of integers:
+`group_size` (elements a thread takes per turn, so that the narrowest stream
+moves 16 bytes), `block_grid` (one resident wave of blocks that all make the
+same number of turns; a function of n alone, so the two sums are the same
+from run to run) and `pointers_aligned` (16-byte accesses need every pointer
+16-byte aligned; a contiguous view that is not takes the kernel's
+one-element path, it is neither refused nor copied).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -59,6 +69,67 @@ LAUNCHES = {f"elementwise_block[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# The kernel's geometry; `_entry` holds both against the built library.
+BLOCK_THREADS = 256
+# One wave that an H100 SXM holds at once: 132 SMs x 2 blocks of 256 threads
+# (up to 128 registers a thread: with 4 blocks and 64 registers the groups of
+# 8 spilled). Fixed, not read from the card, so that the grid, and with it
+# the order of the two sums, is the same on every card.
+RESIDENT_BLOCKS = 132 * 2
+# doubles of scratch: a partial sum of each residual per block, and the counter
+SCRATCH_LEN = 2 * RESIDENT_BLOCKS + 1
+
+
+def group_size(compute_size: int, narrowest_size: int) -> int:
+    """Elements a thread takes per turn on the vector path: 16 bytes of the
+    narrowest stream, capped at 32 bytes of the compute type (4 floats, 2
+    doubles, 8 bf16 beside float compute, 4 bf16 beside double)."""
+    return min(16 // narrowest_size, 32 // compute_size)
+
+
+def block_grid(n: int, group: int) -> int:
+    """Blocks of BLOCK_THREADS threads for n elements in groups of `group`:
+    one group a thread while that fits in RESIDENT_BLOCKS, else the fewest
+    whole turns t that fit and just enough blocks for t turns each, so no
+    second, part-filled wave. Depends on n and the variant's group alone."""
+    groups = -(-n // group)
+    want = max(1, -(-groups // BLOCK_THREADS))
+    if want <= RESIDENT_BLOCKS:
+        return want
+    turns = -(-want // RESIDENT_BLOCKS)
+    return -(-want // turns)
+
+
+VARIANT_GROUP = {
+    variant: group_size(compute.itemsize, min(dt.itemsize for dt in stored))
+    for (compute, *stored), variant in KERNEL_VARIANTS.items()
+}
+
+
+def pointers_aligned(*pointers: int) -> bool:
+    """True if every address is a multiple of 16, the width of the kernel's
+    vector accesses. What PyTorch allocates is; a view into it need not be."""
+    bits = 0
+    for p in pointers:
+        bits |= p
+    return bits & 15 == 0
+
+
+# (device index, stream handle) -> the kernel's scratch: per-block partial
+# sums and the ticket counter that the last block sets back to 0. Two
+# streams that shared a counter would race, so each has its own; zeroed
+# once, when made.
+_SCRATCH: dict = {}
+
+
+def _scratch_for(key, make):
+    """The scratch kept under `key`, made by `make()` at first use."""
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = make()
+    return buf
 
 
 def _scalars(dtype: torch.dtype, *values):
@@ -163,48 +234,75 @@ def kernel_variant(d, l, e, y_l, y_o, t_dtype=None) -> str:
 
 def _check_kernel_inputs(tensors) -> None:
     d = tensors[0]
+    shape, device = d.shape, d.device
+    if device.type == "cuda" and all(
+            x.shape == shape and x.device == device and x.is_contiguous() for x in tensors):
+        return
     for x in tensors:
-        if x.shape != d.shape:
-            raise ValueError(f"mixed shapes: {tuple(x.shape)} vs {tuple(d.shape)}")
+        if x.shape != shape:
+            raise ValueError(f"mixed shapes: {tuple(x.shape)} vs {tuple(shape)}")
         if not x.is_contiguous():
             raise ValueError("elementwise_block kernel needs contiguous tensors")
     for x in tensors:
-        if x.device.type != "cuda" or x.device != d.device:
+        if x.device.type != "cuda" or x.device != device:
             raise ValueError(f"elementwise_block kernel needs tensors on one CUDA device, got {x.device}")
 
 
-def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None):
-    """Launch `csrc/elementwise_block.cu` on the current stream. Returns the
-    same tuple as `_block_torch`; the norms are 0-d device tensors, so
-    nothing waits for the device."""
+@functools.cache
+def _entry(variant: str):
+    """(C entry point, group, launch-count key) of a variant, looked up once.
+    Building and loading the library happens here, at the first CUDA call.
+    Raises if the library was built with another geometry than this module's
+    plan assumes."""
     from ..runtime import kernels
 
+    lib = kernels.library()
+    name = f"tritd_elementwise_block_{variant}"
+    want = (BLOCK_THREADS, RESIDENT_BLOCKS, SCRATCH_LEN, VARIANT_GROUP[variant])
+    built = (lib.tritd_block_threads(), lib.tritd_max_blocks(), lib.tritd_scratch_len(),
+             getattr(lib, f"{name}_group")())
+    if built != want:
+        raise RuntimeError(f"{name}: the library's threads, resident blocks, scratch length and group "
+                           f"{built} differ from this module's {want}")
+    return getattr(lib, name), want[3], f"elementwise_block[{variant}]"
+
+
+def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None):
+    """Launch `csrc/elementwise_block.cu` on the current stream: one kernel.
+    Returns the same tuple as `_block_torch`; the norms are 0-d views of one
+    2-vector on the device, so nothing waits for the device. The scalars are
+    rounded to the compute dtype where they are passed by value."""
     tensors = (d, l, e, y_l, y_o)
     t_dtype = t_dtype or e.dtype
     variant = kernel_variant(*tensors, t_dtype=t_dtype)
     _check_kernel_inputs(tensors)
-    lib = kernels.library()
+    device = d.device
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype)
+    fn, group, count_key = _entry(variant)
+    n = d.numel()
     with_t = mu_l_next is not None
-    cd = l.dtype
-    mu_l, mu_o, lam, mu_l_next = _scalars(cd, mu_l, mu_o, lam, mu_l_next if with_t else 1.0)
-    outs = [torch.empty_like(e) for _ in range(4)]
-    t_new = torch.empty_like(d, dtype=t_dtype) if with_t else None
-    nl = torch.empty((), dtype=cd, device=d.device)
-    no = torch.empty((), dtype=cd, device=d.device)
-    partials = torch.empty(lib.tritd_partials_len(), dtype=torch.float64, device=d.device)
-    fn = getattr(lib, f"tritd_elementwise_block_{variant}")
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(
-            *(x.data_ptr() for x in tensors),
-            *(x.data_ptr() for x in outs),
-            t_new.data_ptr() if with_t else None,
-            nl.data_ptr(), no.data_ptr(), partials.data_ptr(),
-            d.numel(), float(mu_l), float(mu_o), float(lam), float(mu_l_next), stream,
-        )
-    kernels.check(err, f"elementwise_block[{variant}] launch")
-    LAUNCHES[f"elementwise_block[{variant}]"] += 1
-    o, e_new, y_l_new, y_o_new = outs
+    o, e_new, y_l_new, y_o_new = outs = [torch.empty_like(e) for _ in range(4)]
+    sums = torch.empty(2, dtype=l.dtype, device=device)
+    pointers = [x.data_ptr() for x in (*tensors, *outs)]
+    t_new = None
+    if with_t:
+        t_new = torch.empty_like(e) if t_dtype == e.dtype else torch.empty_like(d, dtype=t_dtype)
+        pointers.append(t_new.data_ptr())
+    aligned = pointers_aligned(*pointers)
+    if not with_t:
+        pointers.append(None)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    scratch = _scratch_for((device.index, stream), lambda: torch.zeros(SCRATCH_LEN, dtype=_F64, device=device))
+    err = fn(*pointers, sums.data_ptr(), scratch.data_ptr(), n, block_grid(n, group), aligned,
+             float(mu_l), float(mu_o), float(lam), float(mu_l_next) if with_t else 1.0, stream)
+    if err:
+        from ..runtime import kernels
+
+        kernels.check(err, f"{count_key} launch")
+    LAUNCHES[count_key] += 1
+    nl, no = sums.unbind(0)
     return o, e_new, y_l_new, y_o_new, nl, no, t_new
 
 

@@ -22,22 +22,32 @@ _SCALAR_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
 def _block_argtypes(scalar):
-    # d, l, e, y_l, y_o, o, e', y_l', y_o', t', nl, no, partials
-    return [_P] * 13 + [ctypes.c_int64] + [scalar] * 4 + [_P]
+    # d, l, e, y_l, y_o, o, e', y_l', y_o', t', sums, scratch; n; blocks,
+    # aligned; mu_l, mu_o, lam, mu_l_next; stream
+    return [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 2 + [scalar] * 4 + [_P]
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build.build()))
-    lib.tritd_partials_len.argtypes = []
-    lib.tritd_partials_len.restype = ctypes.c_int
+def bind(path) -> ctypes.CDLL:
+    """Load a library built from `csrc/*.cu` and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name in ("tritd_max_blocks", "tritd_block_threads", "tritd_scratch_len"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.tritd_error_string.argtypes = [ctypes.c_int]
     lib.tritd_error_string.restype = ctypes.c_char_p
     for (compute, *_), variant in KERNEL_VARIANTS.items():
         fn = getattr(lib, f"tritd_elementwise_block_{variant}")
         fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute])
         fn.restype = ctypes.c_int
+        group = getattr(lib, f"tritd_elementwise_block_{variant}_group")
+        group.argtypes = []
+        group.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    return bind(build.build())
 
 
 def check(err: int, what: str) -> None:

@@ -2,7 +2,7 @@
 from a `torch.profiler` trace of the card.
 
 CUDA events around a wrapper call also time the host work of the call
-(allocations, the ctypes launch), which at the taxi shape is as long as the
+(allocations, the ctypes launch), which at a small shape is longer than the
 kernel itself. The profiler's kernel records hold what the card spent, so
 the share of the byte bound a kernel reaches is stated against them.
 
@@ -10,9 +10,9 @@ Two parts, both float32 unless a variant says otherwise, TF32 off:
 
 * every variant of `csrc/elementwise_block.cu` at the taxi (100x100x500)
   and video (240x320x300) shapes, and the variants the sharded solves run
-  at the slab shapes a rank holds: device microseconds of the block kernel
-  and of its second-pass reduction (a launch of its own), beside the
-  variant's bytes over the card's memory rate;
+  at the slab shapes a rank holds: device microseconds of the block kernel,
+  which must be the one kernel a wrapper call launches, beside the variant's
+  bytes over the card's memory rate;
 * the baselines at the full taxi shape through `run_method` (ttnn, ring and
   fctn by the gram route, fctn by warm:8, sofia): device milliseconds per
   iteration against the unprofiled CUDA-event time per iteration, so the
@@ -48,9 +48,10 @@ MU_NEXT = 0.625
 BASELINE_RUNS = (("ttnn", "gram"), ("ring", "gram"), ("fctn", "gram"), ("fctn", "warm:8"), ("sofia", "svd"))
 
 
-def device_times(fn, reps: int) -> dict[str, float]:
+def device_times(fn, reps: int, launches: dict | None = None) -> dict[str, float]:
     """Kernel name -> device microseconds per call of `fn`, from a profiler
-    trace of `reps` calls after one untraced call."""
+    trace of `reps` calls after one untraced call. `launches`, if given, is
+    filled with kernel name -> launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,6 +65,9 @@ def device_times(fn, reps: int) -> dict[str, float]:
              for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
     if not times or sum(times.values()) <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
+    if launches is not None:
+        launches.update({ev.key: ev.count / reps for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA})
     return times
 
 
@@ -89,7 +93,7 @@ def profile_block(reps: int) -> list[dict]:
     for (cd, d_dt, s_dt, t_dt), variant in hopper_kernels.KERNEL_VARIANTS.items():
         if d_dt == cd and s_dt != cd:
             t_dt = None  # masked narrow storage carries no T'
-        names = ("taxi", "video") if cd == torch.float32 else ("taxi",)
+        names = ("taxi", "video") if cd == torch.float32 or variant == "f64" else ("taxi",)
         for name in names + SLAB_VARIANTS.get(variant, ()):
             gen = torch.Generator(device="cuda").manual_seed(0)
             shape = SHAPES.get(name) or SLAB_SHAPES[name]
@@ -98,17 +102,18 @@ def profile_block(reps: int) -> list[dict]:
             kw = dict(mu_l_next=None if t_dt is None else MU_NEXT, t_dtype=t_dt)
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
                 raise AssertionError(f"{variant}: dtypes route to another variant")
-            times = device_times(lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw), reps)
-            block = sum(us for k, us in times.items() if "elementwise_block_kernel" in k)
-            final = sum(us for k, us in times.items() if "finalize_kernel" in k)
-            if block <= 0.0 or final <= 0.0:
-                raise RuntimeError(f"{variant}: the trace names no kernel of the block: {sorted(times)}")
+            launches: dict = {}
+            times = device_times(lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw), reps, launches)
+            if not times or not all("elementwise_block_kernel" in k for k in times) or max(launches.values()) > 1.0:
+                raise RuntimeError(f"{variant}: a wrapper call is not one launch of the block kernel: {launches}")
+            # the mean over the launches the trace holds (it can drop one of them)
+            block = sum(us / launches[k] for k, us in times.items())
             per = block_bytes_per_element(d_dt, cd, s_dt, t_dt)
             bound = per * args[0].numel() / PEAK_BYTES_PER_S * 1e6
             rows.append({"variant": variant, "shape": name, "bytes_per_element": per, "block_us": block,
-                         "finalize_us": final, "bound_us": bound, "share_of_bound": bound / (block + final)})
-            print(f"block {variant:24s} {name:7s} {per:3d} B/elem: kernel {block:7.1f} us + second pass "
-                  f"{final:5.1f} us (device), bound {bound:6.1f} us, {bound / (block + final):.0%} reached", flush=True)
+                         "launches_per_call": 1, "bound_us": bound, "share_of_bound": bound / block})
+            print(f"block {variant:24s} {name:7s} {per:3d} B/elem: kernel {block:7.1f} us (device, the one launch "
+                  f"of a call), bound {bound:6.1f} us, {bound / block:.0%} reached", flush=True)
     return rows
 
 
@@ -143,13 +148,15 @@ def main(argv=None) -> dict:
     p.add_argument("--iters", type=int, default=8, help="iterations of each baseline solve")
     p.add_argument("--reps", type=int, default=20, help="traced calls of each kernel variant")
     p.add_argument("--out", default=None)
+    p.add_argument("--skip-baselines", action="store_true", help="profile the kernel only")
     a = p.parse_args(argv)
     resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    result = {"card": card, "block": profile_block(a.reps), "baselines": profile_baselines(a.iters)}
+    result = {"card": card, "block": profile_block(a.reps),
+              "baselines": [] if a.skip_baselines else profile_baselines(a.iters)}
     if a.out:
         with open(a.out, "w") as fh:
             json.dump(result, fh, indent=1)
