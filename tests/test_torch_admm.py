@@ -24,7 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_golden import ADMM_E, ADMM_ERRS, ADMM_L, ADMM_O, _fixture_cores  # noqa: E402
-from tritd_tpu.oracle import tritd_admm_em  # noqa: E402
+from tritd_tpu_torch.oracle import tritd_admm_em  # noqa: E402
 from tritd_tpu.solvers import TriTDConfig as JConfig  # noqa: E402
 from tritd_tpu.solvers import init_state as j_init_state  # noqa: E402
 from tritd_tpu.solvers import tritd_admm as j_tritd_admm  # noqa: E402

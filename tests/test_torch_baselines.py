@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tritd_tpu.oracle import matlab_emulator as em  # noqa: E402
+from tritd_tpu_torch.oracle import matlab_emulator as em  # noqa: E402
 from tritd_tpu_torch.data.loaders import DatasetSpec, synthetic_traffic  # noqa: E402
 from tritd_tpu_torch.data.synthetic import uniform_missing_mask  # noqa: E402
 

@@ -28,7 +28,12 @@ The SVT routes and the baselines launch no kernel of this package (they run
 on torch.linalg and torch.matmul); their cases here hold the float32 CUDA
 run to a float64 CPU run of the same code: SVT outputs rtol 1e-4 of ||M||,
 err_hist of 10 iterations rtol 1e-3 (float32 rounding carried through the
-discontinuous `>1` gate)."""
+discontinuous `>1` gate). The Tensor Toolbox surface launches none either:
+its cases hold float32 on the card to float64 on the CPU on the same numpy
+inputs: MTTKRP (dense, and sparse with its atomic adds) within 1e-4 of the
+largest entry, the `cp_als` and `tucker_hooi` fits after a fixed number of
+sweeps within 1e-4, an `eig_sshopm` eigenvalue within 1e-4 with an
+eigen-residual under 1e-3."""
 
 import dataclasses
 
@@ -360,3 +365,100 @@ def test_sofia_and_the_other_baselines_on_the_card(cuda_device):
 def test_host_proximal_library_builds_beside_the_kernels(cuda_device):
     assert native.available()
     np.testing.assert_allclose(native.soft_threshold(np.array([-3.0, 0.5, 2.0]), 1.0), [-2.0, 0.0, 1.0])
+
+
+# --- the Tensor Toolbox surface: float32 on the card against float64 on the CPU
+
+
+def _toolbox_problem(shape=(40, 30, 50), rank=4, seed=0, noise=0.05):
+    rng = np.random.default_rng(seed)
+    factors = [rng.standard_normal((s, rank)) for s in shape]
+    clean = np.einsum("ir,jr,kr->ijk", *factors)
+    nz = rng.standard_normal(shape)
+    data = clean + noise * np.linalg.norm(clean) / np.linalg.norm(nz) * nz
+    init = [rng.random((s, rank)) for s in shape]
+    return data, factors, init
+
+
+def _both(fn, *arrays):
+    """fn on float32 CUDA tensors and on float64 CPU tensors of the same
+    numpy inputs."""
+    def conv(a, device, dtype):
+        if isinstance(a, (list, tuple)):
+            return [conv(u, device, dtype) for u in a]
+        ten = torch.from_numpy(np.array(a))
+        return ten.to(device) if ten.dtype == torch.int64 else ten.to(device=device, dtype=dtype)
+
+    got = fn(*(conv(a, "cuda", torch.float32) for a in arrays))
+    want = fn(*(conv(a, "cpu", torch.float64) for a in arrays))
+    return got, want
+
+
+@pytest.mark.cuda
+def test_toolbox_mttkrp_on_the_card(cuda_device):
+    """Dense and sparse MTTKRP, f32 on the card against f64 on the CPU:
+    rtol 1e-4 of the largest entry (f32 sums of 1500-2000 terms; the sparse
+    one adds atomically, in any order)."""
+    from tritd_tpu_torch.ops import mttkrp, sp_full, sp_mttkrp
+
+    data, factors, _ = _toolbox_problem()
+    rng = np.random.default_rng(1)
+    keep = rng.random(data.shape) < 0.3
+    coords, vals = np.argwhere(keep), data[keep]
+    for mode in range(3):
+        got, want = _both(lambda x, fs: mttkrp(x, fs, mode), data, factors)
+        assert got.is_cuda and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        got, want = _both(lambda v, c, fs: sp_mttkrp(v, c, data.shape, fs, mode), vals, coords, factors)
+        assert got.is_cuda
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        dense = sp_full(torch.from_numpy(vals), torch.from_numpy(coords), data.shape)
+        ref = mttkrp(dense, [torch.from_numpy(u) for u in factors], mode)
+        np.testing.assert_allclose(want.numpy(), ref.numpy(), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_toolbox_cp_als_and_hooi_on_the_card(cuda_device):
+    """20 sweeps from one init: the two fits within 1e-4."""
+    from tritd_tpu_torch.ops import cp_als, tucker_hooi
+
+    data, _, init = _toolbox_problem()
+    got, want = _both(lambda x, fs: cp_als(x, 4, max_iters=20, tol=0.0, init_factors=fs), data, init)
+    assert got["fit"].is_cuda and all(u.is_cuda for u in got["factors"])
+    assert got["n_iters"] == want["n_iters"] == 20
+    assert abs(float(got["fit"]) - float(want["fit"])) < 1e-4
+    got, want = _both(lambda x: tucker_hooi(x, (4, 4, 4), max_iters=10, tol=0.0), data)
+    assert got["core"].is_cuda and got["n_iters"] == 10
+    assert abs(float(got["fit"]) - float(want["fit"])) < 1e-4
+    for u, v in zip(got["factors"], want["factors"]):
+        pu, pv = (u @ u.T).double().cpu(), v @ v.T
+        assert float((pu - pv).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_toolbox_eig_sshopm_on_the_card(cuda_device):
+    """The eigenvalue from one start: f32 on the card within 1e-4 of the
+    f64 CPU run, and the f32 eigen-residual under 1e-3."""
+    import itertools
+
+    from tritd_tpu_torch.ops import eig_sshopm, ttsv
+
+    rng = np.random.default_rng(2)
+    a0 = rng.standard_normal((12,) * 4)
+    # two symmetric rank-one terms over a symmetric noise floor: a clear
+    # dominant eigenpair, so a small shift converges in tens of steps
+    u = np.linalg.qr(rng.standard_normal((12, 2)))[0]
+    a = 0.02 * sum(a0.transpose(p) for p in itertools.permutations(range(4))) / 24.0
+    for w, col in zip((5.0, 3.0), u.T):
+        a = a + w * np.einsum("i,j,k,l->ijkl", col, col, col, col)
+    x0 = rng.standard_normal(12)
+    got, want = _both(
+        lambda t, x: (t, eig_sshopm(t, shift=1.0, max_iters=300, tol=1e-7, x0=x)), a, x0
+    )
+    (ta, got), (_, want) = got, want
+    assert got["eigvec"].is_cuda
+    assert abs(float(got["eigval"]) - float(want["eigval"])) < 1e-4 * max(1.0, abs(float(want["eigval"])))
+    resid = ttsv(ta, got["eigvec"], 1) - got["eigval"] * got["eigvec"]
+    assert float(torch.linalg.vector_norm(resid)) < 1e-3

@@ -26,7 +26,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tritd_tpu.oracle import matlab_emulator as em  # noqa: E402
+from tritd_tpu_torch.oracle import matlab_emulator as em  # noqa: E402
 
 jsofia = importlib.import_module("tritd_tpu.baselines.sofia")
 sofia = importlib.import_module("tritd_tpu_torch.baselines.sofia")

@@ -12,7 +12,9 @@ nothing.
 Layers:
   ops/       folds, designs (and the explicit-Kronecker kron_*), normal
              equations (with the bf16 einsum_dtype), shrinkage, the Hopper
-             kernel and its narrow-storage variants
+             kernel and its narrow-storage variants; the functional Tensor
+             Toolbox surface (kruskal, decomp, tenutils, sparse, symmetric,
+             cp_variants)
   runtime/   nvcc build and ctypes binding of csrc/
   solvers/   TriTD-ADMM (f32/f64, bf16 storage), checkpointed, nonconvex
              outlier, ALS/MALS
@@ -24,20 +26,37 @@ Layers:
   cli/       completion and video drivers, figures
   utils/     presets, artifacts, checkpoints, the published tables,
              timers, debug switches, the roofline models
-  interop    factors and state carried over from the JAX package
+  oracle/    numpy emulators of the reference MATLAB solvers (test-only)
+  interop    factors, state and Kruskal/Tucker/sparse tensors carried over
+             from the JAX package
 """
 
 __version__ = "0.1.0"
 
-from .ops.designs import triple_product
-from .ops.shrinkage import soft_threshold
-from .solvers import TriTDConfig, TriTDResult, TriTDState, tritd_admm
+from . import ops, solvers
+from .ops import soft_threshold, triple_product
+from .solvers import (
+    OutlierConfig,
+    TriTDConfig,
+    TriTDResult,
+    TriTDState,
+    tritd_admm,
+    tritd_admm_outlier,
+    tritd_als,
+    tritd_mals,
+)
 
 __all__ = [
+    "ops",
+    "solvers",
     "TriTDConfig",
     "TriTDResult",
     "TriTDState",
     "tritd_admm",
+    "tritd_als",
+    "tritd_mals",
+    "tritd_admm_outlier",
+    "OutlierConfig",
     "triple_product",
     "soft_threshold",
 ]

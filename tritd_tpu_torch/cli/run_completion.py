@@ -188,5 +188,11 @@ def main(argv=None) -> list[dict]:
     return rows
 
 
+def console_main() -> None:
+    """Entry point of the installed console script: `main` returns its rows,
+    which a console script would hand to `sys.exit` as an error."""
+    main()
+
+
 if __name__ == "__main__":
     main()
