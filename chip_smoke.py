@@ -89,19 +89,46 @@ Phases, each of which fails the run by raising:
      losses: the final loss within 5% of the CPU run's). It launches no
      kernel of this package: einsum/matmul, torch.linalg, index_add_ and
      autograd, as the reference leaves these to its compiler.
+ 16. the nine Tensor Toolbox classes (tritd_tpu_torch.ops.classes) on the
+     card in float32 by phase 15's rule (results on the card, one warm-up,
+     CUDA events, held to the same call on the CPU in float64): Tensor at
+     100x100x500 (ttm, ttv, mttkrps, nvecs, norm, innerprod with a Tensor,
+     KTensor, TTensor, SpTensor and SumTensor, the to_tenmat round trip,
+     collapse, scale); SpTensor on the 499 421 entries phase 15 keeps of taxi
+     (full, mttkrp by mode, ttv, ttm, innerprod, the to_sptenmat round trip,
+     norm); KTensor R = 10 and TTensor with a 5x5x5 core (full, norm,
+     innerprod, nvecs, normalize/arrange); SymTensor and SymKTensor at order
+     4, n = 40 (full, norm, fg with its gradient, also against
+     torch.autograd on the card); SumTensor of a dense, a Kruskal and a
+     sparse part (innerprod, mttkrp, ttv). Then cp_opt in float32 from its
+     default 0.1-normal init must leave the saddle (loss below 0.1 after 30
+     L-BFGS iterations), and toolbox_audit --check must count 249
+     implemented, 31 n/a and no problem. No kernel of this package.
+ 17. emulator parity in float64 on the card (tritd_tpu_torch.tools.
+     emulator_parity): triple at the full taxi width, 30 iterations (the
+     emulator takes most of a second an iteration on the host), then all
+     five methods at the sensor shape (54x4x1440) at their protocol depth,
+     100 iterations or epochs; the emulator sides run in worker processes
+     beside the port sides. Each row is printed as JSON; each must meet its
+     PASS_BAR (1e-5, sofia 1e-4, on max |err_hist difference|) with equal
+     iteration counts, and every row, being float64, must also stay within
+     1e-10 of the emulator, the bar of the CPU tests, so that a solve at a
+     lower precision fails; triple must launch the f64 T' kernel variant
+     once per iteration. Its launches join the kernels line.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
 
-Phases 8-11 and 15 launch no kernel of this package but the one inside `triple`:
+Phases 8-11, 15 and 16 launch no kernel of this package but the one inside `triple`:
 the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
 torch.matmul, as the reference leaves them to its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration (in phases 13-14 every rank counts its own). The line before the last is a JSON object with
 one record per kernel variant, all eight on the main path (float32 and
-float64 compute); the last line is {"ok": true, "device": {...}}. Imports
-nothing of JAX or of the tritd_tpu package.
+float64 compute; the f64 launches of phases 3, 12 and 17); the last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
+package.
 """
 
 from __future__ import annotations
@@ -1206,14 +1233,15 @@ class _Toolbox:
     with CUDA events) and on the CPU in float64 on the same numpy inputs,
     and holds the first to the second."""
 
-    def __init__(self):
+    def __init__(self, phase="phase15"):
+        self.phase = phase
         self.rows = []
 
     def held(self, name, shape, fn, arrays, dist=_rel, tol=1e-4, what="rel diff", min_bytes=None):
         on_card = _to(arrays, "cuda", torch.float32)
         fn(*on_card)  # warm-up: the libraries' one-time set-up stays out of the time
         got, sec, _ = _events(lambda: fn(*on_card))
-        _on_card(f"phase15 {name}", *_tensors(got))
+        _on_card(f"{self.phase} {name}", *_tensors(got))
         # a short call is mostly its launches: the rate of ten in a row is
         # what a caller's loop sees, and what the bound is held against
         first = ""
@@ -1225,13 +1253,13 @@ class _Toolbox:
         cpu_s = time.perf_counter() - t0
         d = dist(got, want)
         if not d <= tol:
-            raise AssertionError(f"phase15 {name} {shape}: {what} {d:.3e} to the CPU float64 run, tol {tol:g}")
+            raise AssertionError(f"{self.phase} {name} {shape}: {what} {d:.3e} to the CPU float64 run, tol {tol:g}")
         bound = ""
         if min_bytes is not None:
             bound_ms = min_bytes / PEAK_BYTES_PER_S * 1e3
             bound = f" bound={bound_ms:.4f} ms by bytes ({bound_ms / (sec * 1e3):.1%} reached)"
         how = "a call over 10 in a row" if first else "second call"
-        print(f"phase15 {name} {shape}: {sec * 1e3:.3f} ms f32 on the card (events, {how}{first}){bound}; "
+        print(f"{self.phase} {name} {shape}: {sec * 1e3:.3f} ms f32 on the card (events, {how}{first}){bound}; "
               f"cpu f64 {cpu_s * 1e3:.0f} ms; {what} {d:.3e} (tol {tol:g})")
         self.rows.append((name, sec * 1e3))
         return got, want
@@ -1426,9 +1454,9 @@ def _phase15_optimisers(tb, ops) -> None:
     nz = rng.standard_normal(shape)
     x = clean + 0.1 * np.linalg.norm(clean) / np.linalg.norm(nz) * nz
     init = [0.1 * rng.standard_normal((s, 5)) for s in shape]
-    # L-BFGS starts at the data's own scale: from the 0.1-normal default the
-    # first steps change a loss of 1 by less than float32 resolves, and the
-    # line search stays where it is (float64 leaves the saddle)
+    # L-BFGS starts at the data's own scale, as it has since this phase was
+    # written: then the line search stalled in float32 at the 0.1-normal
+    # default (phase 16 now holds that start on its own)
     init_lbfgs = [rng.random((s, 5)) for s in shape]
     init_pos = [0.5 * rng.random((s, 5)) + 0.01 for s in shape]
     mask = (rng.random(shape) > 0.3).astype(np.float64)
@@ -1477,6 +1505,230 @@ def phase15() -> None:
           f"slowest on the card: " + ", ".join(f"{name} {ms:.2f} ms" for name, ms in slowest))
 
 
+TOOLBOX_CLASS_RANK = 10
+TOOLBOX_CLASS_CORE = (5, 5, 5)
+
+
+def _phase16_dense(tb, C, x_np) -> None:
+    """Tensor, KTensor, TTensor and SumTensor at the taxi stand-in's shape."""
+    shape = x_np.shape
+    tag = "x".join(map(str, shape))
+    rng = np.random.default_rng(26)
+    n_el = x_np.size
+    f10 = [rng.standard_normal((s, TOOLBOX_CLASS_RANK)) for s in shape]
+    w10 = rng.random(TOOLBOX_CLASS_RANK) + 0.5
+    core = rng.standard_normal(TOOLBOX_CLASS_CORE)
+    f5 = [rng.standard_normal((s, r)) for s, r in zip(shape, TOOLBOX_CLASS_CORE)]
+    u = rng.standard_normal((50, shape[1]))
+    v = rng.standard_normal(shape[2])
+    vals, coords = _coo(x_np, 0.10, seed=10)
+    kt = f"R={TOOLBOX_CLASS_RANK}"
+
+    tb.held("Tensor.ttm mode 1", f"{tag} by 50x{shape[1]}", lambda x, m: C.Tensor(x).ttm(m, 1).data, (x_np, u),
+            min_bytes=4 * n_el + 4 * n_el // 2)
+    tb.held("Tensor.ttv mode 2", tag, lambda x, w: C.Tensor(x).ttv(w, 2).data, (x_np, v), min_bytes=4 * n_el)
+    tb.held("Tensor.mttkrps", f"{tag} {kt}", lambda x, fs: C.Tensor(x).mttkrps(fs), (x_np, f10),
+            min_bytes=3 * (4 * n_el + 4 * 10 * sum(shape)))
+    for mode in range(3):
+        tb.held(f"Tensor.nvecs mode {mode}", f"{tag} r=5", lambda x, m=mode: C.Tensor(x).nvecs(m, 5), (x_np,),
+                dist=_projectors, tol=1e-3, what="rel diff of U U^T")
+    tb.held("Tensor.norm", tag, lambda x: C.Tensor(x).norm(), (x_np,), min_bytes=4 * n_el)
+    tb.held("Tensor.innerprod(Tensor)", tag, lambda x: C.Tensor(x).innerprod(C.Tensor(x)), (x_np,),
+            min_bytes=4 * n_el)
+    tb.held("Tensor.innerprod(KTensor)", f"{tag} {kt}",
+            lambda x, fs, w: C.Tensor(x).innerprod(C.KTensor(fs, w)), (x_np, f10, w10), tol=1e-3,
+            min_bytes=4 * n_el)
+    tb.held("Tensor.innerprod(TTensor)", f"{tag} core 5x5x5",
+            lambda x, c, fs: C.Tensor(x).innerprod(C.TTensor(c, fs)), (x_np, core, f5), tol=1e-3,
+            min_bytes=4 * n_el)
+    tb.held("Tensor.innerprod(SpTensor)", f"{tag} nnz={vals.size}",
+            lambda x, sv, c: C.Tensor(x).innerprod(C.SpTensor(sv, c, shape)), (x_np, vals, coords), tol=1e-3,
+            min_bytes=vals.size * (4 + 3 * 8 + 4))
+    tb.held("Tensor.innerprod(SumTensor: dense + Kruskal + sparse)", f"{tag} {kt} nnz={vals.size}",
+            lambda x, fs, w, sv, c: C.Tensor(x).innerprod(C.SumTensor([C.Tensor(x), C.KTensor(fs, w),
+                                                                         C.SpTensor(sv, c, shape)])),
+            (x_np, f10, w10, vals, coords), tol=1e-3)
+    tb.held("Tensor.to_tenmat((1,)).to_tensor()", tag, lambda x: C.Tensor(x).to_tenmat((1,)).to_tensor().data,
+            (x_np,), tol=1e-6, min_bytes=8 * n_el)
+    tb.held("Tensor.collapse((0, 1))", tag, lambda x: C.Tensor(x).collapse((0, 1)).data, (x_np,),
+            min_bytes=4 * n_el)
+    tb.held("Tensor.scale(s, 2)", tag, lambda x, s: C.Tensor(x).scale(s, 2).data, (x_np, v), min_bytes=8 * n_el)
+
+    tb.held("KTensor.full", f"{tag} {kt}", lambda fs, w: C.KTensor(fs, w).full().data, (f10, w10), tol=1e-5,
+            min_bytes=4 * n_el)
+    tb.held("KTensor.norm", f"{tag} {kt}", lambda fs, w: C.KTensor(fs, w).norm(), (f10, w10))
+    tb.held("KTensor.innerprod(KTensor)", f"{tag} {kt}",
+            lambda fs, w: C.KTensor(fs, w).innerprod(C.KTensor(fs, w)), (f10, w10))
+    tb.held("KTensor.nvecs mode 2", f"{tag} {kt} r=5", lambda fs, w: C.KTensor(fs, w).nvecs(2, 5), (f10, w10),
+            dist=_projectors, tol=1e-3, what="rel diff of U U^T")
+    tb.held("KTensor.normalize().arrange().full", f"{tag} {kt}",
+            lambda fs, w: C.KTensor(fs, w).normalize().arrange().full().data, (f10, w10), tol=1e-5)
+    tb.held("TTensor.full", f"{tag} core 5x5x5", lambda c, fs: C.TTensor(c, fs).full().data, (core, f5),
+            tol=1e-5, min_bytes=4 * n_el)
+    tb.held("TTensor.norm", f"{tag} core 5x5x5", lambda c, fs: C.TTensor(c, fs).norm(), (core, f5))
+    tb.held("TTensor.innerprod(TTensor)", f"{tag} core 5x5x5",
+            lambda c, fs: C.TTensor(c, fs).innerprod(C.TTensor(c, fs)), (core, f5), tol=1e-3)
+    tb.held("TTensor.nvecs mode 1", f"{tag} core 5x5x5 r=3", lambda c, fs: C.TTensor(c, fs).nvecs(1, 3),
+            (core, f5), dist=_projectors, tol=1e-3, what="rel diff of U U^T")
+
+    def sumt(x, fs, w, sv, c):
+        return C.SumTensor([C.Tensor(x), C.KTensor(fs, w), C.SpTensor(sv, c, shape)])
+
+    tb.held("SumTensor.mttkrp mode 1", f"{tag} {kt}", lambda x, fs, w, sv, c, g: sumt(x, fs, w, sv, c).mttkrp(g, 1),
+            (x_np, f10, w10, vals, coords, f10), tol=1e-3)
+    tb.held("SumTensor.ttv mode 2", f"{tag} {kt}", lambda x, fs, w, sv, c, vv: sumt(x, fs, w, sv, c).ttv([vv], [2]),
+            (x_np, f10, w10, vals, coords, v), tol=1e-3)
+
+
+def _phase16_sparse(tb, C, x_np) -> None:
+    shape = x_np.shape
+    vals, coords = _coo(x_np, 0.10, seed=10)
+    nnz = vals.size
+    sp = f"{'x'.join(map(str, shape))} nnz={nnz}"
+    coo_bytes = nnz * (4 + 3 * 8)
+    rng = np.random.default_rng(27)
+    f10 = [rng.standard_normal((s, TOOLBOX_CLASS_RANK)) for s in shape]
+    u = rng.standard_normal((50, shape[1]))
+    v = rng.standard_normal(shape[2])
+    dense_model = rng.standard_normal(shape)
+    tb.held("SpTensor.full", sp, lambda sv, c: C.SpTensor(sv, c, shape).full().data, (vals, coords), tol=1e-6,
+            min_bytes=coo_bytes + 4 * x_np.size)
+    for mode in range(3):
+        tb.held(f"SpTensor.mttkrp mode {mode}", f"{sp} R=10",
+                lambda sv, c, fs, m=mode: C.SpTensor(sv, c, shape).mttkrp(fs, m), (vals, coords, f10),
+                min_bytes=coo_bytes + 4 * 10 * sum(shape))
+    tb.held("SpTensor.ttv mode 2", sp, lambda sv, c, w: C.SpTensor(sv, c, shape).ttv(w, 2).data,
+            (vals, coords, v), min_bytes=coo_bytes + 4 * shape[0] * shape[1])
+    tb.held("SpTensor.ttm mode 1", f"{sp} by 50x{shape[1]}", lambda sv, c, m: C.SpTensor(sv, c, shape).ttm(m, 1).data,
+            (vals, coords, u), min_bytes=coo_bytes + 4 * x_np.size // 2)
+    tb.held("SpTensor.innerprod(Tensor)", sp, lambda sv, c, d: C.SpTensor(sv, c, shape).innerprod(C.Tensor(d)),
+            (vals, coords, dense_model), tol=1e-3, min_bytes=coo_bytes + 4 * nnz)
+    tb.held("SpTensor.to_sptenmat((0,)).to_sptensor().full", sp,
+            lambda sv, c: C.SpTensor(sv, c, shape).to_sptenmat((0,)).to_sptensor().full().data, (vals, coords),
+            tol=1e-6)
+    tb.held("SpTensor.norm", sp, lambda sv, c: C.SpTensor(sv, c, shape).norm(), (vals, coords), tol=1e-5,
+            min_bytes=coo_bytes)
+
+
+def _phase16_symmetric(tb, C) -> None:
+    n = TOOLBOX_SYM_N
+    tag = f"{n}^4"
+    rng = np.random.default_rng(28)
+    noise = rng.standard_normal((n,) * 4)
+    u_true = np.linalg.qr(rng.standard_normal((n, 3)))[0]
+    w_true = np.array([5.0, 3.0, 2.0])
+    tb.held("SymTensor (symmetrize)", tag, lambda a: C.SymTensor(a).data, (noise,), tol=1e-5,
+            min_bytes=8 * noise.size)
+    tb.held("SymTensor.norm", tag, lambda a: C.SymTensor(a, presymmetrized=True).norm(), (noise,),
+            min_bytes=4 * noise.size)
+    tb.held("SymKTensor.full", f"{tag} rank 3", lambda w, u: C.SymKTensor(w, u, 4).full().data, (w_true, u_true),
+            tol=1e-5, min_bytes=4 * noise.size)
+    tb.held("SymKTensor.norm", f"{tag} rank 3", lambda w, u: C.SymKTensor(w, u, 4).norm(), (w_true, u_true))
+    a = C.SymKTensor(torch.from_numpy(w_true), torch.from_numpy(u_true), 4).full().data.numpy() + 0.02 * noise
+    w0, u0 = rng.standard_normal(3), rng.standard_normal((n, 3)) / np.sqrt(n)
+
+    def fg(t, w, u):
+        model = C.SymKTensor(w, u, 4)
+        return list(model.fg(model.fg_setup(C.SymTensor(t))))
+
+    got, _ = tb.held("SymKTensor.fg (F and its gradient)", f"{tag} rank 3", fg, (a, w0, u0), tol=1e-3)
+    on_card = _to((a, w0, u0), "cuda", torch.float32)
+    vec = C.SymKTensor(on_card[1], on_card[2], 4).tovec().clone().requires_grad_(True)
+    target = C.SymTensor(on_card[0])
+    loss = ((target.data - C.SymKTensor.from_vec(vec, n, 3, 4).full().data) ** 2).sum()
+    (g_auto,) = torch.autograd.grad(loss, vec)
+    d_f, d_g = _rel(got[0], loss.detach()), _rel(got[1], g_auto)
+    if not (d_f <= 1e-4 and d_g <= 1e-3):
+        raise AssertionError(f"phase16 SymKTensor.fg against torch.autograd on the card: F {d_f:.3e}, G {d_g:.3e}")
+    print(f"phase16 SymKTensor.fg {tag} against torch.autograd of ||A - full(M)||^2 on the card: "
+          f"F rel diff {d_f:.3e} (tol 1e-4), gradient {d_g:.3e} (tol 1e-3)")
+
+
+def _phase16_cp_opt_default_init(ops) -> None:
+    """ROADMAP fault 2, repaired: cp_opt from the reference's 0.1-normal
+    default init leaves the saddle in float32 on the card."""
+    shape = TOOLBOX_OPT_SHAPE
+    rng = np.random.default_rng(18)
+    truth = [rng.random((s, 5)) + 0.1 for s in shape]
+    clean = np.einsum("ir,jr,kr->ijk", *truth)
+    nz = rng.standard_normal(shape)
+    x = torch.as_tensor(clean + 0.1 * np.linalg.norm(clean) / np.linalg.norm(nz) * nz, dtype=torch.float32,
+                        device="cuda")
+    res, sec, _ = _events(lambda: ops.cp_opt(x, 5, max_iters=30, tol=0.0, generator=torch.Generator().manual_seed(0)))
+    loss = (1.0 - float(res["fit"])) ** 2
+    if not loss < 0.1:
+        raise AssertionError(f"phase16 cp_opt f32 from the default init: loss {loss:.6f} after 30 iterations")
+    print(f"phase16 cp_opt f32 {'x'.join(map(str, shape))} R=5 from the default 0.1-normal init, 30 L-BFGS "
+          f"iterations: loss {loss:.6f} (start 1; bar 0.1) in {sec * 1e3:.1f} ms")
+
+
+def phase16() -> None:
+    """The nine Tensor Toolbox classes on the card in float32, each call
+    timed and held to the same call on the CPU in float64 (phase 15's
+    rule), then the port's method audit."""
+    from tritd_tpu_torch import ops
+    from tritd_tpu_torch.ops import classes as C
+    from tritd_tpu_torch.tools import toolbox_audit
+
+    t0 = time.perf_counter()
+    tb = _Toolbox("phase16")
+    x_np, _spec, _prov = load_dataset("taxi")
+    x_np = np.ascontiguousarray(x_np, dtype=np.float64)
+    _phase16_dense(tb, C, x_np)
+    _phase16_sparse(tb, C, x_np)
+    _phase16_symmetric(tb, C)
+    _phase16_cp_opt_default_init(ops)
+    _rows, n_impl, n_na, problems = toolbox_audit.audit()
+    if problems or (n_impl, n_na) != (249, 31) or toolbox_audit.main(["--check"]) != 0:
+        raise AssertionError(f"phase16 toolbox_audit: {n_impl} impl, {n_na} n/a, problems {problems}")
+    print(f"phase16 toolbox_audit --check: {n_impl} implemented, {n_na} n/a, {len(problems)} problems")
+    slowest = sorted(tb.rows, key=lambda r: -r[1])[:5]
+    print(f"phase16 classes: {len(tb.rows)} calls held to the CPU float64 run in {time.perf_counter() - t0:.1f} s; "
+          f"slowest on the card: " + ", ".join(f"{name} {ms:.2f} ms" for name, ms in slowest))
+
+
+EMULATOR_TAXI_ITERS = 30  # the emulator takes about 0.6-0.9 s an iteration at taxi on the host
+EMULATOR_SENSOR_ITERS = 100  # the protocol depth
+EMULATOR_F64_BAR = 1e-10  # max|d err_hist| of every float64 row, as the CPU tests hold it
+
+
+def phase17() -> dict:
+    """Emulator parity on the card in float64: `triple` at the full taxi
+    width for EMULATOR_TAXI_ITERS iterations, then all five methods at the
+    sensor shape at their protocol depth, the emulator sides in worker
+    processes beside the port sides. Returns the kernel launches."""
+    from tritd_tpu_torch.tools import emulator_parity as ep
+
+    t0 = time.perf_counter()
+    taxi, sensor = ep.problem("taxi"), ep.problem("sensor")
+    jobs = [("triple", taxi, EMULATOR_TAXI_ITERS)] + [(m, sensor, EMULATOR_SENSOR_ITERS) for m in ep.METHODS]
+    rows = ep.run_many(jobs, device="cuda", dtype=torch.float64, workers=len(jobs))
+    launches: dict = {}
+    for (method, prob, depth), row in zip(jobs, rows):
+        row.update(dataset=prob.spec.name, shape=list(prob.x.shape), provenance=prob.provenance, max_iter=depth)
+        print(json.dumps(row))
+        for k, v in row["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        want = {"f64": row["n_iters_port"]} if method == "triple" else {}
+        if row["kernel_launches"] != want:
+            raise AssertionError(f"phase17 {prob.spec.name} {method}: launches {row['kernel_launches']}, want {want}")
+        if not row["pass"]:
+            raise AssertionError(f"phase17 {prob.spec.name} {method}: fails its bar: {row}")
+    # PASS_BAR is the reference's; a float64 run on the card is held far
+    # tighter, so that a solve at a lower precision fails here
+    for (method, prob, _), row in zip(jobs, rows):
+        if not (row["iters_match"] and row["max_abs_diff_err_hist"] <= EMULATOR_F64_BAR):
+            raise AssertionError(f"phase17 {prob.spec.name} {method}: max|d err_hist| "
+                                 f"{row['max_abs_diff_err_hist']:.3e} over the float64 bar {EMULATOR_F64_BAR:g}: {row}")
+    taxi_row = rows[0]
+    print(f"phase17 emulator parity, f64 on the card: {len(rows)} rows pass in {time.perf_counter() - t0:.1f} s; "
+          f"taxi triple {taxi_row['n_iters_port']} iterations, max|d err_hist| "
+          f"{taxi_row['max_abs_diff_err_hist']:.3e}, f64 T' launches {taxi_row['kernel_launches']}; "
+          + ", ".join(f"sensor {r['method']} {r['max_abs_diff_err_hist']:.2e} ({r['seconds_port']:.2f} s port, "
+                      f"{r['seconds_emulator']:.2f} s emulator)" for r in rows[1:]))
+    return launches
+
+
 def main() -> None:
     device = phase0()
     phase1()
@@ -1495,6 +1747,11 @@ def main() -> None:
     phase13()
     phase14()
     phase15()
+    t16 = time.perf_counter()
+    phase16()
+    for variant, count in phase17().items():
+        launches[variant] = launches.get(variant, 0) + count
+    print(f"phases 16-17 took {time.perf_counter() - t16:.1f} s")
     missing = sorted(set(records) - set(launches))
     if missing:
         raise AssertionError(f"kernel variants not launched by the main path: {missing}")

@@ -33,7 +33,11 @@ its cases hold float32 on the card to float64 on the CPU on the same numpy
 inputs: MTTKRP (dense, and sparse with its atomic adds) within 1e-4 of the
 largest entry, the `cp_als` and `tucker_hooi` fits after a fixed number of
 sweeps within 1e-4, an `eig_sshopm` eigenvalue within 1e-4 with an
-eigen-residual under 1e-3."""
+eigen-residual under 1e-3. The Toolbox classes (`ops/classes.py`) are held
+the same way, and every result must lie on the card; `default_device(None)`
+is the card. The emulator-parity harness runs its `--tiny` problem on the
+card in float64: each row within 1e-10 of the emulator, `triple` with one
+launch of the f64 T' kernel variant per iteration."""
 
 import dataclasses
 
@@ -462,3 +466,85 @@ def test_toolbox_eig_sshopm_on_the_card(cuda_device):
     assert abs(float(got["eigval"]) - float(want["eigval"])) < 1e-4 * max(1.0, abs(float(want["eigval"])))
     resid = ttsv(ta, got["eigvec"], 1) - got["eigval"] * got["eigvec"]
     assert float(torch.linalg.vector_norm(resid)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_toolbox_classes_on_the_card(cuda_device):
+    """The nine classes on float32 CUDA tensors against float64 CPU ones of
+    the same numpy inputs: every result on the card, values within 1e-4 of
+    the largest entry (bases through projectors)."""
+    from tritd_tpu_torch.ops import classes as C
+
+    data, factors, _init = _toolbox_problem()
+    rng = np.random.default_rng(3)
+    keep = rng.random(data.shape) < 0.3
+    coords, vals = np.argwhere(keep), data[keep]
+    core = rng.standard_normal((3, 3, 3))
+    v = rng.standard_normal(data.shape[2])
+
+    def calls(x, fs, c, sv, u0):
+        t = C.Tensor(x)
+        sp = C.SpTensor(sv, c, x.shape)
+        k = C.KTensor(fs)
+        tt = C.TTensor(u0, [f[:, :3] for f in fs])
+        st = C.SumTensor([t, k, sp])
+        return {
+            "mttkrps": t.mttkrps(fs), "ttv": t.ttv(v_on(x), 2).data, "norm": t.norm(),
+            "inner_k": t.innerprod(k), "inner_t": t.innerprod(tt), "inner_s": t.innerprod(sp),
+            "inner_sum": t.innerprod(st), "tenmat": t.to_tenmat((1,)).to_tensor().data,
+            "sp_mttkrp": sp.mttkrp(fs, 0), "sp_full": sp.full().data, "sp_ttm": sp.ttm(fs[1].T, 1).data,
+            "sp_norm": sp.norm(), "k_full": k.full().data, "k_norm": k.norm(), "t_norm": tt.norm(),
+            "sum_mttkrp": st.mttkrp(fs, 1), "sum_ttv": st.ttv(v_on(x), 2),
+            "nvecs": t.nvecs(0, 3) @ t.nvecs(0, 3).T,
+        }
+
+    def v_on(x):
+        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+    got, want = _both(calls, data, factors, coords, vals, core)
+    for key, w in want.items():
+        g = got[key]
+        for gi, wi in zip(g if isinstance(g, list) else [g], w if isinstance(w, list) else [w]):
+            assert gi.is_cuda, key
+            np.testing.assert_allclose(gi.double().cpu().numpy(), wi.numpy(), rtol=0,
+                                       atol=1e-4 * max(float(wi.abs().max()), 1e-30), err_msg=key)
+
+
+@pytest.mark.cuda
+def test_classes_built_from_numpy_default_to_the_card(cuda_device):
+    from tritd_tpu_torch.ops import classes as C
+    from tritd_tpu_torch.ops.kruskal import default_device
+
+    assert default_device(None) == torch.device("cuda")
+    assert C.Tensor(np.ones((2, 3))).data.is_cuda
+    assert C.SpTensor(np.ones(1), np.zeros((1, 3), np.int64), (2, 2, 2)).coords.is_cuda
+    assert C.Tensor(torch.ones(2)).data.device.type == "cpu"  # a tensor keeps its device
+
+
+@pytest.mark.cuda
+def test_symktensor_fg_autograd_on_the_card(cuda_device):
+    from tritd_tpu_torch.ops import classes as C
+
+    rng = np.random.default_rng(4)
+    a = C.SymTensor(rng.standard_normal((6, 6, 6)), device="cuda")
+    model = C.SymKTensor(rng.standard_normal(2), rng.standard_normal((6, 2)), 3, device="cuda")
+    f, g = model.fg(model.fg_setup(a))
+    vec = model.tovec().clone().requires_grad_(True)
+    obj = ((a.data - C.SymKTensor.from_vec(vec, 6, 2, 3).full().data) ** 2).sum()
+    (g_auto,) = torch.autograd.grad(obj, vec)
+    assert g.is_cuda and g_auto.is_cuda
+    np.testing.assert_allclose(float(f), float(obj.detach()), rtol=1e-10)
+    np.testing.assert_allclose(g.cpu().numpy(), g_auto.cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_emulator_parity_tiny_in_float64_on_the_card(cuda_device):
+    from tritd_tpu_torch.tools import emulator_parity
+
+    prob = emulator_parity.tiny_problem()
+    for method in emulator_parity.METHODS:
+        row = emulator_parity.run(method, prob, emulator_parity.TINY_ITERS, device="cuda")
+        assert row["pass"] and row["iters_match"], row
+        assert row["max_abs_diff_err_hist"] < 1e-10, row
+        want = {"f64": row["n_iters_port"]} if method == "triple" else {}
+        assert row["kernel_launches"] == want, row

@@ -1,8 +1,8 @@
 """PyTorch port: the namespaces and the packaging.
 
 `tritd_tpu_torch` and `tritd_tpu_torch.ops` export what `tritd_tpu` and
-`tritd_tpu.ops` export, name for name, but for the nine Tensor Toolbox
-classes, which are not ported yet; importing the port pulls in no JAX; the
+`tritd_tpu.ops` export, name for name, the nine Tensor Toolbox classes
+included: nothing is left to port; importing the port pulls in no JAX; the
 package data ships every source the runtime builds from."""
 
 import importlib
@@ -23,17 +23,17 @@ import tritd_tpu_torch.ops  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-#: the only names of the reference's namespaces allowed to be missing
-NOT_PORTED_YET = {
-    "Tensor", "SpTensor", "KTensor", "TTensor", "SymTensor", "SymKTensor",
-    "SumTensor", "TenMat", "SpTenMat",
-}
+#: the names of the reference's namespaces allowed to be missing: none
+NOT_PORTED_YET: set = set()
 
 
 def test_ops_namespace_has_every_ported_name():
     ref, port = tritd_tpu.ops, tritd_tpu_torch.ops
     missing = set(ref.__all__) - set(port.__all__)
-    assert missing == NOT_PORTED_YET
+    assert missing == NOT_PORTED_YET == set()  # every name is ported, the nine classes too
+    for name in ("Tensor", "SpTensor", "KTensor", "TTensor", "SymTensor", "SymKTensor", "SumTensor",
+                 "TenMat", "SpTenMat"):
+        assert getattr(port, name).__module__ == "tritd_tpu_torch.ops.classes", name
     assert set(port.__all__) <= set(ref.__all__)
     assert len(port.__all__) == len(set(port.__all__))
     for name in port.__all__:
@@ -103,6 +103,7 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import tritd_tpu_torch, tritd_tpu_torch.ops, tritd_tpu_torch.oracle, tritd_tpu_torch.interop
+import tritd_tpu_torch.tools.toolbox_audit, tritd_tpu_torch.tools.emulator_parity, tritd_tpu_torch.examples.demo_toolbox
 from tritd_tpu_torch.runtime import build
 assert not any(m.split(".")[0] in ("jax", "optax", "triton", "tritd_tpu") for m in sys.modules)
 assert len(tritd_tpu_torch.ops.__all__) >= 100
@@ -118,9 +119,13 @@ print("built:", sorted(p.name for p in build.BUILD_DIR.glob("*.so")) if build.BU
 def test_no_module_of_the_port_names_jax_in_an_import():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|optax|tritd_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|optax|tritd_tpu|tools|examples)(\.|\s|$)", re.M)
     files = list((REPO / "tritd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    for part in ("tritd_tpu_torch/examples/demo_toolbox.py", "tritd_tpu_torch/tools/toolbox_audit.py",
+                 "tritd_tpu_torch/tools/emulator_parity.py", "tritd_tpu_torch/ops/classes.py"):
+        assert part in names, part
     for path in files:
         assert not pat.search(path.read_text()), path
 

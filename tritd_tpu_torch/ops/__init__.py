@@ -3,8 +3,8 @@ shrinkage/proximal operators, SVT, the fused elementwise block (the Hopper
 kernel on a CUDA tensor), and the functional Tensor Toolbox surface
 (Kruskal/Tucker/sparse/symmetric tensors, the CP and Tucker algorithms).
 
-The flat namespace of `tritd_tpu/ops/__init__.py`, name for name, but for
-the nine Tensor Toolbox classes. Importing it builds nothing and needs no
+The flat namespace of `tritd_tpu/ops/__init__.py`, name for name, the nine
+Tensor Toolbox classes included. Importing it builds nothing and needs no
 GPU, `nvcc` or `triton`.
 
 Two names, `fold` and `svt`, are a function of this namespace and a
@@ -120,6 +120,17 @@ from .tenutils import (
     create_problem_binary,
     export_data,
     import_data,
+)
+from .classes import (
+    Tensor,
+    SpTensor,
+    KTensor,
+    TTensor,
+    SymTensor,
+    SymKTensor,
+    SumTensor,
+    TenMat,
+    SpTenMat,
 )
 
 
@@ -246,4 +257,13 @@ __all__ = [
     "create_problem_binary",
     "export_data",
     "import_data",
+    "Tensor",
+    "SpTensor",
+    "KTensor",
+    "TTensor",
+    "SymTensor",
+    "SymKTensor",
+    "SumTensor",
+    "TenMat",
+    "SpTenMat",
 ]

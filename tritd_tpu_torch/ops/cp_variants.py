@@ -16,10 +16,16 @@ gcp_opt}.m``. Shared across all of them:
   `max_inner` sweeps. `n_iters` is a Python int.
 * ``gcp_opt`` uses `torch.optim.Adam`, the same recurrence as the
   reference's optimizer, so from one init the two follow each other step
-  for step. ``cp_opt``/``cp_wopt`` use `torch.optim.LBFGS` with a strong
-  Wolfe line search, one L-BFGS iteration per loop turn: the reference's
-  L-BFGS has another line search, so the two agree on loss and gradient at
-  any point and on where they end, not on the path or on `n_iters`.
+  for step. ``cp_opt``/``cp_wopt`` use this module's L-BFGS
+  (`_lbfgs_fit`), built as the reference's optimizer is: ten pairs of
+  memory, a first step capped to unit norm, and a zoom line search that
+  takes Hager and Zhang's approximate decrease where the loss is flat to
+  rounding. Without that rule (`torch.optim.LBFGS`'s strong Wolfe search)
+  float32 stalls at the saddle near the 0.1·normal default init, where the
+  first steps change a loss of about 1 by less than float32 resolves; the
+  reference does not. The line searches still differ in their trial steps,
+  so the two agree on loss and gradient at any point and on where they end,
+  not on the path or on `n_iters`.
 * Parameters are leaf tensors with `requires_grad`; every returned tensor
   is detached.
 * ``cp_arls`` draws its sample indices from `generator` inside the loop; no
@@ -219,34 +225,122 @@ def cp_arls(x, rank, n_samples=None, max_iters=50, tol=1e-4, generator=None, ini
 # -------------------------------------------------------- cp_opt / cp_wopt
 
 
-def _lbfgs_fit(loss_fn, params0, max_iters: int, tol: float):
+def _wolfe_step(value_grad, x, f0, g0, slope0, d, c1=1e-4, c2=0.9, approx_rtol=1e-6, max_evals=25):
+    """A step t along `d` from `x` that meets the strong Wolfe curvature
+    condition |φ'(t)| <= c2 |φ'(0)| and a decrease condition: Armijo's
+    φ(t) <= φ(0) + c1 t φ'(0), or, where φ(t) <= φ(0) + approx_rtol |φ(0)|,
+    Hager and Zhang's approximate one φ'(t) <= (1 - 2 c1) |φ'(0)|, which
+    still reads a decrease that the loss itself is too flat to show.
+    Bracketing doubles t, zooming bisects (Nocedal and Wright, Alg. 3.5/3.6).
+    `f0` and `slope0` = φ'(0) are host floats; each trial reads φ and φ' to
+    the host in one transfer, and nothing else. Returns (t, value,
+    gradient); t = 0 when no step was found."""
+
+    def trial(t):
+        f, g = value_grad(x + t * d)
+        f, slope = torch.stack([f, g @ d]).tolist()
+        armijo = f <= f0 + c1 * t * slope0
+        approx = f <= f0 + approx_rtol * abs(f0) and slope <= (1.0 - 2.0 * c1) * -slope0
+        return f, g, slope, (armijo or approx) and math.isfinite(f)
+
+    def zoom(lo, hi, f_lo, evals):
+        best = (0.0, f0, g0)
+        while evals < max_evals:
+            t = 0.5 * (lo + hi)
+            f, g, slope, decrease = trial(t)
+            evals += 1
+            if not decrease or f > f_lo:
+                hi = t
+                continue
+            best = (t, f, g)
+            if abs(slope) <= -c2 * slope0:
+                return best
+            if slope * (hi - lo) >= 0:
+                hi = lo
+            lo, f_lo = t, f
+        return best
+
+    t_prev, f_prev, t, evals = 0.0, f0, 1.0, 0
+    best = (0.0, f0, g0)
+    while evals < max_evals:
+        f, g, slope, decrease = trial(t)
+        evals += 1
+        if not decrease or (evals > 1 and f > f_prev):
+            found = zoom(t_prev, t, f_prev, evals)
+            return found if found[0] > 0 else best
+        best = (t, f, g)
+        if abs(slope) <= -c2 * slope0:
+            return best
+        if slope >= 0:
+            found = zoom(t, t_prev, f, evals)
+            return found if found[0] > 0 else best
+        t_prev, f_prev, t = t, f, 2.0 * t
+    return best
+
+
+def _lbfgs_fit(loss_fn, params0, max_iters: int, tol: float, memory: int = 10):
     """Minimize `loss_fn(params)` with L-BFGS from `params0`; stops after
     `max_iters` iterations or, past the second, once an iteration changes
-    the loss by less than tol·max(|loss|, 1). Returns (detached params, final
-    loss, iterations)."""
-    params = [p.detach().clone().requires_grad_(True) for p in params0]
-    # one L-BFGS iteration per `step`; `max_eval` is the line search's room
-    # (its default, 5/4 of `max_iter`, would leave it a single evaluation)
-    opt = torch.optim.LBFGS(
-        params, lr=1.0, max_iter=1, max_eval=25, tolerance_grad=0.0, tolerance_change=0.0,
-        line_search_fn="strong_wolfe",
-    )
+    the loss by less than tol·max(|loss|, 1), or when the line search finds
+    no step. The first direction is the gradient scaled by
+    min(1, 1/||g||), later ones the two-loop recursion over the last
+    `memory` pairs with the initial scaling s·y / y·y. The recursion stays
+    on the tensors' device; an iteration reads to the host only φ'(0) and
+    s·y (to branch on) besides the line search's trials. Returns (detached
+    params, final loss, iterations)."""
+    shapes = [p.shape for p in params0]
+    sizes = [p.numel() for p in params0]
 
-    def closure():
-        opt.zero_grad(set_to_none=True)
-        value = loss_fn(params)
-        value.backward()
-        return value
+    def unflat(v):
+        return [c.reshape(sh) for c, sh in zip(torch.split(v, sizes), shapes)]
 
+    def value_grad(v):
+        v = v.detach().requires_grad_(True)
+        f = loss_fn(unflat(v))
+        (g,) = torch.autograd.grad(f, v)
+        return f.detach(), g
+
+    def gradient_step(g):  # -g · min(1, 1/||g||), on the device
+        return -g * torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+
+    x = torch.cat([p.detach().reshape(-1) for p in params0])
+    f, g = value_grad(x)
+    f = float(f)
+    pairs = []  # (s, y, rho): rho = 1 / s·y, a host float read once per pair
     it = 0
     while it < max_iters:
-        prev = float(opt.step(closure).detach())  # the loss this iteration started from
-        it += 1
-        with torch.no_grad():
-            value = float(loss_fn(params))
-        if it > 1 and abs(value - prev) < tol * max(abs(prev), 1.0):
+        if pairs:
+            q = g.clone()
+            alphas = []
+            for s_, y_, rho in reversed(pairs):
+                a = rho * (s_ @ q)
+                alphas.append(a)
+                q -= a * y_
+            s_, y_, rho = pairs[-1]
+            q *= 1.0 / (rho * (y_ @ y_))
+            for (s_, y_, rho), a in zip(pairs, reversed(alphas)):
+                q += (a - rho * (y_ @ q)) * s_
+            d = -q
+        else:
+            d = gradient_step(g)
+        slope0 = float(g @ d)
+        if not slope0 < 0:  # not a descent direction: restart from the gradient
+            pairs.clear()
+            d = gradient_step(g)
+            slope0 = float(g @ d)
+        t, f_new, g_new = _wolfe_step(value_grad, x, f, g, slope0, d)
+        if t == 0.0:
             break
-    params = [p.detach() for p in params]
+        s_, y_ = t * d, g_new - g
+        sy = float(s_ @ y_)
+        if sy > 0:
+            pairs = (pairs + [(s_, y_, 1.0 / sy)])[-memory:]
+        prev = f
+        x, f, g = x + s_, f_new, g_new
+        it += 1
+        if it > 1 and abs(f - prev) < tol * max(abs(prev), 1.0):
+            break
+    params = unflat(x.detach())
     return params, loss_fn(params), it
 
 

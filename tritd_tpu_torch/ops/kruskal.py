@@ -9,8 +9,9 @@ Where the reference takes a `jax.random` key, the functions here take
 `generator: torch.Generator | None` (default: seed 0) and, having no input
 tensor to read them from, `device` and `dtype`. Numbers are drawn on the
 generator's device (the CPU for the default one), so one seed gives one draw
-on every device, then moved. With `device=None` a constructor builds on the
-GPU when there is one and on the CPU otherwise.
+on every device, then moved. `device=None` means the GPU: without CUDA a
+constructor raises `RuntimeError` rather than build on the CPU, so pass
+`device="cpu"` for the plain PyTorch path.
 
 `ktensor_full` fixes its contraction order (Khatri-Rao of all factors but
 the last, then one GEMM with the last), so the result and the memory taken
@@ -24,10 +25,16 @@ import torch
 
 
 def default_device(device=None) -> torch.device:
-    """`device` as a `torch.device`; None means the GPU when there is one,
-    else the CPU."""
+    """`device` as a `torch.device`; None means `cuda`, and raises
+    `RuntimeError` when CUDA is not available (no quiet fall back to the
+    CPU)."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device cuda requested but CUDA is not available; "
+                'pass device="cpu" to run the plain PyTorch path'
+            )
+        return torch.device("cuda")
     return torch.device(device)
 
 
