@@ -7,22 +7,30 @@ Run from the repository root, with no arguments:
 
 Phases, each of which fails the run by raising:
   0. require CUDA; turn TF32 off; print the card, its power limit and versions.
-  1. build the hand-written kernel (csrc/elementwise_block.cu) with nvcc.
-  2. hold each kernel variant against its plain PyTorch version on the card:
-     float32 and float64 at the taxi, video, a ragged and a one-element
-     shape and at the slab shapes phases 12-14 run (a half, a padded third
-     and a quarter of taxi along mode 1, a quarter of video along mode 3),
-     with and without T'; the narrow variants (bf16 storage with bf16
-     T', float32 storage with bf16 T', masked bf16 storage without T') at
-     the taxi and video shapes, and their float64-compute twins at the taxi
-     shape, where T' must also be bitwise the rounding of
-     D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
+  1. build the hand-written kernel (csrc/elementwise_block*.cu, six files,
+     one nvcc process each, all at once) and print the build's seconds.
+  2. hold each of the kernel's 50 variants against its plain PyTorch
+     version on the card: float32 and float64 at the taxi, video, a ragged
+     and a one-element shape and at the slab shapes phases 12-14 run (a
+     half, a padded third and a quarter of taxi along mode 1, a quarter of
+     video along mode 3), with and without T'; the 48 narrow variants (storage
+     in bf16, float16, float8_e4m3fn or float8_e5m2, masked or not, an
+     einsum dtype alone, and storage and einsum in two different narrow
+     dtypes) with float32 compute at the taxi, video and half-taxi shapes,
+     with float64 compute at the taxi shape, where T' must also be bitwise
+     the narrow_cast of D - O' + Y_L'/muL_next from the kernel's own stored
+     O' and Y_L'. Then each narrow variant once on inputs that put its
+     outputs at the edges of the narrow formats (448, 464, past 464, 480,
+     57344, 61440, +-inf, the float8 and float16 subnormals, the float64
+     values one rounding and two round apart): every store bitwise the
+     plain version's on the CPU, NaN where it has NaN.
      Time both with CUDA events, beside the least time the card could take,
      the host's enqueue time per call and one device-to-device copy_ of the
      same bytes. Then the cases the kernel's design can get wrong, each
      against the plain version at the same tolerances: 1, 7, 8, 9, 255, 257
      elements and an odd count above one wave of groups; views whose
-     pointers are 4-byte (float32) or 2-byte (bf16) but not 16-byte aligned;
+     pointers are 4-byte (float32), 2-byte (bf16) or 1-byte (float8) but not
+     16-byte aligned;
      the two sums bitwise equal over 20 calls; two streams launching the
      kernel at once, 50 turns.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
@@ -32,7 +40,29 @@ Phases, each of which fails the run by raising:
      taxi and highway with storage_dtype="bfloat16", taxi with
      einsum_dtype="bfloat16", and masked taxi in float32 and bf16 storage,
      each held to its float32 run's RRE within 0.03; then the four taxi
-     solves again with float64 compute, 20 iterations each.
+     solves again with float64 compute, 20 iterations each. Then the other
+     narrow dtypes (NARROW_SOLVES): taxi with float16 storage, float16
+     einsum and masked float16 storage, highway with float16 storage (each
+     within 0.03 of its float32 run's RRE), highway with e5m2 and e4m3fn
+     storage, taxi with e5m2 storage, e4m3fn einsum, e5m2 einsum, float16
+     storage with a bf16 einsum and bf16 storage with an e4m3fn einsum,
+     100 iterations; float64 compute, 20 iterations: float16 and e5m2
+     storage at taxi, e4m3fn at highway; then, cut to 10 iterations, one
+     solve for each variant that no run before launched on finite data: on
+     highway for a variant that rounds to e4m3fn (masked ones with 10% of
+     highway missing), else on taxi. Taxi reaches 526.1, past e4m3fn's
+     range: each of the taxi solves above that rounds D or T to e4m3fn is
+     NaN from its first iteration, as the reference's is, and the run
+     asserts that. The first 10 iterations of each of these solves are held
+     to the same solve on the CPU in the same dtypes where both are finite
+     (NO_FEEDBACK_RTOL; where a narrow value feeds back into the factor
+     solves, an einsum dtype or masked narrow storage, FEEDBACK_RTOL of that
+     dtype); a float8 einsum on highway diverges within a few iterations,
+     and then both runs must turn non-finite within the 10. A control plants
+     a fault (T' rounded toward zero) in the CPU run of a float8-einsum solve
+     and fails unless it moves the entries past the limit. A float8 solve
+     may turn non-finite after the held iterations; float8 RREs are printed,
+     not held to the float32 family (the reference promises no such bound).
   4. the completion CLI in a subprocess.
   5. checkpointed resume: a subprocess dies right after its step-25
      checkpoint (exit 17); the resume here is bitwise equal to an
@@ -116,6 +146,11 @@ Phases, each of which fails the run by raising:
      lower precision fails; triple must launch the f64 T' kernel variant
      once per iteration. Its launches join the kernels line.
 
+ 18. the scaling model (tritd_tpu_torch.tools.scaling_model) on phase 3's
+     one-card ms per iteration at taxi and video and the all_reduce calls
+     and bytes phase 12 counted; prints its JSON line; every multi-GPU
+     figure in it is predicted.
+
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
 
@@ -124,18 +159,21 @@ the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
 torch.matmul, as the reference leaves them to its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
-variant once per iteration (in phases 13-14 every rank counts its own). The line before the last is a JSON object with
-one record per kernel variant, all eight on the main path (float32 and
-float64 compute; the f64 launches of phases 3, 12 and 17); the last line is
+variant once per iteration (in phases 13-14 every rank counts its own). The
+line before the last is a JSON object with one record per kernel variant,
+all 50 on the main path (the launches of phases 3, 12 and 17), each naming
+the .cu file that holds its entry point; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,6 +196,7 @@ from tritd_tpu_torch.data import load_dataset, uniform_missing_mask  # noqa: E40
 from tritd_tpu_torch.metrics.recon import rre  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.ops.designs import triple_product  # noqa: E402
+from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
 from tritd_tpu_torch.runtime import build, kernels  # noqa: E402
 from tritd_tpu_torch.solvers import (  # noqa: E402
     OutlierConfig,
@@ -170,6 +209,7 @@ from tritd_tpu_torch.solvers import (  # noqa: E402
     tritd_als,
     tritd_mals,
 )
+from tritd_tpu_torch.solvers.admm import t_dtype_of  # noqa: E402
 from tritd_tpu_torch.utils.config import COMPLETION_TRITD, README_MISSING_RATIO, VIDEO_TRITD  # noqa: E402
 
 KERNEL_SHAPES = {
@@ -184,17 +224,97 @@ KERNEL_SHAPES = {
     "slab4": (25, 100, 500),
     "frames4": (240, 320, 75),
 }
-# narrow variants: (compute, D, storage, T') dtypes; T' None = no T'
+# narrow variants: (compute, D, storage, T') dtypes; T' None = no T' (masked
+# storage: D in the compute dtype)
 NARROW = {
-    f"c{bits}_dbf16_sbf16_tbf16": (cd, torch.bfloat16, torch.bfloat16, torch.bfloat16)
-    for bits, cd in ((32, torch.float32), (64, torch.float64))
-} | {
-    f"c{bits}_d{bits}_s{bits}_tbf16": (cd, cd, cd, torch.bfloat16)
-    for bits, cd in ((32, torch.float32), (64, torch.float64))
-} | {
-    f"c{bits}_d{bits}_sbf16_tbf16": (cd, cd, torch.bfloat16, None)
-    for bits, cd in ((32, torch.float32), (64, torch.float64))
+    variant: (cd, d_dt, s_dt, None if (d_dt == cd and s_dt != cd) else t_dt)
+    for (cd, d_dt, s_dt, t_dt), variant in hopper_kernels.KERNEL_VARIANTS.items()
+    if variant not in ("f32", "f64")
 }
+F16, E4M3, E5M2, BF16 = "float16", "float8_e4m3fn", "float8_e5m2", "bfloat16"
+# The narrow solves of phase 3 beside the bf16 ones, at full width: (data,
+# TriTDConfig fields, iterations, expected outcome). "nan": taxi reaches
+# 526.1, past float8_e4m3fn's range, which the reference's rounding makes
+# NaN. Then, cut to COVERAGE_ITERS, one solve for each variant that no run
+# before it launched on finite data: on highway (largest value 273.6) for a
+# variant that rounds to float8_e4m3fn, else on taxi.
+NARROW_SOLVES = [
+    ("taxi", {"storage_dtype": F16}, 100, None),
+    ("taxi", {"einsum_dtype": F16}, 100, None),
+    ("taxi", {"storage_dtype": F16, "masked": True}, 100, None),
+    ("taxi", {"storage_dtype": E5M2}, 100, None),
+    ("video", {"storage_dtype": F16}, 100, None),
+    ("video", {"storage_dtype": E5M2}, 100, None),
+    ("video", {"storage_dtype": E4M3}, 100, None),
+    ("taxi", {"einsum_dtype": E4M3}, 100, "nan"),
+    ("taxi", {"einsum_dtype": E5M2}, 100, None),
+    ("taxi", {"storage_dtype": F16, "einsum_dtype": BF16}, 100, None),
+    ("taxi", {"storage_dtype": BF16, "einsum_dtype": E4M3}, 100, "nan"),
+    ("taxi", {"storage_dtype": E4M3}, 100, "nan"),
+    ("taxi", {"storage_dtype": F16, "dtype": "float64"}, 20, None),
+    ("taxi", {"storage_dtype": E5M2, "dtype": "float64"}, 20, None),
+    ("video", {"storage_dtype": E4M3, "dtype": "float64"}, 20, None),
+]
+# Iterations of the coverage solves: highway's CPU solve costs 4.6 times
+# taxi's, and a float8 einsum on highway diverges within three.
+COVERAGE_ITERS = {"taxi": 10, "video": 4}
+# The first 10 err_hist entries of each narrow solve (all of a shorter one)
+# are held to the same solve on the CPU in the same dtypes, where both are
+# finite and the CPU's has not risen above its first entry (a float8 einsum
+# on highway passes its format's range within a few iterations). Where only
+# D and the state are rounded, once each, the runs agree within
+# NO_FEEDBACK_RTOL at every entry. A narrow value that feeds back into the
+# factor solves (the einsum dtype rounds the factors in every mode solve;
+# masked mode imputes D from the stored O) lets the summation order of
+# cuBLAS against the CPU's BLAS flip some of those roundings, and the runs
+# part by more at each iteration: FEEDBACK_RTOL over the first
+# TIGHT_ENTRIES entries, and after them FEEDBACK_RTOL again, or
+# FLOAT8_FEEDBACK_RTOL when a float8 dtype is in the run. Each limit is
+# three to eight times the largest distance read on an NVIDIA H100 80GB
+# HBM3 at 700 W (1.3e-4 without feedback; 2.8e-3 over the first four
+# entries with it; after them 3.2e-3 for 2-byte dtypes and 3.6e-2 with a
+# float8 one; `PERF.md` §6).
+# A control (`_t_rounded_toward_zero`) plants a fault in the CPU run of the
+# first solve of each kind that holds TIGHT_ENTRIES entries, and for a
+# float8 T the smoke fails unless the fault moves them past the limit.
+TIGHT_ENTRIES = 4
+NO_FEEDBACK_RTOL = 1e-3
+FEEDBACK_RTOL = 1e-2
+FLOAT8_FEEDBACK_RTOL = 0.1
+
+
+def _variant_of(fields: dict) -> str:
+    """The kernel variant a solve with these TriTDConfig fields launches."""
+    cfg = TriTDConfig(**fields)
+    cd, sd, ed = cfg.torch_dtype(), cfg.torch_storage_dtype(), cfg.torch_einsum_dtype()
+    if cfg.masked:  # D imputed in the compute dtype, no T'
+        return hopper_kernels.KERNEL_VARIANTS[(cd, cd, sd, sd)]
+    return hopper_kernels.KERNEL_VARIANTS[(cd, sd, sd, ed or sd)]
+
+
+def _fields_of(variant: str) -> dict:
+    """TriTDConfig fields of a solve that launches `variant`."""
+    (cd, d_dt, s_dt, t_dt), = (k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
+    name = lambda dt: str(dt).removeprefix("torch.")  # noqa: E731
+    fields = {"dtype": name(cd)}
+    if d_dt == cd and s_dt != cd:
+        fields.update(storage_dtype=name(s_dt), masked=True)
+    elif s_dt == cd:
+        fields.update(einsum_dtype=name(t_dt))
+    else:
+        fields.update(storage_dtype=name(s_dt), **({} if t_dt == s_dt else {"einsum_dtype": name(t_dt)}))
+    return fields
+
+
+def _short(name: str) -> str:
+    return {"float16": "f16", "float8_e4m3fn": "e4m3fn", "float8_e5m2": "e5m2", "bfloat16": "bf16",
+            "float64": "f64", "float32": "f32"}.get(name, name)
+
+
+# the card's name and power limit (phase 0), and the one-card rows phase 18
+# feeds the scaling model (phases 3 and 12)
+CARD = [""]
+T1_ROWS: list = []
 SCALARS = (0.5, 0.7, 1.8)  # mu_l, mu_o, lam
 MU_NEXT = 0.625
 REPS = 20
@@ -219,6 +339,7 @@ def phase0() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    CARD[0] = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -324,7 +445,7 @@ def _narrow_args(shape, dtypes, seed, offset=0) -> list:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = int(np.prod(shape))
     raw = [torch.randn(n + offset, generator=gen, device="cuda") * 3 for _ in range(5)]
-    return [x.to(dt)[offset:].view(shape) for x, dt in zip(raw, (d_dt, cd, s_dt, s_dt, s_dt))]
+    return [narrow_cast(x, dt)[offset:].view(shape) for x, dt in zip(raw, (d_dt, cd, s_dt, s_dt, s_dt))]
 
 
 # An odd count above one resident wave of the widest groups (8 elements).
@@ -332,10 +453,32 @@ ODD_ABOVE_A_WAVE = 2 * hopper_kernels.RESIDENT_BLOCKS * hopper_kernels.BLOCK_THR
 EDGE_COUNTS = (1, 7, 8, 9, 255, 257, ODD_ABOVE_A_WAVE)
 
 
+def _phase2_conversion_edges() -> None:
+    """Each narrow variant on inputs that put its outputs at the edges of
+    the narrow formats (`hopper_kernels.edge_args`: every step exact, so a
+    store can differ only by its rounding): every store equal to the plain
+    version's on the CPU, `narrow_cast`, bitwise, NaN where it has NaN."""
+    edges = hopper_kernels.EDGE_VALUES
+    values = edges * 3 + edges[:5]  # whole groups and a one-element tail
+    compared = 0
+    for variant, (cd, d_dt, s_dt, t_dt) in NARROW.items():
+        args = hopper_kernels.edge_args(values, (cd, d_dt, s_dt, t_dt), "cuda")
+        mu_next = None if t_dt is None else hopper_kernels.EDGE_MU_NEXT
+        got = hopper_kernels._block_cuda(*args, *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+        want = hopper_kernels._block_torch(*(a.cpu() for a in args), *hopper_kernels.EDGE_SCALARS,
+                                           mu_l_next=mu_next, compute_dtype=cd, store_dtype=s_dt, t_dtype=t_dt)
+        torch.cuda.synchronize()
+        try:
+            compared += hopper_kernels.check_stores_bitwise(got, want)
+        except AssertionError as exc:
+            raise AssertionError(f"{variant} at the conversion edges: {exc}") from exc
+    print(f"phase2 conversion edges: {len(NARROW)} narrow variants, {compared} stores at {len(edges)} "
+          f"edge values, each bitwise the plain version's on the CPU (narrow_cast), NaN where it has NaN")
+
+
 def _phase2_edges() -> None:
     """What 16-byte accesses, the grid plan and the folded sum can get
     wrong. Tolerances as in `phase2`."""
-    storage = NARROW["c32_dbf16_sbf16_tbf16"]
     for n in EDGE_COUNTS:
         for dtype in (torch.float32, torch.float64):
             gen = torch.Generator(device="cuda").manual_seed(n % 1000)
@@ -356,19 +499,25 @@ def _phase2_edges() -> None:
                 torch.testing.assert_close(got[i], got_off[i], rtol=rtol, atol=0.0)
             print(f"phase2 edge n={n:8d} {str(dtype)[6:]:7s} max_abs_err={max(worst, worst_off):.3e}; pointers "
                   f"off by {args[0].element_size()} B: tensors bitwise equal to the aligned call, sums rtol {rtol:g}")
-        for offset in (0, 1):
-            args = _narrow_args((n,), storage, n % 1000, offset)
-            if offset and any(a.data_ptr() % 16 == 0 for a in args):
-                raise AssertionError("the shifted views are still 16-byte aligned")
-            kw = dict(mu_l_next=MU_NEXT, t_dtype=storage[3])
-            got = hopper_kernels._block_cuda(*args, *SCALARS, **kw)
-            want = hopper_kernels._block_torch(*args, *SCALARS, compute_dtype=storage[0], store_dtype=storage[2], **kw)
-            torch.cuda.synchronize()
-            agree = hopper_kernels.check_narrow_against_plain(args, got, want, MU_NEXT)
-            for i in (4, 5):
-                torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
-            print(f"phase2 edge n={n:8d} bf16 storage, pointers {'2 B off' if offset else 'aligned'}: "
-                  f"max_abs_err={agree['max_abs_err']:.3e} flip share {agree['flip_share']:.3e}")
+        # bf16 and float8 storage: groups of 8 (2-byte and 8-byte accesses)
+        # beside float, 4 (4-byte accesses of e5m2) beside double
+        for variant in ("c32_dbf16_sbf16_tbf16", "c32_de4m3_se4m3_te4m3", "c64_de5m2_se5m2_te5m2"):
+            storage = NARROW[variant]
+            for offset in (0, 1):
+                args = _narrow_args((n,), storage, n % 1000, offset)
+                if offset and any(a.data_ptr() % 16 == 0 for a in args):
+                    raise AssertionError("the shifted views are still 16-byte aligned")
+                kw = dict(mu_l_next=MU_NEXT, t_dtype=storage[3])
+                got = hopper_kernels._block_cuda(*args, *SCALARS, **kw)
+                want = hopper_kernels._block_torch(*args, *SCALARS, compute_dtype=storage[0],
+                                                   store_dtype=storage[2], **kw)
+                torch.cuda.synchronize()
+                agree = hopper_kernels.check_narrow_against_plain(args, got, want, MU_NEXT)
+                for i in (4, 5):
+                    torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+                off = f"{args[2].element_size()} B off" if offset else "aligned"
+                print(f"phase2 edge n={n:8d} {variant}, pointers {off}: "
+                      f"max_abs_err={agree['max_abs_err']:.3e} flip share {agree['flip_share']:.3e}")
 
     # bitwise equal sums from call to call: the order of additions is fixed
     for shape in (KERNEL_SHAPES["slab4"], KERNEL_SHAPES["ragged"], (ODD_ABOVE_A_WAVE,)):
@@ -445,6 +594,7 @@ def phase2() -> dict:
             torch.cuda.synchronize()
             agree = hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
             max_abs = agree["max_abs_err"]
+            narrow_dt = s_dt if s_dt in hopper_kernels.NARROW_FLIP_SHARE else t_dt
             for i in (4, 5):
                 torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
             record = _report(
@@ -452,11 +602,12 @@ def phase2() -> dict:
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw),
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw),
             )
-            print(f"phase2 {name:6s} {variant} bf16 elements rounded otherwise than the plain version: "
-                  f"share {agree['flip_share']:.3e} (limit {hopper_kernels.NARROW_FLIP_SHARE:.0e}); "
-                  f"T' bitwise from the stored O', Y_L'")
+            print(f"phase2 {name:6s} {variant} narrow elements rounded otherwise than the plain version: "
+                  f"share {agree['flip_share']:.3e} (limit {hopper_kernels.NARROW_FLIP_SHARE[narrow_dt]:.1e})"
+                  + ("; T' bitwise from the stored O', Y_L'" if t_dt is not None else ""))
             if name == "taxi":
                 records[variant] = record
+    _phase2_conversion_edges()
     _phase2_edges()
     return records
 
@@ -485,17 +636,72 @@ def _solve(y, cfg, init, origin=None, mask=None) -> tuple:
     return res, _launches(), start.elapsed_time(end) / 1e3, wall
 
 
-def _check_run(tag, res, launches, variant, dev_s, wall, truth) -> tuple[float, np.ndarray]:
+def _nan_tail(err: np.ndarray) -> int | None:
+    """Where err_hist turns non-finite for good (None if it never does);
+    raises if it turns finite again after."""
+    bad = ~np.isfinite(err)
+    if not bad.any():
+        return None
+    first = int(np.argmax(bad))
+    if not bad[first:].all():
+        raise AssertionError(f"err_hist is non-finite at iteration {first + 1} and finite after: {err}")
+    return first
+
+
+def _finite_prefix(err: np.ndarray) -> int:
+    """How many leading err_hist entries are finite."""
+    tail = _nan_tail(err)
+    return len(err) if tail is None else tail
+
+
+@contextlib.contextmanager
+def _t_rounded_toward_zero():
+    """A planted fault for phase 3's controls: while it is on, the plain
+    block rounds T' toward zero where it should round to nearest, one step
+    of T's dtype on about half of the elements."""
+    plain = hopper_kernels._block_torch
+
+    def faulty(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, compute_dtype=None, store_dtype=None,
+               t_dtype=None):
+        out = plain(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, compute_dtype, store_dtype, t_dtype)
+        t = out[6]
+        if t is None:
+            return out
+        cd = compute_dtype or d.dtype
+        exact = d.to(cd) - out[0].to(cd) + out[2].to(cd) / float(mu_l_next)
+        wide = t.to(cd)
+        away = (wide.abs() > exact.abs()) & torch.isfinite(wide) & (wide != 0)
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        # sign and magnitude: one less in the magnitude bits is one step nearer 0
+        return (*out[:6], torch.where(away, t.view(bits) - 1, t.view(bits)).view(t.dtype))
+
+    hopper_kernels._block_torch = faulty
+    try:
+        yield
+    finally:
+        hopper_kernels._block_torch = plain
+
+
+def _check_run(tag, res, launches, variant, dev_s, wall, truth, float8=False) -> tuple[float, np.ndarray]:
+    """Launches once per iteration, err_hist finite and falling, O back in
+    the factors' dtype on the card, RRE against the truth finite and below
+    1. A float8 run (`float8`) may diverge after it fell, and turn
+    non-finite for good: its err_hist must fall below its first entry while
+    it is finite. Whether the reference turns non-finite at the same size
+    is not shown (it does on crops of the same data)."""
     n = res.n_iters
     err = trim_history(res.err_hist, n)
     if launches != {variant: n}:
         raise AssertionError(f"{tag}: launches {launches}, want {{{variant!r}: {n}}}")
-    if not (np.isfinite(err).all() and err[-1] < err[0]):
+    tail = _nan_tail(err) if float8 else None
+    held = err[:tail]
+    fell = held.min() < held[0] if float8 else held[-1] < held[0]
+    if not (len(held) > 1 and np.isfinite(held).all() and fell):
         raise AssertionError(f"{tag}: err_hist not finite and falling: {err}")
     if res.o.dtype != res.a.dtype or res.o.device.type != "cuda":
         raise AssertionError(f"{tag}: O comes back in {res.o.dtype} on {res.o.device}")
     rre_truth = float(rre(triple_product(res.a, res.b, res.c), truth.to(res.a.dtype)))
-    if not (np.isfinite(rre_truth) and rre_truth < 1.0):
+    if not float8 and not (np.isfinite(rre_truth) and rre_truth < 1.0):
         raise AssertionError(f"{tag}: RRE vs truth {rre_truth}")
     print(f"phase3 {tag}: iters={n} launches={launches} solve={dev_s:.4f} s (events) {wall:.4f} s (wall) "
           f"{dev_s / n * 1e3:.3f} ms/iter peak_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
@@ -515,10 +721,13 @@ def phase3() -> dict:
     """The main path; returns the launches of each kernel variant in it."""
     total: dict = {}
 
+    ms_per_iter: dict = {}  # of the last run of each variant
+
     def run(tag, y, cfg, init, variant, truth, origin=None, mask=None):
         res, launches, dev_s, wall = _solve(y, cfg, init, origin=origin, mask=mask)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        ms_per_iter[variant] = dev_s / res.n_iters * 1e3
         return (res, *_check_run(tag, res, launches, variant, dev_s, wall, truth))
 
     # taxi completion: the primary row of the reference benchmark
@@ -526,6 +735,7 @@ def phase3() -> dict:
     cfg = COMPLETION_TRITD
     init = init_factors(torch.Generator().manual_seed(0), x.shape, cfg.rank, torch.float32)
     res, rre32, err = run(f"taxi ({prov}) 100x100x500 r=5 f32", y, cfg, init, "f32", x, origin=x)
+    taxi_ms = ms_per_iter["f32"]
 
     # the first 10 iterations again, float64 on the CPU, from the same init
     cpu = tritd_admm(y.cpu().double(), dataclasses.replace(cfg, dtype="float64", max_iter=10),
@@ -541,6 +751,7 @@ def phase3() -> dict:
     v = torch.as_tensor(v_np, dtype=torch.float32, device="cuda")
     vinit = init_factors(torch.Generator().manual_seed(0), v.shape, VIDEO_TRITD.rank, torch.float32)
     _, vrre32, _ = run(f"video highway ({vprov}) 240x320x300 r=5 f32", v, VIDEO_TRITD, vinit, "f32", v)
+    video_ms = ms_per_iter["f32"]
 
     # narrow storage and the bf16 einsum (the reference bench's bf16 rows)
     narrow = [
@@ -577,6 +788,127 @@ def phase3() -> dict:
                           origin=x, mask=mask if masked else None)
         if res64.a.dtype != torch.float64:
             raise AssertionError(f"taxi {tag}: factors come back in {res64.a.dtype}")
+
+    # highway with README_MISSING_RATIO of it missing, for the masked
+    # float8_e4m3fn variants, which taxi's 526.1 turns NaN
+    vmask = torch.as_tensor(uniform_missing_mask(np.random.default_rng(0), v.shape, README_MISSING_RATIO),
+                            device="cuda")
+    problems = {("taxi", False): (y, cfg, init, x, None), ("taxi", True): (y, cfg, init, x, mask),
+                ("video", False): (v, VIDEO_TRITD, vinit, v, None),
+                ("video", True): (torch.where(vmask, v, torch.zeros_like(v)), VIDEO_TRITD, vinit, v, vmask)}
+    wide_rre = {("taxi", False): rre32, ("video", False): vrre32, ("taxi", True): mrre32}
+    finite = set(total)  # the variants launched so far on finite data
+    controlled: set = set()  # the einsum dtypes whose control has run
+
+    def plan():
+        yield from NARROW_SOLVES
+        for name in hopper_kernels.KERNEL_VARIANTS.values():
+            if name not in finite:
+                data = "video" if "e4m3" in name else "taxi"
+                yield data, _fields_of(name), COVERAGE_ITERS[data], None
+
+    for data, fields, iters, expect in plan():
+        dtype = fields.get("dtype", "float32")
+        masked = fields.get("masked", False)
+        label = " ".join(f"{k.split('_')[0]}={_short(v)}" for k, v in fields.items()
+                         if k != "masked" and (k, v) != ("dtype", "float32"))
+        if masked:
+            label = "masked " + label
+        tag = f"{data} {label} ({iters} iterations)"
+        variant = _variant_of(fields)
+        data_t, preset, ninit, truth, dmask = problems[data, masked]
+        ncfg = dataclasses.replace(preset, max_iter=iters, **fields)
+        origin = truth if data == "taxi" else None
+        res, launches, dev_s, wall = _solve(data_t, ncfg, ninit, origin=origin, mask=dmask)
+        for k, val in launches.items():
+            total[k] = total.get(k, 0) + val
+        if launches != {variant: res.n_iters}:
+            raise AssertionError(f"{tag}: launches {launches}, want {{{variant!r}: {res.n_iters}}}")
+        # the same solve on the CPU in the same dtypes: its first 10 iterations
+        depth = min(10, iters)
+        cpu_args = (data_t.cpu(), dataclasses.replace(ncfg, max_iter=depth))
+        cpu_kw = dict(init=ninit, origin=None if origin is None else origin.cpu(),
+                      mask=None if dmask is None else dmask.cpu())
+        want = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
+        got = trim_history(res.err_hist, res.n_iters)
+        if expect == "nan":
+            # a value past float8_e4m3fn's 448 is NaN in the reference's
+            # rounding: the solve is NaN from its first iteration on
+            if not np.isnan(want).all() or res.n_iters != iters or np.isfinite(got).any():
+                raise AssertionError(f"{tag}: err_hist {got} on the card, {want} on the CPU; want NaN throughout")
+            print(f"phase3 {tag}: iters={res.n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                  f"{dev_s / res.n_iters * 1e3:.3f} ms/iter; err_hist non-finite from iteration 1, as on the CPU "
+                  f"and in the reference (max |D| {float(data_t.abs().max()):.1f} > 464)")
+            continue
+        # Both runs are held where both are finite and the CPU's has not
+        # risen above its first entry; where the CPU run turns non-finite
+        # within the held iterations, the card's must too.
+        cpu_k, card_k = _finite_prefix(want), _finite_prefix(got[:depth])
+        rise = np.flatnonzero(want[:cpu_k] > want[0])
+        held = min(cpu_k, card_k, int(rise[0]) if rise.size else depth)
+        if held == 0 or (cpu_k < depth) != (card_k < depth):
+            raise AssertionError(f"{tag}: err_hist {got[:depth]} on the card, {want} on the CPU")
+        narrow = [fields.get("storage_dtype"), fields.get("einsum_dtype")]
+        feedback = bool(fields.get("einsum_dtype") or masked)
+        tail_rtol = FLOAT8_FEEDBACK_RTOL if E4M3 in narrow or E5M2 in narrow else FEEDBACK_RTOL
+        limits = np.array([(FEEDBACK_RTOL if k < TIGHT_ENTRIES else tail_rtol) if feedback else NO_FEEDBACK_RTOL
+                           for k in range(held)])
+        rel = np.abs(got[:held] - want[:held]) / np.abs(want[:held])
+        if (rel > limits).any():
+            raise AssertionError(f"{tag}: first {held} err_hist entries {rel} from the CPU run, limits {limits}")
+        finite.add(variant)
+        head = rel[:TIGHT_ENTRIES].max()
+        reading = f"first {min(held, TIGHT_ENTRIES)} {head:.3e} (rtol {limits[0]:g})"
+        if held > TIGHT_ENTRIES:
+            reading += f", entries {TIGHT_ENTRIES + 1}-{held} {rel[TIGHT_ENTRIES:].max():.3e} (rtol {limits[-1]:g})"
+        # the control: the same CPU run with T' rounded toward zero, once for
+        # each T dtype with and without feedback; asserted for float8
+        t_dt = t_dtype_of(ncfg)
+        kind = (t_dt, feedback)
+        control = ""
+        if t_dt is not None and not masked and kind not in controlled and held >= TIGHT_ENTRIES:
+            controlled.add(kind)
+            with _t_rounded_toward_zero():
+                bad = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
+            moved = float(np.max(np.abs(got[:TIGHT_ENTRIES] - bad[:TIGHT_ENTRIES]) / np.abs(bad[:TIGHT_ENTRIES])))
+            float8_t = t_dt in (torch.float8_e4m3fn, torch.float8_e5m2)
+            if float8_t and not moved > limits[0]:
+                raise AssertionError(f"{tag}: with T' rounded toward zero the CPU run is {moved:.3e} from the card's, "
+                                     f"within rtol {limits[0]:g}: the check does not catch that fault")
+            control = (f"; control: with T' rounded toward zero on the CPU, first {TIGHT_ENTRIES} {moved:.3e}"
+                       + ("" if float8_t else " (not asserted)"))
+        if cpu_k < depth:
+            print(f"phase3 {tag}: iters={res.n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                  f"{dev_s / res.n_iters * 1e3:.3f} ms/iter; err_hist {got[:depth]} on the card, {want} on the CPU: "
+                  f"{reading} over the {held} held; non-finite from iteration {card_k + 1} on the card and "
+                  f"{cpu_k + 1} on the CPU{control}")
+            continue
+        float8 = "float8" in str(fields)
+        tail = _nan_tail(got) if float8 else None
+        nrre, _err = _check_run(tag, res, launches, variant, dev_s, wall, truth, float8=float8)
+        line = f"phase3 {tag}: first {depth} err_hist entries vs the CPU run in the same dtypes: {reading}{control}"
+        key = (data, masked)
+        if not float8 and dtype == "float32" and iters == preset.max_iter and key in wide_rre:
+            if abs(nrre - wide_rre[key]) > RRE_FAMILY:
+                raise AssertionError(f"{tag}: RRE {nrre} vs f32 {wide_rre[key]}, beyond {RRE_FAMILY}")
+            line += f"; RRE {nrre:.6f} vs f32 {wide_rre[key]:.6f} (family {RRE_FAMILY})"
+        else:
+            line += f"; RRE {nrre:.6f} (not held to the f32 family)"
+        if tail is not None:
+            line += (f"; non-finite from iteration {tail + 1} on, finite before (float8 range passed; whether the "
+                     f"reference does so at this size is not measured)")
+        print(line)
+    for kind in [(dt, fb) for dt in (torch.float8_e4m3fn, torch.float8_e5m2) for fb in (False, True)]:
+        if kind not in controlled:
+            print(f"phase3 no control for T' in {kind[0]} {'with' if kind[1] else 'without'} feedback: no such "
+                  f"solve holds {TIGHT_ENTRIES} finite entries")
+    missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - finite
+    print(f"phase3 variants launched on finite data: {len(finite)} of {len(finite) + len(missing)}; "
+          f"only on NaN data: {sorted(missing)}")
+    T1_ROWS.extend([
+        {"name": "taxi", "shape": list(x.shape), "rank": cfg.rank, "ms_per_iter": taxi_ms, "card": CARD[0]},
+        {"name": "video", "shape": list(v.shape), "rank": VIDEO_TRITD.rank, "ms_per_iter": video_ms, "card": CARD[0]},
+    ])
     return total
 
 
@@ -1048,6 +1380,10 @@ def phase12() -> dict:
             rre_ = _hist_diff(f"phase12 mode {mode} rre_hist", res.rre_hist.cpu(), ref.rre_hist.cpu(), n, 1e-6, 0.0)
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
+            if mode == 1:  # the counted collectives of the taxi row of phase 18
+                for row in T1_ROWS:
+                    if row["name"] == "taxi":
+                        row["all_reduce"] = dict(audit["per_iter"])
             print(f"phase12 nccl 1 rank taxi mode {mode}: iters={n} launches={launches} loop={audit['loop_seconds']:.4f} s "
                   f"(host clock, synchronized) all_reduce/iter: {audit['per_iter']['calls']} calls, {words} words "
                   f"(budget {budget}), {audit['per_iter']['bytes']} bytes; vs tritd_admm (rtol 1e-6): err_hist {err} "
@@ -1729,37 +2065,71 @@ def phase17() -> dict:
     return launches
 
 
+def phase18() -> None:
+    """The scaling model (`tools/scaling_model.py`) on the one-card rates of
+    phase 3 and the collectives phase 12 counted; prints its JSON line.
+    Every multi-GPU figure in it is predicted."""
+    from tritd_tpu_torch.tools import scaling_model
+
+    if len(T1_ROWS) != 2 or "all_reduce" not in T1_ROWS[0]:
+        raise AssertionError(f"phase18: the rows of phases 3 and 12 are missing: {T1_ROWS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = os.path.join(tmp, "rows.json")
+        with open(rows, "w") as fh:
+            json.dump(T1_ROWS, fh)
+        result = scaling_model.main(["--rows", rows, "--out", os.path.join(tmp, "SCALING_MODEL.md")])
+    for row in result["rows"]:
+        if not (row["t1_us_measured"] > 0 and all(t > 0 for t in row["predicted_us"].values())):
+            raise AssertionError(f"phase18: {row}")
+    print("phase18 scaling model: " + "; ".join(
+        f"{r['name']} T1 {r['t1_us_measured']:.1f} us measured, predicted efficiency at 8 GPUs "
+        f"{100 * r['predicted_efficiency']['8']:.0f}%, at 16 on 2 hosts "
+        f"{100 * r['predicted_efficiency']['16 (2 hosts)']:.0f}%"
+        for r in result["rows"]))
+
+
+def _source_of() -> dict:
+    """Variant -> the .cu file of the repo that holds its entry point."""
+    where = {}
+    for src in build.sources():
+        for variant in re.findall(r"^TRITD_BLOCK_ENTRY\(tritd_elementwise_block_(\w+),", src.read_text(), re.M):
+            where[variant] = src.relative_to(HERE).as_posix()
+    return where
+
+
+def _timed(n: int, phase):
+    t0 = time.perf_counter()
+    out = phase()
+    print(f"phase{n} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     device = phase0()
     phase1()
-    records = phase2()
-    launches = phase3()
-    phase4()
-    phase5()
-    phase6()
-    phase7()
-    phase8()
-    phase9()
-    phase10()
-    phase11()
-    for variant, count in phase12().items():
+    records = _timed(2, phase2)
+    launches = _timed(3, phase3)
+    for n, phase in ((4, phase4), (5, phase5), (6, phase6), (7, phase7), (8, phase8), (9, phase9), (10, phase10),
+                     (11, phase11)):
+        _timed(n, phase)
+    for variant, count in _timed(12, phase12).items():
         launches[variant] = launches.get(variant, 0) + count
-    phase13()
-    phase14()
-    phase15()
-    t16 = time.perf_counter()
-    phase16()
-    for variant, count in phase17().items():
+    for n, phase in ((13, phase13), (14, phase14), (15, phase15), (16, phase16)):
+        _timed(n, phase)
+    for variant, count in _timed(17, phase17).items():
         launches[variant] = launches.get(variant, 0) + count
-    print(f"phases 16-17 took {time.perf_counter() - t16:.1f} s")
-    missing = sorted(set(records) - set(launches))
-    if missing:
-        raise AssertionError(f"kernel variants not launched by the main path: {missing}")
+    phase18()
+    variants = set(hopper_kernels.KERNEL_VARIANTS.values())
+    missing = sorted(variants - {v for v, n in launches.items() if n})
+    if missing or set(records) != variants:
+        raise AssertionError(f"kernel variants not launched by the main path: {missing}; "
+                             f"not timed in phase 2: {sorted(variants - set(records))}")
+    sources = _source_of()
     print(json.dumps({"kernels": [{
         "name": "elementwise_block",
         "variant": variant,
         "route": "cuda",
-        "source": "tritd_tpu_torch/csrc/elementwise_block.cu",
+        "source": sources[variant],
         "replaces": "tritd_tpu/ops/pallas_kernels.py:133",
         "launches": launches[variant],
         **record,

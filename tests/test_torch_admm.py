@@ -201,10 +201,12 @@ def test_default_init_is_seeded_and_device_independent():
 
 @pytest.mark.parametrize("field", ["einsum_dtype", "storage_dtype"])
 def test_unported_options_raise(field):
-    """bfloat16 is ported (tests/test_torch_narrow.py); other narrow dtypes
-    are not, and say where they are listed."""
-    cfg = dataclasses.replace(COMPLETION_TRITD, **{field: "float16"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """bfloat16, float16 and the two float8 formats are ported
+    (tests/test_torch_narrow.py, tests/test_torch_narrow_dtypes.py); a dtype
+    no caller uses, such as int8, is refused and the message names the ones
+    the port takes."""
+    cfg = dataclasses.replace(COMPLETION_TRITD, **{field: "int8"})
+    with pytest.raises(NotImplementedError, match="takes None or one of"):
         tritd_admm(torch.zeros(SHAPE), cfg)
 
 

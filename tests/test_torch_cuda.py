@@ -14,10 +14,15 @@ more where terms cancel; bf16 tensors one bf16 ulp (rtol 2**-8, atol
 2**-8 * max|input|), since such an ulp in the compute dtype can flip a
 rounding to bf16; norms rtol 1e-5 — the kernel sums in double, the plain
 version in the dtype, in another order. The narrow variants also go
-through `hopper_kernels.check_narrow_against_plain`: at most a share
-NARROW_FLIP_SHARE of each bf16 output rounded otherwise than the plain
-version (or NARROW_FLIP_FLOOR elements), and T' bitwise the rounding of
-D - O' + Y_L'/muL_next from the kernel's own stored O' and Y_L'.
+through `hopper_kernels.check_narrow_against_plain`: at most the
+dtype's share NARROW_FLIP_SHARE of each narrow output rounded otherwise
+than the plain version (or NARROW_FLIP_FLOOR elements; float16, denser in
+ties, 8 times bf16's share), each within one rounding step of
+its dtype (`NARROW_ULP`: 2**-8 bf16, 2**-11 float16, 2**-4 e4m3fn, 2**-3
+e5m2), and T' bitwise the `narrow_cast` of D - O' + Y_L'/muL_next from the
+kernel's own stored O' and Y_L'. At the edges of the narrow formats, where
+the inputs make every step exact (`hopper_kernels.edge_args`), every store
+equals the plain version's on the CPU bitwise, NaN where it has NaN.
 
 The kernel cases run three ways at the same tolerances: on tensors as
 PyTorch allocates them (16-byte accesses), on views one element past a
@@ -50,6 +55,7 @@ from tritd_tpu_torch.cli.run_completion import run_method  # noqa: E402
 from tritd_tpu_torch.data.loaders import DatasetSpec, synthetic_traffic  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.ops import svt as svt_ops  # noqa: E402
+from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
 from tritd_tpu_torch.runtime import native  # noqa: E402
 from tritd_tpu_torch.solvers import init_factors, tritd_admm  # noqa: E402
 from tritd_tpu_torch.utils.config import COMPLETION_TRITD  # noqa: E402
@@ -276,6 +282,103 @@ def test_narrow_solve_launches_its_variant(cuda_device, fields, masked, variant)
     assert narrow.o.dtype == torch.float32 and torch.isfinite(narrow.err_hist).all()
     wide = tritd_admm(y, cfg, mask=mask, origin=x, init=init)
     assert abs(float(narrow.rre_hist[-1]) - float(wide.rre_hist[-1])) < 0.03
+
+
+# the variants with a float16 or float8 stream: per dtype X storage X,
+# masked storage X and einsum X alone, and storage and einsum in two
+# different narrow dtypes
+NEW_DTYPES = (torch.float16, torch.float8_e4m3fn, torch.float8_e5m2)
+NEW_VARIANTS = {v: k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if set(k) & set(NEW_DTYPES)}
+def _new_variant(variant):
+    """(compute, D, storage, T') of a variant, T' None where it carries none
+    (masked storage)."""
+    compute, d_dt, s_dt, t_dt = NEW_VARIANTS[variant]
+    return compute, d_dt, s_dt, None if (d_dt == compute and s_dt != compute) else t_dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", HOW)
+@pytest.mark.parametrize("variant", sorted(NEW_VARIANTS))
+@pytest.mark.parametrize("shape", [(17, 23, 31), (257,), (ODD_ABOVE_A_WAVE,)], ids=str)
+def test_narrow_dtype_kernel_matches_plain(cuda_device, shape, variant, how):
+    compute, d_dt, s_dt, t_dt = _new_variant(variant)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    raw = [torch.randn(shape, generator=gen, dtype=compute, device=cuda_device) * 3 for _ in range(5)]
+    args = [narrow_cast(raw[0], d_dt), raw[1], *(narrow_cast(x, s_dt) for x in raw[2:])]
+    if how == "shifted":
+        args = [_shifted(a) for a in args]  # float8 views start 1 byte past a 16-byte boundary
+    assert hopper_kernels.kernel_variant(*args, t_dtype=t_dt or s_dt) == variant
+    mu_next = None if t_dt is None else MU_NEXT
+    before = hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"]
+    outs = _run(how, lambda: hopper_kernels.elementwise_block(*args, *SCALARS, mu_l_next=mu_next, t_dtype=t_dt))
+    torch.cuda.synchronize()
+    assert hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"] == before + len(outs)
+    want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next, compute_dtype=compute,
+                                       store_dtype=s_dt, t_dtype=t_dt)
+    for got in outs:
+        for i in (0, 1, 2, 3):
+            assert got[i].dtype == s_dt and got[i].shape == shape and got[i].is_contiguous()
+        hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
+        for i in (4, 5):
+            torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+        assert (got[6] is None) == (t_dt is None) and (t_dt is None or got[6].dtype == t_dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(v for k, v in hopper_kernels.KERNEL_VARIANTS.items()
+                                           if set(k) - {torch.float32, torch.float64}))
+def test_kernel_stores_round_as_narrow_cast_at_the_edges(cuda_device, variant):
+    """Every narrow store of the kernel equals the plain version's on the
+    CPU (narrow_cast, the reference's rounding) bitwise, NaN where it has
+    NaN: e4m3fn past 464 and +-inf, e5m2 from 61440, the subnormals and the
+    float64 values one rounding and two round apart."""
+    key = next(k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
+    compute, d_dt, s_dt, t_dt = key
+    masked = d_dt == compute and s_dt != compute
+    edges = hopper_kernels.EDGE_VALUES
+    values = edges * 3 + edges[:5]  # whole groups and a one-element tail
+    args = hopper_kernels.edge_args(values, key, cuda_device)
+    mu_next = None if masked else hopper_kernels.EDGE_MU_NEXT
+    got = hopper_kernels.elementwise_block(*args, *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+    want = hopper_kernels._block_torch(*(a.cpu() for a in args), *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next,
+                                       compute_dtype=compute, store_dtype=s_dt, t_dtype=t_dt)
+    assert hopper_kernels.check_stores_bitwise(got, want) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields, masked, variant", [
+    (dict(storage_dtype="float16"), False, "c32_df16_sf16_tf16"),
+    (dict(storage_dtype="float16"), True, "c32_d32_sf16_tf16"),
+    (dict(einsum_dtype="float16"), False, "c32_d32_s32_tf16"),
+    (dict(storage_dtype="float8_e4m3fn"), False, "c32_de4m3_se4m3_te4m3"),
+    (dict(storage_dtype="float8_e5m2"), True, "c32_d32_se5m2_te5m2"),
+    (dict(einsum_dtype="float8_e5m2"), False, "c32_d32_s32_te5m2"),
+    (dict(storage_dtype="float16", einsum_dtype="bfloat16"), False, "c32_df16_sf16_tbf16"),
+    (dict(storage_dtype="bfloat16", einsum_dtype="float8_e4m3fn"), False, "c32_dbf16_sbf16_te4m3"),
+    (dict(storage_dtype="float8_e5m2", dtype="float64"), False, "c64_de5m2_se5m2_te5m2"),
+], ids=["f16", "f16_masked", "einsum_f16", "e4m3", "e5m2_masked", "einsum_e5m2", "f16+bf16", "bf16+e4m3",
+        "e5m2_f64"])
+def test_narrow_dtype_solve_launches_its_variant(cuda_device, fields, masked, variant):
+    """A solve in a new narrow dtype on the card launches its kernel variant
+    once per iteration; err_hist stays finite, and the float16 ones land
+    within 0.03 RRE of the float32 run (float8 has no such bound in the
+    reference)."""
+    rng = np.random.default_rng(2)
+    shape = (20, 16, 24)
+    a, b, c = (rng.standard_normal(s) for s in ((20, 2, 2), (2, 16, 2), (2, 2, 24)))
+    x = np.einsum("iqs,qjs,qst->ijt", a, b, c)
+    x = torch.from_numpy(x / np.sqrt(np.mean(x**2))).float().to(cuda_device)
+    mask = torch.from_numpy(rng.random(shape) > 0.2).to(cuda_device) if masked else None
+    y = torch.where(mask, x, torch.zeros_like(x)) if masked else x
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=2, max_iter=40, tol=0.0, masked=masked)
+    init = init_factors(torch.Generator().manual_seed(0), shape, 2, torch.float32)
+    hopper_kernels.reset_launch_counts()
+    narrow = tritd_admm(y, dataclasses.replace(cfg, **fields), mask=mask, origin=x, init=init)
+    assert hopper_kernels.LAUNCHES[f"elementwise_block[{variant}]"] == narrow.n_iters == 40
+    assert torch.isfinite(narrow.err_hist).all()
+    if "float8" not in str(fields):
+        wide = tritd_admm(y, cfg, mask=mask, origin=x, init=init)
+        assert abs(float(narrow.rre_hist[-1]) - float(wide.rre_hist[-1])) < 0.03
 
 
 def _spectrum_matrix(p, q, spectrum, seed=0):

@@ -41,7 +41,13 @@ MU_NEXT = 0.625
 ODD_ABOVE_A_WAVE = 2 * RESIDENT_BLOCKS * BLOCK_THREADS * 8 + 13
 SIZES = [1, 7, 8, 9, 255, 257, ODD_ABOVE_A_WAVE, 17 * 23 * 31, 25 * 100 * 500, 34 * 100 * 500,
          100 * 100 * 500, 240 * 320 * 300]
-SIZE_OF = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2}
+SIZE_OF = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2, torch.float16: 2,
+           torch.float8_e4m3fn: 1, torch.float8_e5m2: 1}
+# The accesses narrower than 16 bytes, by (compute, bytes of the element):
+# the 32-byte cap on the compute type leaves the narrowest streams short.
+# Four 2-byte elements beside double move 8 bytes; eight float8 beside
+# float 8 bytes; four float8 beside double 4 bytes.
+SHORT_ACCESS = {(torch.float64, 2): 8, (torch.float32, 1): 8, (torch.float64, 1): 4}
 VARIANTS = sorted(KERNEL_VARIANTS.values())
 
 
@@ -64,11 +70,11 @@ def test_group_moves_16_bytes_of_the_narrowest_stream(variant):
     group = VARIANT_GROUP[variant]
     assert group == group_size(SIZE_OF[compute], min(SIZE_OF[dt] for dt in stored))
     # at most 32 bytes of the compute type a turn; every stream then moves
-    # 16 bytes or a multiple, but for four bf16 (8 bytes) beside double compute
+    # 16 bytes or a multiple, but for the SHORT_ACCESS cases
     assert group * SIZE_OF[compute] <= 32
     for dt in (compute, *stored):
         moved = group * SIZE_OF[dt]
-        assert moved % 16 == 0 or (moved == 8 and compute == torch.float64 and dt == torch.bfloat16)
+        assert moved % 16 == 0 or moved == SHORT_ACCESS.get((compute, SIZE_OF[dt]))
     assert {"f32": 4, "f64": 2}.get(variant, 8 if variant.startswith("c32") else 4) == group
 
 
@@ -144,7 +150,7 @@ def test_scratch_is_kept_per_device_and_stream():
 
 
 def test_plan_constants_are_those_of_the_cuda_source():
-    src = (build.SRC_DIR / "elementwise_block.cu").read_text()
+    src = (build.SRC_DIR / "elementwise_block.cuh").read_text()
     const = {name: int(value) for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kThreads"] == BLOCK_THREADS
     assert const["kSMs"] * const["kBlocksPerSM"] == RESIDENT_BLOCKS

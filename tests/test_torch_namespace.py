@@ -119,12 +119,14 @@ print("built:", sorted(p.name for p in build.BUILD_DIR.glob("*.so")) if build.BU
 def test_no_module_of_the_port_names_jax_in_an_import():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|optax|tritd_tpu|tools|examples)(\.|\s|$)", re.M)
+    # ml_dtypes too: the machine with the card does not have it
+    pat = re.compile(r"^\s*(import|from)\s+(jax|optax|ml_dtypes|tritd_tpu|tools|examples)(\.|\s|$)", re.M)
     files = list((REPO / "tritd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
     names = {p.relative_to(REPO).as_posix() for p in files}
     for part in ("tritd_tpu_torch/examples/demo_toolbox.py", "tritd_tpu_torch/tools/toolbox_audit.py",
-                 "tritd_tpu_torch/tools/emulator_parity.py", "tritd_tpu_torch/ops/classes.py"):
+                 "tritd_tpu_torch/tools/emulator_parity.py", "tritd_tpu_torch/ops/classes.py",
+                 "tritd_tpu_torch/ops/narrow.py", "tritd_tpu_torch/tools/scaling_model.py"):
         assert part in names, part
     for path in files:
         assert not pat.search(path.read_text()), path

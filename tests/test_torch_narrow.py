@@ -327,7 +327,7 @@ def test_kernel_variants_cover_the_solver_and_reject_the_rest():
     TypeError before anything is built or launched."""
     from tritd_tpu_torch.runtime import build, kernels
 
-    src = (build.SRC_DIR / "elementwise_block.cu").read_text()
+    src = "".join(p.read_text() for p in build.sources())
     entries = re.findall(r"^TRITD_BLOCK_ENTRY\(tritd_elementwise_block_(\w+),", src, re.M)
     assert sorted(entries) == sorted(hopper_kernels.KERNEL_VARIANTS.values())
     f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16

@@ -5,18 +5,21 @@ A port of the JAX package `tritd_tpu`, which stays the reference: each module
 names its JAX counterpart, keeps its layouts and semantics, and is held to
 it by the `tests/test_torch_*.py` parity tests. Everything runs on the device
 of the input tensor. On a CUDA device the fused elementwise ADMM block runs
-the kernel in `csrc/elementwise_block.cu`, built with nvcc on first use; on
-the CPU it runs its plain PyTorch version. Importing the package builds
+the kernel in `csrc/elementwise_block.cuh` (entry points in
+`csrc/elementwise_block*.cu`), built with nvcc on first use; on the CPU it
+runs its plain PyTorch version. Importing the package builds
 nothing.
 
 Layers:
   ops/       folds, designs (and the explicit-Kronecker kron_*), normal
-             equations (with the bf16 einsum_dtype), shrinkage, the Hopper
-             kernel and its narrow-storage variants; the functional Tensor
+             equations (with the narrow einsum_dtype), shrinkage, the
+             reference's rounding into bf16/float16/float8 (narrow), the
+             Hopper kernel and its narrow variants; the functional Tensor
              Toolbox surface (kruskal, decomp, tenutils, sparse, symmetric,
              cp_variants)
   runtime/   nvcc build and ctypes binding of csrc/
-  solvers/   TriTD-ADMM (f32/f64, bf16 storage), checkpointed, nonconvex
+  solvers/   TriTD-ADMM (f32/f64; bf16, float16 or float8 storage and
+             einsum), checkpointed, nonconvex
              outlier, ALS/MALS
   parallel/  mode-1 slab, mode-3 frame and DP x TP sharded TriTD-ADMM over a
              torch.distributed process group, the multi-process bootstrap

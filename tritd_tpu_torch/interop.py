@@ -35,13 +35,25 @@ def factors_from_numpy(a, b, c, device="cpu", dtype=torch.float32):
     )
 
 
+# The narrow dtypes numpy holds as `ml_dtypes` extension types, which torch
+# cannot read: by name, the integer type their bits are carried in. float16
+# is native to numpy.
+_CARRIED_BITWISE = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
-    """A numpy array as a tensor of the same dtype, bfloat16 included (numpy
-    holds it as the `ml_dtypes` extension type, which torch cannot read:
-    its bits are carried over as int16)."""
+    """A numpy array as a tensor of the same dtype, the narrow dtypes
+    included: bfloat16 and the two float8 formats are recognised by their
+    dtype's name (no `ml_dtypes` import) and carried over bit for bit."""
     arr = np.array(arr)
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    carried = _CARRIED_BITWISE.get(arr.dtype.name)
+    if carried is not None:
+        bits, dtype = carried
+        return torch.from_numpy(arr.view(bits)).view(dtype).to(device)
     return torch.as_tensor(arr, device=device)
 
 

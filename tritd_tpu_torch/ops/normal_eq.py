@@ -19,15 +19,17 @@ place), then an O(n^2 r^2) (hadamard) or O(n^2 r^3) (full) two-operand
 contraction with the remaining core. Accumulation stays in the factor dtype,
 so a float64 run is float64 throughout.
 
-With `einsum_dtype` (bfloat16), as in the reference
-(`tritd_tpu/ops/normal_eq.py:150-163`), X and the cores are rounded to it,
-the contraction accumulates in float32 and the result comes back in the
-factor dtype; the Grams and the solves stay full precision. The form taken
-is a float32 GEMM on operands rounded to bf16: the product of two bf16
-values is exact in float32, so this is the reference's bf16 einsum with
-`preferred_element_type=float32`. A bf16 `torch.matmul` would round its
-output to bf16, which is not the reference. It needs TF32 off on CUDA
-(PyTorch's default for matmul).
+With `einsum_dtype` (bfloat16, float16, float8_e4m3fn or float8_e5m2), as
+in the reference (`tritd_tpu/ops/normal_eq.py:150-163`), X and the cores
+are rounded to it (`narrow.narrow_cast`, the reference's rounding), the
+contraction accumulates in float32 and the result comes back in the factor
+dtype; the Grams and the solves stay full precision. The form taken is a
+float32 GEMM on the rounded operands widened to float32: the product of two
+bf16, float16 or float8 significands (8, 11, 4 or 3 bits) is exact in
+float32, so this is the reference's einsum with
+`preferred_element_type=float32`. A narrow `torch.matmul` would round its
+output to the narrow dtype, which is not the reference. It needs TF32 off
+on CUDA (PyTorch's default for matmul).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from .designs import _check_variant
+from .narrow import narrow_cast
 
 SOLVE_METHODS = ("cholesky", "pinv", "lstsq")
 
@@ -118,7 +121,7 @@ def rhs_mode(
         raise ValueError(f"mode must be 1, 2 or 3, got {mode}")
     if einsum_dtype is not None:
         out_dtype = a.dtype
-        x, a, b, c = (u.to(einsum_dtype).to(torch.float32) for u in (x, a, b, c))
+        x, a, b, c = (narrow_cast(u, einsum_dtype).to(torch.float32) for u in (x, a, b, c))
         return _rhs(mode, x, a, b, c, variant).to(out_dtype)
     return _rhs(mode, x.to(a.dtype), a, b, c, variant)
 

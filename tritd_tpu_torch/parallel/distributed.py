@@ -338,7 +338,8 @@ def main(argv=None) -> None:
                    help="a dataset's stand-in under its preset, in place of the synthetic problem")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--masked", action="store_true", help="masked imputation (cfg.masked)")
-    p.add_argument("--storage-dtype", default=None, help="cfg.storage_dtype, e.g. bfloat16")
+    p.add_argument("--storage-dtype", default=None,
+                   help="cfg.storage_dtype: bfloat16, float16, float8_e4m3fn or float8_e5m2")
     p.add_argument("--n-data", type=int, default=1, help="size of the mesh's data axis")
     p.add_argument("--batch", type=int, default=0,
                    help="solve a batch of this many problems (seeds seed, seed+1, ...) with tritd_admm_batch_sharded")

@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from .. import interop
+from ..ops.narrow import narrow_cast
 from ..solvers.admm import init_factors, init_state, run_admm
 from ..solvers.base import TriTDConfig, TriTDResult
 from ..utils.timing import sync
@@ -132,7 +133,7 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     def local(x, fill, dt):
         # cut the slab from what exists of it, move that alone, pad the rest
         x = torch.as_tensor(x).narrow(axis, min(lo, n_orig), max(min(hi, n_orig) - lo, 0))
-        return _pad_with(x.to(device).to(dt), axis, hi - lo, fill).contiguous()
+        return _pad_with(narrow_cast(x.to(device), dt), axis, hi - lo, fill).contiguous()
 
     d_loc = local(d, 0, dtype)
     mask_loc = None if mask is None else local(mask, True, torch.bool)
@@ -159,7 +160,7 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     state = init_state(d_loc, cfg, (a0, b0, c0))
     # the loop reads D every iteration: store it narrow too (norm_d above is
     # taken from the full-precision copy, as in tritd_admm)
-    d_loc = d_loc.to(cfg.torch_storage_dtype())
+    d_loc = narrow_cast(d_loc, cfg.torch_storage_dtype())
     sync(state)
     t0 = time.perf_counter()
     state = sync(run_admm(d_loc, state, cfg, mask=mask_loc, origin=origin_loc,

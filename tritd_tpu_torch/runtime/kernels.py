@@ -27,8 +27,9 @@ def _block_argtypes(scalar):
     return [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 2 + [scalar] * 4 + [_P]
 
 
-def bind(path) -> ctypes.CDLL:
-    """Load a library built from `csrc/*.cu` and declare its entry points."""
+def bind(path, variants=None) -> ctypes.CDLL:
+    """Load a library built from `csrc/*.cu` and declare its entry points:
+    those of `variants` (names of KERNEL_VARIANTS), by default every one."""
     lib = ctypes.CDLL(str(path))
     for name in ("tritd_max_blocks", "tritd_block_threads", "tritd_scratch_len"):
         getattr(lib, name).argtypes = []
@@ -36,6 +37,8 @@ def bind(path) -> ctypes.CDLL:
     lib.tritd_error_string.argtypes = [ctypes.c_int]
     lib.tritd_error_string.restype = ctypes.c_char_p
     for (compute, *_), variant in KERNEL_VARIANTS.items():
+        if variants is not None and variant not in variants:
+            continue
         fn = getattr(lib, f"tritd_elementwise_block_{variant}")
         fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute])
         fn.restype = ctypes.c_int

@@ -21,10 +21,13 @@ the only device-to-host read is the sticky stop flag, once per block of
 `cfg.unroll` iterations. On a CUDA device the elementwise block is the
 hand-written kernel; it also writes the next iteration's T.
 
-Narrow storage (`cfg.storage_dtype`) keeps D, O, E, Y_L, Y_O and T in bf16;
-the factors, penalties, sums and histories stay in cfg.dtype, and the
-block widens its inputs and rounds its stores. `cfg.einsum_dtype` stores T
-in bf16 and rounds the RHS contractions' operands to it.
+Narrow storage (`cfg.storage_dtype`: bfloat16, float16, float8_e4m3fn or
+float8_e5m2) keeps D, O, E, Y_L, Y_O and T in that dtype; the factors,
+penalties, sums and histories stay in cfg.dtype, and the block widens its
+inputs and rounds its stores. `cfg.einsum_dtype` stores T in its dtype and
+rounds the RHS contractions' operands to it. Every narrowing goes through
+`ops.narrow.narrow_cast`, which rounds as the reference's `astype` does
+(once from float64; NaN past float8_e4m3fn's range).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.hopper_kernels import elementwise_block
+from ..ops.narrow import narrow_cast
 from .base import TriTDConfig, TriTDResult, TriTDState
 
 
@@ -174,7 +178,7 @@ def admm_iteration(
         d = torch.where(mask, d.to(cd), l_prev + o.to(cd))
         t = d - o.to(cd) + y_l.to(cd) / float(mu_l)
         if td is not None:
-            t = t.to(td)
+            t = narrow_cast(t, td)
     else:
         t = state.t
 
@@ -248,7 +252,7 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
     td = t_dtype_of(cfg)
     return TriTDState(
         a=a, b=b, c=c, o=zeros, e=zeros, y_l=zeros, y_o=zeros,
-        t=d if td is None else d.to(td),  # T_0 = D - 0 + 0/mu = D
+        t=d if td is None else narrow_cast(d, td),  # T_0 = D - 0 + 0/mu = D
         mu_l=mu, mu_o=mu, k=0,
         err_hist=nan_hist, rre_hist=nan_hist.clone(),
         done=torch.zeros((), dtype=torch.bool, device=d.device),
@@ -317,7 +321,7 @@ def tritd_admm(
     state = init_state(d, cfg, init)
     # the loop reads D every iteration: store it narrow too (norm_d above
     # is taken from the full-precision copy)
-    d = d.to(cfg.torch_storage_dtype())
+    d = narrow_cast(d, cfg.torch_storage_dtype())
 
     state = run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin)
 

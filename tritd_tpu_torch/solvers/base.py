@@ -14,7 +14,11 @@ import numpy as np
 import torch
 
 
-NARROW_DTYPES = ("bfloat16",)
+# The narrow dtypes a run may store its data-sized tensors in or contract
+# in (`tritd_tpu/solvers/base.py:45-75` takes any name `jnp.dtype` knows).
+# Others raise: no caller uses them, and Hopper has no conversion for the
+# float8 `fnuz` formats.
+NARROW_DTYPES = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
 
 
 def _narrow_dtype(field: str, name: str | None) -> torch.dtype | None:
@@ -22,8 +26,7 @@ def _narrow_dtype(field: str, name: str | None) -> torch.dtype | None:
         return None
     if name not in NARROW_DTYPES:
         raise NotImplementedError(
-            f"cfg.{field}={name!r}: the port takes None or one of {NARROW_DTYPES}; "
-            "other narrow dtypes are not ported (ROADMAP queue 1, narrow dtypes)"
+            f"cfg.{field}={name!r}: the port takes None or one of {NARROW_DTYPES}"
         )
     return getattr(torch, name)
 
@@ -60,14 +63,15 @@ class TriTDConfig:
                                     # its plain PyTorch version.
     disp: bool = False              # print residuals every 10 iterations
                                     # (host print at block boundaries)
-    einsum_dtype: str | None = None   # "bfloat16": the RHS contractions
-                                      # read bf16-rounded operands and
-                                      # accumulate in float32; the carried T
-                                      # is stored in bf16
-    storage_dtype: str | None = None  # "bfloat16": D, O, E, Y_L, Y_O (and T)
-                                      # are stored in bf16; the elementwise
-                                      # block widens them, computes in
-                                      # cfg.dtype and rounds the stores
+    einsum_dtype: str | None = None   # one of NARROW_DTYPES: the RHS
+                                      # contractions read operands rounded
+                                      # to it and accumulate in float32; the
+                                      # carried T is stored in it
+    storage_dtype: str | None = None  # one of NARROW_DTYPES: D, O, E, Y_L,
+                                      # Y_O (and T) are stored in it; the
+                                      # elementwise block widens them,
+                                      # computes in cfg.dtype and rounds the
+                                      # stores
     unroll: int = 1                 # iterations per block; the stopping
                                     # rule is read on the host only between
                                     # blocks, so an early-stopped run may do

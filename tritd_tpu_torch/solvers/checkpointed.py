@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from ..ops.narrow import narrow_cast
 from ..utils.checkpoint import CheckpointManager, load_state, save_state
 from .admm import admm_iteration, init_factors, init_state
 from .base import TriTDConfig, TriTDResult, TriTDState
@@ -29,7 +30,7 @@ def run_segment(d: torch.Tensor, state: TriTDState, k_end: int, cfg: TriTDConfig
     reference's segment loop tests it every iteration."""
     d = d.to(cfg.torch_dtype())
     norm_d = torch.linalg.vector_norm(d)
-    d = d.to(cfg.torch_storage_dtype())  # narrow copy when configured
+    d = narrow_cast(d, cfg.torch_storage_dtype())  # narrow copy when configured
     while state.k < k_end and state.k < cfg.max_iter and not bool(state.done):
         state = admm_iteration(d, state, cfg, norm_d=norm_d)
     return state

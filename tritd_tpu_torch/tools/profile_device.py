@@ -8,8 +8,9 @@ the share of the byte bound a kernel reaches is stated against them.
 
 Two parts, both float32 unless a variant says otherwise, TF32 off:
 
-* every variant of `csrc/elementwise_block.cu` at the taxi (100x100x500)
-  and video (240x320x300) shapes, and the variants the sharded solves run
+* every variant of `csrc/elementwise_block*.cu` (50: float32, float64 and
+  the narrow dtypes bf16, float16, float8_e4m3fn, float8_e5m2) at the taxi
+  (100x100x500) and video (240x320x300) shapes, and the variants the sharded solves run
   at the slab shapes a rank holds: device microseconds of the block kernel,
   which must be the one kernel a wrapper call launches, beside the variant's
   bytes over the card's memory rate;
@@ -21,7 +22,7 @@ Two parts, both float32 unless a variant says otherwise, TF32 off:
 Needs a CUDA device and exits with an error without one.
 
 Usage: python -m tritd_tpu_torch.tools.profile_device [--iters 8]
-       [--reps 20] [--out result.json]
+       [--reps 20] [--skip-baselines] [--out result.json]
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 from ..cli.run_completion import resolve_device, run_method
 from ..data import load_dataset, uniform_missing_mask
 from ..ops import hopper_kernels
+from ..ops.narrow import narrow_cast
 
 SHAPES = {"taxi": (100, 100, 500), "video": (240, 320, 300)}
 # what one rank of a sharded solve holds (`parallel/sharded_admm.py`): taxi
@@ -89,6 +91,7 @@ def block_bytes_per_element(d_dt, cd, s_dt, t_dt) -> int:
 
 
 def profile_block(reps: int) -> list[dict]:
+    """Rows of every variant at its shapes."""
     rows = []
     for (cd, d_dt, s_dt, t_dt), variant in hopper_kernels.KERNEL_VARIANTS.items():
         if d_dt == cd and s_dt != cd:
@@ -98,7 +101,7 @@ def profile_block(reps: int) -> list[dict]:
             gen = torch.Generator(device="cuda").manual_seed(0)
             shape = SHAPES.get(name) or SLAB_SHAPES[name]
             raw = [torch.randn(shape, generator=gen, device="cuda") * 3 for _ in range(5)]
-            args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
+            args = [narrow_cast(raw[0], d_dt), raw[1].to(cd), *(narrow_cast(x, s_dt) for x in raw[2:])]
             kw = dict(mu_l_next=None if t_dt is None else MU_NEXT, t_dtype=t_dt)
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
                 raise AssertionError(f"{variant}: dtypes route to another variant")

@@ -2,10 +2,12 @@
 card: the kernel as built against variations of it, in turns.
 
 A variation is a set of textual substitutions in a copy of
-`csrc/elementwise_block.cu` (each must hit exactly as often as it says) and
+`csrc/elementwise_block.cuh` (each must hit exactly as often as it says) and
 of overrides of the wrapper's plan in `ops/hopper_kernels.py`; the sources in
-the package are not touched and carry no switch. Every copy is compiled with
-`-Xptxas -v`, so the run also prints each variant's registers and spills.
+the package are not touched and carry no switch. Every copy is compiled,
+with the `.cu` files that hold the cases' entry points (one nvcc process
+each, as the package builds them), with `-Xptxas -v`, so the run also
+prints each instantiation's registers and spills.
 Per variation and case the tool prints the device microseconds of one
 launch, taken as built, varied, varied, as built (CUDA events around 40
 launches of the C entry point on fixed buffers, which the host enqueues
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -34,15 +37,20 @@ import torch
 
 from ..cli.run_completion import resolve_device
 from ..ops import hopper_kernels
+from ..ops.narrow import narrow_cast
 from ..runtime import build, kernels
-from .profile_device import MU_NEXT, SCALARS, SHAPES, SLAB_SHAPES
+from .profile_device import MU_NEXT, PEAK_BYTES_PER_S, SCALARS, SHAPES, SLAB_SHAPES, block_bytes_per_element
 
-SOURCE = build.SRC_DIR / "elementwise_block.cu"
+SOURCE = build.SRC_DIR / "elementwise_block.cuh"
+ENTRY = re.compile(r"^TRITD_BLOCK_ENTRY\(tritd_elementwise_block_(\w+),", re.M)
 # (variant, shape name): the main path's float32 shapes, the smallest slab a
-# rank holds, and one variant each with bf16 storage and double compute
+# rank holds, one variant each with bf16 storage and double compute, and one
+# each with float16 and float8 storage (8 bytes of float8 an access beside
+# float, 4 beside double)
 CASES = (("f32", "taxi"), ("f32", "video"), ("f32", "slab4"), ("f32", "slab3"),
          ("c32_dbf16_sbf16_tbf16", "taxi"), ("c32_d32_sbf16_tbf16", "slab2"), ("f64", "taxi"),
-         ("c64_d64_s64_tbf16", "taxi"))
+         ("c64_d64_s64_tbf16", "taxi"), ("c32_df16_sf16_tf16", "taxi"), ("c32_de4m3_se4m3_te4m3", "taxi"),
+         ("c32_de5m2_se5m2_te5m2", "video"), ("c64_de5m2_se5m2_te5m2", "taxi"))
 
 
 def _geometry(threads: int, per_sm: int) -> dict:
@@ -91,37 +99,57 @@ VARIATIONS = {
         [("kThreads = 256;", "kThreads = 512;", 1), ("kBlocksPerSM = 2;", "kBlocksPerSM = 1;", 1)],
         _geometry(512, 1), True),
     "cached loads (ld.global.nc) in place of streaming ones": (
-        [("__ldcs(reinterpret_cast", "__ldg(reinterpret_cast", 2)], {}, True),
-    "streaming stores (st.global.cs)": ([("{ *p = v; }", "{ __stcs(p, v); }", 2)], {}, True),
+        [("__ldcs(reinterpret_cast", "__ldg(reinterpret_cast", 3)], {}, True),
+    "streaming stores (st.global.cs)": ([("{ *p = v; }", "{ __stcs(p, v); }", 3)], {}, True),
     "32 bytes of the narrowest stream a turn": (
         [("kByStream = 16 / kNarrowest;", "kByStream = 32 / kNarrowest;", 1)], _groups(32), True),
 }
 
 
-def compile_source(text: str, out_dir: Path, tag: str) -> tuple[Path, list[dict]]:
-    """Compile `text` with the package's flags plus -Xptxas -v; returns the
-    library and one {kernel, registers, spill_bytes} per kernel."""
-    src = out_dir / f"{tag}.cu"
-    src.write_text(text)
+def _unit_files(variants) -> list[Path]:
+    """The package's .cu files that hold an entry point of `variants`, and
+    elementwise_block.cu (the geometry the wrapper checks)."""
+    return [src for src in build.sources()
+            if src.name == "elementwise_block.cu" or set(ENTRY.findall(src.read_text())) & set(variants)]
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names through c++filt where it is installed, else as they are."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    return subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+
+
+def compile_source(text: str, out_dir: Path, tag: str, variants) -> tuple[Path, list[dict], list[str]]:
+    """Compile `text` as the kernel's header with the .cu files that hold
+    `variants`, with the package's flags plus -Xptxas -v; returns the
+    library, one {kernel, registers, spill_bytes} per instantiation, and
+    the variants the library holds."""
+    unit_dir = out_dir / tag
+    unit_dir.mkdir()
+    (unit_dir / SOURCE.name).write_text(text)
+    units = [Path(shutil.copy(src, unit_dir)) for src in _unit_files(variants)]
     out = out_dir / f"{tag}.so"
-    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    rows, name = [], None
-    for line in proc.stderr.splitlines():
-        m = re.search(r"Compiling entry function '\w*elementwise_block_kernelI(\w+?)EEv", line)
+    logs = build.compile_library(units, out, extra_flags=("-Xptxas", "-v"), work_dir=out_dir)
+    rows, mangled, name = [], [], None
+    for line in "\n".join(logs).splitlines():
+        m = re.search(r"Compiling entry function '(\w*elementwise_block_kernel\w*)'", line)
         if m:
-            args = m.group(1).replace("13__nv_bfloat16", "b")
-            name = re.sub(r"S\d*_", "b", args)  # a substitution names the bf16 seen before
+            name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append({"kernel_types_c_d_s_t": name, "registers": int(m.group(1)), "spill_bytes": spill})
+            mangled.append(name)
+            rows.append({"registers": int(m.group(1)), "spill_bytes": spill})
             name = None
-    return out, rows
+    for row, kernel in zip(rows, _demangle(mangled)):
+        types = re.search(r"elementwise_block_kernel<([^>]*)>", kernel)
+        row["kernel_types_c_d_s_t"] = types.group(1) if types else kernel
+    held = sorted({v for src in units for v in ENTRY.findall(src.read_text())})
+    return out, rows, held
 
 
 class Built:
@@ -129,8 +157,9 @@ class Built:
 
     def __init__(self, name, text, overrides, out_dir):
         self.name, self.overrides = name, overrides
-        path, self.registers = compile_source(text, out_dir, re.sub(r"\W+", "_", name))
-        self.lib = kernels.bind(path)
+        variants = {variant for variant, _shape in CASES}
+        path, self.registers, held = compile_source(text, out_dir, re.sub(r"\W+", "_", name), variants)
+        self.lib = kernels.bind(path, variants=held)
 
     def __enter__(self):
         self.saved = {k: getattr(hopper_kernels, k) for k in self.overrides}
@@ -167,7 +196,7 @@ def make_case(variant: str, shape_name: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = SHAPES.get(shape_name) or SLAB_SHAPES[shape_name]
     raw = [torch.randn(shape, generator=gen, device="cuda") * 3 for _ in range(5)]
-    args = [raw[0].to(d_dt), raw[1].to(cd), *(x.to(s_dt) for x in raw[2:])]
+    args = [narrow_cast(raw[0], d_dt), raw[1].to(cd), *(narrow_cast(x, s_dt) for x in raw[2:])]
     kw = dict(mu_l_next=None if t_dt is None else MU_NEXT, t_dtype=t_dt)
     plain = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=kw["mu_l_next"], compute_dtype=cd,
                                         store_dtype=s_dt, t_dtype=t_dt)
@@ -202,7 +231,7 @@ def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool) -> t
         again, got = launch_again(args, kw)
         torch.cuda.synchronize()
         idx = [i for i in (0, 1, 2, 3, 6) if got[i] is not None]
-        worst = max(float((got[i].double() - plain[i].double()).abs().max()) for i in idx)
+        worst = max(float((got[i].double() - plain[i].double()).abs().nan_to_num().max()) for i in idx)
         if sums_valid:
             for i in (4, 5):
                 torch.testing.assert_close(got[i], plain[i], rtol=1e-5, atol=0.0)
@@ -248,7 +277,7 @@ def main(argv=None) -> dict:
     p.add_argument("--launches", type=int, default=40, help="launches between two events")
     p.add_argument("--only", nargs="*", default=None, help="substrings of the variations to run")
     p.add_argument("--against", default=None, metavar="FILE",
-                   help="also run another source of the same C interface (an earlier revision, say) as a variation")
+                   help="also run another revision of the kernel's header (csrc/elementwise_block.cuh) as a variation")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     resolve_device("cuda")
@@ -281,11 +310,16 @@ def main(argv=None) -> dict:
                 turns = [measure(b, args, kw, plain, a.launches, ok)
                          for b, ok in ((base, True), (varied, sums_valid), (varied, sums_valid), (base, True))]
                 us = [t[0] for t in turns]
+                per = block_bytes_per_element(args[0].dtype, args[1].dtype, args[2].dtype,
+                                              None if kw["mu_l_next"] is None else kw["t_dtype"])
+                bound = per * args[0].numel() / PEAK_BYTES_PER_S * 1e6
                 result["variations"].append({"variation": name, "variant": case[0], "shape": case[1],
+                                             "bytes_per_element": per, "bound_us": bound,
                                              "as_built_us": [us[0], us[3]], "varied_us": [us[1], us[2]],
                                              "max_abs_err": max(t[1] for t in turns)})
-                print(f"  {case[0]:24s} {case[1]:6s} as built {us[0]:7.1f} {us[3]:7.1f} us, varied {us[1]:7.1f} "
-                      f"{us[2]:7.1f} us ({(us[1] + us[2]) / (us[0] + us[3]) - 1:+.1%})", flush=True)
+                print(f"  {case[0]:24s} {case[1]:6s} {per:2d} B/elem, bound {bound:6.1f} us: as built {us[0]:7.1f} "
+                      f"{us[3]:7.1f} us, varied {us[1]:7.1f} {us[2]:7.1f} us "
+                      f"({(us[1] + us[2]) / (us[0] + us[3]) - 1:+.1%})", flush=True)
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)
         with open(a.out, "w") as fh:

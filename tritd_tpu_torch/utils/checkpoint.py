@@ -2,10 +2,15 @@
 
 PyTorch counterpart of `tritd_tpu/utils/checkpoint.py`, with the same `.npz`
 layout and field names: one array per `TriTDState` field, mu_l/mu_o 0-d in
-the solver dtype, k 0-d int32, done 0-d bool, and bfloat16 widened to
-float32 (exact) on save. A checkpoint written by either package therefore
-loads in the other. The reference's Orbax backend is a JAX library and is
-not ported: `use_orbax=True` raises.
+the solver dtype, k 0-d int32, done 0-d bool; bfloat16 and the two float8
+types are widened to float32 (exact) on save, float16 is saved as it is
+(numpy's own). `load_state` narrows them again with `narrow_cast`, so a
+resume is bitwise. A checkpoint in float32, float64, float16 or bfloat16
+written by either package loads in the other. The reference cannot save
+float8: its `_np_savable` reads an e4m3fn array as raw bytes and halves its
+last axis, and saves e5m2 as a type `np.load` cannot rebuild (an open fault
+of the reference, ROADMAP.md section 3). The reference's Orbax backend is a
+JAX library and is not ported: `use_orbax=True` raises.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.narrow import FLOAT8, narrow_cast
 from ..solvers.base import TriTDState
 
 _FIELDS = TriTDState._fields
@@ -22,11 +28,11 @@ _HOST_FIELDS = ("mu_l", "mu_o", "k", "done")
 
 
 def _np_savable(x) -> np.ndarray:
-    """A field as numpy; bf16 tensors widened to float32, which is exact and
-    what `np.load` can read back (load_state narrows them again)."""
+    """A field as numpy; bf16 and float8 tensors widened to float32, which is
+    exact and what `np.load` can read back (load_state narrows them again)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
-        if x.dtype == torch.bfloat16:
+        if x.dtype in (torch.bfloat16, *FLOAT8):
             x = x.to(torch.float32)
         return x.cpu().numpy()
     if isinstance(x, int):
@@ -83,18 +89,26 @@ def load_state(
             kwargs[name] = _np_dtype(dtype).type(kwargs[name])
         sd = storage_dtype if storage_dtype is not None else dtype
         for name in ("o", "e", "y_l", "y_o"):
-            kwargs[name] = kwargs[name].to(sd)
+            kwargs[name] = narrow_cast(kwargs[name], sd)
     if "t" not in kwargs:
         if d is None:
             raise ValueError(
                 f"checkpoint {path!r} has no carried field 't'; pass the "
                 "observed tensor d to load_state to reconstruct it"
             )
-        o = kwargs["o"]
-        kwargs["t"] = torch.as_tensor(d).to(device=device, dtype=o.dtype) - o + kwargs["y_l"] / float(kwargs["mu_l"])
+        o, mu_l = kwargs["o"], kwargs["mu_l"]
+        # The reference's order: d into O's dtype (one rounding), D - O in
+        # that dtype (a narrow one through float32, as XLA computes it), then
+        # Y_L / mu_l in mu_l's dtype.
+        dn = narrow_cast(torch.as_tensor(d).to(device), o.dtype)
+        diff = dn - o if o.dtype in (torch.float32, torch.float64) else narrow_cast(dn.float() - o.float(), o.dtype)
+        wide = torch.float64 if torch.float64 in (o.dtype, torch.from_numpy(np.asarray(mu_l)).dtype) else torch.float32
+        kwargs["t"] = diff.to(wide) + kwargs["y_l"].to(wide) / float(mu_l)
     t_dtype = einsum_dtype if einsum_dtype is not None else (storage_dtype if storage_dtype is not None else dtype)
+    if t_dtype is None and kwargs["t"].dtype != kwargs["o"].dtype:
+        t_dtype = kwargs["o"].dtype  # a rebuilt t is carried in O's dtype
     if t_dtype is not None:
-        kwargs["t"] = kwargs["t"].to(t_dtype)
+        kwargs["t"] = narrow_cast(kwargs["t"], t_dtype)
     return TriTDState(**kwargs)
 
 
