@@ -23,7 +23,13 @@ Phases, each of which fails the run by raising:
      outputs at the edges of the narrow formats (448, 464, past 464, 480,
      57344, 61440, +-inf, the float8 and float16 subnormals, the float64
      values one rounding and two round apart): every store bitwise the
-     plain version's on the CPU, NaN where it has NaN.
+     plain version's on the CPU, NaN where it has NaN; the same for all 256
+     codes of e4m3fn and of e5m2 as D, E, Y_L and Y_O through every variant
+     that holds the format. The kernel's division by a launch's mu (a
+     reciprocal made once, div.rn's correction per element) against '/' bit
+     for bit: every float32 numerator and 2**28 float64 ones, for the
+     presets' annealed mu, their sums, powers of two and all-ones
+     significands from 2**-32 to 2**31.
      Time both with CUDA events, beside the least time the card could take,
      the host's enqueue time per call and one device-to-device copy_ of the
      same bytes. Then the cases the kernel's design can get wrong, each
@@ -474,6 +480,51 @@ def _phase2_conversion_edges() -> None:
             raise AssertionError(f"{variant} at the conversion edges: {exc}") from exc
     print(f"phase2 conversion edges: {len(NARROW)} narrow variants, {compared} stores at {len(edges)} "
           f"edge values, each bitwise the plain version's on the CPU (narrow_cast), NaN where it has NaN")
+    # every float8 code as D, E, Y_L and Y_O, through every variant that holds that format
+    compared, held = 0, 0
+    for variant, (cd, d_dt, s_dt, t_dt) in NARROW.items():
+        key = (cd, d_dt, s_dt, t_dt if t_dt is not None else s_dt)
+        mu_next = None if t_dt is None else hopper_kernels.EDGE_MU_NEXT
+        for fmt in sorted(set(key) & set(hopper_kernels.FLOAT8), key=str):
+            args = hopper_kernels.float8_code_args(fmt, key, "cuda")
+            got = hopper_kernels._block_cuda(*args, *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+            want = hopper_kernels._block_torch(*(a.cpu() for a in args), *hopper_kernels.EDGE_SCALARS,
+                                               mu_l_next=mu_next, compute_dtype=cd, store_dtype=s_dt, t_dtype=t_dt)
+            torch.cuda.synchronize()
+            try:
+                compared += hopper_kernels.check_stores_bitwise(got, want)
+            except AssertionError as exc:
+                raise AssertionError(f"{variant} on the 256 codes of {fmt}: {exc}") from exc
+            held += 1
+    print(f"phase2 float8 codes: all 256 codes of e4m3fn and e5m2 as D, E, Y_L and Y_O through {held} "
+          f"(variant, format) pairs, {compared} stores, each bitwise the plain version's on the CPU, NaN where "
+          f"it has NaN")
+
+
+# numerators of the float64 division check (the float32 one takes all 2**32)
+QUOTIENT_F64_SAMPLES = 2**28
+
+
+def _phase2_quotient() -> None:
+    """The kernel divides by a launch's mu with a reciprocal made once and
+    one correction per element (`Quotient`, csrc/elementwise_block.cuh);
+    hold it bitwise to '/' (div.rn): every float32 numerator, and 2**28
+    float64 ones, for each divisor of `sweep_block.quotient_divisors`
+    (the presets' annealed mu, their sums, powers of two and all-ones
+    significands from 2**-32 to 2**31)."""
+    from tritd_tpu_torch.tools import sweep_block
+
+    for dtype, count in ((torch.float32, 2**32), (torch.float64, QUOTIENT_F64_SAMPLES)):
+        divisors = sweep_block.quotient_divisors(dtype, (COMPLETION_TRITD, VIDEO_TRITD))
+        t0 = time.perf_counter()
+        counts = sweep_block.quotient_check(dtype, divisors, count)
+        seconds = time.perf_counter() - t0
+        wrong = {divisors[k]: int(n) for k, n in enumerate(counts[:, 0]) if n}
+        if wrong:
+            raise AssertionError(f"the kernel's {dtype} division differs from '/' for divisors {wrong}")
+        print(f"phase2 division {str(dtype)[6:]}: {len(divisors)} divisors x {count} numerators, every quotient "
+              f"bitwise div.rn's; {counts[:, 1].sum() / (count * len(divisors)):.1%} took the reciprocal path "
+              f"({seconds:.1f} s)")
 
 
 def _phase2_edges() -> None:
@@ -608,6 +659,7 @@ def phase2() -> dict:
             if name == "taxi":
                 records[variant] = record
     _phase2_conversion_edges()
+    _phase2_quotient()
     _phase2_edges()
     return records
 

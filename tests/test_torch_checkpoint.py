@@ -79,7 +79,7 @@ def test_port_checkpoint_loads_and_resumes_in_jax(tmp_path):
     cfg = TriTDConfig(rank=2, max_iter=10, tol=0.0, dtype="float64")
     tritd_admm_checkpointed(torch.from_numpy(d), cfg, str(tmp_path / "port"), every=5)
     path = str(tmp_path / "port" / "step_000010.npz")
-    mine = checkpoint.load_state(path)
+    mine = checkpoint.load_state(path, device="cpu")
     with jax.enable_x64(True):
         theirs = jcheckpoint.load_state(path)
         assert set(theirs._fields) == set(mine._fields)
@@ -125,7 +125,8 @@ def test_state_round_trips_exactly(tmp_path):
     with np.load(path) as f:
         assert f["o"].dtype == np.float32 and f["k"].dtype == np.int32 and f["done"].dtype == np.bool_
         assert f["mu_l"].shape == () and f["mu_l"].dtype == np.float32
-    state = checkpoint.load_state(path, torch.float32, einsum_dtype=None, storage_dtype=torch.bfloat16)
+    state = checkpoint.load_state(path, torch.float32, einsum_dtype=None, storage_dtype=torch.bfloat16,
+                                  device="cpu")
     assert state.o.dtype == state.t.dtype == torch.bfloat16 and state.a.dtype == torch.float32
     assert type(state.k) is int and state.k == 7
     assert isinstance(state.mu_l, np.float32) and state.done.shape == () and state.done.dtype == torch.bool
@@ -146,7 +147,7 @@ def test_checkpoint_without_t_is_backfilled(tmp_path):
         arrays = {k: f[k] for k in f.files if k != "t"}
     np.savez(tmp_path / "old.npz", **arrays)
     with pytest.raises(ValueError, match="'t'"):
-        checkpoint.load_state(str(tmp_path / "old.npz"))
+        checkpoint.load_state(str(tmp_path / "old.npz"), device="cpu")
     state = checkpoint.load_state(str(tmp_path / "old.npz"), d=d)
     with np.load(tmp_path / "step_000005.npz") as f:
         np.testing.assert_allclose(state.t.numpy(), f["t"], rtol=1e-12, atol=1e-12)

@@ -57,8 +57,19 @@ from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.ops import svt as svt_ops  # noqa: E402
 from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
 from tritd_tpu_torch.runtime import native  # noqa: E402
-from tritd_tpu_torch.solvers import init_factors, tritd_admm  # noqa: E402
-from tritd_tpu_torch.utils.config import COMPLETION_TRITD  # noqa: E402
+from tritd_tpu_torch.solvers import (  # noqa: E402
+    OutlierConfig,
+    TriTDConfig,
+    init_factors,
+    tritd_admm,
+    tritd_admm_checkpointed,
+    tritd_admm_outlier,
+    tritd_als,
+    tritd_mals,
+)
+from tritd_tpu_torch.utils import checkpoint  # noqa: E402
+from tritd_tpu_torch.tools import sweep_block  # noqa: E402
+from tritd_tpu_torch.utils.config import COMPLETION_TRITD, VIDEO_TRITD  # noqa: E402
 
 SCALARS = (0.5, 0.7, 1.8)
 MU_NEXT = 0.625
@@ -174,6 +185,25 @@ def test_solve_launches_the_kernel_every_iteration(cuda_device):
     assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == gpu.n_iters == 15
     cpu = tritd_admm(y, dataclasses.replace(cfg, dtype="float64"), init=init)
     np.testing.assert_allclose(gpu.err_hist.cpu().numpy(), cpu.err_hist.numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_numpy_input_solves_on_the_card(cuda_device, tmp_path):
+    """A numpy array given to a solver goes to the card (as the reference
+    places it on its accelerator): the solve launches the kernel every
+    iteration and returns CUDA tensors; load_state loads onto the card."""
+    d = np.random.default_rng(0).standard_normal((20, 16, 24)) * 10
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=5, tol=0.0)
+    hopper_kernels.reset_launch_counts()
+    res = tritd_admm(d, cfg)
+    assert res.a.is_cuda and res.o.is_cuda and res.err_hist.is_cuda
+    assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == res.n_iters == 5
+    for solve in (lambda: tritd_admm_checkpointed(d, cfg, str(tmp_path), every=5),
+                  lambda: tritd_admm_outlier(d, OutlierConfig(rank=5, max_iter=2)),
+                  lambda: tritd_als(d, TriTDConfig(rank=5, max_iter=2)),
+                  lambda: tritd_mals(d, TriTDConfig(rank=5, max_iter=2))):
+        assert solve().a.is_cuda
+    assert checkpoint.load_state(str(tmp_path / "step_000005.npz")).o.is_cuda
 
 
 @pytest.mark.cuda
@@ -389,6 +419,47 @@ def _spectrum_matrix(p, q, spectrum, seed=0):
     s = np.zeros(k)
     s[: len(spectrum)] = spectrum
     return torch.from_numpy((u * s) @ v.T)
+
+
+FLOAT8_VARIANTS = sorted(v for k, v in hopper_kernels.KERNEL_VARIANTS.items() if set(k) & set(hopper_kernels.FLOAT8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", FLOAT8_VARIANTS)
+def test_every_float8_code_is_stored_as_the_plain_version_stores_it(cuda_device, variant):
+    """All 256 codes of each float8 dtype of the variant as D, E, Y_L and
+    Y_O (`hopper_kernels.float8_code_args`) under EDGE_SCALARS: every store
+    bitwise the plain version's on the CPU, NaN where it has NaN. The
+    kernel widens float8 a pair at a time and packs it with the hardware's
+    saturating conversion, restoring JAX's NaN and infinities per group."""
+    key = next(k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
+    compute, d_dt, s_dt, t_dt = key
+    mu_next = None if (d_dt == compute and s_dt != compute) else hopper_kernels.EDGE_MU_NEXT
+    for fmt in sorted(set(key) & set(hopper_kernels.FLOAT8), key=str):
+        args = hopper_kernels.float8_code_args(fmt, key, cuda_device)
+        got = hopper_kernels.elementwise_block(*args, *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+        want = hopper_kernels._block_torch(*(a.cpu() for a in args), *hopper_kernels.EDGE_SCALARS,
+                                           mu_l_next=mu_next, compute_dtype=compute, store_dtype=s_dt, t_dtype=t_dt)
+        assert hopper_kernels.check_stores_bitwise(got, want) >= 4 * args[0].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernel_division_is_bitwise_div_rn(cuda_device, dtype):
+    """The kernel's division by a launch's mu (a reciprocal made once, one
+    correction per element) against '/' bit for bit, for the presets'
+    divisors and all-ones significands; divisors outside its range (and a
+    negative one) take '/' for every numerator. `chip_smoke.py` phase 2
+    takes every float32 numerator; here 2**26 bit patterns from 2**-8 up
+    (float32) and 2**22 drawn numerators (float64)."""
+    outside = [2.0**40, 2.0**-40, -3.0, 0.0]
+    divisors = sweep_block.quotient_divisors(dtype, (COMPLETION_TRITD, VIDEO_TRITD)) + outside
+    if dtype == torch.float32:
+        counts = sweep_block.quotient_check(dtype, divisors, 2**26, first=0x3B800000)
+    else:
+        counts = sweep_block.quotient_check(dtype, divisors, 2**22)
+    assert not counts[:, 0].any(), {divisors[k]: int(n) for k, n in enumerate(counts[:, 0]) if n}
+    assert counts[: -len(outside), 1].min() > 0 and not counts[-len(outside):, 1].any()
 
 
 @pytest.mark.cuda

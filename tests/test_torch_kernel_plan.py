@@ -221,3 +221,127 @@ def test_block_on_views_and_odd_sizes_matches_jax_f64(shape, use_pallas, layout)
         np.testing.assert_allclose(float(g), float(w), rtol=1e-12)
     t_want = arrays[0] - want[0] + want[2] / MU_NEXT
     np.testing.assert_allclose(got[6].numpy(), t_want, rtol=1e-12, atol=1e-12)
+
+
+def _group_of_source():
+    """The source's GroupOf as a function of (compute bytes, narrowest
+    bytes): its two constants, read from csrc/elementwise_block.cuh."""
+    src = (build.SRC_DIR / "elementwise_block.cuh").read_text()
+    by_stream = int(re.search(r"kByStream = (\d+) / kNarrowest;", src).group(1))
+    cap = int(re.search(r"kCap = (\d+) / \(int\)sizeof\(C\);", src).group(1))
+    return lambda compute, narrowest: min(by_stream // narrowest, cap // compute)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_group_table_is_the_sources_group_of(variant):
+    """VARIANT_GROUP, which the wrapper plans with, against GroupOf in the
+    CUDA source (which `_entry` also holds against the built library)."""
+    compute, *stored = _dtypes(variant)
+    assert VARIANT_GROUP[variant] == _group_of_source()(SIZE_OF[compute], min(SIZE_OF[dt] for dt in stored))
+
+
+# An excerpt in the form `cuobjdump -sass` prints: a prologue, a loop whose
+# backward branch encloses a 16-byte load, a division's skipped slow-path
+# call inside it, a one-element loop after it, and a label-form branch.
+SASS_EXCERPT = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_124elementwise_block_kernelIf4e5m2S1_S1_EEvv
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                             /* 0x00000a00ff017b82 */
+                                                                                      /* 0x000fe40000000800 */
+        /*0010*/                   MUFU.RCP R15, R2 ;                                 /* 0x00000002000f7308 */
+        /*0020*/              @!P0 BRA 0x100 ;                                        /* 0x0000000000007947 */
+        /*0030*/                   LDG.E.EF.64 R4, desc[UR8][R2.64] ;
+        /*0040*/                   LDG.E.EF.128 R8, desc[UR8][R6.64] ;
+        /*0050*/                   PRMT R12, R4, 0x1404, RZ ;
+        /*0060*/                   HADD2.F32 R13, -RZ, R12.H0_H0 ;
+        /*0070*/                   FFMA R14, R13, R15, RZ ;
+        /*0080*/                   FSETP.GEU.OR P1, PT, |R14|, 61440, P1 ;
+        /*0090*/              @!P1 BRA 0xb0 ;
+        /*00a0*/                   CALL.REL.NOINC 0x200 ;
+        /*00b0*/                   F2FP.SATFINITE.E5M2.F32.PACK_AB R16, R14, R13 ;
+        /*00c0*/                   F2F.F64.F32 R18, R14 ;
+        /*00d0*/                   DFMA R20, R18, R18, R20 ;
+        /*00e0*/                   STG.E desc[UR8][R2.64], R16 ;
+        /*00f0*/               @P2 BRA 0x30 ;
+        /*0100*/                   LDG.E.U8 R4, desc[UR8][R2.64] ;
+        /*0110*/                   IADD3 R2, P0, R2, 0x1, RZ ;
+        /*0120*/               @P3 BRA `(.L_x_1) ;
+        /*0130*/                   EXIT ;
+.L_x_1:
+        /*0140*/                   BRA 0x100 ;
+"""
+
+
+def test_sass_parser_counts_the_vector_loop():
+    functions = sweep_block.parse_sass(SASS_EXCERPT)
+    (name,) = functions
+    insns = functions[name]
+    assert len(insns) == 21 and insns[1]["op"] == "MUFU.RCP"
+    assert [x["target"] for x in insns if x["op"] == "BRA"] == [0x100, 0xB0, 0x30, 0x140, 0x100]
+    loop = sweep_block.vector_loop(insns)
+    assert (loop[0]["addr"], loop[-1]["addr"]) == (0x30, 0xF0)  # not the one-element loop at 0x100-0x140
+    counts = sweep_block.count_kinds(loop)
+    assert counts == {"fp32": 3, "fp64": 1, "convert": 2, "integer": 1, "mufu": 0, "branch": 3, "memory": 3,
+                      "other": 0, "total": 13}
+    # the hot path takes the guarded branch over the slow-path call
+    assert [x["pred"] for x in insns if x["op"] == "BRA"] == ["@!P0", "@!P1", "@P2", "@P3", ""]
+    hot = sweep_block.hot_path(loop)
+    assert [x["op"] for x in hot if x["op"].startswith(("BRA", "CALL"))] == ["BRA", "BRA"]
+    assert sweep_block.count_kinds(hot) == {**counts, "branch": 2, "total": 12}
+    with pytest.raises(ValueError, match="16-byte global load"):
+        sweep_block.vector_loop([x for x in insns if ".128" not in x["op"]])
+
+
+def test_sass_budget_and_kernel_names():
+    # 13 B an element at 3.35 TB/s leaves 132 SMs x 128 lanes at 1980 MHz about 130 instructions
+    assert sweep_block.issue_budget(13, 1980) == pytest.approx(129.82, abs=0.01)
+    assert sweep_block.issue_budget(40, 1980) == pytest.approx(399.45, abs=0.01)
+    assert sweep_block.kernel_types("c32_de5m2_se5m2_te5m2") == "float, e5m2, e5m2, e5m2"
+    assert sweep_block.kernel_types("c64_d64_sbf16_tbf16") == "double, double, __nv_bfloat16, __nv_bfloat16"
+    assert sweep_block.kernel_types("f32") == "float, float, float, float"
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_sweep_solve_of_each_variant_routes_to_it(variant):
+    """`sweep_block --solves` runs one solve per variant: its configuration
+    must make the solver launch that variant (dtypes as admm_iteration
+    passes them to the block)."""
+    from tritd_tpu_torch.solvers import TriTDConfig
+    from tritd_tpu_torch.solvers.admm import t_dtype_of
+
+    dataset, fields = sweep_block.variant_solve(variant)
+    cfg = TriTDConfig(**fields)
+    compute, storage = cfg.torch_dtype(), cfg.torch_storage_dtype()
+    d_dt = compute if cfg.masked else storage
+    t_dt = storage if cfg.masked else (t_dtype_of(cfg) or storage)
+    assert KERNEL_VARIANTS[(compute, d_dt, storage, t_dt)] == variant
+    assert (dataset == "video") == (torch.float8_e4m3fn in _dtypes(variant))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_quotient_divisors_follow_the_presets_annealing(dtype):
+    """The divisors the card's division check takes: mu annealed as the
+    given presets anneal it (mu, min(mu * rho, cap), ...), in `dtype`, with
+    each sum mu_L + mu_O, beside a power of two and an all-ones significand
+    at each exponent from -32 to 31."""
+    from tritd_tpu_torch.solvers import TriTDConfig
+
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    bare = sweep_block.quotient_divisors(dtype, ())
+    ones = 2.0 - 2.0 ** -np.finfo(np_dt).nmant
+    assert bare == sorted(float(np_dt(m * 2.0**k)) for k in range(-32, 32) for m in (1.0, ones))
+    cfg = TriTDConfig(mu=0.3, rho=2.0, mu_cap_factor=10.0, max_iter=5)
+    annealed = [np_dt(0.3)]
+    for _ in range(5):
+        annealed.append(np.minimum(annealed[-1] * np_dt(2.0), np_dt(0.3 * 10.0)))
+    want = {float(m) for m in annealed} | {float(m + m) for m in annealed}
+    got = set(sweep_block.quotient_divisors(dtype, (cfg,))) - set(bare)
+    assert got == want - set(bare) and float(np_dt(3.0)) in got
+
+
+def test_every_case_times_each_variant_at_taxi_and_float32_at_video():
+    cases = sweep_block.every_case()
+    assert len(cases) == len(set(cases))
+    assert {v for v, s in cases if s == "taxi"} == set(VARIANTS)
+    assert {v for v, s in cases if s == "video"} == {v for v in VARIANTS if _dtypes(v)[0] == torch.float32}

@@ -326,6 +326,42 @@ def test_edge_inputs_make_each_store_the_rounding_of_its_value(variant):
         0 if masked else got[6].numel())
 
 
+FLOAT8_VARIANTS = sorted(v for k, v in hopper_kernels.KERNEL_VARIANTS.items() if set(k) & set(hopper_kernels.FLOAT8))
+
+
+@pytest.mark.parametrize("variant", FLOAT8_VARIANTS)
+def test_every_float8_code_through_the_plain_block_is_jax(variant):
+    """The inputs of the card's all-codes check (`hopper_kernels.float8_code_args`:
+    the 256 codes of each float8 dtype of the variant as D, E, Y_L and Y_O)
+    through the port's plain block and the reference's `_block_jnp`, T' as
+    the reference's solver forms it from the stored O' and Y_L', under
+    EDGE_SCALARS: every store equal, NaN where the other has NaN."""
+    key = next(k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
+    cd, d_dt, s_dt, t_dt = key
+    masked = d_dt == cd and s_dt != cd
+    mu_next = None if masked else hopper_kernels.EDGE_MU_NEXT
+    for fmt in sorted(set(key) & set(hopper_kernels.FLOAT8), key=str):
+        args = hopper_kernels.float8_code_args(fmt, key, "cpu")
+        for x in args:
+            if x.dtype == fmt:
+                assert len(torch.unique(x.view(torch.uint8))) == 256
+        got = elementwise_block(*args, *hopper_kernels.EDGE_SCALARS, mu_l_next=mu_next, t_dtype=t_dt)
+        c = getattr(jnp, str(cd).removeprefix("torch."))
+        with jax.enable_x64(cd == torch.float64):
+            j_in = [jnp.asarray(interop_numpy(x)) for x in args]
+            narrow = s_dt != cd
+            o, e, y_l, y_o, _nl, _no = _block_jnp(*j_in, *hopper_kernels.EDGE_SCALARS,
+                                                  compute_dtype=c if narrow else None,
+                                                  store_dtype=getattr(jnp, str(s_dt).removeprefix("torch."))
+                                                  if narrow else None)
+            t = None
+            if mu_next is not None:
+                t_wide = j_in[0].astype(c) - o.astype(c) + y_l.astype(c) / c(mu_next)
+                t = t_wide.astype(getattr(jnp, str(t_dt).removeprefix("torch.")))
+            want = [None if v is None else interop.tensor_from_numpy(np.asarray(v)) for v in (o, e, y_l, y_o, t)]
+        assert hopper_kernels.check_stores_bitwise(got, (*want[:4], None, None, want[4])) >= 4 * 1029
+
+
 def test_narrow_check_lets_t_carry_a_flipped_store():
     """An O' whose e5m2 rounding flipped to the neighbouring value (as an ulp
     of float32 difference can flip it on the card) moves T' = D - O' +
@@ -609,7 +645,7 @@ def test_checkpoint_round_trips_and_resumes_bitwise(tmp_path, name):
     path = str(tmp_path / "crash" / "step_000006.npz")
     with np.load(path) as f:
         assert f["o"].dtype == (np.float16 if name == "float16" else np.float32)
-    state = checkpoint.load_state(path, torch.float32, storage_dtype=_tdt(name))
+    state = checkpoint.load_state(path, torch.float32, storage_dtype=_tdt(name), device="cpu")
     for f, t in _narrow_state_fields(state).items():
         assert t.dtype == _tdt(name), f
     again = str(tmp_path / "again.npz")
@@ -628,7 +664,7 @@ def test_float16_port_checkpoint_loads_in_the_reference(tmp_path):
     cfg = TriTDConfig(rank=2, max_iter=5, tol=0.0, lambda_l1=0.1, storage_dtype="float16")
     tritd_admm_checkpointed(torch.from_numpy(d), cfg, str(tmp_path), every=5)
     path = str(tmp_path / "step_000005.npz")
-    port = checkpoint.load_state(path, torch.float32, storage_dtype=torch.float16)
+    port = checkpoint.load_state(path, torch.float32, storage_dtype=torch.float16, device="cpu")
     ref = jcheckpoint.load_state(path, dtype=jnp.float32, storage_dtype=jnp.float16)
     assert int(ref.k) == port.k == 5
     for f, t in _narrow_state_fields(port).items():
@@ -651,7 +687,7 @@ def test_rebuilt_t_from_a_float64_d_matches_the_reference(tmp_path, name):
     d64 = d.astype(np.float64)
     # values that a second rounding through float32 moves in float16, e4m3fn and e5m2
     d64.flat[:3] = [1 + 2**-11 + 2**-40, 1 + 2**-4 + 2**-40, 1 + 2**-3 + 2**-40]
-    port = checkpoint.load_state(path, torch.float32, d=d64, storage_dtype=_tdt(name))
+    port = checkpoint.load_state(path, torch.float32, d=d64, storage_dtype=_tdt(name), device="cpu")
     assert port.t.dtype == _tdt(name)
     jdt = getattr(jnp, name)
     if name in NEW[1:]:

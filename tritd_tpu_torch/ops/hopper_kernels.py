@@ -44,7 +44,7 @@ import functools
 import numpy as np
 import torch
 
-from .narrow import narrow_cast
+from .narrow import FLOAT8, narrow_cast
 from .shrinkage import soft_threshold
 
 _F32, _F64 = torch.float32, torch.float64
@@ -318,6 +318,30 @@ def edge_args(values, dtypes, device) -> list:
     l = (-2.0 * torch.as_tensor(values, dtype=_F64)).to(cd).to(device)
     zeros = torch.zeros_like(l)
     return [zeros.to(d_dt), l, *(zeros.to(s_dt) for _ in range(3))]
+
+
+def float8_code_args(fmt, dtypes, device) -> list:
+    """The five inputs of a variant with (compute, D, storage, T') `dtypes`
+    that carry all 256 codes of the float8 dtype `fmt` (+-0, the subnormals,
+    NaN, e5m2's infinities) as D, E, Y_L and Y_O: each of the four takes the
+    codes in four orders of its own (permutations from a fixed seed) and
+    a five-code tail for the kernel's one-element path; L is zero. An input
+    of dtype `fmt` holds the codes bitwise, one of another dtype their
+    values as `narrow_cast` rounds them. Under EDGE_SCALARS every product
+    the block forms is exact (halving or doubling a float8 value), so the
+    kernel rounds wherever the plain version does, and every store must
+    equal the plain version's (`check_stores_bitwise`)."""
+    cd, d_dt, s_dt, _t = dtypes
+    rng = np.random.default_rng(256)
+    codes = [np.concatenate([rng.permutation(256) for _ in range(4)] + [np.arange(5)]).astype(np.uint8)
+             for _ in range(4)]
+
+    def holding(c, dt):
+        x = torch.from_numpy(c).view(fmt)
+        return x if dt == fmt else narrow_cast(x.to(_F64), dt)
+
+    d, e, y_l, y_o = (holding(c, dt) for c, dt in zip(codes, (d_dt, s_dt, s_dt, s_dt)))
+    return [x.to(device) for x in (d, torch.zeros(d.shape, dtype=cd), e, y_l, y_o)]
 
 
 def check_stores_bitwise(got, want) -> int:

@@ -36,6 +36,11 @@ def bind(path, variants=None) -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.tritd_error_string.argtypes = [ctypes.c_int]
     lib.tritd_error_string.restype = ctypes.c_char_p
+    for name in ("tritd_quotient_check_f32", "tritd_quotient_check_f64"):
+        if hasattr(lib, name):  # not in a library built from an earlier revision
+            # ys, ny, first, count, counts, stream
+            getattr(lib, name).argtypes = [_P, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64, _P, _P]
+            getattr(lib, name).restype = ctypes.c_int
     for (compute, *_), variant in KERNEL_VARIANTS.items():
         if variants is not None and variant not in variants:
             continue

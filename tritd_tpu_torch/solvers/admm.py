@@ -40,7 +40,7 @@ from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.hopper_kernels import elementwise_block
 from ..ops.narrow import narrow_cast
-from .base import TriTDConfig, TriTDResult, TriTDState
+from .base import TriTDConfig, TriTDResult, TriTDState, solver_input
 
 
 def t_dtype_of(cfg: TriTDConfig) -> torch.dtype | None:
@@ -285,6 +285,7 @@ def tritd_admm(
     origin=None,
     init=None,
     generator: torch.Generator | None = None,
+    device=None,
 ) -> TriTDResult:
     """Run robust TriTD-ADMM on a 3-way tensor, on the device of `d`.
 
@@ -299,13 +300,16 @@ def tritd_admm(
         :mod:`tritd_tpu_torch.interop`.
       generator: CPU generator for the init when `init` is None (default:
         seed 0, mirroring the reference's `rng(0)`).
+      device: where a `d` that is not a tensor goes (default: the card;
+        `RuntimeError` without CUDA); a tensor `d` keeps its device unless
+        `device` names another. mask and origin follow `d`.
     """
     if cfg.masked and mask is None:
         raise ValueError("cfg.masked=True requires a mask argument")
     if mask is not None and not cfg.masked:
         raise ValueError("mask given but cfg.masked=False — pass TriTDConfig(masked=True)")
     dtype = cfg.torch_dtype()
-    d = torch.as_tensor(d).to(dtype)
+    d = solver_input(d, dtype, device)
     device = d.device
     if mask is not None:
         mask = torch.as_tensor(mask, device=device).to(torch.bool)

@@ -19,7 +19,7 @@ from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from .admm import init_factors
-from .base import TriTDConfig, TriTDResult
+from .base import TriTDConfig, TriTDResult, solver_input
 
 
 def _als_sweep(x, a, b, c, cfg: TriTDConfig):
@@ -35,9 +35,9 @@ def _als_sweep(x, a, b, c, cfg: TriTDConfig):
     return a, b, c
 
 
-def _als_run(x, cfg: TriTDConfig, mals: bool, init, generator) -> TriTDResult:
+def _als_run(x, cfg: TriTDConfig, mals: bool, init, generator, device) -> TriTDResult:
     dtype = cfg.torch_dtype()
-    x = torch.as_tensor(x).to(dtype)
+    x = solver_input(x, dtype, device)
     norm_x = torch.linalg.vector_norm(x)
     if init is None:
         if generator is None:
@@ -73,12 +73,14 @@ def _als_run(x, cfg: TriTDConfig, mals: bool, init, generator) -> TriTDResult:
 
 
 def tritd_als(x, cfg: TriTDConfig = TriTDConfig(tol=1e-5), init=None,
-              generator: torch.Generator | None = None) -> TriTDResult:
-    """Alternating-LS TriTD fit of an uncorrupted tensor, on the device of `x`."""
-    return _als_run(x, cfg, False, init, generator)
+              generator: torch.Generator | None = None, device=None) -> TriTDResult:
+    """Alternating-LS TriTD fit of an uncorrupted tensor, on the device of `x`
+    (`device` as for `tritd_admm`)."""
+    return _als_run(x, cfg, False, init, generator, device)
 
 
 def tritd_mals(x, cfg: TriTDConfig = TriTDConfig(), init=None,
-               generator: torch.Generator | None = None) -> TriTDResult:
-    """Repaired MALS variant (see module docstring)."""
-    return _als_run(x, cfg, True, init, generator)
+               generator: torch.Generator | None = None, device=None) -> TriTDResult:
+    """Repaired MALS variant (see module docstring); `device` as for
+    `tritd_admm`."""
+    return _als_run(x, cfg, True, init, generator, device)

@@ -17,7 +17,7 @@ import torch
 from ..ops.narrow import narrow_cast
 from ..utils.checkpoint import CheckpointManager, load_state, save_state
 from .admm import admm_iteration, init_factors, init_state
-from .base import TriTDConfig, TriTDResult, TriTDState
+from .base import TriTDConfig, TriTDResult, TriTDState, solver_input
 
 # Environment variable of the failure drill: the process exits abruptly, with
 # code 17, right after it saved a checkpoint at or past this iteration.
@@ -44,12 +44,14 @@ def tritd_admm_checkpointed(
     init=None,
     generator: torch.Generator | None = None,
     resume: bool = True,
+    device=None,
 ) -> TriTDResult:
     """Run robust TriTD-ADMM on the device of `d` with a checkpoint every
     `every` iterations. If `resume` and ckpt_dir holds a checkpoint, the run
-    continues from the latest one. `init`/`generator` as for `tritd_admm`."""
+    continues from the latest one. `init`/`generator`/`device` as for
+    `tritd_admm`."""
     dtype = cfg.torch_dtype()
-    d = torch.as_tensor(d).to(dtype)
+    d = solver_input(d, dtype, device)
     latest = CheckpointManager(ckpt_dir, every).latest() if resume else None
     if latest:
         sd = cfg.torch_storage_dtype()

@@ -29,7 +29,7 @@ from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.shrinkage import lp_reweight, weighted_soft_threshold
 from .admm import init_factors
-from .base import TriTDResult
+from .base import TriTDResult, solver_input
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +62,12 @@ def tritd_admm_outlier(
     cfg: OutlierConfig = OutlierConfig(),
     init=None,
     generator: torch.Generator | None = None,
+    device=None,
 ) -> TriTDResult:
     """Nonconvex reweighted robust TriTD on the device of `x` (see module
-    docstring). `init`/`generator` as for `tritd_admm`."""
+    docstring). `init`/`generator`/`device` as for `tritd_admm`."""
     dtype = cfg.torch_dtype()
-    x = torch.as_tensor(x).to(dtype)
+    x = solver_input(x, dtype, device)
     norm_x = torch.linalg.vector_norm(x)
     if init is None:
         if generator is None:

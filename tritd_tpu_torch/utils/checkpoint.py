@@ -20,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.kruskal import default_device
 from ..ops.narrow import FLOAT8, narrow_cast
 from ..solvers.base import TriTDState
 
@@ -52,9 +53,11 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def load_state(
-    path: str, dtype=None, d=None, einsum_dtype=None, storage_dtype=None, device="cpu"
+    path: str, dtype=None, d=None, einsum_dtype=None, storage_dtype=None, device=None
 ) -> TriTDState:
-    """Load a TriTDState checkpoint onto `device`.
+    """Load a TriTDState checkpoint onto `device`: by default the device of
+    `d` when `d` is a tensor, else the card (`RuntimeError` without CUDA;
+    `device="cpu"` loads onto the CPU).
 
     Args:
       path: .npz written by :func:`save_state` (of either package).
@@ -69,6 +72,9 @@ def load_state(
     The host fields come back as the solver keeps them: mu_l/mu_o numpy
     scalars, k an int, done a 0-d bool tensor on `device`.
     """
+    if device is None and isinstance(d, torch.Tensor):
+        device = d.device
+    device = default_device(device)
     with np.load(path) as f:
         arrays = {name: f[name] for name in _FIELDS if name in f}
     missing = [name for name in _FIELDS if name not in arrays and name != "t"]
