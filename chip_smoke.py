@@ -156,6 +156,17 @@ Phases, each of which fails the run by raising:
      one-card ms per iteration at taxi and video and the all_reduce calls
      and bytes phase 12 counted; prints its JSON line; every multi-GPU
      figure in it is predicted.
+ 19. numpy input at the full taxi width (100x100x500, float32): tt_trpca,
+     rtrc and rc_fctn_driver_traffic (gram, 10 iterations), trpca_tnn (2),
+     sofia_init (2 epochs), sofia_stream_device (its batch init 2 epochs)
+     and rnc_fctn on phase 10's 16x16x8x8 problem (20), each called from
+     numpy and again on CUDA tensors of the same values: every result on
+     the card, each equal to the tensor call's bitwise (or, where it is
+     not, within rtol 1e-6 and atol 1e-6 max|input|, the reason printed).
+     Then tritd_admm_auto on a one-rank NCCL mesh like phase 12's, taxi, 100
+     iterations, tol 0, from numpy: bitwise phase 12's mode-1
+     tritd_admm_sharded result, one kernel launch per iteration (its
+     launches join the kernels line).
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -167,7 +178,7 @@ torch.matmul, as the reference leaves them to its compiler.
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration (in phases 13-14 every rank counts its own). The
 line before the last is a JSON object with one record per kernel variant,
-all 50 on the main path (the launches of phases 3, 12 and 17), each naming
+all 50 on the main path (the launches of phases 3, 12, 17 and 19), each naming
 the .cu file that holds its entry point; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
@@ -739,8 +750,9 @@ def _check_run(tag, res, launches, variant, dev_s, wall, truth, float8=False) ->
     the factors' dtype on the card, RRE against the truth finite and below
     1. A float8 run (`float8`) may diverge after it fell, and turn
     non-finite for good: its err_hist must fall below its first entry while
-    it is finite. Whether the reference turns non-finite at the same size
-    is not shown (it does on crops of the same data)."""
+    it is finite. The reference does so too at full size on the CPU, at an
+    iteration that a one-step change of the input moves by as much as the
+    two packages differ (docs/float8_nan_study.py)."""
     n = res.n_iters
     err = trim_history(res.err_hist, n)
     if launches != {variant: n}:
@@ -947,8 +959,8 @@ def phase3() -> dict:
         else:
             line += f"; RRE {nrre:.6f} (not held to the f32 family)"
         if tail is not None:
-            line += (f"; non-finite from iteration {tail + 1} on, finite before (float8 range passed; whether the "
-                     f"reference does so at this size is not measured)")
+            line += (f"; non-finite from iteration {tail + 1} on, finite before (float8 range passed, as in the "
+                     f"reference at this size: docs/float8_nan_study.py)")
         print(line)
     for kind in [(dt, fb) for dt in (torch.float8_e4m3fn, torch.float8_e5m2) for fb in (False, True)]:
         if kind not in controlled:
@@ -1390,24 +1402,34 @@ def _hist_diff(tag, got, want, n, rtol, atol, floor=None) -> str:
     return text
 
 
-def phase12() -> dict:
-    """One rank on NCCL, in this process; returns its kernel launches."""
+# phase 12's mode-1 solve, which phase 19's tritd_admm_auto must equal bitwise
+PHASE12_MODE1: dict = {}
+
+
+def _nccl_one_rank() -> None:
+    """This process as a one-rank NCCL group on cuda:0, at a free port."""
     import socket
 
-    import torch.distributed as dist
-
-    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
     from tritd_tpu_torch.parallel.distributed import initialize_distributed
 
-    x, _mask, y, _prov = _taxi()
-    cfg = COMPLETION_TRITD
-    init = init_factors(torch.Generator().manual_seed(0), x.shape, cfg.rank, torch.float32)
-    ref = tritd_admm(y, cfg, origin=x, init=init)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", device="cuda:0",
                            timeout_s=120.0)
+
+
+def phase12() -> dict:
+    """One rank on NCCL, in this process; returns its kernel launches."""
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
+
+    x, _mask, y, _prov = _taxi()
+    cfg = COMPLETION_TRITD
+    init = init_factors(torch.Generator().manual_seed(0), x.shape, cfg.rank, torch.float32)
+    ref = tritd_admm(y, cfg, origin=x, init=init)
+    _nccl_one_rank()
     total: dict = {}
     try:
         mesh = make_mesh(device_type="cuda")
@@ -1436,6 +1458,7 @@ def phase12() -> dict:
                 for row in T1_ROWS:
                     if row["name"] == "taxi":
                         row["all_reduce"] = dict(audit["per_iter"])
+                PHASE12_MODE1.update(res=res, cfg=cfg, init=init)
             print(f"phase12 nccl 1 rank taxi mode {mode}: iters={n} launches={launches} loop={audit['loop_seconds']:.4f} s "
                   f"(host clock, synchronized) all_reduce/iter: {audit['per_iter']['calls']} calls, {words} words "
                   f"(budget {budget}), {audit['per_iter']['bytes']} bytes; vs tritd_admm (rtol 1e-6): err_hist {err} "
@@ -2140,6 +2163,122 @@ def phase18() -> None:
         for r in result["rows"]))
 
 
+def _same_as_tensor_call(tag, got, want, scale) -> str:
+    """Hold the outputs of a call from numpy to those of the same call on
+    CUDA tensors: bitwise, or else within rtol 1e-6 and atol 1e-6 * `scale`
+    (max |input|; ROADMAP's float32 tolerance on the card), which is said."""
+    if isinstance(got, (tuple, list)):
+        if not isinstance(want, (tuple, list)) or len(got) != len(want):
+            raise AssertionError(f"{tag}: {len(got)} outputs against {len(want)}")
+        texts = [_same_as_tensor_call(tag, g, w, scale) for g, w in zip(got, want)]
+        return "bitwise" if all(t == "bitwise" for t in texts) else "; ".join(t for t in texts if t != "bitwise")
+    if isinstance(got, torch.Tensor):
+        if got.device.type != "cuda" or want.device.type != "cuda":
+            raise AssertionError(f"{tag}: results on {got.device} and {want.device}")
+        if torch.equal(torch.nan_to_num(got, nan=0.5), torch.nan_to_num(want, nan=0.5)) and \
+                torch.equal(got.isnan(), want.isnan()):
+            return "bitwise"
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale, equal_nan=True, msg=lambda m: f"{tag}: {m}")
+        diff = float((got.double() - want.double()).abs().nan_to_num().max())
+        return f"not bitwise (max |diff| {diff:.3e}; a cuSOLVER or cuBLAS route not bitwise from run to run)"
+    if isinstance(got, np.ndarray):
+        if np.array_equal(got, want, equal_nan=True):
+            return "bitwise"
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * scale, err_msg=tag)
+        return f"not bitwise (max |diff| {np.nanmax(np.abs(got - want)):.3e})"
+    if got != want:
+        raise AssertionError(f"{tag}: {got} against {want}")
+    return "bitwise"
+
+
+def phase19() -> dict:
+    """Numpy input to the baselines and to tritd_admm_auto, on the card;
+    returns the kernel launches of the tritd_admm_auto solve."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.baselines import (fctn_compose, rc_fctn_driver_traffic, rnc_fctn, rtrc, sofia_init,
+                                           sofia_stream_device, trpca_tnn, tt_trpca)
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_auto
+
+    sofia = importlib.import_module("tritd_tpu_torch.baselines.sofia")
+    x_np, spec, _prov = load_dataset("taxi")
+    mask_np = uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO)
+    x32 = x_np.astype(np.float32)
+    y32 = np.where(mask_np, x32, np.float32(0.0))
+    # phase 10's rnc_fctn problem, made on the host
+    gen = torch.Generator().manual_seed(10)
+    cores = [torch.rand(shape, generator=gen) for shape in ((16, 2, 2, 2), (2, 16, 2, 2), (2, 2, 8, 2), (2, 2, 2, 8))]
+    truth = fctn_compose(cores)
+    omega = torch.rand(truth.shape, generator=gen) > 0.2
+    f4, omega, truth = torch.where(omega, truth, torch.zeros_like(truth)).numpy(), omega.numpy(), truth.numpy()
+
+    def seed():
+        return torch.Generator().manual_seed(0)
+
+    calls = {
+        "tt_trpca": lambda w: tt_trpca(w(y32), origin=w(x32), max_iter=10, svt_method="gram"),
+        "rtrc": lambda w: rtrc(w(y32), w(mask_np), origin=w(x32), max_iter=10, svt_method="gram"),
+        "rc_fctn_driver_traffic": lambda w: rc_fctn_driver_traffic(w(y32), w(mask_np), spec.fctn_subdim,
+                                                                   origin=w(x32), max_iter=10, svt_method="gram"),
+        "trpca_tnn": lambda w: trpca_tnn(w(y32), origin=w(x32), mu=1e-3, max_iter=2),
+        "sofia_init": lambda w: sofia_init(w(y32), w(mask_np), 3, spec.sofia_period, origin=w(x32), max_epoch=2,
+                                           generator=seed()),
+        "sofia_stream_device": lambda w: sofia_stream_device(w(y32), w(mask_np), 3, spec.sofia_period, max_epoch=2,
+                                                             generator=seed()),
+        "rnc_fctn": lambda w: rnc_fctn(w(f4), 0.1, w(omega), origin=w(truth), max_iter=20, generator=seed()),
+    }
+    scan, steps_on = sofia._stream_scan, []
+
+    def scan_where(*args):
+        steps_on.append(args[0].device.type)
+        return scan(*args)
+
+    sofia._stream_scan = scan_where
+    try:
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            got = call(lambda a: a)
+            mid = time.perf_counter()
+            want = call(lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda())
+            torch.cuda.synchronize()
+            where = {t.device.type for t in _tensors(got)}
+            if name == "sofia_stream_device":  # numpy out, as the reference's; the steps ran on the card
+                where, steps_on[:] = set(steps_on), []
+            if where != {"cuda"}:
+                raise AssertionError(f"phase19 {name} from numpy: results on {where}")
+            scale = float(np.abs(f4 if name == "rnc_fctn" else y32).max())
+            same = _same_as_tensor_call(f"phase19 {name}", got, want, scale)
+            print(f"phase19 {name} from numpy at {'16x16x8x8' if name == 'rnc_fctn' else 'x'.join(map(str, x32.shape))}"
+                  f" f32: on cuda; against the call on CUDA tensors: {same}; {mid - t0:.2f} s + "
+                  f"{time.perf_counter() - mid:.2f} s (host clock)")
+    finally:
+        sofia._stream_scan = scan
+
+    r12 = PHASE12_MODE1["res"]
+    cfg = dataclasses.replace(PHASE12_MODE1["cfg"], tol=0.0)
+    _nccl_one_rank()
+    try:
+        mesh = make_mesh(device_type="cuda")
+        hopper_kernels.reset_launch_counts()
+        res = tritd_admm_auto(y32, cfg, mesh, axis_name="slab", origin=x32, init=PHASE12_MODE1["init"])
+        torch.cuda.synchronize()
+        launches = _launches()
+    finally:
+        dist.destroy_process_group()
+    if res.n_iters != r12.n_iters or launches != {"f32": res.n_iters} or res.o.device.type != "cuda":
+        raise AssertionError(f"phase19 tritd_admm_auto: n_iters {res.n_iters} vs {r12.n_iters}, launches {launches}, "
+                             f"O on {res.o.device}")
+    differ = [f for f in ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
+              if not torch.equal(getattr(res, f), getattr(r12, f))]
+    if differ:
+        raise AssertionError(f"phase19 tritd_admm_auto: {differ} not bitwise phase 12's tritd_admm_sharded")
+    print(f"phase19 tritd_admm_auto nccl 1 rank taxi from numpy, tol 0: iters={res.n_iters} launches={launches}; "
+          f"A, B, C, O, E, err_hist, rre_hist bitwise phase 12's mode-1 tritd_admm_sharded")
+    return launches
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -2171,6 +2310,8 @@ def main() -> None:
     for variant, count in _timed(17, phase17).items():
         launches[variant] = launches.get(variant, 0) + count
     phase18()
+    for variant, count in _timed(19, phase19).items():
+        launches[variant] = launches.get(variant, 0) + count
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:

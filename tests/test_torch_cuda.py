@@ -216,7 +216,7 @@ def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
 
     import torch.distributed as dist
 
-    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_auto, tritd_admm_sharded
     from tritd_tpu_torch.parallel.distributed import initialize_distributed
 
     rng = np.random.default_rng(1)
@@ -240,8 +240,45 @@ def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
             assert got.o.device.type == "cuda" and audit["per_iter"]["calls"] == 4
             torch.testing.assert_close(got.err_hist, want.err_hist, rtol=1e-6, atol=0)
             torch.testing.assert_close(got.rre_hist, want.rre_hist, rtol=1e-6, atol=0)
+        # the bare NCCL group puts even a CPU tensor's slab on the card, and
+        # tritd_admm_auto is the mode-1 solve bit for bit
+        bare = tritd_admm_sharded(torch.from_numpy(y), cfg, dist.group.WORLD, origin=y, init=init)
+        auto = tritd_admm_auto(y, cfg, mesh, axis_name="slab", origin=y, init=init)
+        assert bare.o.device.type == auto.o.device.type == "cuda"
+        for f in ("a", "o", "e", "err_hist", "rre_hist"):
+            assert torch.equal(getattr(auto, f), getattr(bare, f)), f
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_numpy_input_to_the_baselines_goes_to_the_card(cuda_device, monkeypatch):
+    """Each baseline entry point and the sharded solve over a bare gloo group
+    put numpy input on the card, as the reference places it on its
+    accelerator: every output tensor is a CUDA tensor; the freedom ratio
+    computed from numpy serves a later solve of the same data on the card;
+    SOFIA's stream steps run on the card."""
+    import importlib
+
+    import torch.distributed as dist
+    from torch_baseline_entries import ENTRIES, MASK, Y, devices
+
+    rtrc_mod = importlib.import_module("tritd_tpu_torch.baselines.rtrc")
+    sofia_mod = importlib.import_module("tritd_tpu_torch.baselines.sofia")
+    scan, seen = sofia_mod._stream_scan, []
+    monkeypatch.setattr(sofia_mod, "_stream_scan", lambda *a: seen.append(a[0].device.type) or scan(*a))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for name, entry in ENTRIES.items():
+            out = entry(lambda a: a)
+            if name not in ("precompute_freedom_ratio", "sofia_stream_device"):
+                assert devices(out) == {"cuda"}, name
+    finally:
+        dist.destroy_process_group()
+    assert seen == ["cuda"]
+    first = rtrc_mod.precompute_freedom_ratio(Y, MASK)
+    p = torch.as_tensor(MASK, device=cuda_device).to(torch.float64)
+    assert rtrc_mod.freedom_ratio(torch.as_tensor(Y, device=cuda_device) * p, p) is first
 
 
 # (D, storage, T', with T') of the narrow variants, by the solver path

@@ -1,9 +1,11 @@
 """PyTorch port: the namespaces and the packaging.
 
-`tritd_tpu_torch` and `tritd_tpu_torch.ops` export what `tritd_tpu` and
-`tritd_tpu.ops` export, name for name, the nine Tensor Toolbox classes
-included: nothing is left to port; importing the port pulls in no JAX; the
-package data ships every source the runtime builds from."""
+Each of the eleven namespaces of `tritd_tpu_torch` (the package and its ten
+subpackages) exports what its counterpart in `tritd_tpu` exports, name for
+name (`__all__`, or the submodules of a subpackage without one), the nine
+Tensor Toolbox classes included, but for `NOT_PORTED`; importing the port
+pulls in no JAX; the package data ships every source the runtime builds
+from."""
 
 import importlib
 import pathlib
@@ -25,6 +27,57 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 #: the names of the reference's namespaces allowed to be missing: none
 NOT_PORTED_YET: set = set()
+
+SUBPACKAGES = ("", "baselines", "cli", "data", "metrics", "ops", "oracle", "parallel", "runtime", "solvers", "utils")
+
+#: the names of the reference's namespaces the port leaves out, each with its
+#: reason (ROADMAP section 1, "Do not port")
+NOT_PORTED = {
+    "parallel.slab_sharding": "a JAX NamedSharding; in the port a rank holds its slab (shard_bounds)",
+    "parallel.replicated": "a JAX NamedSharding; replicated factors are plain tensors on every rank",
+}
+
+
+def _public_names(pkg) -> set:
+    """`__all__`, or for a subpackage without one the names of its public
+    submodules."""
+    if hasattr(pkg, "__all__"):
+        return set(pkg.__all__)
+    import pkgutil
+
+    return {m.name for m in pkgutil.iter_modules(pkg.__path__) if not m.name.startswith("_")}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=[s or "top" for s in SUBPACKAGES])
+def test_every_namespace_exports_the_references_names(sub):
+    ref = importlib.import_module("tritd_tpu" + (f".{sub}" if sub else ""))
+    port = importlib.import_module("tritd_tpu_torch" + (f".{sub}" if sub else ""))
+    prefix = f"{sub}." if sub else ""
+    missing = {prefix + n for n in _public_names(ref) - _public_names(port)}
+    assert missing == {k for k in NOT_PORTED if k.startswith(prefix) and "." not in k[len(prefix):]}
+    for name in _public_names(ref) - {k[len(prefix):] for k in NOT_PORTED if k.startswith(prefix)}:
+        got = getattr(port, name, None)
+        if got is None:  # a submodule of a subpackage without __all__
+            got = importlib.import_module(f"{port.__name__}.{name}")
+        want = getattr(ref, name, None)
+        if want is not None and callable(want):
+            assert callable(got), prefix + name
+    if hasattr(port, "__all__"):
+        assert len(port.__all__) == len(set(port.__all__))
+        for name in port.__all__:
+            assert getattr(port, name) is not None, prefix + name
+
+
+def test_the_utils_namespace_has_the_references_26_names():
+    import tritd_tpu.utils
+    import tritd_tpu_torch.utils
+
+    assert len(tritd_tpu.utils.__all__) == 26 and tritd_tpu_torch.utils.__all__ == tritd_tpu.utils.__all__
+    subs = [importlib.import_module(f"tritd_tpu_torch.utils.{m}")
+            for m in ("artifacts", "checkpoint", "config", "debug", "timing")]
+    for name in tritd_tpu_torch.utils.__all__:
+        obj = getattr(tritd_tpu_torch.utils, name)
+        assert any(getattr(m, name, None) is obj for m in subs), name  # the port's own submodules
 
 
 def test_ops_namespace_has_every_ported_name():
@@ -103,6 +156,7 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import tritd_tpu_torch, tritd_tpu_torch.ops, tritd_tpu_torch.oracle, tritd_tpu_torch.interop
+import tritd_tpu_torch.utils, tritd_tpu_torch.parallel, tritd_tpu_torch.baselines
 import tritd_tpu_torch.tools.toolbox_audit, tritd_tpu_torch.tools.emulator_parity, tritd_tpu_torch.examples.demo_toolbox
 from tritd_tpu_torch.runtime import build
 assert not any(m.split(".")[0] in ("jax", "optax", "triton", "tritd_tpu") for m in sys.modules)

@@ -2,9 +2,12 @@
 JAX sharded solvers (on the 8 virtual CPU devices) and against the port's
 own single-device tritd_admm, on the same numpy data and the JAX-drawn init.
 
-The cases are the explicit-path cases of tests/test_sharding.py, on its
-SHAPE (22, 13, 17), whose n1 is no multiple of 4 or 8 and whose n3 is none
-of 8, so slabs and frames are padded. World size 1 runs in this process over
+The cases are the explicit-path cases of tests/test_sharding.py and its two
+`tritd_admm_auto` cases (the reference's GSPMD entry point, which the port
+runs on the explicit mode-1 path; the reference draws its init at the padded
+shape), on its SHAPE (22, 13, 17), whose n1 is no multiple of 4 or 8 and
+whose n3 is none of 8, so slabs and frames are padded. The workers name the
+mesh dimensions by keyword (`axis_name`, `data_axis`, `slab_axis`). World size 1 runs in this process over
 a `dist.HashStore()`; world sizes 2, 4 and 8 run as gloo/CPU worker
 processes (tests/torch_parallel_worker.py), one spawn per world size that
 runs all its cases at both dtypes.
@@ -37,6 +40,7 @@ import torch.distributed as dist  # noqa: E402
 from tritd_tpu.data.synthetic import random_tritd as j_random_tritd  # noqa: E402
 from tritd_tpu.data.synthetic import sparse_outliers as j_sparse_outliers  # noqa: E402
 from tritd_tpu.parallel import make_mesh as j_make_mesh  # noqa: E402
+from tritd_tpu.parallel import tritd_admm_auto as j_auto  # noqa: E402
 from tritd_tpu.parallel import tritd_admm_batch_sharded as j_batch_sharded  # noqa: E402
 from tritd_tpu.parallel import tritd_admm_sharded as j_sharded  # noqa: E402
 from tritd_tpu.solvers import TriTDConfig as JConfig  # noqa: E402
@@ -46,6 +50,7 @@ from tritd_tpu_torch.parallel import (  # noqa: E402
     make_mesh,
     pad_to_multiple,
     shard_bounds,
+    tritd_admm_auto,
     tritd_admm_batch_sharded,
     tritd_admm_sharded,
 )
@@ -80,6 +85,9 @@ CASES = {
                                 cfg=dict(max_iter=10, tol=0.0, masked=True)),
     "batch_bf16_storage": dict(world=8, n_data=2, batch=True,
                                cfg=dict(max_iter=15, tol=0.0, storage_dtype="bfloat16")),
+    "auto": dict(world=8, auto=True, cfg=dict(max_iter=15, tol=0.0)),
+    "auto_masked_origin": dict(world=8, auto=True, masked=True, origin=True,
+                               cfg=dict(max_iter=20, tol=0.0, masked=True)),
 }
 DTYPES = ("float64", "float32")
 
@@ -108,8 +116,10 @@ def problem():
 def _inputs(name, dtype, problem):
     """(d, mask, origin, init, cfg fields) of a case at a dtype, as numpy.
     The init is the reference's own draw: at the unpadded shape from
-    PRNGKey(0), or for a batch, as `_batch_sharded_run` draws it, at the
-    padded shape from split(PRNGKey(0), nb)."""
+    PRNGKey(0); for `tritd_admm_auto`, whose single-device solve sees the
+    padded tensor, at the padded shape from PRNGKey(0); for a batch, as
+    `_batch_sharded_run` draws it, at the padded shape from
+    split(PRNGKey(0), nb)."""
     case = CASES[name]
     d, mask = problem
     np_dt = np.dtype(dtype)
@@ -121,6 +131,9 @@ def _inputs(name, dtype, problem):
             n1p = -(-SHAPE[0] // n_slab) * n_slab
             keys = jax.random.split(jax.random.PRNGKey(0), 2)
             init = jax.vmap(lambda k: j_init_factors(k, (n1p, *SHAPE[1:]), RANK, np_dt))(keys)
+        elif case.get("auto"):
+            n1p = -(-SHAPE[0] // n_slab) * n_slab
+            init = j_init_factors(jax.random.PRNGKey(0), (n1p, *SHAPE[1:]), RANK, np_dt)
         else:
             init = j_init_factors(jax.random.PRNGKey(0), SHAPE, RANK, np_dt)
         init = tuple(np.asarray(u) for u in init)
@@ -152,7 +165,7 @@ def spawned(problem, tmp_path_factory):
                 d, mask, origin, init, cfg = _inputs(name, dtype, problem)
                 key = f"{name}-{dtype}"
                 spec[key] = dict(cfg=cfg, mode=case.get("mode", 1), n_data=case.get("n_data", 1),
-                                 batch=bool(case.get("batch")))
+                                 batch=bool(case.get("batch")), auto=bool(case.get("auto")))
                 arrays.update({f"{key}/d": d, f"{key}/a0": init[0], f"{key}/b0": init[1], f"{key}/c0": init[2]})
                 if mask is not None:
                     arrays[f"{key}/mask"] = mask
@@ -179,6 +192,8 @@ def _jax_sharded(name, dtype, problem):
         as_j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
         if case.get("batch"):
             res = j_batch_sharded(as_j(d), JConfig(**cfg), mesh, mask_batch=as_j(mask), origin_batch=as_j(origin))
+        elif case.get("auto"):
+            res = j_auto(as_j(d), JConfig(**cfg), mesh, mask=as_j(mask), origin=as_j(origin))
         else:
             res = j_sharded(as_j(d), JConfig(**cfg), mesh, shard_tensor_mode=case.get("mode", 1),
                             mask=as_j(mask), origin=as_j(origin))
@@ -187,16 +202,20 @@ def _jax_sharded(name, dtype, problem):
 
 def _single_device(name, dtype, problem):
     """The port's tritd_admm on the same data and init; per batch entry. A
-    batch's a0 is drawn at the padded shape and read by masked imputation,
-    so its single-device twin solves the zero-padded problem (mask padded
-    with True, origin with zeros), which is the same problem."""
+    batch's a0 and `tritd_admm_auto`'s are drawn at the padded shape and read
+    by masked imputation, so their single-device twin solves the zero-padded
+    problem (mask padded with True, origin with zeros), which is the same
+    problem."""
     case = CASES[name]
     d, mask, origin, init, cfg = _inputs(name, dtype, problem)
     cfg = TriTDConfig(**cfg)
     t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
-    if not case.get("batch"):
+    if not case.get("batch") and not case.get("auto"):
         res = tritd_admm(t(d), cfg, mask=t(mask), origin=t(origin), init=init)
         return [res]
+    if case.get("auto"):  # one entry, as a batch of one
+        d, mask, origin = (None if x is None else x[None] for x in (d, mask, origin))
+        init = tuple(f[None] for f in init)
     out = []
     for i in range(d.shape[0]):
         n1p = init[0].shape[1]
@@ -313,6 +332,46 @@ def test_group_in_place_of_mesh_and_default_init(mesh1, problem):
     got = tritd_admm_sharded(torch.from_numpy(d), cfg, mesh1.get_group("slab"))
     want = tritd_admm(torch.from_numpy(d), cfg)
     torch.testing.assert_close(got.err_hist, want.err_hist, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked_origin"])
+def test_auto_on_one_rank_is_the_sharded_solve(mesh1, problem, masked):
+    """`tritd_admm_auto` is the explicit mode-1 path: on one rank (nothing
+    padded) every field is the sharded solve's bit for bit, from numpy."""
+    d, mask = problem
+    cfg = TriTDConfig(rank=RANK, max_iter=12, tol=0.0, dtype="float64", masked=masked)
+    kw = dict(mask=mask if masked else None, origin=d * 0.9, device="cpu")
+    d = np.where(mask, d, 0.0) if masked else d
+    got = tritd_admm_auto(d, cfg, mesh1, **kw)
+    want = tritd_admm_sharded(d, cfg, mesh1, shard_tensor_mode=1, **kw)
+    assert got.n_iters == want.n_iters == 12 and got.o.shape == SHAPE
+    for f in ("a", "b", "c", "o", "e", "err_hist", "rre_hist"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True)
+
+
+def test_mesh_dimensions_are_named_by_keyword(mesh1, problem):
+    """`axis_name`, `data_axis` and `slab_axis` pick the mesh dimensions, as
+    the reference's keywords do: on a mesh named ("dp", "tp") the solves are
+    those of the ("data", "slab") mesh bitwise, and the default names raise."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    d, _mask = problem
+    named = init_device_mesh("cpu", (1, 1), mesh_dim_names=("dp", "tp"))
+    cfg = TriTDConfig(rank=RANK, max_iter=6, tol=0.0, dtype="float64")
+    d = d.astype(np.float64)
+    pairs = [
+        (tritd_admm_sharded(d, cfg, named, axis_name="tp"), tritd_admm_sharded(d, cfg, mesh1)),
+        (tritd_admm_auto(d, cfg, named, axis_name="tp"), tritd_admm_auto(d, cfg, mesh1)),
+        (tritd_admm_batch_sharded(d[None], cfg, named, data_axis="dp", slab_axis="tp"),
+         tritd_admm_batch_sharded(d[None], cfg, mesh1)),
+    ]
+    for got, want in pairs:
+        for f in ("o", "err_hist"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True)
+    for call in (lambda: tritd_admm_sharded(d, cfg, named), lambda: tritd_admm_auto(d, cfg, named),
+                 lambda: tritd_admm_batch_sharded(d[None], cfg, named, data_axis="dp")):
+        with pytest.raises(KeyError, match="slab"):
+            call()
 
 
 def test_batch_on_one_rank_and_its_checks(mesh1, problem):

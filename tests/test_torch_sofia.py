@@ -198,13 +198,13 @@ def test_sofia_init_matches_jax_and_the_emulator(m):
 def test_sofia_init_draws_repeat_and_default_to_float32():
     x, omega, y, _init = _seasonal(seed=3)
     runs = [sofia.sofia_init(y, omega, r=2, m=6, origin=x, max_epoch=3,
-                             generator=torch.Generator().manual_seed(5)) for _ in range(2)]
+                             generator=torch.Generator().manual_seed(5), device="cpu") for _ in range(2)]
     (u, xh, o, hist), (_u, xh2, _o, hist2) = runs
     assert xh.dtype == o.dtype == u[0].dtype == torch.float32
     assert torch.equal(xh, xh2) and np.array_equal(hist, hist2) and len(hist) == 3
-    none = sofia.sofia_init(y, omega, r=2, m=6, max_epoch=2)
+    none = sofia.sofia_init(y, omega, r=2, m=6, max_epoch=2, device="cpu")
     assert none[3].shape == (0,)
-    default = sofia.sofia_init(y, omega, r=2, m=6, max_epoch=2)  # seed 0 when no generator is given
+    default = sofia.sofia_init(y, omega, r=2, m=6, max_epoch=2, device="cpu")  # seed 0 when no generator is given
     assert torch.equal(none[1], default[1])
 
 
@@ -290,5 +290,5 @@ def test_sofia_stream_device_matches_numpy_oracle():
     assert np.isfinite(tail_err) and tail_err < 0.8
     # at float64 the tensor steps are the numpy loop up to rounding
     (_, _), w64, x64, _o = sofia.sofia_stream_device(x, omega, generator=torch.Generator().manual_seed(0),
-                                                     dtype=torch.float64, need_outlier=False, **kwargs)
+                                                     dtype=torch.float64, need_outlier=False, device="cpu", **kwargs)
     assert _o is None and np.isfinite(w64).all() and np.isfinite(x64).all()

@@ -5,7 +5,7 @@ sharded solvers and, on rank 0, writes the histories to one .npz.
     python -m torch_parallel_worker --rank R --world-size W --init-method file://... \\
         --cases cases.npz --out out.npz
 
-`cases.npz` holds `spec`, a JSON object {case: {cfg, mode, n_data, batch}},
+`cases.npz` holds `spec`, a JSON object {case: {cfg, mode, n_data, batch, auto}},
 and per case the arrays `case/d`, `case/a0`, `case/b0`, `case/c0` and, where
 the case has them, `case/mask` and `case/origin`. Imports no JAX."""
 
@@ -15,7 +15,7 @@ import json
 import numpy as np
 import torch
 
-from tritd_tpu_torch.parallel import make_mesh, tritd_admm_batch_sharded, tritd_admm_sharded
+from tritd_tpu_torch.parallel import make_mesh, tritd_admm_auto, tritd_admm_batch_sharded, tritd_admm_sharded
 from tritd_tpu_torch.parallel.distributed import initialize_distributed
 from tritd_tpu_torch.solvers import TriTDConfig
 
@@ -46,10 +46,13 @@ def main() -> None:
             audit: dict = {}
             if case["batch"]:
                 res = tritd_admm_batch_sharded(d, cfg, meshes[n_data], mask_batch=mask, origin_batch=origin,
-                                               init=init, audit=audit)
+                                               init=init, audit=audit, data_axis="data", slab_axis="slab")
+            elif case["auto"]:
+                res = tritd_admm_auto(d, cfg, meshes[n_data], axis_name="slab", mask=mask, origin=origin,
+                                      init=init, audit=audit)
             else:
                 res = tritd_admm_sharded(d, cfg, meshes[n_data], shard_tensor_mode=case["mode"], mask=mask,
-                                         origin=origin, init=init, audit=audit)
+                                         origin=origin, init=init, audit=audit, axis_name="slab")
             for field in ("a", "b", "c", "o", "e", "err_hist", "rre_hist", "n_iters"):
                 out[f"{name}/{field}"] = np.asarray(torch.as_tensor(getattr(res, field)))
             out[f"{name}/words_per_iter"] = audit["per_iter"]["words"]

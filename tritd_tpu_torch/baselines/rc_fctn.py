@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.kruskal import solver_input
 from ..ops.shrinkage import prox_l1
 from ..ops.svt import run_warm_blocks, svt_ref_compat, svt_ref_compat_warm, warm_spec
 from .penalty import grown_penalty
@@ -158,6 +159,7 @@ def rc_fctn(
     max_iter: int = 100,
     svt_method: str = "svd",
     chunk: int | None = None,
+    device=None,
 ):
     """Returns (X low-rank, S sparse, errHist RSE_real). ind_obs is the
     observed indicator (1 = keep data constraint). `chunk` splits the
@@ -171,8 +173,14 @@ def rc_fctn(
     exact gram every iteration): the route for shapes where the retained
     spectrum is NOT low-rank (chicago's 5929x2016 keeps >= 76%). Its
     agreement with the exact path is checked by
-    `tools/validate_warm_svt.py`."""
-    ind = ind_obs.to(x_noise.dtype)
+    `tools/validate_warm_svt.py`.
+
+    A tensor `x_noise` keeps its device unless `device` names another;
+    numpy goes to the card (`RuntimeError` without CUDA; `device="cpu"` for
+    the plain path); `ind_obs` and `origin` follow it."""
+    x_noise = solver_input(x_noise, device=device)
+    ind = solver_input(ind_obs, x_noise.dtype, x_noise.device)
+    origin = solver_input(origin, device=x_noise.device)
     chunk = max_iter if chunk is None else min(chunk, max_iter)
     zeros = torch.zeros_like(x_noise)
     orders = balanced_bipartitions(x_noise.ndim)
@@ -223,10 +231,14 @@ def rc_fctn_driver_traffic(
     origin: torch.Tensor | None = None,
     max_iter: int = 100,
     svt_method: str = "svd",
+    device=None,
 ):
     """Traffic-driver wrapper (`traffic_triple_comparison.m:149-173`):
     4-way reshape [I, J, K/sub, sub] (column-major semantics). `mask_obs`
-    is not used: the driver marks everything observed."""
+    is not used: the driver marks everything observed. `y` and `origin` are
+    placed as in :func:`rc_fctn`."""
+    y = solver_input(y, device=device)
+    origin = solver_input(origin, device=y.device)
     i, j, k = y.shape
     n3, n4 = k // subdim, subdim
     y4 = _split_mode3(y, n3, n4)
@@ -249,6 +261,7 @@ def rc_fctn_driver_video(
     origin: torch.Tensor | None = None,
     max_iter: int = 100,
     svt_method: str = "auto",
+    device=None,
 ):
     """Video-driver wrapper (`video_triple_comparison.m:240-262`):
     4-way reshape [I, J, sub, K/sub] (column-major semantics).
@@ -258,12 +271,15 @@ def rc_fctn_driver_video(
     a large eigh per bipartition per iteration. "auto" routes those (and
     only those: thin side >= ops/svt.py LOWRANK_MIN_DIM) to the randomized
     top-k SVT at VIDEO_SVT_BUDGET. Every explicit request, including
-    "gram", runs exactly the route it names (resolve_video_svt_method)."""
+    "gram", runs exactly the route it names (resolve_video_svt_method).
+    `y`, `mask_obs` and `origin` are placed as in :func:`rc_fctn`."""
+    y = solver_input(y, device=device)
+    origin = solver_input(origin, device=y.device)
     i, j, k = y.shape
     n3, n4 = subdim, k // subdim
     y4 = _split_mode3(y, n3, n4)
     origin4 = _split_mode3(origin, n3, n4) if origin is not None else None
-    ind = _split_mode3(mask_obs.to(y.dtype), n3, n4)
+    ind = _split_mode3(solver_input(mask_obs, y.dtype, y.device), n3, n4)
     svt_method = resolve_video_svt_method(svt_method)
     x4, s4, err_hist = rc_fctn(
         y4, 1.8, ind, origin=origin4, f=0.7, max_iter=max_iter,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.kruskal import draw, solver_input
 from ..ops.shrinkage import soft_threshold
 
 _SPEC = "aqrs,qbtu,rtcv,suvd->abcd"
@@ -103,12 +104,13 @@ def _factor_dims(nway, rank: np.ndarray) -> np.ndarray:
     return np.diag(nway) + r + r.T
 
 
-def _init_factors(generator: torch.Generator, nway, rank: np.ndarray, dtype, device="cpu"):
-    """G_i ~ U[0,1) of shape tempdim(i,:), drawn on the CPU from
-    `generator` so one seed gives one init on every device."""
+def _init_factors(generator: torch.Generator, nway, rank: np.ndarray, dtype, device=None):
+    """G_i ~ U[0,1) of shape tempdim(i,:), drawn on the generator's device
+    (so one CPU seed gives one init on every device) and moved to `device`
+    (None: left there)."""
     tempdim = _factor_dims(nway, rank)
     return tuple(
-        torch.rand(tuple(int(v) for v in tempdim[i]), generator=generator, dtype=dtype).to(device)
+        draw("uniform", generator, tuple(int(v) for v in tempdim[i]), dtype, device or generator.device)
         for i in range(4)
     )
 
@@ -141,6 +143,7 @@ def interpolate_init(
     pad: int = 20,
     fill: float = 128.0,
     clip: tuple[float, float] = (0.0, 1.0),
+    device=None,
 ) -> torch.Tensor:
     """RNC-FCTN's interpolation warm start for `sample_ratio < 1`
     (`Demo_RNC_FCTN.m:37-55`): symmetric-pad the 3-way view by `pad`,
@@ -154,8 +157,11 @@ def interpolate_init(
     The `fill=128` on [0, 1]-scaled data is the reference's committed quirk
     (`interpolate.m:17`); it is clipped to `clip[1]` immediately, so the
     effective out-of-hull fill is the upper clip bound. Host-side numpy and
-    scipy: one-time preprocessing, not a solve-loop path."""
-    f = torch.as_tensor(f)
+    scipy: one-time preprocessing, not a solve-loop path. The result lies
+    where a tensor `f` lies unless `device` names another place; from numpy,
+    on the card (`RuntimeError` without CUDA; `device="cpu"` for the plain
+    path)."""
+    f = solver_input(f, device=device)
     f_np = f.detach().cpu().numpy().astype(np.float64)
     om_np = torch.as_tensor(omega).cpu().numpy().astype(bool)
     nway = f_np.shape
@@ -196,6 +202,7 @@ def rnc_fctn(
     generator: torch.Generator | None = None,
     init=None,
     pad_values=None,
+    device=None,
 ):
     """PAM robust FCTN completion of a 4-way tensor. omega True = observed.
 
@@ -204,7 +211,12 @@ def rnc_fctn(
     The random draws (the initial factors, and one padding scalar per rank
     growth) come from `generator` (a CPU generator, default seed 0) unless
     `init` (four factors) and `pad_values` (an iterable of floats, one
-    consumed per growth) hand them in, as a parity test does."""
+    consumed per growth) hand them in, as a parity test does.
+
+    A tensor `f` keeps its device unless `device` names another; numpy goes
+    to the card (`RuntimeError` without CUDA; `device="cpu"` for the plain
+    path); `omega`, `origin` and `init` follow `f`."""
+    f = solver_input(f, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     nway = tuple(f.shape)
@@ -218,6 +230,7 @@ def rnc_fctn(
     max_rank = np.asarray(max_rank)
 
     dtype, device = f.dtype, f.device
+    origin = solver_input(origin, device=device)
     tempdim = _factor_dims(nway, rank)
     if init is None:
         gs = _init_factors(generator, nway, rank, dtype, device)
@@ -246,7 +259,7 @@ def rnc_fctn(
             if pad_values is not None:
                 pad_val = float(next(pad_values))
             else:
-                pad_val = float(torch.rand((), generator=generator, dtype=dtype))
+                pad_val = float(torch.rand((), generator=generator, dtype=dtype, device=generator.device))
             new_gs = []
             for i in range(4):
                 # F.pad lists the last axis first

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.kruskal import solver_input
 from ..ops.shrinkage import soft_threshold
 from ..ops.svt import run_warm_blocks, svt, svt_warm, warm_spec
 from .penalty import grown_penalty
@@ -149,13 +150,13 @@ def _rtrc_run(x_obs, p, origin, mu0, lam, weights, orders, max_iter, svt_method=
     return x, y, err_hist
 
 
-def precompute_freedom_ratio(tnsr: torch.Tensor, p_mask: torch.Tensor):
+def precompute_freedom_ratio(tnsr: torch.Tensor, p_mask: torch.Tensor, device=None):
     """Populate the freedom-ratio cache with EXACTLY the tensors a
-    subsequent :func:`rtrc` call will fingerprint (same dtype conversions),
-    and return (FR, Em). Lets callers pay and report the host-SVD rank cost
-    once, separately from the device solve."""
-    tnsr = torch.as_tensor(tnsr)
-    p_dev = torch.as_tensor(p_mask, device=tnsr.device).to(tnsr.dtype)
+    subsequent :func:`rtrc` call will fingerprint (same placement and dtype
+    conversions), and return (FR, Em). Lets callers pay and report the
+    host-SVD rank cost once, separately from the device solve."""
+    tnsr = solver_input(tnsr, device=device)
+    p_dev = solver_input(p_mask, tnsr.dtype, tnsr.device)
     return freedom_ratio(tnsr * p_dev, p_dev)
 
 
@@ -166,17 +167,23 @@ def rtrc(
     origin: torch.Tensor | None = None,
     max_iter: int = 100,
     svt_method: str = "svd",
+    device=None,
 ):
     """Returns (x low-rank, y sparse, errHist, n_iters).
 
     p_mask is the OBSERVED indicator (True = observed), like RTRC's P.
     Driver presets: mu=1e-1 traffic (`traffic_triple_comparison.m:139`),
-    mu=1e-3 video with P all-true (`video_triple_comparison.m:156`)."""
-    tnsr = torch.as_tensor(tnsr)
+    mu=1e-3 video with P all-true (`video_triple_comparison.m:156`).
+
+    A tensor `tnsr` keeps its device unless `device` names another; numpy
+    goes to the card (`RuntimeError` without CUDA; `device="cpu"` for the
+    plain path); `p_mask` and `origin` follow it."""
+    tnsr = solver_input(tnsr, device=device)
+    origin = solver_input(origin, device=tnsr.device)
     n = tnsr.ndim
     l = -(-n // 2)
     shape = tuple(tnsr.shape)
-    p_dev = torch.as_tensor(p_mask, device=tnsr.device).to(tnsr.dtype)
+    p_dev = solver_input(p_mask, tnsr.dtype, tnsr.device)
     x_obs = tnsr * p_dev
 
     sr = float(torch.sum(p_dev)) / p_dev.numel()

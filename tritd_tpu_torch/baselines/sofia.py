@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.kruskal import input_device, solver_input
 from ..ops.shrinkage import soft_threshold
 from .penalty import host_scalar_type
 
@@ -212,11 +213,13 @@ def _als_loop(y, omega, u1, u2, u3, m, lam1, lam2, max_iters, fitchangetol):
     return u1, u2, u3, _recon(u1, u2, u3)
 
 
-def sofia_als(y, omega, r, m, lam1, lam2, u_init, max_iters=300, fitchangetol=1e-3):
+def sofia_als(y, omega, r, m, lam1, lam2, u_init, max_iters=300, fitchangetol=1e-3, device=None):
     """One masked smoothed CP-ALS solve. u_init = (u1, u2, u3). Returns
-    (u1, u2, u3, X_hat), on the device of `y`."""
-    y = torch.as_tensor(y)
-    omega = torch.as_tensor(omega, device=y.device).to(torch.bool)
+    (u1, u2, u3, X_hat), on the device of `y`: a tensor's unless `device`
+    names another; the card for numpy (`RuntimeError` without CUDA;
+    `device="cpu"` for the plain path). `omega` and `u_init` follow `y`."""
+    y = solver_input(y, device=device)
+    omega = solver_input(omega, torch.bool, y.device)
     u1, u2, u3 = (torch.as_tensor(u, dtype=y.dtype, device=y.device) for u in u_init)
     return _als_loop(y, omega, u1, u2, u3, int(m), float(lam1), float(lam2),
                      int(max_iters), float(fitchangetol))
@@ -237,17 +240,19 @@ def sofia_init(
     generator: torch.Generator | None = None,
     u_init=None,
     dtype=torch.float32,
+    device=None,
 ):
-    """Batch initialization (`sofia_init.m:60-101`), on the device of `y`.
+    """Batch initialization (`sofia_init.m:60-101`), on the device of `y`
+    (placed as in :func:`sofia_als`; `omega`, `origin` and `u_init` follow).
 
     Returns (U=(u1,u2,u3), X_hat, O, errHist vs origin as numpy). omega
     True=observed. Factor init is uniform [0, 1) (`rand`,
     `sofia_init.m:46`), drawn on the CPU from `generator` (default seed 0),
     unless an explicit `u_init=(u1, u2, u3)` is given (a parity harness
     hands both sides identical inits that way)."""
-    y = torch.as_tensor(y).to(dtype)
+    y = solver_input(y, dtype, device)
     device = y.device
-    omega = torch.as_tensor(omega, device=device).to(torch.bool)
+    omega = solver_input(omega, torch.bool, device)
     shape = tuple(y.shape)
     if u_init is not None:
         u1, u2, u3 = (torch.as_tensor(u, device=device).to(dtype) for u in u_init)
@@ -532,12 +537,13 @@ def sofia_stream_device(
     device=None,
 ):
     """Streaming SOFIA with the per-step phase in tensors on `device` (by
-    default the device of `y`). Same protocol as :func:`sofia_stream`:
+    default a tensor `y`'s device, the card for numpy: `RuntimeError`
+    without CUDA, `device="cpu"` for the plain path). Same protocol as
+    :func:`sofia_stream`:
     batch init on the first m*cycles frames, host-side HW fit (scipy
     L-BFGS-B, one-time), then the steps. Returns (U=(u1, u2), W, X_hat, O)
     as numpy, like the numpy path."""
-    if device is None:
-        device = y.device if isinstance(y, torch.Tensor) else torch.device("cpu")
+    device = input_device(y, device)
     y, omega_np, ti, u1, u2, w_init, x_init, o_init, (ls, bs, ss, fs) = _stream_setup(
         y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device)
     n1, n2, ntimes = y.shape

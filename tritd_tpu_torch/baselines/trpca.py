@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.kruskal import solver_input
 from ..ops.shrinkage import prox_l1
 from ..ops.svt import svt_ref_compat
 from .penalty import grown_penalty
@@ -41,10 +42,15 @@ def trpca_tnn(
     rho: float = 1.1,
     max_mu: float = 1e10,
     max_iter: int = 100,
+    device=None,
 ):
     """TNN tensor RPCA: min ||L||_* + lam ||S||_1 s.t. X = L + S
     (`trpca_tnn.m`, defaults lambda = 1/sqrt(max(n1,n2)*n3)). Returns
-    (L, S, errHist vs origin)."""
+    (L, S, errHist vs origin). A tensor `x` keeps its device unless `device`
+    names another; numpy goes to the card (`RuntimeError` without CUDA);
+    `origin` follows `x`."""
+    x = solver_input(x, device=device)
+    origin = solver_input(origin, device=x.device)
     n1, n2, n3 = x.shape
     if lam is None:
         lam = 1.0 / (max(n1, n2) * n3) ** 0.5
@@ -70,10 +76,13 @@ def trpca_snn(
     rho: float = 1.1,
     max_mu: float = 1e10,
     max_iter: int = 100,
+    device=None,
 ):
     """Sum-of-nuclear-norms (HoRPCA) tensor RPCA (`trpca_snn.m`): per-mode
     SVT (with the reference's SVT truncation quirk) + shared l1 sparse part.
-    Returns (L of mode 1, the reference's `L = L{1}`, E, errHist)."""
+    Returns (L of mode 1, the reference's `L = L{1}`, E, errHist). `x` is
+    placed as in :func:`trpca_tnn`."""
+    x = solver_input(x, device=device)
     dim = tuple(x.shape)
     k = len(dim)
     if alpha is None:

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..ops.kruskal import solver_input
 from ..ops.shrinkage import soft_threshold
 from ..ops.svt import run_warm_blocks, svt_ref_compat, svt_ref_compat_warm, warm_spec
 from .penalty import grown_penalty
@@ -51,12 +52,18 @@ def tt_trpca(
     origin: torch.Tensor | None = None,
     max_iter: int = 100,
     svt_method: str = "svd",
+    device=None,
 ):
     """Returns (Z low-rank, S sparse, errHist vs origin, n_iters). The
     reference runs the full 100 iterations (its tol check is bypassed,
     `TT_TRPCA.m:40`). ``svt_method`` picks the SVT route (see ops/svt.py),
     ``"warm:<K>"`` included: basis reuse on the TT cuts whose thin side
-    reaches WARM_MIN_DIM, exact gram on the others."""
+    reaches WARM_MIN_DIM, exact gram on the others. A tensor `x_noise` keeps
+    its device unless `device` names another; numpy goes to the card
+    (`RuntimeError` without CUDA; `device="cpu"` for the plain path);
+    `origin` follows it."""
+    x_noise = solver_input(x_noise, device=device)
+    origin = solver_input(origin, device=x_noise.device)
     nway = tuple(x_noise.shape)
     ncuts = len(nway) - 1
     alpha = weight_tc(nway)

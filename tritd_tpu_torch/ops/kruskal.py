@@ -38,6 +38,24 @@ def default_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def input_device(x, device=None) -> torch.device:
+    """Where an entry point puts its input `x`: a tensor stays on its device
+    unless `device` names another; anything else (a numpy array, a list) goes
+    to `default_device(device)`: the card by default, which raises without
+    CUDA, as the reference places an array on its accelerator."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.device
+    return default_device(device)
+
+
+def solver_input(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor | None:
+    """`x` as a tensor of `dtype` (None: its own) on `input_device(x,
+    device)`; None (an optional argument left out) stays None."""
+    if x is None:
+        return None
+    return torch.as_tensor(x).to(device=input_device(x, device), dtype=dtype)
+
+
 def default_generator(generator: torch.Generator | None) -> torch.Generator:
     """`generator`, or a CPU generator with seed 0 (the reference's
     `PRNGKey(0)` default)."""

@@ -41,9 +41,10 @@ Every rank calls these functions with the same full tensor (numpy or a CPU
 tensor), keeps its own slab and moves only that to its device. The result is
 assembled to full size on every rank after the loop.
 
-Not ported: `tritd_admm_auto`, which hands the single-device program to
-XLA's SPMD partitioner; PyTorch has no counterpart that covers this solver's
-operations.
+:func:`tritd_admm_auto` takes the call of the reference's GSPMD entry point
+(which hands the single-device program to XLA's SPMD partitioner) and runs it
+on the explicit mode-1 path here: PyTorch has no partitioner that covers this
+solver's operations.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from .. import interop
+from ..ops.kruskal import input_device
 from ..ops.narrow import narrow_cast
 from ..solvers.admm import init_factors, init_state, run_admm
 from ..solvers.base import TriTDConfig, TriTDResult
@@ -91,22 +93,28 @@ class SlabCollective:
         return {"calls": self.calls, "words": self.words, "bytes": self.bytes}
 
 
-def _slab_group(mesh_or_group):
-    """The process group of the "slab" axis of a DeviceMesh, or the group."""
+def _slab_group(mesh_or_group, axis_name: str = AXIS):
+    """The process group of a DeviceMesh's `axis_name` dimension, or the
+    group itself."""
     if isinstance(mesh_or_group, dist.ProcessGroup):
         return mesh_or_group
-    return mesh_or_group.get_group(AXIS)
+    return mesh_or_group.get_group(axis_name)
 
 
 def _shard_device(mesh_or_group, d, device) -> torch.device:
-    """The device this rank keeps its slab on: `device` when given, else the
-    current device of the mesh's device type, else (a bare group) d's."""
+    """The device this rank keeps its slab on: `device` when given; else the
+    current device of the mesh's device type; else, for a bare group, the
+    current CUDA device under NCCL (which reduces nothing on the CPU), and
+    otherwise where the solvers put `d` (a tensor's device; the card for
+    numpy, `RuntimeError` without CUDA)."""
     if device is not None:
         return torch.device(device)
     if not isinstance(mesh_or_group, dist.ProcessGroup):
         kind = mesh_or_group.device_type
         return torch.device(kind, torch.cuda.current_device()) if kind == "cuda" else torch.device(kind)
-    return d.device if isinstance(d, torch.Tensor) else torch.device("cpu")
+    if dist.get_backend(mesh_or_group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return input_device(d)
 
 
 def _check_mask(cfg: TriTDConfig, mask, name: str = "mask") -> None:
@@ -222,6 +230,7 @@ def tritd_admm_sharded(
     generator: torch.Generator | None = None,
     device=None,
     audit: dict | None = None,
+    axis_name: str = AXIS,
 ) -> TriTDResult:
     """Sharded robust TriTD-ADMM; every rank of the slab group calls it with
     the same arguments. shard_tensor_mode=1 shards mode-1 slabs (rows i and
@@ -230,8 +239,8 @@ def tritd_admm_sharded(
     Args:
       d: the full tensor (n1, n2, n3), numpy or a tensor, the same on every
         rank; a rank moves only its slab to its device.
-      mesh_or_group: a `DeviceMesh` with a "slab" axis
-        (:func:`tritd_tpu_torch.parallel.make_mesh`) or a process group.
+      mesh_or_group: a `DeviceMesh` with an `axis_name` dimension ("slab",
+        :func:`tritd_tpu_torch.parallel.make_mesh`) or a process group.
       mask: bool tensor of *observed* entries (required iff cfg.masked).
       origin: optional ground truth; rre_hist records ||L - origin|| /
         ||origin|| per iteration (NaN when absent).
@@ -240,7 +249,9 @@ def tritd_admm_sharded(
         as in :func:`tritd_tpu_torch.solvers.tritd_admm`, so one seed gives
         one trajectory whatever the shard count.
       device: where this rank keeps its slab; default: the mesh's device
-        type (the current CUDA device), or d's device with a bare group.
+        type (the current CUDA device); with a bare group the current CUDA
+        device under NCCL, else a tensor d's device, or the card for numpy
+        (`RuntimeError` without CUDA: pass `device="cpu"`).
       audit: optional dict, filled with the `all_reduce` calls, words and
         bytes of the set-up (`setup`) and of one iteration (`per_iter`),
         `n_iters`, and `loop_seconds` (host clock around the loop alone).
@@ -249,7 +260,7 @@ def tritd_admm_sharded(
     holds full-size tensors on every rank, on the rank's device.
     """
     _check_mask(cfg, mask)
-    coll = SlabCollective(_slab_group(mesh_or_group), shard_tensor_mode)
+    coll = SlabCollective(_slab_group(mesh_or_group, axis_name), shard_tensor_mode)
     device = _shard_device(mesh_or_group, d, device)
     if init is None:
         if generator is None:
@@ -271,10 +282,12 @@ def tritd_admm_batch_sharded(
     generator: torch.Generator | None = None,
     device=None,
     audit: dict | None = None,
+    data_axis: str = DATA_AXIS,
+    slab_axis: str = AXIS,
 ) -> TriTDResult:
     """A batch of independent TriTD problems, data-parallel over the mesh's
-    "data" axis, each problem's mode-1 slabs sharded over the "slab" axis:
-    DP x TP on a 2-D mesh. A data group takes batch / n_data consecutive
+    `data_axis` dimension, each problem's mode-1 slabs sharded over its
+    `slab_axis`: DP x TP on a 2-D mesh. A data group takes batch / n_data consecutive
     entries and solves them one after another, each with its own early
     stop. Every rank of the mesh calls this with the same arguments.
 
@@ -291,13 +304,13 @@ def tritd_admm_batch_sharded(
     """
     _check_mask(cfg, mask_batch, "mask_batch")
     dtype = cfg.torch_dtype()
-    n_data = mesh[DATA_AXIS].size()
+    n_data = mesh[data_axis].size()
     nb = d_batch.shape[0]
     if nb % n_data:
         raise ValueError(f"batch {nb} not divisible by data axis {n_data}")
     per = nb // n_data
-    first = mesh.get_local_rank(DATA_AXIS) * per
-    slab_group, data_group = mesh.get_group(AXIS), mesh.get_group(DATA_AXIS)
+    first = mesh.get_local_rank(data_axis) * per
+    slab_group, data_group = mesh.get_group(slab_axis), mesh.get_group(data_axis)
     coll = SlabCollective(slab_group, 1)
     device = _shard_device(mesh, d_batch, device)
     if init is None:
@@ -333,3 +346,31 @@ def tritd_admm_batch_sharded(
             dist.all_reduce(full, group=data_group)
         fields[name] = full
     return TriTDResult(**fields)
+
+
+def tritd_admm_auto(
+    d,
+    cfg: TriTDConfig,
+    mesh,
+    generator: torch.Generator | None = None,
+    axis_name: str = AXIS,
+    mask=None,
+    origin=None,
+    init=None,
+    device=None,
+    audit: dict | None = None,
+) -> TriTDResult:
+    """The reference's GSPMD entry point (`tritd_tpu.parallel.tritd_admm_auto`)
+    on the explicit collective path: no partitioner places anything here;
+    mode-1 slabs go over the mesh's `axis_name` dimension through
+    :func:`tritd_admm_sharded`, whose all_reduce calls are written out.
+
+    The contract is the reference's: mode 1 is padded to a multiple of the
+    slab count with zeros, `mask` with True (an observed zero) and `origin`
+    with zeros, so the padded slab is inert; the result is cut back to n1.
+    `generator`, `init`, `device` and `audit` are those of
+    :func:`tritd_admm_sharded` (`generator` in place of the reference's
+    `key`): the default init is tritd_admm's at the unpadded shape, and an
+    `a0` may also carry the padded rows, as the reference draws it."""
+    return tritd_admm_sharded(d, cfg, mesh, shard_tensor_mode=1, mask=mask, origin=origin, init=init,
+                              generator=generator, device=device, audit=audit, axis_name=axis_name)

@@ -39,8 +39,9 @@ from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.hopper_kernels import elementwise_block
+from ..ops.kruskal import solver_input
 from ..ops.narrow import narrow_cast
-from .base import TriTDConfig, TriTDResult, TriTDState, solver_input
+from .base import TriTDConfig, TriTDResult, TriTDState
 
 
 def t_dtype_of(cfg: TriTDConfig) -> torch.dtype | None:

@@ -18,8 +18,9 @@ import torch
 from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
+from ..ops.kruskal import solver_input
 from .admm import init_factors
-from .base import TriTDConfig, TriTDResult, solver_input
+from .base import TriTDConfig, TriTDResult
 
 
 def _als_sweep(x, a, b, c, cfg: TriTDConfig):

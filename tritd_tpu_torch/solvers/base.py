@@ -13,7 +13,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.kruskal import default_device
 
 
 # The narrow dtypes a run may store its data-sized tensors in or contract
@@ -137,13 +136,3 @@ def trim_history(hist, n_iters) -> np.ndarray:
     if isinstance(hist, torch.Tensor):
         hist = hist.detach().cpu().numpy()
     return np.asarray(hist)[: int(n_iters)]
-
-
-def solver_input(x, dtype: torch.dtype, device=None) -> torch.Tensor:
-    """`x` as a tensor of `dtype`. A tensor stays on its device unless
-    `device` names another; anything else (a numpy array, a list) goes to
-    `ops.kruskal.default_device(device)`: the card by default, which raises
-    without CUDA, as the reference places an array on its accelerator."""
-    if isinstance(x, torch.Tensor) and device is None:
-        return x.to(dtype)
-    return torch.as_tensor(x).to(device=default_device(device), dtype=dtype)

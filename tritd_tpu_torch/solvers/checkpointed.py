@@ -14,10 +14,11 @@ import os
 
 import torch
 
+from ..ops.kruskal import solver_input
 from ..ops.narrow import narrow_cast
 from ..utils.checkpoint import CheckpointManager, load_state, save_state
 from .admm import admm_iteration, init_factors, init_state
-from .base import TriTDConfig, TriTDResult, TriTDState, solver_input
+from .base import TriTDConfig, TriTDResult, TriTDState
 
 # Environment variable of the failure drill: the process exits abruptly, with
 # code 17, right after it saved a checkpoint at or past this iteration.

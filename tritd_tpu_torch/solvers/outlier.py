@@ -27,9 +27,10 @@ import torch
 from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
+from ..ops.kruskal import solver_input
 from ..ops.shrinkage import lp_reweight, weighted_soft_threshold
 from .admm import init_factors
-from .base import TriTDResult, solver_input
+from .base import TriTDResult
 
 
 @dataclasses.dataclass(frozen=True)
