@@ -7,9 +7,9 @@ Run from the repository root, with no arguments:
 
 Phases, each of which fails the run by raising:
   0. require CUDA; turn TF32 off; print the card, its power limit and versions.
-  1. build the hand-written kernel (csrc/elementwise_block*.cu, six files,
+  1. build the hand-written kernel (csrc/elementwise_block*.cu, eight files,
      one nvcc process each, all at once) and print the build's seconds.
-  2. hold each of the kernel's 50 variants against its plain PyTorch
+  2. hold each of the kernel's 82 variants against its plain PyTorch
      version on the card: float32 and float64 at the taxi, video, a ragged
      and a one-element shape and at the slab shapes phases 12-14 run (a
      half, a padded third and a quarter of taxi along mode 1, a quarter of
@@ -19,7 +19,12 @@ Phases, each of which fails the run by raising:
      dtypes) with float32 compute at the taxi, video and half-taxi shapes,
      with float64 compute at the taxi shape, where T' must also be bitwise
      the narrow_cast of D - O' + Y_L'/muL_next from the kernel's own stored
-     O' and Y_L'. Then each narrow variant once on inputs that put its
+     O' and Y_L'. The 32 variants that store or form T' in the other wide
+     dtype (float64 beside float compute, float32 beside double), or T' in
+     the compute dtype beside other storage, at the taxi shape, and float32
+     storage at float64 compute at video too; their float32 and float64
+     outputs within rtol 1e-6 of the plain version, T' bitwise as above.
+     Then each narrow variant once on inputs that put its
      outputs at the edges of the narrow formats (448, 464, past 464, 480,
      57344, 61440, +-inf, the float8 and float16 subnormals, the float64
      values one rounding and two round apart): every store bitwise the
@@ -36,7 +41,8 @@ Phases, each of which fails the run by raising:
      against the plain version at the same tolerances: 1, 7, 8, 9, 255, 257
      elements and an odd count above one wave of groups; views whose
      pointers are 4-byte (float32), 2-byte (bf16) or 1-byte (float8) but not
-     16-byte aligned;
+     16-byte aligned (and a double stream beside float compute, a float one
+     beside double);
      the two sums bitwise equal over 20 calls; two streams launching the
      kernel at once, 50 turns.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
@@ -53,7 +59,12 @@ Phases, each of which fails the run by raising:
      storage, taxi with e5m2 storage, e4m3fn einsum, e5m2 einsum, float16
      storage with a bf16 einsum and bf16 storage with an e4m3fn einsum,
      100 iterations; float64 compute, 20 iterations: float16 and e5m2
-     storage at taxi, e4m3fn at highway; then, cut to 10 iterations, one
+     storage at taxi, e4m3fn at highway; the reference's float32/float64
+     cases at taxi, 100 iterations: float32 storage, float32 einsum,
+     float64 storage (also masked) at float32 compute, a float64 einsum and
+     float32 storage at float64 compute, the last also on highway for 20
+     iterations; then, cut to 10 iterations (4, and 2 on highway, for the
+     32 variants of PR 11), one
      solve for each variant that no run before launched on finite data: on
      highway for a variant that rounds to e4m3fn (masked ones with 10% of
      highway missing), else on taxi. Taxi reaches 526.1, past e4m3fn's
@@ -167,6 +178,19 @@ Phases, each of which fails the run by raising:
      iterations, tol 0, from numpy: bitwise phase 12's mode-1
      tritd_admm_sharded result, one kernel launch per iteration (its
      launches join the kernels line).
+ 20. the reference-shaped ops.elementwise_block (six outputs, compute_dtype
+     and store_dtype) at the taxi shape: float32, float64, bf16 storage at
+     float32 compute (one launch of the variant the dtypes name) and a mix
+     of bf16 and float32 inputs into float16 stores (cast to float32, one
+     launch of the pure variant, the stores rounded), each held to the
+     plain version at phase 2's tolerances; then every entry point of
+     tests/torch_numpy_entries.py (the metrics, the functional ops surface,
+     prox_tnn, the flat block, interop's six *_from_numpy, sofia_stream)
+     from numpy and again on CUDA tensors of the same values: every result
+     on the card (sofia_stream's batch init), equal to the tensor call's
+     bitwise or within phase 19's tolerance; init_factors on the card by
+     default, bitwise the CPU draw. These launches are checks, not the
+     main path, and stay out of the kernels line.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -178,7 +202,7 @@ torch.matmul, as the reference leaves them to its compiler.
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration (in phases 13-14 every rank counts its own). The
 line before the last is a JSON object with one record per kernel variant,
-all 50 on the main path (the launches of phases 3, 12, 17 and 19), each naming
+all 82 on the main path (the launches of phases 3, 12, 17 and 19), each naming
 the .cu file that holds its entry point; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
@@ -249,6 +273,12 @@ NARROW = {
     if variant not in ("f32", "f64")
 }
 F16, E4M3, E5M2, BF16 = "float16", "float8_e4m3fn", "float8_e5m2", "bfloat16"
+F32, F64 = "float32", "float64"
+# The variants that store or form T' in float32 or float64 beside the other
+# compute dtype, or T' in the compute dtype beside other storage (since PR
+# 11): their coverage solves are the shortest.
+WIDE = {variant for variant, (cd, _d, s_dt, t_dt) in NARROW.items()
+        if t_dt in (torch.float32, torch.float64) or s_dt in (torch.float32, torch.float64) and s_dt != cd}
 # The narrow solves of phase 3 beside the bf16 ones, at full width: (data,
 # TriTDConfig fields, iterations, expected outcome). "nan": taxi reaches
 # 526.1, past float8_e4m3fn's range, which the reference's rounding makes
@@ -271,10 +301,22 @@ NARROW_SOLVES = [
     ("taxi", {"storage_dtype": F16, "dtype": "float64"}, 20, None),
     ("taxi", {"storage_dtype": E5M2, "dtype": "float64"}, 20, None),
     ("video", {"storage_dtype": E4M3, "dtype": "float64"}, 20, None),
+    # the reference's float32/float64 cases (since PR 11): float32 storage or
+    # einsum at float32, float64 storage at float32 (also masked), float64
+    # einsum at float64, float32 storage at float64, and the last on highway
+    ("taxi", {"storage_dtype": F32}, 100, None),
+    ("taxi", {"einsum_dtype": F32}, 100, None),
+    ("taxi", {"storage_dtype": F64}, 100, None),
+    ("taxi", {"storage_dtype": F64, "masked": True}, 100, None),
+    ("taxi", {"einsum_dtype": F64, "dtype": F64}, 100, None),
+    ("taxi", {"storage_dtype": F32, "dtype": F64}, 100, None),
+    ("video", {"storage_dtype": F32, "dtype": F64}, 20, None),
 ]
 # Iterations of the coverage solves: highway's CPU solve costs 4.6 times
-# taxi's, and a float8 einsum on highway diverges within three.
+# taxi's, and a float8 einsum on highway diverges within three. The WIDE
+# variants' coverage solves are cut further, to keep the script's time.
 COVERAGE_ITERS = {"taxi": 10, "video": 4}
+WIDE_COVERAGE_ITERS = {"taxi": 4, "video": 2}
 # The first 10 err_hist entries of each narrow solve (all of a shorter one)
 # are held to the same solve on the CPU in the same dtypes, where both are
 # finite and the CPU's has not risen above its first entry (a float8 einsum
@@ -563,7 +605,9 @@ def _phase2_edges() -> None:
                   f"off by {args[0].element_size()} B: tensors bitwise equal to the aligned call, sums rtol {rtol:g}")
         # bf16 and float8 storage: groups of 8 (2-byte and 8-byte accesses)
         # beside float, 4 (4-byte accesses of e5m2) beside double
-        for variant in ("c32_dbf16_sbf16_tbf16", "c32_de4m3_se4m3_te4m3", "c64_de5m2_se5m2_te5m2"):
+        # and double streams beside float compute, float ones beside double
+        for variant in ("c32_dbf16_sbf16_tbf16", "c32_de4m3_se4m3_te4m3", "c64_de5m2_se5m2_te5m2",
+                        "c32_d64_s64_tbf16", "c64_d32_s32_t32"):
             storage = NARROW[variant]
             for offset in (0, 1):
                 args = _narrow_args((n,), storage, n % 1000, offset)
@@ -622,9 +666,11 @@ def phase2() -> dict:
     FMA); narrow variants: `hopper_kernels.check_narrow_against_plain` -
     bf16 tensors within one bf16 ulp, rtol 2**-8 with atol 2**-8 *
     max|input| (such an FMA can flip one rounding), with at most a share
-    NARROW_FLIP_SHARE of their elements rounded otherwise, and T' bitwise
-    from the stored O' and Y_L'; norms rtol 1e-5 (the kernel sums in
-    double, the plain version in the dtype).
+    NARROW_FLIP_SHARE of their elements rounded otherwise (float32 stores
+    beside float64 compute the same way, to one float32 step and
+    F32_AT_F64_FLIP_SHARE), and T' bitwise from the stored O' and Y_L';
+    norms rtol 1e-5 (the kernel sums in double, the plain version in the
+    dtype). Each variant at every shape phase 3 gives it.
     Returns the taxi-shape record of each variant the main path runs."""
     records = {}
     for seed, (dtype, (name, shape)) in enumerate(
@@ -643,8 +689,16 @@ def phase2() -> dict:
             if name == "taxi" and mu_next is not None:
                 records[str(dtype)[6:].replace("float", "f")] = record
 
+    # every shape phase 3 gives a variant: its video solves, and the coverage
+    # solves of the variants that round to float8_e4m3fn
+    at_video = {_variant_of(f) for data, f, _i, _e in NARROW_SOLVES if data == "video"}
+    at_video |= {v for v in NARROW if "e4m3" in v}
     for seed, (variant, (cd, d_dt, s_dt, t_dt)) in enumerate(NARROW.items(), start=100):
-        for name in ("taxi", "video", "slab2") if cd == torch.float32 else ("taxi",):
+        if cd == torch.float32:
+            shapes = ("taxi", "video", "slab2")
+        else:
+            shapes = ("taxi", "video") if variant in at_video else ("taxi",)
+        for name in shapes:
             args = _narrow_args(KERNEL_SHAPES[name], (cd, d_dt, s_dt, t_dt), seed)
             if hopper_kernels.kernel_variant(*args, t_dtype=t_dt) != variant:
                 raise AssertionError(f"{variant}: dtypes route to another variant")
@@ -656,7 +710,7 @@ def phase2() -> dict:
             torch.cuda.synchronize()
             agree = hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
             max_abs = agree["max_abs_err"]
-            narrow_dt = s_dt if s_dt in hopper_kernels.NARROW_FLIP_SHARE else t_dt
+            limits = hopper_kernels.rounding_limits(s_dt, cd) or hopper_kernels.rounding_limits(t_dt, cd)
             for i in (4, 5):
                 torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
             record = _report(
@@ -664,9 +718,13 @@ def phase2() -> dict:
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw),
                 lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw),
             )
-            print(f"phase2 {name:6s} {variant} narrow elements rounded otherwise than the plain version: "
-                  f"share {agree['flip_share']:.3e} (limit {hopper_kernels.NARROW_FLIP_SHARE[narrow_dt]:.1e})"
-                  + ("; T' bitwise from the stored O', Y_L'" if t_dt is not None else ""))
+            held = "; T' bitwise from the stored O', Y_L'" if t_dt is not None else ""
+            if limits is not None:
+                print(f"phase2 {name:6s} {variant} elements narrower than compute rounded otherwise than the "
+                      f"plain version: share {agree['flip_share']:.3e} (limit {limits[1]:.1e}){held}")
+            else:
+                print(f"phase2 {name:6s} {variant} float32/float64 outputs within rtol 1e-6 of the plain "
+                      f"version{held}")
             if name == "taxi":
                 records[variant] = record
     _phase2_conversion_edges()
@@ -869,7 +927,8 @@ def phase3() -> dict:
         for name in hopper_kernels.KERNEL_VARIANTS.values():
             if name not in finite:
                 data = "video" if "e4m3" in name else "taxi"
-                yield data, _fields_of(name), COVERAGE_ITERS[data], None
+                iters = (WIDE_COVERAGE_ITERS if name in WIDE else COVERAGE_ITERS)[data]
+                yield data, _fields_of(name), iters, None
 
     for data, fields, iters, expect in plan():
         dtype = fields.get("dtype", "float32")
@@ -893,7 +952,9 @@ def phase3() -> dict:
         cpu_args = (data_t.cpu(), dataclasses.replace(ncfg, max_iter=depth))
         cpu_kw = dict(init=ninit, origin=None if origin is None else origin.cpu(),
                       mask=None if dmask is None else dmask.cpu())
+        t0 = time.perf_counter()
         want = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
+        tag += f" [CPU reference {time.perf_counter() - t0:.1f} s]"
         got = trim_history(res.err_hist, res.n_iters)
         if expect == "nan":
             # a value past float8_e4m3fn's 448 is NaN in the reference's
@@ -930,7 +991,8 @@ def phase3() -> dict:
         t_dt = t_dtype_of(ncfg)
         kind = (t_dt, feedback)
         control = ""
-        if t_dt is not None and not masked and kind not in controlled and held >= TIGHT_ENTRIES:
+        # (for a narrow T: a step of float32 or float64 is below the limits)
+        if t_dt in hopper_kernels.NARROW_ULP and not masked and kind not in controlled and held >= TIGHT_ENTRIES:
             controlled.add(kind)
             with _t_rounded_toward_zero():
                 bad = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
@@ -2167,6 +2229,10 @@ def _same_as_tensor_call(tag, got, want, scale) -> str:
     """Hold the outputs of a call from numpy to those of the same call on
     CUDA tensors: bitwise, or else within rtol 1e-6 and atol 1e-6 * `scale`
     (max |input|; ROADMAP's float32 tolerance on the card), which is said."""
+    if isinstance(got, dict):
+        if not isinstance(want, dict) or sorted(got) != sorted(want):
+            raise AssertionError(f"{tag}: outputs {sorted(got)} against {sorted(want)}")
+        got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]
     if isinstance(got, (tuple, list)):
         if not isinstance(want, (tuple, list)) or len(got) != len(want):
             raise AssertionError(f"{tag}: {len(got)} outputs against {len(want)}")
@@ -2279,6 +2345,86 @@ def phase19() -> dict:
     return launches
 
 
+# The flat ops.elementwise_block of phase 20 at the taxi shape: (tag, dtypes
+# of D, L, E, Y_L, Y_O, compute_dtype, store_dtype, the variant its one
+# launch must take). The last mixes dtypes that no variant holds: cast to
+# float32, the pure variant, the stores rounded to float16.
+FLAT_CASES = (
+    ("f32", (torch.float32,) * 5, None, None, "f32"),
+    ("f64", (torch.float64,) * 5, None, None, "f64"),
+    ("bf16 storage at f32", (torch.bfloat16, torch.float32, *(torch.bfloat16,) * 3), torch.float32, torch.bfloat16,
+     "c32_dbf16_sbf16_tbf16"),
+    ("bf16/f32 inputs at f32 into f16, the cast route",
+     (torch.bfloat16, torch.float32, torch.bfloat16, torch.float32, torch.float32), torch.float32, torch.float16,
+     "f32"),
+)
+
+
+def phase20() -> None:
+    """The reference-shaped ops.elementwise_block on the card, and numpy input
+    to every entry point of tests/torch_numpy_entries.py and to
+    init_factors, each against the same call on CUDA tensors."""
+    import functools
+    import importlib
+
+    from tritd_tpu_torch import ops
+
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_numpy_entries import ENTRIES, X
+
+    for tag, dtypes, cd, sd, variant in FLAT_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        args = [narrow_cast(torch.randn(KERNEL_SHAPES["taxi"], generator=gen, dtype=torch.float64, device="cuda") * 3,
+                            dt) for dt in dtypes]
+        hopper_kernels.reset_launch_counts()
+        got = ops.elementwise_block(*args, *SCALARS, compute_dtype=cd, store_dtype=sd)
+        torch.cuda.synchronize()
+        launches = _launches()
+        if launches != {variant: 1} or len(got) != 6 or any(g.device.type != "cuda" for g in got):
+            raise AssertionError(f"phase20 ops.elementwise_block {tag}: launches {launches}, {len(got)} outputs")
+        c = cd or functools.reduce(torch.promote_types, dtypes)
+        want = hopper_kernels._block_torch(*args, *SCALARS, compute_dtype=c, store_dtype=sd or c)
+        wide = [a.to(c) for a in args]
+        agree = hopper_kernels.check_narrow_against_plain(wide, (*got, None), want)
+        for i in (4, 5):
+            torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
+        print(f"phase20 ops.elementwise_block {tag} taxi: launches {launches}; outputs {got[0].dtype}, sums "
+              f"{got[4].dtype}; held to the plain version: max_abs_err {agree['max_abs_err']:.3e}, narrow elements "
+              f"rounded otherwise {agree['flip_share']:.3e}")
+
+    sofia = importlib.import_module("tritd_tpu_torch.baselines.sofia")
+    init, init_on = sofia.sofia_init, []
+
+    def init_where(y, *args, **kwargs):
+        init_on.append(y.device.type)
+        return init(y, *args, **kwargs)
+
+    sofia.sofia_init = init_where
+    scale = float(np.abs(X).max())
+    try:
+        for name, call in ENTRIES.items():
+            t0 = time.perf_counter()
+            got = call(lambda a: a)
+            want = call(lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda())
+            torch.cuda.synchronize()
+            where = {t.device.type for t in _tensors(got)}
+            if name == "baselines.sofia_stream":  # numpy out, as the reference's; the batch init ran on the card
+                where, init_on[:] = set(init_on), []
+            if where != {"cuda"}:
+                raise AssertionError(f"phase20 {name} from numpy: results on {where}")
+            same = _same_as_tensor_call(f"phase20 {name}", got, want, scale)
+            print(f"phase20 {name} from numpy: on cuda; against the call on CUDA tensors: {same}; "
+                  f"{time.perf_counter() - t0:.2f} s (host clock, both calls)")
+    finally:
+        sofia.sofia_init = init
+    got = init_factors(torch.Generator().manual_seed(0), (100, 100, 500), 5, torch.float32)
+    want = init_factors(torch.Generator().manual_seed(0), (100, 100, 500), 5, torch.float32, device="cpu")
+    if any(g.device.type != "cuda" or not torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("phase20 init_factors: not on the card, or not the CPU draw")
+    print(f"phase20 init_factors: on cuda by default, bitwise the same seed's draw on the CPU; "
+          f"{len(ENTRIES)} entry points from numpy on the card")
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -2312,6 +2458,7 @@ def main() -> None:
     phase18()
     for variant, count in _timed(19, phase19).items():
         launches[variant] = launches.get(variant, 0) + count
+    _timed(20, phase20)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:

@@ -140,7 +140,7 @@ def test_admm_iteration_from_jax_state(masked):
         start = {f: np.asarray(getattr(s, f)) for f in s._fields}
         s = j_admm_iteration(jd, s, JConfig(**dataclasses.asdict(cfg)), mask=jmask)
         want = {f: np.asarray(getattr(s, f)) for f in s._fields}
-    state = interop.state_from_numpy(start)
+    state = interop.state_from_numpy(start, device="cpu")
     assert state.k == 3 and state.mu_l.dtype == np.float64
     got = admm_iteration(torch.from_numpy(y), state, cfg,
                          mask=torch.from_numpy(mask) if masked else None)

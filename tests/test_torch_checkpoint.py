@@ -165,7 +165,7 @@ def test_checkpoint_manager(tmp_path):
     cfg = TriTDConfig(rank=2, max_iter=7, tol=0.0)
     from tritd_tpu_torch.solvers import admm_iteration, init_state
 
-    state = init_state(d, cfg, init_factors(torch.Generator().manual_seed(0), SHAPE, 2, torch.float32))
+    state = init_state(d, cfg, init_factors(torch.Generator().manual_seed(0), SHAPE, 2, torch.float32, device="cpu"))
     saved = []
     for _ in range(7):
         state = admm_iteration(d.float(), state, cfg)

@@ -423,8 +423,12 @@ def test_kernel_stores_round_as_narrow_cast_at_the_edges(cuda_device, variant):
     (dict(storage_dtype="float16", einsum_dtype="bfloat16"), False, "c32_df16_sf16_tbf16"),
     (dict(storage_dtype="bfloat16", einsum_dtype="float8_e4m3fn"), False, "c32_dbf16_sbf16_te4m3"),
     (dict(storage_dtype="float8_e5m2", dtype="float64"), False, "c64_de5m2_se5m2_te5m2"),
+    (dict(storage_dtype="float64"), False, "c32_d64_s64_t64"),
+    (dict(storage_dtype="float64"), True, "c32_d32_s64_t64"),
+    (dict(storage_dtype="float32", dtype="float64"), False, "c64_d32_s32_t32"),
+    (dict(storage_dtype="bfloat16", einsum_dtype="float32"), False, "c32_dbf16_sbf16_t32"),
 ], ids=["f16", "f16_masked", "einsum_f16", "e4m3", "e5m2_masked", "einsum_e5m2", "f16+bf16", "bf16+e4m3",
-        "e5m2_f64"])
+        "e5m2_f64", "f64", "f64_masked", "f32_at_f64", "bf16+f32"])
 def test_narrow_dtype_solve_launches_its_variant(cuda_device, fields, masked, variant):
     """A solve in a new narrow dtype on the card launches its kernel variant
     once per iteration; err_hist stays finite, and the float16 ones land
@@ -446,6 +450,62 @@ def test_narrow_dtype_solve_launches_its_variant(cuda_device, fields, masked, va
     if "float8" not in str(fields):
         wide = tritd_admm(y, cfg, mask=mask, origin=x, init=init)
         assert abs(float(narrow.rre_hist[-1]) - float(wide.rre_hist[-1])) < 0.03
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes, compute, store, variant", [
+    ((torch.float32,) * 5, None, None, "f32"),
+    ((torch.bfloat16, torch.float32, *(torch.bfloat16,) * 3), torch.float32, torch.bfloat16,
+     "c32_dbf16_sbf16_tbf16"),
+    ((torch.float64, torch.float32, *(torch.float64,) * 3), torch.float32, torch.float64, "c32_d64_s64_t64"),
+    ((torch.bfloat16, torch.float32, torch.bfloat16, torch.float32, torch.float32), torch.float32, torch.float16,
+     "f32"),
+], ids=["f32", "bf16_storage", "f64_storage", "cast_route"])
+def test_flat_block_launches_once_and_matches_the_cpu(cuda_device, dtypes, compute, store, variant):
+    """`ops.elementwise_block` (the reference's signature) launches one
+    kernel: the variant its dtypes name, or the pure one with the inputs
+    cast and the stores rounded; the stores equal the plain version's on
+    the CPU within one step of their dtype."""
+    from tritd_tpu_torch import ops
+
+    rng = np.random.default_rng(4)
+    args = [narrow_cast(torch.from_numpy(rng.standard_normal((17, 23, 31)) * 3), dt).to(cuda_device)
+            for dt in dtypes]
+    hopper_kernels.reset_launch_counts()
+    got = ops.elementwise_block(*args, *SCALARS, compute_dtype=compute, store_dtype=store)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in hopper_kernels.LAUNCHES.items() if v} == {f"elementwise_block[{variant}]": 1}
+    want = ops.elementwise_block(*(a.cpu() for a in args), *SCALARS, compute_dtype=compute, store_dtype=store)
+    c = compute or torch.float32
+    agree = hopper_kernels.check_narrow_against_plain([a.cpu().to(c) for a in args], (*(g.cpu() for g in got), None),
+                                                      (*want, None))
+    assert agree["max_abs_err"] < 1.0
+    for i in (4, 5):
+        torch.testing.assert_close(got[i].cpu(), want[i], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_numpy_input_to_the_ops_and_metrics_goes_to_the_card(cuda_device):
+    """Every entry of tests/torch_numpy_entries.py from numpy puts its
+    results on the card (sofia_stream's are numpy by design)."""
+    from torch_numpy_entries import ENTRIES
+
+    for name, entry in ENTRIES.items():
+        out = entry(lambda a: a)
+        if name != "baselines.sofia_stream":
+            leaves = [out] if isinstance(out, torch.Tensor) else list(_leaf_tensors(out))
+            assert leaves and all(t.device.type == "cuda" for t in leaves), name
+
+
+def _leaf_tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, dict):
+        for v in out.values():
+            yield from _leaf_tensors(v)
+    elif isinstance(out, (list, tuple)):
+        for v in out:
+            yield from _leaf_tensors(v)
 
 
 def _spectrum_matrix(p, q, spectrum, seed=0):

@@ -94,7 +94,7 @@ def test_kernel_wrapper_checks_inputs_before_building():
     with pytest.raises(TypeError, match="float32 or float64"):
         hopper_kernels._block_cuda(*[x.half() for x in good], *SCALARS)
     with pytest.raises(TypeError, match="mixed dtypes"):
-        hopper_kernels._block_cuda(good[0], good[1].double(), *good[2:], *SCALARS)
+        hopper_kernels._block_cuda(*good[:2], good[2].double(), *good[3:], *SCALARS)
     with pytest.raises(ValueError, match="contiguous"):
         hopper_kernels._block_cuda(good[0], good[1].transpose(0, 2).contiguous().transpose(0, 2),
                                    *good[2:], *SCALARS)

@@ -43,11 +43,11 @@ SIZES = [1, 7, 8, 9, 255, 257, ODD_ABOVE_A_WAVE, 17 * 23 * 31, 25 * 100 * 500, 3
          100 * 100 * 500, 240 * 320 * 300]
 SIZE_OF = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2, torch.float16: 2,
            torch.float8_e4m3fn: 1, torch.float8_e5m2: 1}
-# The accesses narrower than 16 bytes, by (compute, bytes of the element):
-# the 32-byte cap on the compute type leaves the narrowest streams short.
-# Four 2-byte elements beside double move 8 bytes; eight float8 beside
-# float 8 bytes; four float8 beside double 4 bytes.
-SHORT_ACCESS = {(torch.float64, 2): 8, (torch.float32, 1): 8, (torch.float64, 1): 4}
+# The accesses narrower than 16 bytes, by (bytes of the widest type, bytes
+# of the element): the 32-byte cap on the widest type leaves the narrowest
+# streams short. Four 2-byte elements beside double move 8 bytes; eight
+# float8 beside float 8 bytes; four float8 beside double 4 bytes.
+SHORT_ACCESS = {(8, 2): 8, (4, 1): 8, (8, 1): 4}
 VARIANTS = sorted(KERNEL_VARIANTS.values())
 
 
@@ -64,18 +64,29 @@ def _dtypes(variant):
     return key
 
 
+def _widest(variant):
+    return max(SIZE_OF[dt] for dt in _dtypes(variant))
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_group_moves_16_bytes_of_the_narrowest_stream(variant):
-    compute, *stored = _dtypes(variant)
+    key = _dtypes(variant)
     group = VARIANT_GROUP[variant]
-    assert group == group_size(SIZE_OF[compute], min(SIZE_OF[dt] for dt in stored))
-    # at most 32 bytes of the compute type a turn; every stream then moves
-    # 16 bytes or a multiple, but for the SHORT_ACCESS cases
-    assert group * SIZE_OF[compute] <= 32
-    for dt in (compute, *stored):
+    widest = _widest(variant)
+    assert group == group_size(widest, min(SIZE_OF[dt] for dt in key))
+    # at most 32 bytes of the widest type a turn (the compute type, but for
+    # a double stream beside float compute); every stream then moves 16
+    # bytes or a multiple, but for the SHORT_ACCESS cases
+    assert group * widest <= 32
+    for dt in key:
         moved = group * SIZE_OF[dt]
-        assert moved % 16 == 0 or moved == SHORT_ACCESS.get((compute, SIZE_OF[dt]))
-    assert {"f32": 4, "f64": 2}.get(variant, 8 if variant.startswith("c32") else 4) == group
+        assert moved % 16 == 0 or moved == SHORT_ACCESS.get((widest, SIZE_OF[dt]))
+    # float compute takes 8 elements beside 2-byte or float8 streams, 4
+    # beside only floats or beside a double stream; double compute 4, or 2
+    # with every stream double
+    wide_stream = variant.startswith("c32") and "64" in variant[3:]
+    want = 4 if wide_stream else 8 if variant.startswith("c32") else 4
+    assert {"f32": 4, "f64": 2}.get(variant, want) == group
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -224,20 +235,20 @@ def test_block_on_views_and_odd_sizes_matches_jax_f64(shape, use_pallas, layout)
 
 
 def _group_of_source():
-    """The source's GroupOf as a function of (compute bytes, narrowest
+    """The source's GroupOf as a function of (widest bytes, narrowest
     bytes): its two constants, read from csrc/elementwise_block.cuh."""
     src = (build.SRC_DIR / "elementwise_block.cuh").read_text()
     by_stream = int(re.search(r"kByStream = (\d+) / kNarrowest;", src).group(1))
-    cap = int(re.search(r"kCap = (\d+) / \(int\)sizeof\(C\);", src).group(1))
-    return lambda compute, narrowest: min(by_stream // narrowest, cap // compute)
+    cap = int(re.search(r"kCap = (\d+) / kWidest;", src).group(1))
+    return lambda widest, narrowest: min(by_stream // narrowest, cap // widest)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_group_table_is_the_sources_group_of(variant):
     """VARIANT_GROUP, which the wrapper plans with, against GroupOf in the
     CUDA source (which `_entry` also holds against the built library)."""
-    compute, *stored = _dtypes(variant)
-    assert VARIANT_GROUP[variant] == _group_of_source()(SIZE_OF[compute], min(SIZE_OF[dt] for dt in stored))
+    key = _dtypes(variant)
+    assert VARIANT_GROUP[variant] == _group_of_source()(_widest(variant), min(SIZE_OF[dt] for dt in key))
 
 
 # An excerpt in the form `cuobjdump -sass` prints: a prologue, a loop whose

@@ -240,9 +240,9 @@ def test_admm_iteration_from_jax_narrow_state(fields, masked):
     start = {f: np.asarray(getattr(s, f)) for f in s._fields}
     s = j_admm_iteration(jd, s, jcfg, mask=jmask, norm_d=jnp.asarray(norm_d))
     want = {f: np.asarray(getattr(s, f)) for f in s._fields}
-    state = interop.state_from_numpy(start)
+    state = interop.state_from_numpy(start, device="cpu")
     assert state.k == 3 and state.o.dtype == cfg.torch_storage_dtype()
-    d = interop.tensor_from_numpy(np.asarray(jd))
+    d = interop.tensor_from_numpy(np.asarray(jd), device="cpu")
     got = admm_iteration(d, state, cfg, mask=torch.from_numpy(mask) if masked else None,
                          norm_d=torch.tensor(norm_d))
     assert got.mu_l == want["mu_l"] and got.k == 4
@@ -342,7 +342,7 @@ def test_kernel_variants_cover_the_solver_and_reject_the_rest():
         (f32, f32, bf16, bf16, bf16, f32),      # T' wider than the storage
         (f32, f32, bf16, f32, bf16, None),      # mixed storage
         (f32, torch.float16, f32, f32, f32, None),  # L not f32/f64
-        (f64, f32, f64, f64, f64, None),        # D in another wide dtype
+        (f64, f32, f32, f32, f32, None),        # D in another wide dtype than the storage
     ]
     for *dts, t_dt in bad:
         args = [torch.zeros(2, 3, 4, dtype=dt) for dt in dts]

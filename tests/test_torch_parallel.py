@@ -382,7 +382,7 @@ def test_batch_on_one_rank_and_its_checks(mesh1, problem):
     gen = torch.Generator().manual_seed(0)
     assert res.err_hist.shape == (3, 30) and res.o.shape == (3, *SHAPE) and res.n_iters.shape == (3,)
     for i in range(3):  # each entry stops on its own, from its own draw of the one generator
-        want = tritd_admm(torch.from_numpy(batch[i]), cfg, init=init_factors(gen, SHAPE, RANK, torch.float32))
+        want = tritd_admm(torch.from_numpy(batch[i]), cfg, init=init_factors(gen, SHAPE, RANK, torch.float32, device="cpu"))
         assert int(res.n_iters[i]) == want.n_iters
         torch.testing.assert_close(res.err_hist[i], want.err_hist, rtol=1e-6, atol=0, equal_nan=True)
     assert len(set(res.n_iters.tolist())) > 1
@@ -445,7 +445,7 @@ def test_update_factors_hook_places_the_sums(mode, variant):
 def test_sharded_iteration_needs_the_whole_tensors_norm():
     d = torch.zeros(SHAPE)
     cfg = TriTDConfig(rank=RANK)
-    state = init_state(d, cfg, init_factors(torch.Generator().manual_seed(0), SHAPE, RANK, torch.float32))
+    state = init_state(d, cfg, init_factors(torch.Generator().manual_seed(0), SHAPE, RANK, torch.float32, device="cpu"))
     with pytest.raises(ValueError, match="norm_d"):
         admm_iteration(d, state, cfg, shard=_ThreadShards(1, 1).hook(0))
 

@@ -274,7 +274,8 @@ def test_sofia_stream_device_matches_numpy_oracle():
     m, cycles = 6, 2
     x, omega, _y, _init = _seasonal(shape=(8, 9, 36), m=m, missing=0.05, seed=5)
     kwargs = dict(r=2, m=m, cycles=cycles, max_epoch=10, mu=0.2)
-    (u1n, u2n), wn, xn, on = sofia.sofia_stream(x, omega, generator=torch.Generator().manual_seed(0), **kwargs)
+    (u1n, u2n), wn, xn, on = sofia.sofia_stream(x, omega, generator=torch.Generator().manual_seed(0), device="cpu",
+                                                **kwargs)
     (u1d, u2d), wd, xd, od = sofia.sofia_stream_device(_t(x), _t(omega), generator=torch.Generator().manual_seed(0),
                                                        **kwargs)
     ti = m * cycles

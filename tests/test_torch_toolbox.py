@@ -128,7 +128,7 @@ def _sp(shape, nnz, seed=0, duplicate=False):
 
 
 def _tsp(sp):
-    return interop.sptensor_from_numpy(*sp, dtype=F64)
+    return interop.sptensor_from_numpy(*sp, dtype=F64, device="cpu")
 
 
 def _jsp(sp):
@@ -991,19 +991,19 @@ class TestRemainingSurface:
     def test_interop_round_trips(self):
         g = rng(8)
         w, fs = g.random(3), [g.standard_normal((s, 3)) for s in (4, 5)]
-        tw, tfs = interop.ktensor_from_numpy(w, fs, dtype=F64)
+        tw, tfs = interop.ktensor_from_numpy(w, fs, dtype=F64, device="cpu")
         bw, bfs = interop.ktensor_to_numpy(tw, tfs)
         np.testing.assert_array_equal(bw, w)
         assert all((a == b).all() for a, b in zip(bfs, fs))
-        assert interop.ktensor_from_numpy(None, fs)[0] is None
-        assert interop.ktensor_from_numpy(w, fs)[1][0].dtype == torch.float32
+        assert interop.ktensor_from_numpy(None, fs, device="cpu")[0] is None
+        assert interop.ktensor_from_numpy(w, fs, device="cpu")[1][0].dtype == torch.float32
         core = g.standard_normal((3, 3))
-        tc, tfs = interop.ttensor_from_numpy(core, fs, dtype=F64)
+        tc, tfs = interop.ttensor_from_numpy(core, fs, dtype=F64, device="cpu")
         bc, bfs = interop.ttensor_to_numpy(tc, tfs)
         np.testing.assert_array_equal(bc, core)
         # JAX arrays go in as they are, int32 coordinates come out int64
         vals, coords, shape = _jsp(_sp((4, 5, 6), 9, seed=9))
-        tv, tcoords, tshape = interop.sptensor_from_numpy(vals, coords, shape)
+        tv, tcoords, tshape = interop.sptensor_from_numpy(vals, coords, shape, device="cpu")
         assert tcoords.dtype == torch.int64 and tshape == (4, 5, 6)
         bv, bcoords, bshape = interop.sptensor_to_numpy(tv, tcoords, tshape)
         np.testing.assert_array_equal(bcoords, n(coords))

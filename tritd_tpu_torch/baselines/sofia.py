@@ -590,14 +590,19 @@ def sofia_stream(
     tol: float = 1e-3,
     need_outlier: bool = True,
     generator: torch.Generator | None = None,
+    device=None,
 ):
     """Streaming SOFIA (`sofia.m`) with the stream in numpy on the host:
-    batch init on the first m*cycles frames, HW fit, then per-step forecast
-    / Huber-clean / scaled-SGD / HW-update.
+    batch init on the first m*cycles frames on `device` (by default a
+    tensor `y`'s device, the card for numpy, as the reference runs
+    `sofia_init` on its accelerator: `RuntimeError` without CUDA,
+    `device="cpu"` for the plain path), HW fit, then per-step forecast /
+    Huber-clean / scaled-SGD / HW-update on the host.
 
     Returns (U=(u1,u2), W, X_hat, O)."""
     y, omega_np, ti, u1, u2, w_init, x_init, o_init, (ls, bs, ss, fs) = _stream_setup(
-        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, torch.float32, "cpu")
+        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, torch.float32,
+        input_device(y, device))
     n1, n2, ntimes = y.shape
 
     w = np.zeros((ntimes, r))

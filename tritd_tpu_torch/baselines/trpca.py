@@ -17,12 +17,13 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kruskal import solver_input
+from ..ops.kruskal import on_input_device, solver_input
 from ..ops.shrinkage import prox_l1
 from ..ops.svt import svt_ref_compat
 from .penalty import grown_penalty
 
 
+@on_input_device("y")
 def prox_tnn(y: torch.Tensor, rho) -> torch.Tensor:
     """Proximal operator of the tensor nuclear norm (t-SVD, `prox_tnn.m`):
     FFT along mode 3, soft-threshold singular values of every frontal slice,

@@ -10,6 +10,11 @@ The Tensor Toolbox surface has the same need: a Kruskal tensor
 `(weights, factors)`, a Tucker tensor `(core, factors)` and a sparse tensor
 `(vals, coords, shape)` go over as numpy and come back as numpy, so both
 packages compute on the same numbers.
+
+Where the arrays land follows the entry points' rule
+(`ops.kruskal.on_input_device`): `device=None` is the card for numpy, as
+the reference places an array on its accelerator, and raises `RuntimeError`
+without CUDA; a tensor keeps its device; `device="cpu"` is the plain path.
 """
 
 from __future__ import annotations
@@ -19,59 +24,46 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .ops.kruskal import on_input_device
 from .ops.sparse import check_coords
 from .solvers.base import TriTDResult, TriTDState
 
 _HOST_FIELDS = ("mu_l", "mu_o", "k", "done")
 
 
-def factors_from_numpy(a, b, c, device="cpu", dtype=torch.float32):
-    """(a, b, c) as numpy arrays or tensors -> tensors on `device` in `dtype`."""
-    return tuple(
-        torch.as_tensor(u if isinstance(u, torch.Tensor) else np.array(u)).to(
-            device=device, dtype=dtype
-        )
-        for u in (a, b, c)
-    )
+@on_input_device("a", "b", "c")
+def factors_from_numpy(a, b, c, dtype=torch.float32):
+    """(a, b, c) as numpy arrays or tensors -> tensors in `dtype`; b and c
+    follow a."""
+    return tuple(u.to(dtype) for u in (a, b, c))
 
 
-# The narrow dtypes numpy holds as `ml_dtypes` extension types, which torch
-# cannot read: by name, the integer type their bits are carried in. float16
-# is native to numpy.
-_CARRIED_BITWISE = {
-    "bfloat16": (np.int16, torch.bfloat16),
-    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
-    "float8_e5m2": (np.uint8, torch.float8_e5m2),
-}
-
-
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+@on_input_device("arr")
+def tensor_from_numpy(arr) -> torch.Tensor:
     """A numpy array as a tensor of the same dtype, the narrow dtypes
-    included: bfloat16 and the two float8 formats are recognised by their
-    dtype's name (no `ml_dtypes` import) and carried over bit for bit."""
-    arr = np.array(arr)
-    carried = _CARRIED_BITWISE.get(arr.dtype.name)
-    if carried is not None:
-        bits, dtype = carried
-        return torch.from_numpy(arr.view(bits)).view(dtype).to(device)
-    return torch.as_tensor(arr, device=device)
+    included: bfloat16 and the two float8 formats are carried over bit for
+    bit (`ops.kruskal.CARRIED_BITWISE`)."""
+    return arr
 
 
-def state_from_numpy(arrays: Mapping[str, Any], device="cpu") -> TriTDState:
+def state_from_numpy(arrays: Mapping[str, Any], device=None) -> TriTDState:
     """A `TriTDState` from a mapping of its fields to numpy arrays, as from
     ``{f: np.asarray(getattr(s, f)) for f in s._fields}`` of the reference's
-    state. Tensors keep their dtype; mu_l/mu_o become numpy scalars, k a
-    Python int and done a 0-d device bool."""
+    state, on `device` (None: the card). Tensors keep their dtype;
+    mu_l/mu_o become numpy scalars, k a Python int and done a 0-d device
+    bool."""
+    a = tensor_from_numpy(arrays["a"], device=device)
     fields = {
-        f: tensor_from_numpy(arrays[f], device=device)
-        for f in TriTDState._fields if f not in _HOST_FIELDS
+        f: tensor_from_numpy(arrays[f], device=a.device)
+        for f in TriTDState._fields if f not in _HOST_FIELDS and f != "a"
     }
     return TriTDState(
+        a=a,
         **fields,
         mu_l=np.asarray(arrays["mu_l"])[()],
         mu_o=np.asarray(arrays["mu_o"])[()],
         k=int(arrays["k"]),
-        done=torch.as_tensor(bool(arrays["done"]), device=device),
+        done=torch.as_tensor(bool(arrays["done"]), device=a.device),
     )
 
 
@@ -85,19 +77,16 @@ def result_to_numpy(res: TriTDResult) -> dict[str, Any]:
     return out
 
 
-def _to_tensor(arr, device, dtype) -> torch.Tensor:
-    return torch.as_tensor(np.array(arr)).to(device=device, dtype=dtype)
-
-
 def _to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def ktensor_from_numpy(weights, factors, device="cpu", dtype=torch.float32):
+@on_input_device("weights", sequences=("factors",))
+def ktensor_from_numpy(weights, factors, dtype=torch.float32):
     """A Kruskal tensor `(weights, [U_1..U_N])` of numpy arrays as tensors
-    on `device` in `dtype`; `weights` may be None (unit weights)."""
-    w = None if weights is None else _to_tensor(weights, device, dtype)
-    return w, [_to_tensor(u, device, dtype) for u in factors]
+    in `dtype`; `weights` may be None (unit weights)."""
+    w = None if weights is None else weights.to(dtype)
+    return w, [u.to(dtype) for u in factors]
 
 
 def ktensor_to_numpy(weights, factors):
@@ -106,9 +95,11 @@ def ktensor_to_numpy(weights, factors):
     return w, [_to_numpy(u) for u in factors]
 
 
-def ttensor_from_numpy(core, factors, device="cpu", dtype=torch.float32):
-    """A Tucker tensor `(core, [U_1..U_N])` of numpy arrays as tensors."""
-    return _to_tensor(core, device, dtype), [_to_tensor(u, device, dtype) for u in factors]
+@on_input_device("core", sequences=("factors",))
+def ttensor_from_numpy(core, factors, dtype=torch.float32):
+    """A Tucker tensor `(core, [U_1..U_N])` of numpy arrays as tensors in
+    `dtype`."""
+    return core.to(dtype), [u.to(dtype) for u in factors]
 
 
 def ttensor_to_numpy(core, factors):
@@ -116,20 +107,21 @@ def ttensor_to_numpy(core, factors):
     return _to_numpy(core), [_to_numpy(u) for u in factors]
 
 
-def sptensor_from_numpy(vals, coords, shape, device="cpu", dtype=torch.float32):
-    """A sparse tensor `(vals, coords, shape)` of numpy arrays as tensors:
-    `coords` (int32 in the reference) become int64. The coordinates are
-    checked against `shape` on the host first (IndexError), because an
-    out-of-range index on a CUDA device is an assert that poisons the
-    context."""
+def sptensor_from_numpy(vals, coords, shape, device=None, dtype=torch.float32):
+    """A sparse tensor `(vals, coords, shape)` of numpy arrays as tensors in
+    `dtype` (placed by the module's rule): `coords` (int32 in the reference)
+    become int64. The coordinates are checked against `shape` on
+    the host first (IndexError), because an out-of-range index on a CUDA
+    device is an assert that poisons the context."""
     shape = tuple(int(s) for s in shape)
-    coords = np.array(coords)
     check_coords(coords, shape)
-    return (
-        _to_tensor(vals, device, dtype),
-        torch.as_tensor(coords.astype(np.int64), device=device),
-        shape,
-    )
+    vals, coords = _sptensor_placed(vals, coords, device=device)
+    return vals.to(dtype), coords.to(torch.int64), shape
+
+
+@on_input_device("vals", "coords")
+def _sptensor_placed(vals, coords):
+    return vals, coords
 
 
 def sptensor_to_numpy(vals, coords, shape):

@@ -20,7 +20,10 @@ import math
 
 import torch
 
+from ..ops.kruskal import on_input_device
 
+
+@on_input_device("x", "y")
 def psnr(x: torch.Tensor, y: torch.Tensor, peak: float = 255.0) -> torch.Tensor:
     """10*log10(peak^2 / mse) per `psnr_index.m:4` (mse over all entries)."""
     mse = torch.mean((x.to(torch.float32) - y.to(torch.float32)) ** 2)
@@ -52,6 +55,7 @@ def _filter2_valid(frames: torch.Tensor, w_h: torch.Tensor, w_w: torch.Tensor) -
     return w_h @ frames @ w_w.T
 
 
+@on_input_device("frames1", "frames2")
 def ssim_frames(
     frames1: torch.Tensor,
     frames2: torch.Tensor,
@@ -80,11 +84,13 @@ def ssim_frames(
     return torch.mean(ssim_map, dim=(1, 2))
 
 
+@on_input_device("img1", "img2")
 def ssim_frame(img1: torch.Tensor, img2: torch.Tensor, **kwargs) -> torch.Tensor:
     """Mean SSIM of one 2-D frame, Wang et al. defaults (`ssim_index.m`)."""
     return ssim_frames(img1[None], img2[None], **kwargs)[0]
 
 
+@on_input_device("x", "x_hat")
 def quality(x: torch.Tensor, x_hat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean PSNR, mean SSIM) over mode-3 frames, `quality_ybz.m:22-33`.
     Takes (H, W, T) tensors."""
@@ -95,6 +101,7 @@ def quality(x: torch.Tensor, x_hat: torch.Tensor) -> tuple[torch.Tensor, torch.T
     return torch.mean(psnrs), torch.mean(ssim_frames(frames1, frames2))
 
 
+@on_input_device("x", "x_hat")
 def msam(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
     """Mean Spectral Angle Mapper in degrees, `MSIQA.m:49-71`: per spatial
     pixel, the angle between the two mode-3 fibers, averaged over pixels.
@@ -110,6 +117,7 @@ def msam(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
     return torch.mean(ang)
 
 
+@on_input_device("x", "x_hat")
 def msiqa(x: torch.Tensor, x_hat: torch.Tensor):
     """(psnr, ssim, msam), the `MSIQA.m:1-47` output on equal-shaped
     [0, 255]-range tensors."""

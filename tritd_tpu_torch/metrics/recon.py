@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.kruskal import on_input_device
 
+
+@on_input_device("x_hat", "gt", "mask")
 def evaluate(x_hat: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = None):
     """(rmse, nrmse) as 0-d tensors over entries where mask is True (all if None)."""
     diff = x_hat - gt
@@ -21,11 +24,13 @@ def evaluate(x_hat: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = 
     return rmse, rmse / torch.linalg.vector_norm(gt)
 
 
+@on_input_device("x_hat", "gt", "mask")
 def rre(x_hat: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = None):
     """Relative reconstruction error — the headline metric."""
     return evaluate(x_hat, gt, mask)[1]
 
 
+@on_input_device("new", "old")
 def relative_change(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """||new - old|| / ||old||, the baselines' convergence probe
     (`TT_TRPCA.m:73`, `RTRC.m:69-70`, `RC_FCTN.m:103`)."""

@@ -59,7 +59,9 @@ from .shrinkage import (
 )
 from .svt import auto_method, svt_ref_compat
 from .prox import capped_simplex_projection, flsa
-from .hopper_kernels import elementwise_block
+# the reference's signature and six outputs; the solver's seven-output
+# wrapper stays `hopper_kernels.elementwise_block`
+from .hopper_kernels import flat_elementwise_block as elementwise_block
 from .kruskal import khatrirao, ktensor_full, tenmat, tenrand, cp_normalize, create_problem
 from .decomp import cp_als, mttkrp, tucker_hosvd, tucker_hooi, tucker_ttm
 # toolbox-name aliases: `hosvd.m` and `tucker_als.m` (higher-order

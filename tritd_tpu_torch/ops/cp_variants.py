@@ -41,7 +41,7 @@ import math
 import torch
 
 from .decomp import _hadamard_gram, _kruskal_fit, _scalar, _spd_solve_rows, mttkrp
-from .kruskal import cp_normalize, default_generator, draw, ktensor_full
+from .kruskal import cp_normalize, default_generator, draw, ktensor_full, on_input_device
 from .symmetric import adam_descent
 
 
@@ -78,6 +78,7 @@ def _fit_change_loop(sweep, x, factors, max_iters, tol):
 # ------------------------------------------------------------------- cp_nmu
 
 
+@on_input_device("x", sequences=("init_factors",))
 def cp_nmu(x, rank, max_iters=200, tol=1e-5, generator=None, init_factors=None):
     """Nonnegative CP by multiplicative updates — ``cp_nmu.m`` semantics
     (Lee-Seung step with an epsilon-guarded denominator, fit-change stop).
@@ -112,6 +113,7 @@ def _l1_normalize(u, eps):
     return u / safe, torch.where(s > eps, s, torch.zeros_like(s))
 
 
+@on_input_device("x", sequences=("init_factors",))
 def cp_apr(x, rank, max_outer=100, max_inner=10, tol=1e-4, generator=None, init_factors=None):
     """Nonnegative CP for count data by Alternating Poisson Regression with
     multiplicative updates — ``cp_apr.m`` (default 'mu' method) semantics:
@@ -175,6 +177,7 @@ def cp_apr(x, rank, max_outer=100, max_inner=10, tol=1e-4, generator=None, init_
 # ------------------------------------------------------------------ cp_arls
 
 
+@on_input_device("x", sequences=("factors", "idx"))
 def arls_mode_solve(x, factors, mode: int, idx) -> torch.Tensor:
     """One sampled least-squares solve of ``cp_arls``: the new factor of
     `mode` from the sampled multi-indices `idx` (one int64 (s,) tensor per
@@ -189,6 +192,7 @@ def arls_mode_solve(x, factors, mode: int, idx) -> torch.Tensor:
     return _spd_solve_rows(zs.T @ zs, xs @ zs)
 
 
+@on_input_device("x", sequences=("init_factors",))
 def cp_arls(x, rank, n_samples=None, max_iters=50, tol=1e-4, generator=None, init_factors=None):
     """CP by Alternating Randomized Least Squares — ``cp_arls.m`` semantics:
     each mode solve uses `n_samples` uniformly sampled rows of the implicit
@@ -344,6 +348,7 @@ def _lbfgs_fit(loss_fn, params0, max_iters: int, tol: float, memory: int = 10):
     return params, loss_fn(params), it
 
 
+@on_input_device("x", "w", sequences=("factors",))
 def cp_objective(factors, x, denom, w=None):
     """``||W .* (X - [[U]])||² / denom``, the objective of ``cp_opt`` (no
     `w`) and ``cp_wopt``; `x` is already weighted when `w` is given."""
@@ -352,6 +357,7 @@ def cp_objective(factors, x, denom, w=None):
     return (resid**2).sum() / denom
 
 
+@on_input_device("x", sequences=("init_factors",))
 def cp_opt(x, rank, max_iters=200, tol=1e-8, generator=None, init_factors=None):
     """CP by direct optimization — ``cp_opt.m`` semantics: minimize
     ``||X - [[U_1..U_N]]||²`` over all factors jointly with L-BFGS
@@ -371,6 +377,7 @@ def cp_opt(x, rank, max_iters=200, tol=1e-8, generator=None, init_factors=None):
     return {"weights": weights, "factors": factors, "fit": fit, "n_iters": iters}
 
 
+@on_input_device("x", "w", sequences=("init_factors",))
 def cp_wopt(x, w, rank, max_iters=200, tol=1e-8, generator=None, init_factors=None):
     """Weighted CP optimization — ``cp_wopt.m`` semantics: minimize
     ``||W .* (X - [[U]])||²`` (W a {0,1} or general weight tensor; the
@@ -430,6 +437,7 @@ GCP_LOSSES = {
 }
 
 
+@on_input_device("x", "mask", sequences=("init_factors",))
 def gcp_opt(
     x,
     rank,

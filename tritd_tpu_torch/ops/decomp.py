@@ -30,9 +30,10 @@ import math
 
 import torch
 
-from .kruskal import cp_normalize, default_generator, draw
+from .kruskal import cp_normalize, default_generator, draw, on_input_device
 
 
+@on_input_device("x", sequences=("factors",))
 def mttkrp(x: torch.Tensor, factors, mode: int) -> torch.Tensor:
     """Matricized-tensor times Khatri-Rao product for the given mode
     (Tensor Toolbox `mttkrp`): out[i_mode, r] = sum over the other indices of
@@ -112,6 +113,7 @@ def _cp_als_run(x, factors0, rank: int, max_iters: int, tol: float):
     return factors, fit, it
 
 
+@on_input_device("x", sequences=("init_factors",))
 def cp_als(
     x: torch.Tensor,
     rank: int,
@@ -167,6 +169,7 @@ def _leading_basis(x: torch.Tensor, mode: int, rank: int) -> torch.Tensor:
     return v.flip(1)[:, :rank]
 
 
+@on_input_device("x")
 def tucker_hosvd(x: torch.Tensor, ranks) -> dict:
     """Truncated higher-order SVD (`hosvd.m` semantics): per-mode leading
     left-singular basis, core = X times_n U_n^T."""
@@ -184,6 +187,7 @@ def _mode_product(x: torch.Tensor, u: torch.Tensor, mode: int, transpose: bool) 
     return out.movedim(0, mode)
 
 
+@on_input_device("x", sequences=("factors",))
 def tucker_ttm(x: torch.Tensor, factors, transpose: bool = False) -> torch.Tensor:
     """Multilinear product X times_n U_n (or U_n^T) over all modes —
     Tensor Toolbox `ttm(X, U, 'all')`. A chain of single-mode products, the
@@ -225,6 +229,7 @@ def _hooi_run(x, factors0, ranks, max_iters: int, tol: float):
     return core, factors, fit, it
 
 
+@on_input_device("x")
 def tucker_hooi(
     x: torch.Tensor,
     ranks,

@@ -17,10 +17,13 @@ The dtypes follow the tensors, as in the reference's narrow-storage mode
 (`_block_jnp(compute_dtype=..., store_dtype=...)`): L is in the compute
 dtype, which the arithmetic and the two sums use; E, Y_L, Y_O and the four
 outputs are in the storage dtype; D is in either; T' is in `t_dtype`
-(default: the storage dtype). The narrow dtypes are bfloat16, float16,
-float8_e4m3fn and float8_e5m2, each rounded into as `ops.narrow.narrow_cast`
-rounds (the reference's `astype`). The kernel has one instantiation per
-combination in `KERNEL_VARIANTS` and rejects the rest.
+(default: the storage dtype). Beside the compute dtype, storage and T' may
+be bfloat16, float16, float8_e4m3fn, float8_e5m2 or the other of float32
+and float64, each rounded into as `ops.narrow.narrow_cast` rounds (the
+reference's `astype`). The kernel has one instantiation per combination in
+`KERNEL_VARIANTS` and rejects the rest. `flat_elementwise_block` is the
+reference's own signature over the same kernel
+(`tritd_tpu_torch.ops.elementwise_block`).
 
 Routing is by device, with no fallback: CPU tensors take `_block_torch`,
 CUDA tensors take `_block_cuda`, the kernel in `csrc/elementwise_block.cuh`
@@ -44,6 +47,7 @@ import functools
 import numpy as np
 import torch
 
+from .kruskal import on_input_device
 from .narrow import FLOAT8, narrow_cast
 from .shrinkage import soft_threshold
 
@@ -59,20 +63,25 @@ _NARROW_TAGS = {
 
 def _variants() -> dict:
     """(compute, D, storage, T') -> variant, for every combination
-    tritd_admm produces with storage_dtype and einsum_dtype each None or one
-    of the narrow dtypes: storage X unmasked (D stored in X; T' in the
-    einsum dtype when one is set, else X) and masked (the imputed D in the
-    compute dtype, no T'), and the einsum dtype X alone (storage in the
-    compute dtype, T' in X). The C entry point is
+    tritd_admm produces with storage_dtype and einsum_dtype each None, one
+    of the narrow dtypes or one of float32 and float64. Beside compute
+    dtype C, a storage dtype X is a narrow one or W, the wide dtype that is
+    not C (float64 beside float32, float32 beside float64): storage X
+    unmasked (D stored in X; T' in the einsum dtype when one is set, which
+    may be any narrow dtype, W or C itself, else X) and masked (the imputed
+    D in C, no T'), and the einsum dtype alone, narrow or W (storage in C,
+    T' in it). The name tags each dtype: 32 or 64 for float32 and float64,
+    bf16, f16, e4m3, e5m2 for the narrow ones. The C entry point is
     `tritd_elementwise_block_<variant>`."""
     table = {(_F32,) * 4: "f32", (_F64,) * 4: "f64"}
-    for bits, cd in (("32", _F32), ("64", _F64)):
-        for tag, x in _NARROW_TAGS.items():
+    for bits, cd, wide_bits, wide in (("32", _F32, "64", _F64), ("64", _F64, "32", _F32)):
+        stored = {**_NARROW_TAGS, wide_bits: wide}
+        for tag, x in stored.items():
             table[(cd, x, x, x)] = f"c{bits}_d{tag}_s{tag}_t{tag}"
             table[(cd, cd, x, x)] = f"c{bits}_d{bits}_s{tag}_t{tag}"
             table[(cd, cd, cd, x)] = f"c{bits}_d{bits}_s{bits}_t{tag}"
-        for s_tag, s_dt in _NARROW_TAGS.items():
-            for t_tag, t_dt in _NARROW_TAGS.items():
+        for s_tag, s_dt in stored.items():
+            for t_tag, t_dt in {**stored, bits: cd}.items():
                 if s_tag != t_tag:
                     table[(cd, s_dt, s_dt, t_dt)] = f"c{bits}_d{s_tag}_s{s_tag}_t{t_tag}"
     return table
@@ -101,11 +110,13 @@ RESIDENT_BLOCKS = 132 * 2
 SCRATCH_LEN = 2 * RESIDENT_BLOCKS + 1
 
 
-def group_size(compute_size: int, narrowest_size: int) -> int:
+def group_size(widest_size: int, narrowest_size: int) -> int:
     """Elements a thread takes per turn on the vector path: 16 bytes of the
-    narrowest stream, capped at 32 bytes of the compute type (4 floats, 2
-    doubles, 8 bf16 beside float compute, 4 bf16 beside double)."""
-    return min(16 // narrowest_size, 32 // compute_size)
+    narrowest stream, capped at 32 bytes of the widest type, which is the
+    compute type but for float64 storage or T' beside float compute (4
+    floats, 2 doubles, 8 bf16 beside float compute, 4 bf16 beside double or
+    beside a double stream)."""
+    return min(16 // narrowest_size, 32 // widest_size)
 
 
 def block_grid(n: int, group: int) -> int:
@@ -122,8 +133,8 @@ def block_grid(n: int, group: int) -> int:
 
 
 VARIANT_GROUP = {
-    variant: group_size(compute.itemsize, min(dt.itemsize for dt in stored))
-    for (compute, *stored), variant in KERNEL_VARIANTS.items()
+    variant: group_size(max(dt.itemsize for dt in key), min(dt.itemsize for dt in key))
+    for key, variant in KERNEL_VARIANTS.items()
 }
 
 
@@ -198,7 +209,7 @@ NARROW_ULP = {
 # contraction, PyTorch's CUDA division by a host scalar through its
 # reciprocal) flips a bf16 rounding in up to 7.4e-5 of an output's elements
 # with float32 compute on an H100 (most in Y_O', where O' - E' cancels) and
-# in none with float64, on random inputs. Truncating instead of rounding to
+# in at most 4e-7 with float64, on random inputs. Truncating instead of rounding to
 # nearest even flips 24-50% of them, and T' from the unrounded O' and Y_L'
 # 36%. A flip needs the exact value within that ulp of one of the narrow
 # format's ties, so the share scales with the density of its ties: float16,
@@ -214,6 +225,30 @@ NARROW_FLIP_SHARE = {
     torch.float8_e5m2: 3e-4,
 }
 NARROW_FLIP_FLOOR = 4
+# A float32 output beside float64 compute is, like a narrow one beside
+# float32, one rounding of the compute dtype's value on both sides: held to
+# one float32 step (the implicit bit included) with at most this share of
+# its elements rounded otherwise. On random doubles an ulp of float64 would
+# move a float32 rounding with odds of about 2**-29; but where every input
+# holds a float32 value (all five of them in chip_smoke's phase 2) the exact
+# result often lies on a float32 tie, and the ulp by which the kernel's
+# division and fused products part from PyTorch's flipped 4.0e-3 of O'
+# (NVIDIA H100 80GB HBM3 at 700 W, taxi shape; the same share on the CPU
+# with the divisions taken through the reciprocal). A kernel that computed
+# in float32 rounds about 63% of them otherwise.
+F32_AT_F64_ULP = 2.0**-24
+F32_AT_F64_FLIP_SHARE = 2e-2
+
+
+def rounding_limits(dtype: torch.dtype, compute_dtype: torch.dtype) -> tuple[float, float] | None:
+    """(step, share of elements that may round otherwise) an output stored
+    in `dtype` beside `compute_dtype` is held to; None for an output that
+    is the compute dtype or wider (held at rtol 1e-6)."""
+    if dtype == torch.float32 and compute_dtype == _F64:
+        return F32_AT_F64_ULP, F32_AT_F64_FLIP_SHARE
+    if dtype in NARROW_ULP:
+        return NARROW_ULP[dtype], NARROW_FLIP_SHARE[dtype]
+    return None
 
 
 def _differ(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -229,14 +264,15 @@ def check_narrow_against_plain(args, got, want, mu_l_next=None) -> dict:
     version's `want` (both tuples as `_block_torch` returns them, from the
     five inputs `args`). Raises AssertionError unless T' is bitwise the
     `narrow_cast` of D - O' + Y_L'/mu_l_next computed from the kernel's own
-    stored O' and Y_L'; every narrow output differs from the plain one in at
-    most its dtype's NARROW_FLIP_SHARE of its elements (or NARROW_FLIP_FLOOR)
-    and is within one of its dtype's NARROW_ULP of it (rtol ulp, atol ulp *
-    max|input|), T' within that plus what the kernel's O' and Y_L'/mu_l_next
-    differ by from the plain ones; and wider outputs agree to rtol 1e-6. NaN
-    in the same place on both sides counts as equal. Returns the largest
-    absolute difference and the largest share of differing narrow
-    elements."""
+    stored O' and Y_L'; every output narrower than the compute dtype (a
+    narrow one, or float32 beside float64: `rounding_limits`) differs from
+    the plain one in at most its share of its elements (or
+    NARROW_FLIP_FLOOR) and is within one of its steps of it (rtol step,
+    atol step * max|input|), T' within that plus what the kernel's O' and
+    Y_L'/mu_l_next differ by from the plain ones; and other outputs agree
+    to rtol 1e-6. NaN in the same place on both sides counts as equal.
+    Returns the largest absolute difference and the largest share of
+    differently rounded elements."""
     d, cd = args[0], args[1].dtype
     # the largest finite input: a NaN or an infinity sets no scale
     scale = max(float(a.to(cd).abs().nan_to_num(0.0, 0.0, 0.0).max()) for a in args)
@@ -256,16 +292,16 @@ def check_narrow_against_plain(args, got, want, mu_l_next=None) -> dict:
             raise AssertionError(f"{names[i]}: {g.dtype}{tuple(g.shape)} vs plain {w.dtype}{tuple(w.shape)}")
         both_nan = g.to(cd).isnan() & w.to(cd).isnan()
         max_abs = max(max_abs, float(torch.where(both_nan, 0.0, (g.to(cd) - w.to(cd)).abs()).max()))
-        ulp = NARROW_ULP.get(g.dtype)
-        if ulp is not None:
+        limits = rounding_limits(g.dtype, cd)
+        if limits is not None:
             flips = int(_differ(g, w).sum())
             max_share = max(max_share, flips / g.numel())
-            limit = NARROW_FLIP_SHARE[g.dtype]
+            limit = limits[1]
             if flips > max(NARROW_FLIP_FLOOR, limit * g.numel()):
                 raise AssertionError(
                     f"{names[i]}: {flips} of {g.numel()} {g.dtype} elements rounded otherwise than the plain "
                     f"version (share {flips / g.numel():.2e}, limit {limit:.1e})")
-        tol = 1e-6 if ulp is None else ulp
+        tol = 1e-6 if limits is None else limits[0]
         if i != 6:
             torch.testing.assert_close(g.to(cd), w.to(cd), rtol=tol, atol=tol * scale, equal_nan=True,
                                        msg=lambda m, n=names[i]: f"{n}: {m}")
@@ -466,3 +502,57 @@ def elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtyp
     if d.device.type == "cuda":
         return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype)
     raise ValueError(f"elementwise_block runs on CPU or CUDA tensors, got {d.device}")
+
+
+def _as_dtype(dtype) -> torch.dtype | None:
+    """A dtype given as a torch dtype, a name or a numpy (or JAX) dtype."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, dtype if isinstance(dtype, str) else np.dtype(dtype).name)
+
+
+@on_input_device("d", "l", "e", "y_l", "y_o")
+def flat_elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam, use_pallas: bool = False, interpret: bool = False,
+                           compute_dtype=None, store_dtype=None):
+    """The reference's `tritd_tpu.ops.elementwise_block`
+    (`tritd_tpu/ops/pallas_kernels.py:160-188`), exported as
+    `tritd_tpu_torch.ops.elementwise_block`: returns (o, e_new, y_l_new,
+    y_o_new, ||res_l||^2, ||res_o||^2). Computes in `compute_dtype`, or in
+    the promoted dtype of the five inputs when that is None, and stores the
+    four tensor outputs in `store_dtype` (default: the compute dtype); the
+    two sums are in the compute dtype. `use_pallas` and `interpret` are
+    accepted and have no effect, like `cfg.use_pallas`.
+
+    On CUDA tensors it launches the hand-written kernel: in one launch when
+    the inputs' dtypes name a variant (L in the compute dtype, E, Y_L, Y_O
+    in the storage dtype, D in either), else the inputs cast to the compute
+    dtype through the pure float32 or float64 variant and the four outputs
+    rounded to `store_dtype` with `narrow_cast`: the reference's astype
+    chain, bitwise. No variant computes narrower than float32, and the
+    Pallas path refuses it too: such a compute dtype raises TypeError on the
+    card. CPU tensors take the plain version, which computes in any float
+    dtype."""
+    del use_pallas, interpret
+    tensors = (d, l, e, y_l, y_o)
+    cd = _as_dtype(compute_dtype) or functools.reduce(torch.promote_types, (x.dtype for x in tensors))
+    sd = _as_dtype(store_dtype) or cd
+    if d.device.type == "cpu":
+        return _block_torch(*tensors, mu_l, mu_o, lam, compute_dtype=cd, store_dtype=sd)[:6]
+    if d.device.type != "cuda":
+        raise ValueError(f"elementwise_block runs on CPU or CUDA tensors, got {d.device}")
+    if cd not in (_F32, _F64):
+        raise TypeError(f"elementwise_block computes in float32 or float64 on CUDA, got compute dtype {cd}")
+    if flat_variant(*(x.dtype for x in tensors), cd, sd) is not None:
+        return _block_cuda(*tensors, mu_l, mu_o, lam)[:6]
+    o, e_new, y_l_new, y_o_new, nl, no, _ = _block_cuda(*(x.to(cd) for x in tensors), mu_l, mu_o, lam)
+    return (*(narrow_cast(x, sd) for x in (o, e_new, y_l_new, y_o_new)), nl, no)
+
+
+def flat_variant(d_dt, l_dt, e_dt, y_l_dt, y_o_dt, compute_dtype, store_dtype) -> str | None:
+    """The variant `flat_elementwise_block` launches as it is on CUDA inputs
+    of these dtypes (L in the compute dtype, E, Y_L, Y_O in the storage
+    dtype, D in either), or None when it takes the cast route through the
+    pure float32 or float64 variant."""
+    if l_dt != compute_dtype or not e_dt == y_l_dt == y_o_dt == store_dtype or d_dt not in (l_dt, e_dt):
+        return None
+    return KERNEL_VARIANTS.get((compute_dtype, d_dt, store_dtype, store_dtype))

@@ -29,7 +29,23 @@ bf16, float16 or float8 significands (8, 11, 4 or 3 bits) is exact in
 float32, so this is the reference's einsum with
 `preferred_element_type=float32`. A narrow `torch.matmul` would round its
 output to the narrow dtype, which is not the reference. It needs TF32 off
-on CUDA (PyTorch's default for matmul).
+on CUDA (PyTorch's default for matmul). An einsum dtype of float32 is the
+same form with nothing rounded.
+
+The reference accumulates in float32 under any einsum dtype, float64 too,
+and so does the port: the operands are rounded to float32 (once: float64
+to float32 is `.to`) and take the same float32 GEMM. XLA on the CPU does
+otherwise (JAX 0.9, probed with `lax.dot_general` and the `jaxpr` of
+`rhs_mode`): the einsum becomes two `dot_general`s, the first pairing the
+two cores, and a `dot_general` of two float64 operands with
+`preferred_element_type=float32` computes in float64 and rounds its result
+to float32 once (bitwise `np.float32(x @ y)`), where one with a float32
+operand computes in float32. So at float64 compute the reference's cores
+are multiplied in float64 before one rounding, the port's rounded first;
+both right-hand sides carry float32's precision and agree to about 1e-6 of
+their largest entry (`tests/test_torch_wide_dtypes.py`). At float32
+compute every such product is exact in float64 and the two are the float32
+einsum.
 """
 
 from __future__ import annotations

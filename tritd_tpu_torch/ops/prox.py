@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from .kruskal import on_input_device
 from .shrinkage import soft_threshold
 
 
+@on_input_device("v")
 def capped_simplex_projection(v: torch.Tensor, s, iters: int = 64) -> torch.Tensor:
     """Project v onto {x : 0 <= x <= 1, sum(x) = s}.
 
@@ -28,7 +30,6 @@ def capped_simplex_projection(v: torch.Tensor, s, iters: int = 64) -> torch.Tens
     constraint holds; phi(tau) = sum clip(v - tau, 0, 1) is monotone
     decreasing, so tau is found by bisection (64 iterations reach machine
     precision), with no host read inside the loop."""
-    v = torch.as_tensor(v)
     s = torch.as_tensor(s, dtype=v.dtype, device=v.device)
     lo = torch.min(v) - 1.0
     hi = torch.max(v)
@@ -40,6 +41,7 @@ def capped_simplex_projection(v: torch.Tensor, s, iters: int = 64) -> torch.Tens
     return torch.clamp(v - tau, 0.0, 1.0)
 
 
+@on_input_device("v")
 def flsa(v: torch.Tensor, lam1, lam2, iters: int = 200) -> torch.Tensor:
     """Fused Lasso Signal Approximator on a 1-D signal.
 
@@ -48,7 +50,6 @@ def flsa(v: torch.Tensor, lam1, lam2, iters: int = 200) -> torch.Tensor:
     Decomposes (classically) as soft_threshold(tv_prox(v, lam2), lam1).
     The TV prox solves the dual max_{||z||_inf <= lam2} -0.5||v - D^T z||^2
     by FISTA with step 1/4 (||D D^T|| <= 4)."""
-    v = torch.as_tensor(v)
     n = v.shape[0]
     lam2 = torch.as_tensor(lam2, dtype=v.dtype, device=v.device)
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .decomp import _hadamard_gram, _scalar, _spd_solve_rows
-from .kruskal import cp_normalize, default_device, default_generator, draw
+from .kruskal import cp_normalize, default_device, default_generator, draw, on_input_device
 
 
 def check_coords(coords, shape) -> None:
@@ -52,6 +52,7 @@ def _numel(shape) -> int:
     return total
 
 
+@on_input_device("vals", "coords")
 def sp_full(vals: torch.Tensor, coords: torch.Tensor, shape) -> torch.Tensor:
     """Dense tensor from COO — ``full(sptensor)``. Duplicates accumulate."""
     shape = tuple(int(s) for s in shape)
@@ -61,6 +62,7 @@ def sp_full(vals: torch.Tensor, coords: torch.Tensor, shape) -> torch.Tensor:
     return out.reshape(shape)
 
 
+@on_input_device("coords")
 def sp_sub2ind(coords: torch.Tensor, shape) -> torch.Tensor:
     """Row-major linear indices from (nnz, N) subscripts — ``tt_sub2ind``
     semantics under this framework's row-major convention (the MATLAB
@@ -76,6 +78,7 @@ def sp_sub2ind(coords: torch.Tensor, shape) -> torch.Tensor:
     return (coords * strides[None, :]).sum(dim=1)
 
 
+@on_input_device("idx")
 def sp_ind2sub(idx: torch.Tensor, shape) -> torch.Tensor:
     """(nnz, N) subscripts from row-major linear indices — ``tt_ind2sub``."""
     shape = tuple(int(s) for s in shape)
@@ -104,6 +107,7 @@ def sptenrand(generator, shape, nnz: int, dtype=torch.float32, device=None):
     return vals, coords, shape
 
 
+@on_input_device("v")
 def sptendiag(v: torch.Tensor, shape=None):
     """Sparse tensor with `v` on the superdiagonal — ``sptendiag(v, sz)``."""
     n = int(v.shape[0])
@@ -117,6 +121,7 @@ def sptendiag(v: torch.Tensor, shape=None):
     return v, coords, shape
 
 
+@on_input_device("vals", "coords")
 def sp_norm(vals: torch.Tensor, coords: torch.Tensor, shape) -> torch.Tensor:
     """Frobenius norm — ``norm(sptensor)``. Correct even with duplicate
     coordinates (they must be summed before squaring)."""
@@ -137,6 +142,7 @@ def sp_norm(vals: torch.Tensor, coords: torch.Tensor, shape) -> torch.Tensor:
     return torch.linalg.vector_norm(summed)
 
 
+@on_input_device("vals", "coords", "dense")
 def sp_innerprod(vals, coords, shape, dense: torch.Tensor) -> torch.Tensor:
     """<sparse, dense> — ``innerprod(sptensor, tensor)``: gather + dot,
     O(nnz) instead of densifying."""
@@ -144,6 +150,7 @@ def sp_innerprod(vals, coords, shape, dense: torch.Tensor) -> torch.Tensor:
     return torch.dot(vals, dense.reshape(-1)[flat_idx])
 
 
+@on_input_device("vals", "coords", sequences=("vecs",))
 def sp_ttv(vals, coords, shape, vecs, modes) -> torch.Tensor:
     """Sparse tensor times vector(s) in the given modes — ``ttv(sptensor,
     v, n)``: scale each nonzero by the gathered vector entries, then
@@ -160,6 +167,7 @@ def sp_ttv(vals, coords, shape, vecs, modes) -> torch.Tensor:
     return sp_full(scaled, coords[:, keep], out_shape)
 
 
+@on_input_device("vals", "coords", sequences=("factors",))
 def sp_mttkrp(vals, coords, shape, factors, mode: int) -> torch.Tensor:
     """Sparse MTTKRP — ``mttkrp(sptensor, U, n)``: for each nonzero, the
     Hadamard product of the other modes' factor rows, scatter-added into the
@@ -177,6 +185,7 @@ def sp_mttkrp(vals, coords, shape, factors, mode: int) -> torch.Tensor:
     return out.index_add_(0, coords[:, mode], rows)
 
 
+@on_input_device("vals", "coords")
 def sptenmat(vals, coords, shape, row_modes, col_modes=None):
     """Sparse matricization — ``sptenmat``: returns COO matrix
     ``(vals, (row_idx, col_idx), (n_rows, n_cols))`` with the same
@@ -198,6 +207,7 @@ def sptenmat(vals, coords, shape, row_modes, col_modes=None):
     return vals, (ridx, cidx), (_numel(row_shape), _numel(col_shape))
 
 
+@on_input_device("vals", "coords")
 def sp_elemwise(vals, coords, shape, fn) -> tuple:
     """Apply an elementwise function that maps 0 -> 0 to the nonzeros —
     the sptensor arithmetic surface (``times``, ``abs``, ``power`` etc.)
@@ -205,6 +215,7 @@ def sp_elemwise(vals, coords, shape, fn) -> tuple:
     return fn(vals), coords, shape
 
 
+@on_input_device("vals", "coords", sequences=("init_factors",))
 def cp_als_sparse(
     vals,
     coords,

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from .kruskal import on_input_device
 from .shrinkage import soft_threshold
 
 #: Thin-side size from which :func:`auto_method` sends "auto" to the
@@ -167,6 +168,7 @@ def _apply_spectral(m: torch.Tensor, shrink, method: str, truncating: bool = Fal
     return proj @ (v.T * _rescale(s, shrink)[:, None])
 
 
+@on_input_device("m")
 def svt(m: torch.Tensor, tau, method: str = "svd") -> torch.Tensor:
     """Standard singular-value soft-thresholding: U max(S - tau, 0) V^T.
 
@@ -233,6 +235,7 @@ def _warm_apply(m, shrink, basis, refresh_now: bool):
     return proj @ (v.T * _rescale(s, shrink)[:, None]), v
 
 
+@on_input_device("m", "basis")
 def svt_warm(m: torch.Tensor, tau, basis: torch.Tensor, refresh_now: bool):
     """Plain soft-threshold SVT with a warm-started basis, the RTRC
     (`shrink_matrix.m` flag=false branch) analog of
@@ -244,6 +247,7 @@ def svt_warm(m: torch.Tensor, tau, basis: torch.Tensor, refresh_now: bool):
     return _warm_apply(m, _plain_shrink(tau), basis, refresh_now)
 
 
+@on_input_device("m", "basis")
 def svt_ref_compat_warm(m: torch.Tensor, tau, basis: torch.Tensor, refresh_now: bool):
     """Ref-compat SVT with a WARM-STARTED spectral basis.
 
@@ -266,6 +270,7 @@ def svt_ref_compat_warm(m: torch.Tensor, tau, basis: torch.Tensor, refresh_now: 
     return _warm_apply(m, _ref_compat_shrink(tau), basis, refresh_now)
 
 
+@on_input_device("m")
 def svt_ref_compat(m: torch.Tensor, tau, method: str = "svd") -> torch.Tensor:
     """SVT with the reference's ``r = sum(soft(S,tau) > 1)`` truncation quirk
     (`TTNN/Functions/SVT.m:5-12`): shrunken values <= 1 are zeroed entirely.

@@ -24,9 +24,10 @@ import math
 import torch
 
 from .decomp import _leading_basis, _scalar, tucker_ttm
-from .kruskal import default_generator, draw, ktensor_full
+from .kruskal import default_generator, draw, ktensor_full, on_input_device
 
 
+@on_input_device("x")
 def symmetrize(x: torch.Tensor) -> torch.Tensor:
     """Symmetric part: average over all axis permutations —
     ``symmetrize(tensor)`` / the ``symtensor`` constructor's projection."""
@@ -38,6 +39,7 @@ def symmetrize(x: torch.Tensor) -> torch.Tensor:
     return out / len(perms)
 
 
+@on_input_device("x")
 def is_symmetric(x: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
     """``issymmetric(tensor)`` as a 0-d bool tensor on the device of `x`."""
     n = x.ndim
@@ -47,12 +49,14 @@ def is_symmetric(x: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
     return ok
 
 
+@on_input_device("weights", "u")
 def symktensor_full(weights: torch.Tensor, u: torch.Tensor, order: int) -> torch.Tensor:
     """Dense tensor of a symmetric Kruskal operator Σ_r w_r u_r^{⊗m} —
     ``full(symktensor)``."""
     return ktensor_full([u] * order, weights)
 
 
+@on_input_device("a", "x")
 def ttsv(a: torch.Tensor, x: torch.Tensor, keep: int = 1) -> torch.Tensor:
     """Symmetric tensor times the same vector in all but `keep` modes —
     ``ttsv(A, x, -keep)``: keep=0 gives the scalar Axᵐ, keep=1 the gradient
@@ -79,6 +83,7 @@ def _random_start(generator, a):
     return draw("normal", default_generator(generator), (a.shape[0],), a.dtype, a.device)
 
 
+@on_input_device("a", "x0")
 def eig_sshopm(
     a: torch.Tensor,
     shift: float = 0.0,
@@ -111,6 +116,7 @@ def eig_sshopm(
     return {"eigval": lam, "eigvec": x, "converged": delta < tol, "n_iters": iters}
 
 
+@on_input_device("a", "x0")
 def eig_sshopmc(
     a: torch.Tensor,
     shift: float = 0.0,
@@ -149,6 +155,7 @@ def eig_sshopmc(
     return {"eigval": lam, "eigvec": x, "converged": delta < tol, "n_iters": iters}
 
 
+@on_input_device("a", "b", "x0")
 def eig_geap(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -210,6 +217,7 @@ def adam_descent(objective, params, learning_rate, max_iters, tol, project=None)
     return prev, it
 
 
+@on_input_device("x", sequences=("init",))
 def cp_sym(
     x: torch.Tensor,
     rank: int,
@@ -251,6 +259,7 @@ def cp_sym(
     return {"weights": w, "u": u, "fit": fit, "n_iters": iters}
 
 
+@on_input_device("x")
 def tucker_sym(
     x: torch.Tensor,
     rank: int,

@@ -28,9 +28,10 @@ import numpy as np
 import torch
 
 from .decomp import _mode_product, mttkrp, tucker_ttm
-from .kruskal import cp_normalize, default_device, default_generator, draw, ktensor_full
+from .kruskal import cp_normalize, default_device, default_generator, draw, ktensor_full, on_input_device
 
 
+@on_input_device("x", "u")
 def ttm(x: torch.Tensor, u: torch.Tensor, mode: int, transpose: bool = False) -> torch.Tensor:
     """Single-mode tensor-times-matrix — Tensor Toolbox ``ttm(X, U, n)``
     (``@tensor/ttm.m``): contracts U (or Uᵀ with the toolbox's 't' flag)
@@ -38,6 +39,7 @@ def ttm(x: torch.Tensor, u: torch.Tensor, mode: int, transpose: bool = False) ->
     return _mode_product(x, u, mode, transpose)
 
 
+@on_input_device("x", sequences=("vecs",))
 def ttv(x: torch.Tensor, vecs, modes=None) -> torch.Tensor:
     """Tensor-times-vector(s) — Tensor Toolbox ``ttv(X, v, n)`` /
     ``ttv(X, {v1..vk}, dims)`` (``@tensor/ttv.m``): contracts each vector
@@ -59,6 +61,7 @@ def ttv(x: torch.Tensor, vecs, modes=None) -> torch.Tensor:
     return x
 
 
+@on_input_device("a", "b")
 def ttt(a: torch.Tensor, b: torch.Tensor, adims=None, bdims=None) -> torch.Tensor:
     """Tensor-times-tensor — Tensor Toolbox ``ttt(A, B[, adims[, bdims]])``
     (``@tensor/ttt.m``): with no dims the outer product, with dims the
@@ -84,6 +87,7 @@ def _positive_peak(u: torch.Tensor) -> torch.Tensor:
     return torch.where(s == 0, torch.ones_like(s), s)
 
 
+@on_input_device("x")
 def nvecs(x: torch.Tensor, mode: int, r: int, flipsign: bool = True) -> torch.Tensor:
     """Leading-r eigenvectors of the mode-`mode` unfolding Gram Xn·Xnᵀ —
     ``@tensor/nvecs.m`` (eigs 'LM' branch). Dense symmetric eigendecomposition
@@ -98,6 +102,7 @@ def nvecs(x: torch.Tensor, mode: int, r: int, flipsign: bool = True) -> torch.Te
     return u
 
 
+@on_input_device("x")
 def collapse(x: torch.Tensor, dims=None, fun=torch.sum) -> torch.Tensor:
     """Reduce over `dims` with `fun` (default sum) — ``@tensor/collapse.m``.
     `fun` is any reduction accepting a `dim` tuple (torch.sum, torch.amax,
@@ -123,6 +128,7 @@ def collapse(x: torch.Tensor, dims=None, fun=torch.sum) -> torch.Tensor:
     return fun(x, dim=dims)
 
 
+@on_input_device("x")
 def contract(x: torch.Tensor, i: int, j: int) -> torch.Tensor:
     """Trace over modes `i` and `j` (equal size, distinct) —
     ``@tensor/contract.m``."""
@@ -133,6 +139,7 @@ def contract(x: torch.Tensor, i: int, j: int) -> torch.Tensor:
     return torch.diagonal(x, dim1=i, dim2=j).sum(dim=-1)
 
 
+@on_input_device("x", "s")
 def scale(x: torch.Tensor, s: torch.Tensor, dims) -> torch.Tensor:
     """Scale the fibers of `x` lying in modes `dims` elementwise by the
     tensor `s` of shape ``x.shape[dims]`` — ``@tensor/scale.m``. A vector
@@ -165,6 +172,7 @@ def tenones(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=default_device(device))
 
 
+@on_input_device("v")
 def tendiag(v: torch.Tensor, shape=None) -> torch.Tensor:
     """Dense tensor with `v` on the superdiagonal — ``tendiag(v, sz)``."""
     n = int(v.shape[0])
@@ -226,6 +234,7 @@ def tenrandblk(generator, block_sizes, noise: float = 0.1, dtype=torch.float32, 
 # ------------------------------------------------------------- random matrices
 
 
+@on_input_device("x")
 def matrandnorm(x: torch.Tensor) -> torch.Tensor:
     """Normalize columns to unit 2-norm — ``matrandnorm``."""
     norms = torch.linalg.vector_norm(x, dim=0, keepdim=True)
@@ -263,6 +272,7 @@ def matrandcong(generator, m: int, n: int, gamma: float, dtype=torch.float32, de
 # --------------------------------------------------------------- ktensor class
 
 
+@on_input_device("weights", sequences=("factors",))
 def ktensor_norm(weights: torch.Tensor, factors) -> torch.Tensor:
     """Frobenius norm of a Kruskal tensor without materializing it —
     ``norm(ktensor)``: sqrt(w^T (hadamard of Grams) w)."""
@@ -272,6 +282,7 @@ def ktensor_norm(weights: torch.Tensor, factors) -> torch.Tensor:
     return torch.sqrt(torch.clamp(g.sum(), min=0.0))
 
 
+@on_input_device("weights", sequences=("factors", "other"))
 def ktensor_innerprod(weights, factors, other) -> torch.Tensor:
     """<ktensor, X> for dense X or another ktensor `(weights, factors)` —
     ``innerprod(ktensor, ...)``."""
@@ -286,6 +297,7 @@ def ktensor_innerprod(weights, factors, other) -> torch.Tensor:
     return (weights[None, :] * factors[n - 1] * m).sum()
 
 
+@on_input_device("weights", sequences=("factors",))
 def ktensor_arrange(weights, factors):
     """Normalize columns and sort components by weight descending —
     ``arrange(ktensor)``."""
@@ -294,6 +306,7 @@ def ktensor_arrange(weights, factors):
     return weights[order], [u[:, order] for u in factors]
 
 
+@on_input_device("weights", sequences=("factors",))
 def ktensor_fixsigns(weights, factors):
     """Flip signs so each column's largest-magnitude entry is positive,
     keeping the product invariant — ``fixsigns(ktensor)``: sign flips are
@@ -308,6 +321,7 @@ def ktensor_fixsigns(weights, factors):
     return weights * total_sign, new_factors
 
 
+@on_input_device("weights_a", "weights_b", sequences=("factors_a", "factors_b"))
 def ktensor_score(weights_a, factors_a, weights_b, factors_b) -> torch.Tensor:
     """Congruence score between two same-rank Kruskal tensors —
     ``score(ktensor, ktensor)`` with greedy component matching: mean over
@@ -342,11 +356,13 @@ def ktensor_score(weights_a, factors_a, weights_b, factors_b) -> torch.Tensor:
 # ------------------------------------------------------ ttensor / sumtensor
 
 
+@on_input_device("core", sequences=("factors",))
 def ttensor_full(core: torch.Tensor, factors) -> torch.Tensor:
     """Dense tensor of a Tucker operator — ``full(ttensor)``."""
     return tucker_ttm(core, list(factors), transpose=False)
 
 
+@on_input_device("core", sequences=("factors",))
 def ttensor_norm(core: torch.Tensor, factors) -> torch.Tensor:
     """``norm(ttensor)`` without materializing: fold the small Gram of each
     factor into the core (exact also for non-orthonormal factors)."""
@@ -356,6 +372,7 @@ def ttensor_norm(core: torch.Tensor, factors) -> torch.Tensor:
     return torch.sqrt(torch.clamp((core * y).sum(), min=0.0))
 
 
+@on_input_device(sequences=("parts",))
 def sumtensor_full(parts) -> torch.Tensor:
     """``full(sumtensor)``: sum of already-densified parts."""
     out = parts[0]

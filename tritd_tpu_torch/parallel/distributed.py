@@ -189,7 +189,7 @@ def batch_init(nb: int, shape, rank: int, dtype: torch.dtype):
     """The default init of `tritd_admm_batch_sharded`, entry by entry, as
     a list of (a0, b0, c0): what a single-device check starts from."""
     gen = torch.Generator().manual_seed(0)
-    return [init_factors(gen, tuple(shape), rank, dtype) for _ in range(nb)]
+    return [init_factors(gen, tuple(shape), rank, dtype, "cpu") for _ in range(nb)]
 
 
 def _gather_rows(row: torch.Tensor) -> torch.Tensor:

@@ -158,7 +158,7 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     # The init is drawn at the unpadded shape, so that one seed gives the
     # single-device solver's init; the sharded core is zero-padded (C's
     # padded frames must be zero: GramC is reduced before the first C solve).
-    a0, b0, c0 = interop.factors_from_numpy(*init, dtype=dtype)
+    a0, b0, c0 = interop.factors_from_numpy(*init, device=device, dtype=dtype)
     if coll.shard_mode == 1:
         if a0.shape[0] not in (n_orig, target):
             raise ValueError(f"a0 has {a0.shape[0]} rows, want {n_orig} (or {target}, padded)")
@@ -265,7 +265,7 @@ def tritd_admm_sharded(
     if init is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init = init_factors(generator, tuple(d.shape), cfg.rank, cfg.torch_dtype())
+        init = init_factors(generator, tuple(d.shape), cfg.rank, cfg.torch_dtype(), "cpu")
     state, bounds, counts = _local_solve(d, cfg, coll, mask, origin, init, device)
     if audit is not None:
         audit.update(n_shards=coll.size, **counts)
@@ -317,7 +317,7 @@ def tritd_admm_batch_sharded(
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         # every rank draws every entry's init, so the streams agree
-        draws = [init_factors(generator, tuple(d_batch.shape[1:]), cfg.rank, dtype) for _ in range(nb)]
+        draws = [init_factors(generator, tuple(d_batch.shape[1:]), cfg.rank, dtype, "cpu") for _ in range(nb)]
         init = tuple(torch.stack(f) for f in zip(*draws))
 
     def entry(x, i):

@@ -5,8 +5,8 @@ The library is built on first CUDA use, never at import, from
 `tritd_tpu_torch/_build/`, and is named by a hash of the sources, headers and
 flags, so an edited file builds anew. Each `.cu` is compiled to an object
 by its own nvcc process, all started together, and the objects are linked
-into one library: the elementwise block's 50 instantiations are spread over
-six files, so the build takes about as long as its largest file. Unlike
+into one library: the elementwise block's 82 instantiations are spread over
+eight files, so the build takes about as long as its largest file. Unlike
 `tritd_tpu/runtime/build.py`, which returns None and lets callers fall
 back, a failed build raises with nvcc's output: a CUDA tensor has no other
 route.

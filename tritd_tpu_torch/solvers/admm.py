@@ -39,7 +39,7 @@ from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops.hopper_kernels import elementwise_block
-from ..ops.kruskal import solver_input
+from ..ops.kruskal import default_device, solver_input
 from ..ops.narrow import narrow_cast
 from .base import TriTDConfig, TriTDResult, TriTDState
 
@@ -61,11 +61,14 @@ def init_factors(
     shape: tuple[int, int, int],
     rank: int,
     dtype: torch.dtype,
-    device: torch.device | str = "cpu",
+    device=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Standard-normal factor init (reference: `randn`,
     `triple_decomp_ADMM.m:24`). Drawn on the CPU from `generator`, so one
-    seed gives one init on every device, then moved to `device`."""
+    seed gives one init on every device, then moved to `device`: the card
+    by default, as the reference draws on its accelerator (`RuntimeError`
+    without CUDA; `device="cpu"` keeps the draw on the host)."""
+    device = default_device(device)
     n1, n2, n3 = shape
     dims = ((n1, rank, rank), (rank, n2, rank), (rank, rank, n3))
     return tuple(
@@ -171,13 +174,18 @@ def admm_iteration(
     td = t_dtype_of(cfg)
     if masked:
         # Impute unobserved entries with the current estimate, so the data
-        # term binds on observed entries only; T is built from that D. With
-        # narrow storage the imputed D is in the compute dtype, as the
-        # reference's jnp.where promotes it.
+        # term binds on observed entries only; T is built from that D. The
+        # reference's jnp.where promotes the imputed D: to the compute dtype
+        # beside narrow storage, to float64 beside float64 storage at
+        # float32 compute. T is formed in that dtype; the block gets D in
+        # the compute dtype, which holds it exactly (the stored D and O
+        # hold values of the compute dtype).
         l_prev = designs.triple_product(a, b, c, variant=cfg.variant)
         cd = l_prev.dtype
-        d = torch.where(mask, d.to(cd), l_prev + o.to(cd))
-        t = d - o.to(cd) + y_l.to(cd) / float(mu_l)
+        wide = torch.float64 if torch.float64 in (cd, d.dtype) else cd
+        d = torch.where(mask, d.to(wide), (l_prev + o.to(cd)).to(wide))
+        t = d - o.to(wide) + y_l.to(wide) / float(mu_l)
+        d = d.to(cd)
         if td is not None:
             t = narrow_cast(t, td)
     else:
@@ -322,7 +330,7 @@ def tritd_admm(
     if init is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init = init_factors(generator, tuple(d.shape), cfg.rank, dtype)
+        init = init_factors(generator, tuple(d.shape), cfg.rank, dtype, device)
     state = init_state(d, cfg, init)
     # the loop reads D every iteration: store it narrow too (norm_d above
     # is taken from the full-precision copy)

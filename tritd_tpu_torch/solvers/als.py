@@ -43,7 +43,7 @@ def _als_run(x, cfg: TriTDConfig, mals: bool, init, generator, device) -> TriTDR
     if init is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init = init_factors(generator, tuple(x.shape), cfg.rank, dtype)
+        init = init_factors(generator, tuple(x.shape), cfg.rank, dtype, x.device)
     a, b, c = interop.factors_from_numpy(*init, device=x.device, dtype=dtype)
     err_hist = torch.full((cfg.max_iter,), float("nan"), dtype=dtype, device=x.device)
 

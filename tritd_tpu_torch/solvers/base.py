@@ -15,19 +15,20 @@ import torch
 
 
 
-# The narrow dtypes a run may store its data-sized tensors in or contract
-# in (`tritd_tpu/solvers/base.py:45-75` takes any name `jnp.dtype` knows).
-# Others raise: no caller uses them, and Hopper has no conversion for the
-# float8 `fnuz` formats.
+# The dtypes a run may store its data-sized tensors in or contract in
+# (`tritd_tpu/solvers/base.py:45-75` takes any name `jnp.dtype` knows): the
+# narrow ones and the two wide ones. Others raise: no caller uses them, and
+# Hopper has no conversion for int8 or the float8 `fnuz` formats.
 NARROW_DTYPES = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
+WIDE_DTYPES = ("float32", "float64")
 
 
-def _narrow_dtype(field: str, name: str | None) -> torch.dtype | None:
+def _field_dtype(field: str, name: str | None) -> torch.dtype | None:
     if name is None:
         return None
-    if name not in NARROW_DTYPES:
+    if name not in NARROW_DTYPES + WIDE_DTYPES:
         raise NotImplementedError(
-            f"cfg.{field}={name!r}: the port takes None or one of {NARROW_DTYPES}"
+            f"cfg.{field}={name!r}: the port takes None or one of {NARROW_DTYPES + WIDE_DTYPES}"
         )
     return getattr(torch, name)
 
@@ -64,15 +65,17 @@ class TriTDConfig:
                                     # its plain PyTorch version.
     disp: bool = False              # print residuals every 10 iterations
                                     # (host print at block boundaries)
-    einsum_dtype: str | None = None   # one of NARROW_DTYPES: the RHS
-                                      # contractions read operands rounded
-                                      # to it and accumulate in float32; the
-                                      # carried T is stored in it
-    storage_dtype: str | None = None  # one of NARROW_DTYPES: D, O, E, Y_L,
-                                      # Y_O (and T) are stored in it; the
-                                      # elementwise block widens them,
-                                      # computes in cfg.dtype and rounds the
-                                      # stores
+    einsum_dtype: str | None = None   # one of NARROW_DTYPES or WIDE_DTYPES:
+                                      # the RHS contractions read operands
+                                      # rounded to it and accumulate in
+                                      # float32 (float64 too); the carried T
+                                      # is stored in it
+    storage_dtype: str | None = None  # one of NARROW_DTYPES or WIDE_DTYPES:
+                                      # D, O, E, Y_L, Y_O (and T) are stored
+                                      # in it; the elementwise block converts
+                                      # them, computes in cfg.dtype and
+                                      # rounds the stores. cfg.dtype itself
+                                      # is None
     unroll: int = 1                 # iterations per block; the stopping
                                     # rule is read on the host only between
                                     # blocks, so an early-stopped run may do
@@ -82,12 +85,14 @@ class TriTDConfig:
         return getattr(torch, self.dtype)
 
     def torch_einsum_dtype(self) -> torch.dtype | None:
-        return _narrow_dtype("einsum_dtype", self.einsum_dtype)
+        """The einsum dtype, cfg.dtype included: as in the reference, any
+        einsum dtype accumulates the contractions in float32."""
+        return _field_dtype("einsum_dtype", self.einsum_dtype)
 
     def torch_storage_dtype(self) -> torch.dtype:
-        """Dtype of the data-sized tensors (cfg.dtype unless narrowed)."""
-        narrow = _narrow_dtype("storage_dtype", self.storage_dtype)
-        return self.torch_dtype() if narrow is None else narrow
+        """Dtype of the data-sized tensors (cfg.dtype unless set)."""
+        stored = _field_dtype("storage_dtype", self.storage_dtype)
+        return self.torch_dtype() if stored is None else stored
 
     def np_dtype(self) -> np.dtype:
         return np.dtype(self.dtype)

@@ -64,7 +64,7 @@ def tritd_admm_checkpointed(
         if init is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
-            init = init_factors(generator, tuple(d.shape), cfg.rank, dtype)
+            init = init_factors(generator, tuple(d.shape), cfg.rank, dtype, d.device)
         state = init_state(d, cfg, init)
     # A checkpoint written under a smaller max_iter carries shorter
     # histories; extend them, NaN-filled, so the loop can index to max_iter.

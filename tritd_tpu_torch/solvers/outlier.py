@@ -73,7 +73,7 @@ def tritd_admm_outlier(
     if init is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init = init_factors(generator, tuple(x.shape), cfg.rank, dtype)
+        init = init_factors(generator, tuple(x.shape), cfg.rank, dtype, x.device)
     a, b, c = interop.factors_from_numpy(*init, device=x.device, dtype=dtype)
     o = torch.zeros_like(x)
     lam_dual = torch.zeros_like(x)

@@ -114,7 +114,7 @@ def inits(method: str, prob: Problem) -> dict:
     """The random draws both sides start from, as float64 numpy arrays."""
     if method == "triple":
         rank = (VIDEO_TRITD if prob.spec.kind == "video" else COMPLETION_TRITD).rank
-        cores = init_factors(torch.Generator().manual_seed(0), prob.x.shape, rank, torch.float64)
+        cores = init_factors(torch.Generator().manual_seed(0), prob.x.shape, rank, torch.float64, "cpu")
         return {"cores": tuple(c.numpy() for c in cores)}
     if method == "sofia":
         g = np.random.default_rng(0)

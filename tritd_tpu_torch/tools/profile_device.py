@@ -8,8 +8,9 @@ the share of the byte bound a kernel reaches is stated against them.
 
 Two parts, both float32 unless a variant says otherwise, TF32 off:
 
-* every variant of `csrc/elementwise_block*.cu` (50: float32, float64 and
-  the narrow dtypes bf16, float16, float8_e4m3fn, float8_e5m2) at the taxi
+* every variant of `csrc/elementwise_block*.cu` (82: float32, float64 and
+  the narrow dtypes bf16, float16, float8_e4m3fn, float8_e5m2, and the
+  other wide dtype beside each compute dtype) at the taxi
   (100x100x500) and video (240x320x300) shapes, and the variants the sharded solves run
   at the slab shapes a rank holds: device microseconds of the block kernel,
   which must be the one kernel a wrapper call launches, beside the variant's

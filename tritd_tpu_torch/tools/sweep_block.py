@@ -24,11 +24,12 @@ hot path (what a group of in-range data issues) and in the whole loop
 (rarely run code included), beside the issue budget the byte bound leaves
 at the SM clock nvidia-smi reads under load. `--against FILE` runs another
 revision of the header, built with the .cu files beside it, as one more
-variation; with it, `--bitwise` compares every store of all 50 variants of
-the two builds bit for bit on phase 2's kinds of inputs, `--solves` the
-final state of the main path's solves and of one solve per variant, and
-`--every` times all 50 variants of both builds in turns (four readings a
-side) and prints each side's spread. `quotient_divisors` and
+variation; with it, `--bitwise` compares every store of each variant both
+builds hold bit for bit on phase 2's kinds of inputs, `--solves` the final
+state of the main path's solves and of one solve per such variant, and
+`--every` times each such variant of both builds in turns (four readings a
+side) and prints each side's spread, and times the variants only this
+build holds four times alone (without `--against`, every variant). `quotient_divisors` and
 `quotient_check` hold the kernel's division to '/' on the card
 (`chip_smoke.py` phase 2).
 
@@ -82,10 +83,10 @@ def _old_grid(n: int, group: int) -> int:
 
 
 def _groups(group_size) -> dict:
-    """Plan overrides for another `group_size(compute bytes, narrowest bytes)`."""
+    """Plan overrides for another `group_size(widest bytes, narrowest bytes)`."""
     return {"group_size": group_size,
-            "VARIANT_GROUP": {v: group_size(c.itemsize, min(dt.itemsize for dt in rest))
-                              for (c, *rest), v in hopper_kernels.KERNEL_VARIANTS.items()}}
+            "VARIANT_GROUP": {v: group_size(max(dt.itemsize for dt in key), min(dt.itemsize for dt in key))
+                              for key, v in hopper_kernels.KERNEL_VARIANTS.items()}}
 
 
 # name -> (source substitutions [(old, new, count)], overrides of hopper_kernels, sums valid)
@@ -132,8 +133,8 @@ VARIATIONS = {
           "#pragma unroll\n      for (int j = 0; j < G; ++j) {\n        o_st[j] = cvt<C>(cvt<S>(o_new[j]));\n"
           "        yl_st[j] = cvt<C>(cvt<S>(yl_new[j]));\n      }\n", 1)], {}, True),
     "float8 groups of 16 beside float, 8 beside double": (
-        [("static constexpr int kCap = 32 / (int)sizeof(C);",
-          "static constexpr int kCap = (kNarrowest == 1 ? 64 : 32) / (int)sizeof(C);", 1)],
+        [("static constexpr int kCap = 32 / kWidest;",
+          "static constexpr int kCap = (kNarrowest == 1 ? 64 : 32) / kWidest;", 1)],
         _groups(lambda c, n: min(16 // n, (64 if n == 1 else 32) // c)), True),
 }
 
@@ -473,29 +474,44 @@ def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool) -> t
     return sorted(times)[2], worst
 
 
-def every_case() -> list[tuple[str, str]]:
-    """The cases of `--every`: each variant at taxi, and each that computes
-    in float32 at video too."""
-    variants = sorted(hopper_kernels.KERNEL_VARIANTS.values())
+def every_case(variants=None) -> list[tuple[str, str]]:
+    """The cases of `--every`: each of `variants` (default: every variant)
+    at taxi, and each that computes in float32 at video too."""
+    variants = sorted(hopper_kernels.KERNEL_VARIANTS.values() if variants is None else variants)
     return [(v, "taxi") for v in variants] + [(v, "video") for v in variants if _key(v)[0] == torch.float32]
 
 
-def time_in_turns(mine: Built, theirs: Built, launches: int) -> list[dict]:
-    """Device us per launch of every case of `every_case` with both builds,
-    taken mine, theirs, theirs, mine, mine, theirs, theirs, mine (four
-    readings a side, each the median of 5 batches as `measure` takes them);
-    prints each case's readings, their spread ((max - min) / median) and the
-    change of mine's median against theirs."""
+def time_in_turns(mine: Built, theirs: Built | None, launches: int) -> list[dict]:
+    """Device us per launch of every case of `every_case` of `mine`'s
+    variants. One that `theirs` holds too is taken with both builds, mine,
+    theirs, theirs, mine, mine, theirs, theirs, mine (four readings a side,
+    each the median of 5 batches as `measure` takes them), and printed with
+    its readings, their spread ((max - min) / median) and the change of
+    mine's median against theirs; the others (all, with no `theirs`) four
+    readings of mine alone, beside the byte bound."""
     rows = []
-    for variant, shape in every_case():
+    for variant, shape in every_case(mine.groups):
         args, kw, plain = make_case(variant, shape)
-        us = {mine.name: [], theirs.name: []}
+        alone = theirs is None or variant not in theirs.groups
+        us = {mine.name: []} if alone else {mine.name: [], theirs.name: []}
         worst = 0.0
-        for built in (mine, theirs, theirs, mine) * 2:
+        for built in (mine,) * 4 if alone else (mine, theirs, theirs, mine) * 2:
             t, err = measure(built, args, kw, plain, launches, True)
             us[built.name].append(t)
             worst = max(worst, err)
-        new, old = us[mine.name], us[theirs.name]
+        new = us[mine.name]
+        if alone:
+            row = {"variant": variant, "shape": shape, "bound_us": _case_bytes(variant, shape) * args[0].numel()
+                   / PEAK_BYTES_PER_S * 1e6, "us": new, "max_abs_err": worst,
+                   "spread": (max(new) - min(new)) / np.median(new)}
+            rows.append(row)
+            print(f"alone {variant:24s} {shape:6s} {_case_bytes(variant, shape):2d} B/elem, bound "
+                  f"{row['bound_us']:6.1f} us: " + " ".join(f"{x:7.2f}" for x in new)
+                  + f" (spread {row['spread']:.1%}); share of the bound {row['bound_us'] / np.median(new):.0%}",
+                  flush=True)
+            del args, plain
+            continue
+        old = us[theirs.name]
         row = {"variant": variant, "shape": shape, "bound_us": _case_bytes(variant, shape) * args[0].numel()
                / PEAK_BYTES_PER_S * 1e6, "us": new, "against_us": old, "max_abs_err": worst,
                "spread": (max(new) - min(new)) / np.median(new),
@@ -660,7 +676,8 @@ def variant_solve(variant: str) -> tuple[str, dict]:
 
 
 def compare_solves(base: Built, other: Built) -> list[str]:
-    """Run LONG_SOLVES and a short solve per variant with each build's
+    """Run LONG_SOLVES and a short solve per variant both builds hold with
+    each build's
     kernel; print whether the final A, B, C, O, E, Y_L, Y_O are bitwise equal
     and err_hist's largest relative difference. Returns the solves that
     differ."""
@@ -676,7 +693,7 @@ def compare_solves(base: Built, other: Built) -> list[str]:
         mask = torch.as_tensor(uniform_missing_mask(np.random.default_rng(0), tuple(x.shape), 0.10), device="cuda")
         data[name] = (x, mask)
     plan = [(ds, fields, iters) for ds, fields, iters in LONG_SOLVES]
-    plan += [(*variant_solve(v), SHORT_ITERS) for v in sorted(hopper_kernels.KERNEL_VARIANTS.values())]
+    plan += [(*variant_solve(v), SHORT_ITERS) for v in sorted(set(base.groups) & set(other.groups))]
     real_run, bad = admm.run_admm, []
     for ds, fields, iters in plan:
         x, mask = data[ds]
@@ -748,14 +765,14 @@ def main(argv=None) -> dict:
                    help="count the vector loop's SASS instructions per element of SASS_VARIANTS in every build")
     p.add_argument("--sass-out", default=None, metavar="DIR", help="write each counted kernel's SASS listing here")
     p.add_argument("--bitwise", action="store_true",
-                   help="with --against: every store of all 50 variants of both builds on phase 2's kinds of "
-                        "inputs, compared bit for bit")
+                   help="with --against: every store of every variant both builds hold, on phase 2's kinds "
+                        "of inputs, compared bit for bit")
     p.add_argument("--solves", action="store_true",
-                   help="with --against: the main path's solves and one per variant with both builds, final "
+                   help="with --against: the main path's solves and one per variant both builds hold, final "
                         "state compared bit for bit")
     p.add_argument("--every", action="store_true",
-                   help="with --against: every variant of both builds (taxi, and video where compute is float32) "
-                        "timed in turns, four readings a side")
+                   help="every variant (taxi, and video where compute is float32) timed four times; with "
+                        "--against, those both builds hold in turns, four readings a side")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     resolve_device("cuda")
@@ -782,6 +799,9 @@ def main(argv=None) -> dict:
             print(f"SM clock under load {sm_mhz:.0f} MHz (max {max_mhz:.0f})")
             result["sm_mhz"] = sm_mhz
             result["sass"]["as built"] = print_sass("as built", base, sm_mhz, a.sass_out)
+        if a.every and not a.against:
+            mine = Built("as built, every variant", text, {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
+            result["turns"] = time_in_turns(mine, None, a.launches)
         if a.against and (a.bitwise or a.solves or a.every):
             every = set(hopper_kernels.KERNEL_VARIANTS.values())
             mine = Built("as built, every variant", text, {}, tmp, every)
@@ -800,6 +820,7 @@ def main(argv=None) -> dict:
             if a.every:
                 rows = time_in_turns(mine, theirs, a.launches)
                 result["turns"] = rows
+                rows = [r for r in rows if "change" in r]
                 slow = max(rows, key=lambda r: r["change"])
                 spread = max(max(r["spread"], r["against_spread"]) for r in rows)
                 print(f"turns: {len(rows)} cases; slowest against {a.against}: {slow['variant']} {slow['shape']} "
