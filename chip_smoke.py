@@ -35,16 +35,24 @@ Phases, each of which fails the run by raising:
      for bit: every float32 numerator and 2**28 float64 ones, for the
      presets' annealed mu, their sums, powers of two and all-ones
      significands from 2**-32 to 2**31.
-     Time both with CUDA events, beside the least time the card could take,
-     the host's enqueue time per call and one device-to-device copy_ of the
-     same bytes. Then the cases the kernel's design can get wrong, each
+     Time the plain version and the kernel with CUDA events, the card
+     asleep while the host enqueues each batch of the kernel, so that they
+     hold the card's time; at taxi through both of its entries (the
+     pointer entry, which the solve's CUDA graph launches, is the record's
+     ms; the by-value entry, which the eager routes launch, its
+     by_value_ms), elsewhere through the by-value entry; beside the least
+     time the card could take, the host's enqueue time per call and one
+     device-to-device copy_ of the same bytes. Then the cases the kernel's design can get wrong, each
      against the plain version at the same tolerances: 1, 7, 8, 9, 255, 257
      elements and an odd count above one wave of groups; views whose
      pointers are 4-byte (float32), 2-byte (bf16) or 1-byte (float8) but not
      16-byte aligned (and a double stream beside float compute, a float one
      beside double);
      the two sums bitwise equal over 20 calls; two streams launching the
-     kernel at once, 50 turns.
+     kernel at once, 50 turns. Every variant's pointer entry (the penalties
+     read from device memory, the form the CUDA graph of the solve replays)
+     on each of the variant's inputs above: every store and both sums
+     bitwise its by-value entry's.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
      (100x100x500, r=5, 10% missing, COMPLETION_TRITD, 100 iterations, f32),
      checked against a float64 CPU rerun of its first 10 iterations, and on
@@ -191,6 +199,19 @@ Phases, each of which fails the run by raising:
      bitwise or within phase 19's tolerance; init_factors on the card by
      default, bitwise the CPU draw. These launches are checks, not the
      main path, and stay out of the kernels line.
+ 21. the two routes of the solve loop (solvers/admm.py): taxi f32, taxi
+     bf16 storage, masked taxi f32 and highway f32, 100 iterations, tol 0,
+     each on the CUDA graph route that tritd_admm takes (one replay a block
+     of cfg.unroll iterations, the penalties and the counter on the card)
+     and on the eager loop (run_admm's _eager), in turns graph, eager,
+     eager, graph: the final factors, O, E and err_hist bitwise equal; CUDA
+     event ms per iteration of each route, the synchronizing calls in each
+     solve (torch.cuda.set_sync_debug_mode: the graph route must make
+     ceil(max_iter / unroll) + 1, the stop flag before each block and the
+     penalties once), and the peak MiB of each; for the graph route also
+     the events' ms up to its first replay (the eager first block and the
+     captures, with the captures' host ms) and its ms per iteration from
+     there. Its launches are checks and stay out of the kernels line.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -200,10 +221,15 @@ the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
 torch.matmul, as the reference leaves them to its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
-variant once per iteration (in phases 13-14 every rank counts its own). The
-line before the last is a JSON object with one record per kernel variant,
-all 82 on the main path (the launches of phases 3, 12, 17 and 19), each naming
-the .cu file that holds its entry point; the last line is
+variant once per iteration (in phases 13-14 every rank counts its own). On
+the graph route the wrapper counts the first block's launches, which run
+eagerly, and each replay of a graph counts its kernel nodes: a capture
+launches nothing and counts nothing. Every launch of phase 3's solves
+must go through the pointer entry. The line before the last is a JSON
+object with one record per kernel variant, all 82 on the main path (the
+launches of phases 3, 12, 17 and 19; pointer_launches, those of them
+through the pointer entry), each naming the .cu file that holds its entry
+point; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
 """
@@ -220,6 +246,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -243,6 +270,8 @@ from tritd_tpu_torch.solvers import (  # noqa: E402
     OutlierConfig,
     TriTDConfig,
     init_factors,
+    init_state,
+    run_admm,
     trim_history,
     tritd_admm,
     tritd_admm_checkpointed,
@@ -378,6 +407,7 @@ SCALARS = (0.5, 0.7, 1.8)  # mu_l, mu_o, lam
 MU_NEXT = 0.625
 REPS = 20
 BATCH = 10
+SLEEP_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles a second, at or above the H100's SM clock
 RRE_FAMILY = 0.03  # bf16 vs f32 RRE bound of the reference's own test
 # The card's published peaks (H100 SXM data sheet): device memory rate, and
 # the float32 and float64 rates outside the tensor cores.
@@ -412,37 +442,51 @@ def phase1() -> None:
     print(f"phase1 build: {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
-def _time_pair(plain, kernel, n_bytes) -> tuple[float, float, float, float]:
-    """ms per call of the kernel, the plain version and one device-to-device
-    `copy_` that moves `n_bytes` (half read, half written): CUDA events
-    around BATCH back-to-back calls, median over REPS turns, alternating
-    which of the first two goes first. Also the kernel wrapper's enqueue time
-    in ms: the host's clock around the same BATCH calls, before the
-    synchronize (what a call costs the host, whatever the card does)."""
+def _time_pair(plain, kernel_calls: dict, n_bytes) -> tuple[dict, float, float, dict]:
+    """ms per call of each of `kernel_calls` (name -> call), of the plain
+    version and of one device-to-device `copy_` that moves `n_bytes` (half
+    read, half written): CUDA events around BATCH back-to-back calls,
+    median over REPS turns, the order of the plain version and the kernels
+    turning round each turn. Before each batch of the kernel and the copy
+    the card sleeps for longer than the host takes to enqueue it
+    (torch.cuda._sleep), so that the events hold the card's time alone, not
+    the wait for the first call; the plain version, whose host time is
+    about its device time, is timed without (a sleep would double phase 2).
+    Also each kernel call's enqueue time in ms: the host's clock around the
+    same BATCH calls, before the synchronize (what a call costs the host,
+    whatever the card does)."""
     src = torch.empty(n_bytes // 2, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
+    calls = [("plain", plain), *kernel_calls.items(), ("copy", lambda: dst.copy_(src))]
+    enqueue = {}
     for _ in range(3):
-        plain()
-        kernel()
-        dst.copy_(src)
-    torch.cuda.synchronize()
-    times = {"plain": [], "kernel": [], "copy": [], "host": []}
+        for name, fn in calls:
+            t0 = time.perf_counter()
+            fn()
+            enqueue[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    times = {name: [] for name, _fn in calls}
+    host = {name: [] for name in kernel_calls}
+    timed = calls[:-1]
     for i in range(REPS):
-        order = (("plain", plain), ("kernel", kernel))
-        for name, fn in (*(order if i % 2 == 0 else order[::-1]), ("copy", lambda: dst.copy_(src))):
+        turn = timed[i % len(timed):] + timed[:i % len(timed)]
+        for name, fn in (*turn, calls[-1]):
+            if name != "plain":
+                torch.cuda._sleep(int(1.25 * BATCH * enqueue[name] * SLEEP_CYCLES_PER_S))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             t0 = time.perf_counter()
             for _ in range(BATCH):
                 fn()
-            host = time.perf_counter() - t0
+            spent = time.perf_counter() - t0
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / BATCH)
-            if name == "kernel":
-                times["host"].append(host / BATCH * 1e3)
-    return tuple(statistics.median(times[k]) for k in ("kernel", "plain", "copy", "host"))
+            if name in host:
+                host[name].append(spent / BATCH * 1e3)
+    return ({name: statistics.median(times[name]) for name in kernel_calls}, statistics.median(times["plain"]),
+            statistics.median(times["copy"]), {name: statistics.median(v) for name, v in host.items()})
 
 
 def _block_bytes(args, t_dtype) -> int:
@@ -464,29 +508,73 @@ def _block_bound(args, t_dtype) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _report(tag, args, t_dtype, max_abs, plain, kernel) -> dict:
-    """Time the pair, print one kernel-against-plain line and return the
-    variant's record. No single PyTorch call computes the block, so
-    `library_ms` is null; `copy_ms` is the rate the card really gives a pass
-    that reads and writes in equal parts, a yardstick the port never calls."""
+def _report(tag, args, t_dtype, max_abs, plain, kw, pointer: bool) -> dict:
+    """Time the kernel, with `kw` (mu_l_next, t_dtype), against the plain
+    version; print one line and return the variant's record. With `pointer`
+    (the shape of the kernels line's records) through both entries: `ms` is
+    the pointer entry's, the form that the solve's CUDA graph launches (the
+    penalties as 0-d tensors on the card), and `by_value_ms` the by-value
+    entry's, which the eager routes launch; else through the by-value entry
+    alone. No single PyTorch call computes the block, so `library_ms` is
+    null; `copy_ms` is the rate the card really gives a pass that reads and
+    writes in equal parts, a yardstick the port never calls."""
     n_bytes = _block_bytes(args, t_dtype)
-    ms, plain_ms, copy_ms, host_ms = _time_pair(plain, kernel, n_bytes)
+    calls = {"by_value": lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw)}
+    if pointer:
+        mu_l, mu_o, mu_n = (torch.tensor(x, dtype=args[1].dtype, device="cuda")
+                            for x in (SCALARS[0], SCALARS[1], kw["mu_l_next"] or 1.0))
+        pointer_kw = dict(kw, mu_l_next=None if kw["mu_l_next"] is None else mu_n)
+        calls["pointer"] = lambda: hopper_kernels._block_cuda(*args, mu_l, mu_o, SCALARS[2], **pointer_kw)
+    ms, plain_ms, copy_ms, host_ms = _time_pair(plain, calls, n_bytes)
+    form = "pointer" if pointer else "by_value"
     bound_ms, bound_by = _block_bound(args, t_dtype)
-    print(f"phase2 {tag} max_abs_err={max_abs:.3e} kernel={ms * 1e3:9.1f} us "
-          f"({n_bytes / ms / 1e6:7.1f} GB/s) host_enqueue={host_ms * 1e3:6.1f} us plain={plain_ms * 1e3:9.1f} us "
-          f"({n_bytes / plain_ms / 1e6:7.1f} GB/s) copy_us={copy_ms * 1e3:7.1f} ({n_bytes / copy_ms / 1e6:7.1f} GB/s) "
-          f"bytes/elem={n_bytes // args[0].numel()} "
-          f"bound={bound_ms * 1e3:.1f} us by {bound_by} ({bound_ms / ms:.0%} reached)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "copy_ms": copy_ms, "host_enqueue_ms": host_ms}
+    also = (f"by_value={ms['by_value'] * 1e3:9.1f} us " if pointer else "") + \
+        f"host_enqueue={host_ms[form] * 1e3:6.1f}" + (f" / {host_ms['by_value'] * 1e3:6.1f}" if pointer else "")
+    print(f"phase2 {tag} max_abs_err={max_abs:.3e} kernel={ms[form] * 1e3:9.1f} us "
+          f"({n_bytes / ms[form] / 1e6:7.1f} GB/s) {also} us "
+          f"plain={plain_ms * 1e3:9.1f} us ({n_bytes / plain_ms / 1e6:7.1f} GB/s) copy_us={copy_ms * 1e3:7.1f} "
+          f"({n_bytes / copy_ms / 1e6:7.1f} GB/s) bytes/elem={n_bytes // args[0].numel()} "
+          f"bound={bound_ms * 1e3:.1f} us by {bound_by} ({bound_ms / ms[form]:.0%} reached"
+          + (f"; by value {bound_ms / ms['by_value']:.0%})" if pointer else ")"))
+    return {"max_abs_err": max_abs, "ms": ms[form], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "by_value_ms": ms["by_value"], "copy_ms": copy_ms,
+            "host_enqueue_ms": host_ms[form], "by_value_host_enqueue_ms": host_ms["by_value"]}
+
+
+# calls of a variant's pointer entry held bitwise to its by-value entry
+POINTER_HELD: dict = {}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _hold_pointer_entry(args, got, mu_next, t_dtype=None) -> None:
+    """The same call through the variant's pointer entry, the penalties as
+    0-d tensors on the card: every store and both sums bitwise `got`, the
+    by-value entry's outputs."""
+    cd = args[1].dtype
+    mu_l, mu_o, mu_n = (torch.tensor(x, dtype=cd, device="cuda") for x in (SCALARS[0], SCALARS[1], mu_next or 1.0))
+    ptr = hopper_kernels._block_cuda(*args, mu_l, mu_o, SCALARS[2], None if mu_next is None else mu_n,
+                                     t_dtype=t_dtype)
+    torch.cuda.synchronize()
+    names = ("o", "e", "y_l", "y_o", "nl", "no", "t")
+    wrong = [names[i] for i in range(7) if (got[i] is None) != (ptr[i] is None)
+             or got[i] is not None and not _same_bits(got[i], ptr[i])]
+    variant = hopper_kernels.kernel_variant(*args, t_dtype=t_dtype if mu_next is not None else None)
+    if wrong:
+        raise AssertionError(f"{variant}: the pointer entry's {wrong} differ from the by-value entry's bits")
+    POINTER_HELD[variant] = POINTER_HELD.get(variant, 0) + 1
 
 
 def _hold_same_dtype(args, mu_next) -> tuple[tuple, float]:
     """One kernel call on same-dtype tensors held against the plain version
-    at phase 2's tolerances; returns the kernel's outputs and the largest
-    absolute difference."""
+    at phase 2's tolerances, and through the pointer entry bitwise; returns
+    the kernel's outputs and the largest absolute difference."""
     atol = 1e-6 * max(float(a.abs().max()) for a in args)
     got = hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next)
+    _hold_pointer_entry(args, got, mu_next)
     want = hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next)
     torch.cuda.synchronize()
     idx = (0, 1, 2, 3) if mu_next is None else (0, 1, 2, 3, 6)
@@ -684,7 +772,7 @@ def phase2() -> dict:
             record = _report(
                 f"{name:6s} {str(dtype)[6:]:7s} t'={'yes' if mu_next else 'no '}", args, t_dtype, max_abs,
                 lambda: hopper_kernels._block_torch(*args, *SCALARS, mu_l_next=mu_next),
-                lambda: hopper_kernels._block_cuda(*args, *SCALARS, mu_l_next=mu_next),
+                dict(mu_l_next=mu_next, t_dtype=None), pointer=name == "taxi",
             )
             if name == "taxi" and mu_next is not None:
                 records[str(dtype)[6:].replace("float", "f")] = record
@@ -709,14 +797,14 @@ def phase2() -> dict:
             want = hopper_kernels._block_torch(*args, *SCALARS, **plain_kw)
             torch.cuda.synchronize()
             agree = hopper_kernels.check_narrow_against_plain(args, got, want, mu_next)
+            _hold_pointer_entry(args, got, mu_next, t_dt)
             max_abs = agree["max_abs_err"]
             limits = hopper_kernels.rounding_limits(s_dt, cd) or hopper_kernels.rounding_limits(t_dt, cd)
             for i in (4, 5):
                 torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0.0)
             record = _report(
                 f"{name:6s} {variant}", args, t_dt, max_abs,
-                lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw),
-                lambda: hopper_kernels._block_cuda(*args, *SCALARS, **kw),
+                lambda: hopper_kernels._block_torch(*args, *SCALARS, **plain_kw), kw, pointer=name == "taxi",
             )
             held = "; T' bitwise from the stored O', Y_L'" if t_dt is not None else ""
             if limits is not None:
@@ -730,12 +818,41 @@ def phase2() -> dict:
     _phase2_conversion_edges()
     _phase2_quotient()
     _phase2_edges()
+    missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - set(POINTER_HELD)
+    if missing:
+        raise AssertionError(f"pointer entries not held to their by-value entries: {sorted(missing)}")
+    print(f"phase2 pointer entries: {sum(POINTER_HELD.values())} calls of all {len(POINTER_HELD)} variants' "
+          f"pointer entries (penalties read from device memory), every store and both sums bitwise the "
+          f"by-value entry's on the same inputs")
     return records
 
 
 def _launches() -> dict:
     """The kernel variants launched since the last reset, with their counts."""
     return {k[len("elementwise_block["):-1]: v for k, v in hopper_kernels.LAUNCHES.items() if v}
+
+
+def _pointer_launches() -> dict:
+    """Of those, the launches through the variants' pointer entries."""
+    return {k[len("elementwise_block_ptr["):-1]: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}
+
+
+# the main path's launches through the pointer entries (phases 3, 12, 17, 19)
+POINTER_ON_MAIN_PATH: dict = {}
+
+
+def _tally_pointer(counts: dict) -> None:
+    for k, v in counts.items():
+        POINTER_ON_MAIN_PATH[k] = POINTER_ON_MAIN_PATH.get(k, 0) + v
+
+
+def _all_through_the_pointer_entry(tag: str, launches: dict) -> None:
+    """A one-card tritd_admm takes the CUDA graph route, whose every launch,
+    the eager first block's too, goes through the pointer entry."""
+    pointer = _pointer_launches()
+    if pointer != launches:
+        raise AssertionError(f"{tag}: launches through the pointer entry {pointer}, want all of {launches}")
+    _tally_pointer(pointer)
 
 
 def _solve(y, cfg, init, origin=None, mask=None) -> tuple:
@@ -847,6 +964,7 @@ def phase3() -> dict:
 
     def run(tag, y, cfg, init, variant, truth, origin=None, mask=None):
         res, launches, dev_s, wall = _solve(y, cfg, init, origin=origin, mask=mask)
+        _all_through_the_pointer_entry(tag, launches)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         ms_per_iter[variant] = dev_s / res.n_iters * 1e3
@@ -943,6 +1061,7 @@ def phase3() -> dict:
         ncfg = dataclasses.replace(preset, max_iter=iters, **fields)
         origin = truth if data == "taxi" else None
         res, launches, dev_s, wall = _solve(data_t, ncfg, ninit, origin=origin, mask=dmask)
+        _all_through_the_pointer_entry(tag, launches)
         for k, val in launches.items():
             total[k] = total.get(k, 0) + val
         if launches != {variant: res.n_iters}:
@@ -1504,6 +1623,7 @@ def phase12() -> dict:
             res = tritd_admm_sharded(y_host, cfg, mesh, shard_tensor_mode=mode, origin=x_host, init=init, audit=audit)
             torch.cuda.synchronize()
             launches = _launches()
+            _tally_pointer(_pointer_launches())
             n = res.n_iters
             budget = _budget_words(x.shape, cfg.rank, mode)
             words = audit["per_iter"]["words"]
@@ -2182,6 +2302,7 @@ def phase17() -> dict:
         print(json.dumps(row))
         for k, v in row["kernel_launches"].items():
             launches[k] = launches.get(k, 0) + v
+        _tally_pointer(row["pointer_launches"])
         want = {"f64": row["n_iters_port"]} if method == "triple" else {}
         if row["kernel_launches"] != want:
             raise AssertionError(f"phase17 {prob.spec.name} {method}: launches {row['kernel_launches']}, want {want}")
@@ -2331,6 +2452,7 @@ def phase19() -> dict:
         res = tritd_admm_auto(y32, cfg, mesh, axis_name="slab", origin=x32, init=PHASE12_MODE1["init"])
         torch.cuda.synchronize()
         launches = _launches()
+        _tally_pointer(_pointer_launches())
     finally:
         dist.destroy_process_group()
     if res.n_iters != r12.n_iters or launches != {"f32": res.n_iters} or res.o.device.type != "cuda":
@@ -2425,6 +2547,104 @@ def phase20() -> None:
           f"{len(ENTRIES)} entry points from numpy on the card")
 
 
+def _route_solve(data, cfg, init, eager: bool, mask=None, origin=None) -> dict:
+    """One solve as tritd_admm sets it up, then run_admm on the graph route
+    or the eager loop: the result, CUDA-event ms, the synchronizing calls
+    inside run_admm (torch.cuda.set_sync_debug_mode) and the peak MiB. On
+    the graph route also where its time goes: the events' ms up to the
+    first replay (the eager first block and the captures), the host ms of
+    the captures, and the ms from the first replay to the end."""
+    dtype = cfg.torch_dtype()
+    d = data.to(dtype)
+    state = init_state(d, cfg, init)
+    norm_d = torch.linalg.vector_norm(d)
+    norm_origin = None if origin is None else torch.linalg.vector_norm(origin)
+    d = narrow_cast(d, cfg.torch_storage_dtype())
+    graphs, replays = [], []
+    counted = hopper_kernels.CountedGraph
+
+    class Watched(counted):
+        def __init__(self, fn, pool):
+            super().__init__(fn, pool)
+            graphs.append(self)
+
+        def replay(self):
+            if not replays:
+                replays.append(torch.cuda.Event(enable_timing=True))
+                replays[0].record()
+            super().replay()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        hopper_kernels.CountedGraph = Watched
+        try:
+            start.record()
+            res = run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
+                           _eager=eager)
+            end.record()
+        finally:
+            hopper_kernels.CountedGraph = counted
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    split = {}
+    if replays:
+        split = {"before_replays_ms": start.elapsed_time(replays[0]), "replays_ms": replays[0].elapsed_time(end),
+                 "capture_host_ms": sum(g.capture_s for g in graphs) * 1e3, "graphs": len(graphs)}
+    return {"res": res, "ms": start.elapsed_time(end), "syncs": syncs,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, **split}
+
+
+def phase21() -> None:
+    """The CUDA graph route of the solve loop against the eager loop."""
+    x, mask, y, _prov = _taxi()
+    v_np, _vspec, _vprov = load_dataset("highway")
+    v = torch.as_tensor(v_np, dtype=torch.float32, device="cuda")
+    cases = (
+        ("taxi f32", y, dataclasses.replace(COMPLETION_TRITD, tol=0.0), None, x),
+        ("taxi storage=bf16", y, dataclasses.replace(COMPLETION_TRITD, tol=0.0, storage_dtype="bfloat16"), None, x),
+        ("taxi masked f32", y, dataclasses.replace(COMPLETION_TRITD, tol=0.0, masked=True), mask, x),
+        ("video highway f32", v, dataclasses.replace(VIDEO_TRITD, tol=0.0), None, None),
+    )
+    fields = ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
+    for tag, data, cfg, dmask, origin in cases:
+        init = init_factors(torch.Generator().manual_seed(0), tuple(data.shape), cfg.rank, cfg.torch_dtype())
+        for eager in (False, True):  # cuBLAS, cuSOLVER and the capture stream set up outside the timed runs
+            _route_solve(data, dataclasses.replace(cfg, max_iter=3), init, eager, dmask, origin)
+        runs = {False: [], True: []}
+        for eager in (False, True, True, False):
+            runs[eager].append(_route_solve(data, cfg, init, eager, dmask, origin))
+        graph, eager = runs[False][0]["res"], runs[True][0]["res"]
+        dist = {f: float((getattr(graph, f).double() - getattr(eager, f).double()).abs().nan_to_num(0.0).max())
+                for f in fields}
+        differ = [f for f in fields if not _same_bits(getattr(graph, f), getattr(eager, f))]
+        again = [f for f in fields if not _same_bits(getattr(runs[False][1]["res"], f), getattr(graph, f))]
+        if differ or again or graph.k != eager.k or graph.mu_l.tobytes() != eager.mu_l.tobytes():
+            raise AssertionError(f"phase21 {tag}: the graph route differs from the eager loop in {differ} "
+                                 f"(max |diff| {dist}), from its own second run in {again}; k {graph.k} / {eager.k}")
+        want_syncs = -(-cfg.max_iter // cfg.unroll) + 1
+        syncs = [r["syncs"] for r in runs[False]]
+        if any(n != want_syncs for n in syncs):
+            raise AssertionError(f"phase21 {tag}: {syncs} synchronizing calls on the graph route, want {want_syncs}")
+        ms = {route: [r["ms"] / cfg.max_iter for r in rs] for route, rs in runs.items()}
+        replayed = cfg.max_iter - cfg.unroll
+        split = "; ".join(
+            f"run {i + 1}: {r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
+            f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter"
+            for i, r in enumerate(runs[False]))
+        print(f"phase21 {tag} ({'x'.join(map(str, data.shape))}, {cfg.max_iter} iterations, unroll {cfg.unroll}): "
+              f"graph route {ms[False][0]:.4f} / {ms[False][1]:.4f} ms/iter (events; {split}), eager "
+              f"{ms[True][0]:.4f} / {ms[True][1]:.4f}; synchronizing calls a solve graph {syncs} (want "
+              f"{want_syncs}), eager {[r['syncs'] for r in runs[True]]}; peak MiB graph "
+              f"{runs[False][0]['peak_mib']:.1f}, eager {runs[True][0]['peak_mib']:.1f}; A, B, C, O, E, err_hist, "
+              f"rre_hist bitwise equal (max |diff| {max(dist.values()):.1e}); mu {graph.mu_l} after {graph.k}; "
+              f"{CARD[0]}", flush=True)
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -2459,6 +2679,7 @@ def main() -> None:
     for variant, count in _timed(19, phase19).items():
         launches[variant] = launches.get(variant, 0) + count
     _timed(20, phase20)
+    _timed(21, phase21)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:
@@ -2472,6 +2693,7 @@ def main() -> None:
         "source": sources[variant],
         "replaces": "tritd_tpu/ops/pallas_kernels.py:133",
         "launches": launches[variant],
+        "pointer_launches": POINTER_ON_MAIN_PATH.get(variant, 0),
         **record,
     } for variant, record in records.items()]}))
     print(json.dumps({"ok": True, "device": device}))

@@ -42,7 +42,11 @@ eigen-residual under 1e-3. The Toolbox classes (`ops/classes.py`) are held
 the same way, and every result must lie on the card; `default_device(None)`
 is the card. The emulator-parity harness runs its `--tiny` problem on the
 card in float64: each row within 1e-10 of the emulator, `triple` with one
-launch of the f64 T' kernel variant per iteration."""
+launch of the f64 T' kernel variant per iteration.
+
+`tritd_admm` on the card runs each block of `unroll` iterations as one
+replay of a CUDA graph; its results are held bitwise to the eager loop's
+(`run_admm(..., _eager=True)`): the same kernels on the same values."""
 
 import dataclasses
 
@@ -61,6 +65,8 @@ from tritd_tpu_torch.solvers import (  # noqa: E402
     OutlierConfig,
     TriTDConfig,
     init_factors,
+    init_state,
+    run_admm,
     tritd_admm,
     tritd_admm_checkpointed,
     tritd_admm_outlier,
@@ -185,6 +191,97 @@ def test_solve_launches_the_kernel_every_iteration(cuda_device):
     assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == gpu.n_iters == 15
     cpu = tritd_admm(y, dataclasses.replace(cfg, dtype="float64"), init=init)
     np.testing.assert_allclose(gpu.err_hist.cpu().numpy(), cpu.err_hist.numpy(), rtol=1e-3)
+
+
+def _route_solves(cfg, y, mask=None):
+    """run_admm from one state as tritd_admm sets it up, on the graph route
+    and on the eager loop, with the launches each counts."""
+    init = init_factors(torch.Generator().manual_seed(0), tuple(y.shape), cfg.rank, cfg.torch_dtype())
+    d = y.to(cfg.torch_dtype())
+    out = []
+    for eager in (False, True):
+        hopper_kernels.reset_launch_counts()
+        state = init_state(d, cfg, init)
+        res = run_admm(narrow_cast(d, cfg.torch_storage_dtype()), state, cfg, mask=mask, origin=d,
+                       norm_d=torch.linalg.vector_norm(d), _eager=eager)
+        torch.cuda.synchronize()
+        out.append((res, {k: v for k, v in hopper_kernels.LAUNCHES.items() if v},
+                    {k: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [dict(), dict(unroll=3), dict(masked=True), dict(storage_dtype="bfloat16"),
+                                    dict(dtype="float64", unroll=2), dict(tol=1e-2, unroll=2)], ids=str)
+def test_graph_route_is_the_eager_loop_bitwise(cuda_device, fields):
+    """At a small shape: every field of the final state and the penalties in
+    the same bits on both routes, and the kernel's launches, counted by
+    replays of the graph on its route, one per iteration on both."""
+    rng = np.random.default_rng(2)
+    shape = (20, 16, 24)
+    x = torch.from_numpy(rng.standard_normal(shape) * 10).to(cuda_device)
+    mask = torch.from_numpy(rng.random(shape) >= 0.1).to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, **{"max_iter": 25, "tol": 0.0, **fields})
+    (graph, g_launches, _), (eager, e_launches, _) = _route_solves(cfg, torch.where(mask, x, 0.0),
+                                                                   mask if cfg.masked else None)
+    assert graph.k == eager.k and graph.mu_l.tobytes() == eager.mu_l.tobytes()
+    assert g_launches == e_launches and sum(g_launches.values()) == graph.k
+    if cfg.tol:
+        assert graph.k < cfg.max_iter
+    for f in ("a", "b", "c", "o", "e", "y_l", "y_o", "t", "err_hist", "rre_hist", "done"):
+        got, want = getattr(graph, f), getattr(eager, f)
+        assert got.dtype == want.dtype and torch.equal(got.reshape(-1).view(torch.uint8),
+                                                       want.reshape(-1).view(torch.uint8)), f
+
+
+@pytest.mark.cuda
+def test_graph_route_launches_through_the_pointer_entry(cuda_device):
+    """Every launch of the graph route, its eager first block's too, goes
+    through the pointer entry; none of the eager loop's does."""
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=7, tol=0.0, unroll=2)
+    (graph, g_launches, g_pointer), (_eager, e_launches, e_pointer) = _route_solves(cfg, y)
+    assert g_launches == e_launches == {"elementwise_block[f32]": 8} and graph.k == 8
+    assert g_pointer == {"elementwise_block_ptr[f32]": 8} and e_pointer == {}
+
+
+@pytest.mark.cuda
+def test_capture_that_meets_a_host_sync_raises(cuda_device, monkeypatch):
+    """A read back to the host inside the captured block fails the capture,
+    which raises (no quiet fallback to the eager loop); the card is usable
+    after it."""
+    from tritd_tpu_torch.solvers import admm
+
+    real = admm.update_factors
+
+    def syncing(t, a, b, c, cfg, shard=None):
+        float(a.sum())
+        return real(t, a, b, c, cfg, shard)
+
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=4, tol=0.0)
+    monkeypatch.setattr(admm, "update_factors", syncing)
+    with pytest.raises(RuntimeError, match="capturing"):
+        tritd_admm(y, cfg)
+    monkeypatch.setattr(admm, "update_factors", real)
+    assert tritd_admm(y, cfg).n_iters == 4
+
+
+@pytest.mark.cuda
+def test_launches_count_the_graph_replays(cuda_device):
+    """The capture counts nothing; each replay counts its kernel nodes: a
+    solve of 4 blocks of 3 iterations counts 12 launches, 3 of them the
+    first block's, run eagerly."""
+    y = torch.from_numpy(np.random.default_rng(4).standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=12, tol=0.0, unroll=3)
+    hopper_kernels.reset_launch_counts()
+    res = tritd_admm(y, cfg)
+    torch.cuda.synchronize()
+    assert res.n_iters == 12 and hopper_kernels.LAUNCHES["elementwise_block[f32]"] == 12
+    hopper_kernels.reset_launch_counts()
+    tritd_admm(y, dataclasses.replace(cfg, max_iter=3))
+    assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == 3
 
 
 @pytest.mark.cuda

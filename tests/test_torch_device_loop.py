@@ -1,0 +1,329 @@
+"""PyTorch port, the device form of the TriTD-ADMM loop (`solvers/admm.py`):
+the penalties and the counter as 0-d tensors, a block of `unroll`
+iterations as one function of device tensors, the data-sized state taking
+turns in two sets of buffers. On a CUDA device each block after the first
+is one replay of a captured graph; here, on the CPU, the same blocks run
+eagerly (`_run_device_form(..., graphs=False)`), and are held:
+
+  * to the eager loop (host penalties and counter) bitwise, over whole
+    solves: both are the same arithmetic on the same values;
+  * to the JAX package's `tritd_admm` at the tolerances of
+    `test_torch_admm.py` (float64 rtol 1e-8 on the histories, float32 rtol
+    2e-4 on the first 20 iterations: summation order and float32 rounding);
+  * the tensor penalty schedule to numpy's, and the tensor-penalty plain
+    block to the host-penalty one, bitwise.
+
+The checkpoint of a graph-route state needs the card and skips here. JAX
+is imported only by the test that calls it, so that the rest of the file
+also runs on a machine with the card and without JAX.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
+from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
+from tritd_tpu_torch.solvers import admm, init_state, run_admm  # noqa: E402
+from tritd_tpu_torch.utils import checkpoint  # noqa: E402
+from tritd_tpu_torch.utils.config import COMPLETION_TRITD, VIDEO_TRITD  # noqa: E402
+
+SHAPE = (12, 10, 14)
+RANK = 3
+STATE_FIELDS = ("a", "b", "c", "o", "e", "y_l", "y_o", "t", "err_hist", "rre_hist", "done")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps the test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _problem(seed=0):
+    """Low-TriTD-rank truth + noise + sparse spikes, 10% missing, zero-filled."""
+    rng = np.random.default_rng(seed)
+    n1, n2, n3 = SHAPE
+    a = rng.standard_normal((n1, RANK, RANK))
+    b = rng.standard_normal((RANK, n2, RANK))
+    c = rng.standard_normal((RANK, RANK, n3))
+    x = np.einsum("iqs,qjs,qst->ijt", a, b, c)
+    x = 10.0 * x / np.sqrt(np.mean(x**2)) + 0.1 * rng.standard_normal(SHAPE)
+    x = x + (rng.random(SHAPE) < 0.02) * 20.0
+    mask = rng.random(SHAPE) >= 0.1
+    return x, np.where(mask, x, 0.0), mask
+
+
+def _init(dtype, seed=0):
+    """Standard-normal factors drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    n1, n2, n3 = SHAPE
+    return [rng.standard_normal(s).astype(dtype) for s in ((n1, RANK, RANK), (RANK, n2, RANK), (RANK, RANK, n3))]
+
+
+def _solve(cfg, y, mask, origin, init, route):
+    """`run_admm` from `init_state` as `tritd_admm` calls it, on the eager
+    loop or on the device form's blocks."""
+    dtype = cfg.torch_dtype()
+    d = torch.from_numpy(y).to(dtype)
+    norm_d = torch.linalg.vector_norm(d)
+    origin = torch.from_numpy(origin).to(dtype)
+    norm_origin = torch.linalg.vector_norm(origin)
+    state = init_state(d, cfg, init)
+    d = narrow_cast(d, cfg.torch_storage_dtype())
+    mask = torch.from_numpy(mask) if cfg.masked else None
+    if route == "eager":
+        return run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin)
+    return admm._run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=False)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    x = x.detach()
+    if x.dim() == 0:
+        x = x.reshape(1)
+    return x.contiguous().view(torch.uint8)
+
+
+BITWISE_CASES = {
+    "f32": dict(),
+    "f64": dict(dtype="float64"),
+    "masked": dict(masked=True),
+    "bf16_storage": dict(storage_dtype="bfloat16"),
+    "masked_bf16_storage": dict(masked=True, storage_dtype="bfloat16"),
+}
+
+
+@pytest.mark.parametrize("tol", [0.0, 2e-2], ids=["tol0", "early_stop"])
+@pytest.mark.parametrize("unroll", [1, 4], ids=["unroll1", "unroll4"])
+@pytest.mark.parametrize("case", list(BITWISE_CASES))
+def test_device_form_is_the_eager_loop_bitwise(case, unroll, tol):
+    """A whole solve: every field of the final state, the histories and the
+    penalties in the same bits; with tol 2e-2 both stop early, at the same
+    block."""
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=RANK, max_iter=40, tol=tol, unroll=unroll,
+                              **BITWISE_CASES[case])
+    x, y, mask = _problem()
+    init = _init(cfg.np_dtype().type)
+    eager = _solve(cfg, y, mask, x, init, "eager")
+    device = _solve(cfg, y, mask, x, init, "device")
+    assert device.k == eager.k and isinstance(device.k, int)
+    if tol:
+        assert eager.k < cfg.max_iter and bool(eager.done)
+    else:
+        assert eager.k == -(-cfg.max_iter // unroll) * unroll
+    for mu in ("mu_l", "mu_o"):
+        got, want = getattr(device, mu), getattr(eager, mu)
+        assert type(got) is type(want) is cfg.np_dtype().type and got.tobytes() == want.tobytes()
+    for f in STATE_FIELDS:
+        got, want = getattr(device, f), getattr(eager, f)
+        assert got.dtype == want.dtype and got.shape == want.shape, f
+        assert torch.equal(_bits(got), _bits(want)), f
+
+
+def test_device_form_prints_the_eager_disp_lines(capsys):
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=RANK, max_iter=23, tol=0.0, unroll=4, disp=True)
+    x, y, mask = _problem()
+    init = _init(np.float32)
+    _solve(cfg, y, mask, x, init, "eager")
+    eager = capsys.readouterr().out
+    _solve(cfg, y, mask, x, init, "device")
+    device = capsys.readouterr().out
+    assert eager == device and eager.count("Iter ") == 2 and "Iter 20, errL=" in eager
+
+
+JAX_CASES = {
+    "f64": (dict(dtype="float64", max_iter=60), True),
+    "f64_masked": (dict(dtype="float64", max_iter=60, masked=True), True),
+    "f64_unroll3": (dict(dtype="float64", max_iter=40, unroll=3), True),
+    "f32": (dict(max_iter=20, tol=0.0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_device_form_matches_jax(case, monkeypatch):
+    # the reference on the CPU, also where JAX could take a card: set before
+    # JAX first picks its backend
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from tritd_tpu.solvers import TriTDConfig as JConfig
+    from tritd_tpu.solvers import tritd_admm as j_tritd_admm
+    from tritd_tpu.solvers.admm import init_factors as j_init_factors
+
+    fields, x64 = JAX_CASES[case]
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=RANK, **fields)
+    x, y, mask = _problem()
+    np_dt = np.float64 if x64 else np.float32
+    with jax.enable_x64(x64):
+        init = [np.asarray(u) for u in j_init_factors(jax.random.PRNGKey(0), SHAPE, RANK, np_dt)]
+        jres = j_tritd_admm(jnp.asarray(y, np_dt), JConfig(**dataclasses.asdict(cfg)), key=jax.random.PRNGKey(0),
+                            mask=jnp.asarray(mask) if cfg.masked else None, origin=jnp.asarray(x, np_dt))
+        want = {f: np.asarray(getattr(jres, f)) for f in ("err_hist", "rre_hist", "o", "n_iters")}
+    got = _solve(cfg, y, mask, x, init, "device")
+    n = int(want["n_iters"])
+    assert min(got.k, cfg.max_iter) == n
+    for key in ("err_hist", "rre_hist"):
+        hist = getattr(got, key)[: cfg.max_iter].numpy()
+        if x64:
+            np.testing.assert_allclose(hist[:n], want[key][:n], rtol=1e-8)
+            assert np.isnan(hist[n:]).all()
+        else:
+            np.testing.assert_allclose(hist, want[key], rtol=2e-4)
+    if x64:
+        o = got.o.numpy()
+        np.testing.assert_allclose(o, want["o"], rtol=1e-6, atol=1e-8 * np.abs(want["o"]).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("preset", ["completion", "video"])
+def test_tensor_penalty_schedule_is_numpys(preset, dtype):
+    """mu annealed on 0-d tensors equals the numpy schedule bit for bit,
+    through the cap (reached near iteration 62 at rho 1.25, 76 at 1.2)."""
+    cfg = dataclasses.replace(COMPLETION_TRITD if preset == "completion" else VIDEO_TRITD, dtype=dtype)
+    host = cfg.np_dtype().type(cfg.mu)
+    dev = torch.full((), float(host), dtype=cfg.torch_dtype())
+    capped = None
+    for it in range(120):
+        host, dev = admm.anneal(host, cfg), admm.anneal(dev, cfg)
+        assert dev.dtype == cfg.torch_dtype() and dev.numpy().tobytes() == np.asarray(host).tobytes(), it
+        if capped is None and host == cfg.np_dtype().type(cfg.mu * cfg.mu_cap_factor):
+            capped = it
+    assert capped is not None and 50 < capped < 90
+
+
+@pytest.mark.parametrize("with_t", [False, True], ids=["no_t", "t"])
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.float32, torch.float32), (torch.float64, torch.float64, torch.float64),
+    (torch.float32, torch.bfloat16, torch.bfloat16), (torch.float64, torch.float64, torch.float16),
+    (torch.float32, torch.float8_e5m2, torch.float8_e5m2)], ids=str)
+def test_tensor_penalty_block_is_the_host_penalty_block(dtypes, with_t):
+    cd, d_dt, s_dt = dtypes
+    rng = np.random.default_rng(5)
+    raw = [torch.from_numpy(rng.standard_normal((7, 9, 11)) * 3) for _ in range(5)]
+    args = [narrow_cast(raw[0], d_dt), raw[1].to(cd), *(narrow_cast(x, s_dt) for x in raw[2:])]
+    np_t = np.dtype(str(cd).removeprefix("torch.")).type
+    mu_l, mu_o, mu_next = np_t(0.0015625), np_t(0.002), np_t(0.00244140625 * 1.25)
+    host = hopper_kernels._block_torch(*args, mu_l, mu_o, 1.8, mu_next if with_t else None,
+                                       compute_dtype=cd, store_dtype=s_dt)
+    dev = hopper_kernels._block_torch(*args, *(torch.tensor(m) for m in (mu_l, mu_o)), 1.8,
+                                      torch.tensor(mu_next) if with_t else None, compute_dtype=cd, store_dtype=s_dt)
+    for i, (h, g) in enumerate(zip(host, dev)):
+        if h is None:
+            assert g is None and not with_t
+            continue
+        assert torch.equal(_bits(h), _bits(g)), i
+
+
+def test_block_stores_into_given_buffers():
+    rng = np.random.default_rng(6)
+    args = [torch.from_numpy(rng.standard_normal((5, 6, 7))) for _ in range(5)]
+    out = tuple(torch.empty_like(args[0]) for _ in range(5))
+    want = hopper_kernels.elementwise_block(*args, 0.5, 0.7, 1.8, mu_l_next=0.625)
+    got = hopper_kernels.elementwise_block(*args, 0.5, 0.7, 1.8, mu_l_next=0.625, out=out)
+    assert all(g is b for g, b in zip((*got[:4], got[6]), out))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="one of the block's inputs"):
+        hopper_kernels.elementwise_block(*args, 0.5, 0.7, 1.8, mu_l_next=0.625, out=(args[2], *out[1:]))
+    with pytest.raises(ValueError, match="t None exactly when no T'"):
+        hopper_kernels.elementwise_block(*args, 0.5, 0.7, 1.8, out=out)
+    with pytest.raises(ValueError, match="out buffer"):
+        hopper_kernels.elementwise_block(*args, 0.5, 0.7, 1.8, mu_l_next=0.625,
+                                         out=(out[0].float(), *out[1:]))
+
+
+def test_graph_nodes_count_replays_not_the_capture():
+    """The wrapper calls inside a capture are nodes: LAUNCHES is as it was
+    after the block, and each replay adds the nodes."""
+    key = "elementwise_block[f32]"
+    before = dict(hopper_kernels.LAUNCHES)
+    with hopper_kernels.graph_nodes() as nodes:
+        hopper_kernels.LAUNCHES[key] += 3
+    assert nodes == {key: 3} and hopper_kernels.LAUNCHES == before
+    for _ in range(5):
+        hopper_kernels.count_replay(nodes)
+    assert hopper_kernels.LAUNCHES[key] == before[key] + 15
+    hopper_kernels.LAUNCHES[key] = before[key]
+
+
+def test_graph_nodes_count_pointer_launches_apart():
+    """A capture's launches through the pointer entry are nodes too: each
+    replay adds them to POINTER_LAUNCHES as well as to LAUNCHES, and the
+    capture itself counts nothing in either."""
+    key, ptr = "elementwise_block[c32_dbf16_sbf16_tbf16]", "elementwise_block_ptr[c32_dbf16_sbf16_tbf16]"
+    before, before_ptr = dict(hopper_kernels.LAUNCHES), dict(hopper_kernels.POINTER_LAUNCHES)
+    with hopper_kernels.graph_nodes() as nodes:
+        hopper_kernels.LAUNCHES[key] += 2
+        hopper_kernels.POINTER_LAUNCHES[ptr] += 2
+    assert nodes == {key: 2, ptr: 2}
+    assert hopper_kernels.LAUNCHES == before and hopper_kernels.POINTER_LAUNCHES == before_ptr
+    for _ in range(3):
+        hopper_kernels.count_replay(nodes)
+    assert hopper_kernels.LAUNCHES[key] == before[key] + 6
+    assert hopper_kernels.POINTER_LAUNCHES[ptr] == before_ptr[ptr] + 6
+    hopper_kernels.reset_launch_counts()
+    assert not any(hopper_kernels.LAUNCHES.values()) and not any(hopper_kernels.POINTER_LAUNCHES.values())
+
+
+def _c_parameters(macro: str, name: str) -> list[str]:
+    """The C parameter types of the function `name` in the entry macro."""
+    import re
+
+    params = re.search(re.escape(name) + r"\((.*?)\)\s*\{", macro, re.S).group(1)
+    return [" ".join(p.split()[:-1]) for p in params.replace("\\", " ").split(",")]
+
+
+def test_binding_takes_the_entry_macros_parameters():
+    """The ctypes argument lists of both entries follow the C parameter
+    lists of TRITD_BLOCK_ENTRY (a pointer as c_void_p, int64_t, int, and C
+    as the compute dtype's ctype), so a change of the macro that the
+    binding does not follow fails here, before the card."""
+    import ctypes
+
+    from tritd_tpu_torch.runtime import build, kernels
+
+    src = (build.SRC_DIR / "elementwise_block.cuh").read_text()
+    macro = src[src.index("#define TRITD_BLOCK_ENTRY"):]
+    for scalar in (ctypes.c_float, ctypes.c_double):
+        as_ctype = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "C": scalar}
+        for name, pointer in (("int NAME", False), ("int NAME##_ptr", True)):
+            want = [ctypes.c_void_p if "*" in p else as_ctype[p] for p in _c_parameters(macro, name)]
+            assert kernels._block_argtypes(scalar, pointer) == want, name
+
+
+def test_run_admm_takes_the_eager_loop_on_the_cpu(monkeypatch):
+    called = []
+    monkeypatch.setattr(admm, "_run_device_form", lambda *a, **k: called.append(1))
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=RANK, max_iter=3)
+    x, y, mask = _problem()
+    res = _solve(cfg, y, mask, x, _init(np.float32), "eager")
+    assert not called and res.k == 3 and isinstance(res.mu_l, np.float32)
+
+
+@pytest.mark.cuda
+def test_graph_route_checkpoint_resumes_bitwise(tmp_path):
+    """A state the graph route returns, saved and loaded, resumes on the
+    graph route to the bits of a run that never stopped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the graph route captures CUDA graphs")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=RANK, max_iter=40, tol=0.0, unroll=3)
+    x, y, mask = _problem()
+    init = _init(np.float32)
+    d = torch.from_numpy(y.astype(np.float32)).cuda()
+    norm_d = torch.linalg.vector_norm(d)
+    whole = run_admm(d, init_state(d, cfg, init), cfg, norm_d=norm_d)
+    first = run_admm(d, init_state(d, cfg, init), dataclasses.replace(cfg, max_iter=20), norm_d=norm_d)
+    assert first.k == 21 and isinstance(first.mu_l, np.float32)
+    path = checkpoint.save_state(str(tmp_path / "step_000021.npz"), first)
+    loaded = checkpoint.load_state(path, torch.float32, d=d)
+    assert loaded.mu_l.tobytes() == first.mu_l.tobytes() and loaded.k == 21
+    resumed = run_admm(d, loaded, cfg, norm_d=norm_d)
+    assert resumed.k == whole.k and resumed.mu_l.tobytes() == whole.mu_l.tobytes()
+    for f in STATE_FIELDS:
+        assert torch.equal(_bits(getattr(resumed, f)), _bits(getattr(whole, f))), f

@@ -28,8 +28,12 @@ reference's own signature over the same kernel
 Routing is by device, with no fallback: CPU tensors take `_block_torch`,
 CUDA tensors take `_block_cuda`, the kernel in `csrc/elementwise_block.cuh`
 (its entry points in `csrc/elementwise_block*.cu`).
-The scalars are host numbers; they are rounded to the compute dtype and
-combined in it (lam/muO, muL+muO), as the reference does in float32.
+lam is a host number. The penalties muL, muO and muL_next are host numbers,
+which the kernel takes by value, or 0-d tensors on the data's device, which
+its pointer entry reads from device memory when it runs: the form a CUDA
+graph replays with the penalties of each replay (`solvers/admm.py`). Both
+forms round them to the compute dtype and combine them in it (lam/muO,
+muL+muO), as the reference does in float32, and store the same bits.
 
 The kernel's launch plan is made here, in plain functions of integers:
 `group_size` (elements a thread takes per turn, so that the narrowest stream
@@ -42,7 +46,9 @@ one-element path, it is neither refused nor copied).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import time
 
 import numpy as np
 import torch
@@ -90,13 +96,66 @@ def _variants() -> dict:
 KERNEL_VARIANTS = _variants()
 
 # Launches of each variant of the hand-written kernel, counted where the
-# wrapper launches it.
+# wrapper launches it, through either entry; POINTER_LAUNCHES counts those of
+# them through the pointer entry.
 LAUNCHES = {f"elementwise_block[{v}]": 0 for v in KERNEL_VARIANTS.values()}
+POINTER_LAUNCHES = {f"elementwise_block_ptr[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, POINTER_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def graph_nodes():
+    """Around the capture of a CUDA graph: the wrapper calls inside record
+    kernel nodes, which launch nothing until the graph is replayed. Yields a
+    dict that receives {count key: nodes} when the block ends, and leaves
+    the counts as they were before; `count_replay(nodes)` then counts each
+    replay's launches."""
+    before = {**LAUNCHES, **POINTER_LAUNCHES}
+    nodes: dict = {}
+    try:
+        yield nodes
+    finally:
+        for counts in (LAUNCHES, POINTER_LAUNCHES):
+            nodes.update({key: n - before[key] for key, n in counts.items() if n != before[key]})
+            counts.update({key: before[key] for key in counts})
+
+
+def count_replay(nodes: dict) -> None:
+    """Count the kernel launches of one replay of a graph with these nodes."""
+    for key, n in nodes.items():
+        (LAUNCHES if key in LAUNCHES else POINTER_LAUNCHES)[key] += n
+
+
+class CountedGraph:
+    """`fn()` captured as a CUDA graph on the current stream into the memory
+    pool `pool`, and replayed with its kernel launches counted. The capture
+    launches nothing and counts nothing; each `replay()` counts the wrapper
+    calls the capture met. An error inside the capture (a host sync, an
+    operation that cannot be captured) ends it and is raised.
+    `capture_s`: the host seconds the capture took."""
+
+    def __init__(self, fn, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        with graph_nodes() as self.nodes:
+            self.graph.capture_begin(pool=pool)
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        self.capture_s = time.perf_counter() - start
+
+    def replay(self) -> None:
+        self.graph.replay()
+        count_replay(self.nodes)
 
 
 # The kernel's geometry; `_entry` holds both against the built library.
@@ -155,17 +214,31 @@ _SCRATCH: dict = {}
 
 
 def _scratch_for(key, make):
-    """The scratch kept under `key`, made by `make()` at first use."""
+    """The scratch kept under `key`, made by `make()` at first use. A graph
+    bakes the scratch's address into its kernel nodes, so it must be made
+    outside the capture: made during one, it would be zeroed by that
+    graph's replays alone, and only kept alive by this dict."""
     buf = _SCRATCH.get(key)
     if buf is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the elementwise block's scratch for stream {key} must exist before a CUDA graph "
+                               f"captures its launch: call the block once on that stream first")
         buf = _SCRATCH[key] = make()
     return buf
 
 
 def _scalars(dtype: torch.dtype, *values):
-    """Host scalars rounded to the tensor dtype, as numpy scalars."""
+    """Scalars in the tensor dtype: host numbers rounded to it as numpy
+    scalars, 0-d tensors converted to it."""
     np_t = np.dtype(str(dtype).removeprefix("torch.")).type
-    return tuple(None if v is None else np_t(v) for v in values)
+    return tuple(None if v is None else v.to(dtype) if isinstance(v, torch.Tensor) else np_t(v) for v in values)
+
+
+def _operand(x):
+    """A scalar as an operand of tensor arithmetic: a host number as a
+    Python float (exact: it holds a value of the compute dtype), a 0-d
+    tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else float(x)
 
 
 def _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None,
@@ -173,18 +246,24 @@ def _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None,
     """Plain PyTorch version: a line-for-line port of `_block_jnp`
     (`tritd_tpu/ops/pallas_kernels.py:45-66`), plus T'. compute_dtype
     defaults to d's dtype, t_dtype to the dtype the outputs are stored in.
-    Stores round with `narrow_cast`, as the reference's `astype` does."""
+    Stores round with `narrow_cast`, as the reference's `astype` does. The
+    penalties may be host numbers or 0-d tensors on d's device (nothing is
+    read back to the host); on the CPU the two forms give the same bits."""
     cd = compute_dtype or d.dtype
     mu_l, mu_o, lam, mu_l_next = _scalars(cd, mu_l, mu_o, lam, mu_l_next)
     d, l, e, y_l, y_o = (x.to(cd) for x in (d, l, e, y_l, y_o))
-    r1 = d - l + y_l / float(mu_l)
-    r2 = e - y_o / float(mu_o)
-    o = (float(mu_l) * r1 + float(mu_o) * r2) / float(mu_l + mu_o)
-    e_new = soft_threshold(o + y_o / float(mu_o), float(lam / mu_o))
+    m_l, m_o = _operand(mu_l), _operand(mu_o)
+    r1 = d - l + y_l / m_l
+    r2 = e - y_o / m_o
+    o = (m_l * r1 + m_o * r2) / _operand(mu_l + mu_o)
+    # a host number over a tensor would be the number times the tensor's
+    # reciprocal (Tensor.__rtruediv__): divide tensor by tensor
+    thr = torch.div(mu_o.new_full((), float(lam)), mu_o) if isinstance(mu_o, torch.Tensor) else float(lam / mu_o)
+    e_new = soft_threshold(o + y_o / m_o, thr)
     res_l = d - l - o
     res_o = o - e_new
-    y_l_new = y_l + float(mu_l) * res_l
-    y_o_new = y_o + float(mu_o) * res_o
+    y_l_new = y_l + m_l * res_l
+    y_o_new = y_o + m_o * res_o
     nl = torch.sum(res_l * res_l)
     no = torch.sum(res_o * res_o)
     if store_dtype is not None:
@@ -192,7 +271,7 @@ def _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None,
     t_new = None
     if mu_l_next is not None:
         # from the stored O' and Y_L', as the reference's solver reads them
-        t_new = narrow_cast(d - o.to(cd) + y_l_new.to(cd) / float(mu_l_next), t_dtype or o.dtype)
+        t_new = narrow_cast(d - o.to(cd) + y_l_new.to(cd) / _operand(mu_l_next), t_dtype or o.dtype)
     return o, e_new, y_l_new, y_o_new, nl, no, t_new
 
 
@@ -449,12 +528,46 @@ def _entry(variant: str):
     return getattr(lib, name), want[3], f"elementwise_block[{variant}]"
 
 
-def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None):
+@functools.cache
+def _pointer_entry(variant: str):
+    """The variant's pointer entry (`..._ptr`: the penalties read from
+    device memory), looked up once, after `_entry` has checked the library."""
+    from ..runtime import kernels
+
+    _entry(variant)
+    return getattr(kernels.library(), f"tritd_elementwise_block_{variant}_ptr")
+
+
+def _check_out(out, like, t_like, inputs) -> None:
+    """`out` = (o, e, y_l, y_o, t) buffers for the kernel's stores: each of
+    the shape, dtype and device of the output it takes, contiguous, and
+    none of them one of the inputs, which the kernel reads through
+    restrict pointers. t is None without T'."""
+    want = [like] * 4 + [t_like]
+    if len(out) != 5 or (out[4] is None) != (t_like is None):
+        raise ValueError("out takes (o, e, y_l, y_o, t), with t None exactly when no T' is built")
+    taken = {x.data_ptr() for x in inputs}
+    for buf, spec in zip(out, want):
+        if buf is None:
+            continue
+        dtype, shape, device = spec
+        if (buf.dtype, buf.shape, buf.device) != (dtype, shape, device) or not buf.is_contiguous():
+            raise ValueError(f"out buffer {buf.dtype}{tuple(buf.shape)} on {buf.device}, contiguous "
+                             f"{buf.is_contiguous()}: the kernel stores {dtype}{tuple(shape)} on {device}")
+        if buf.data_ptr() in taken:
+            raise ValueError("an out buffer is one of the block's inputs")
+
+
+def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None, out=None):
     """Launch the variant's kernel (`csrc/elementwise_block.cuh`) on the
     current stream: one kernel. Returns the same tuple as `_block_torch`;
     the norms are 0-d views of one 2-vector on the device, so nothing waits
-    for the device. The scalars are rounded to the compute dtype where they
-    are passed by value."""
+    for the device. Host penalties are passed by value, rounded to the
+    compute dtype; 0-d tensors go to the pointer entry by address (mu_l
+    again in place of mu_l_next without T': a divisor the kernel then
+    skips), converted to the compute dtype on the device where they are not
+    in it. `out`: buffers the four outputs and T' are stored in
+    (`_check_out`), else new tensors."""
     tensors = (d, l, e, y_l, y_o)
     # without T' its dtype is moot: the variant with T' in the storage dtype
     t_dtype = (t_dtype or e.dtype) if mu_l_next is not None else e.dtype
@@ -463,44 +576,69 @@ def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None
     device = d.device
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype)
+            return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out)
     fn, group, count_key = _entry(variant)
     n = d.numel()
     with_t = mu_l_next is not None
-    o, e_new, y_l_new, y_o_new = outs = [torch.empty_like(e) for _ in range(4)]
+    if out is None:
+        outs = [torch.empty_like(e) for _ in range(4)]
+        t_new = None
+        if with_t:
+            t_new = torch.empty_like(e) if t_dtype == e.dtype else torch.empty_like(d, dtype=t_dtype)
+    else:
+        _check_out(out, (e.dtype, e.shape, device), (t_dtype, d.shape, device) if with_t else None, tensors)
+        *outs, t_new = out
+    o, e_new, y_l_new, y_o_new = outs
     sums = torch.empty(2, dtype=l.dtype, device=device)
     pointers = [x.data_ptr() for x in (*tensors, *outs)]
-    t_new = None
     if with_t:
-        t_new = torch.empty_like(e) if t_dtype == e.dtype else torch.empty_like(d, dtype=t_dtype)
         pointers.append(t_new.data_ptr())
     aligned = pointers_aligned(*pointers)
     if not with_t:
         pointers.append(None)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     scratch = _scratch_for((device.index, stream), lambda: torch.zeros(SCRATCH_LEN, dtype=_F64, device=device))
-    err = fn(*pointers, sums.data_ptr(), scratch.data_ptr(), n, block_grid(n, group), aligned,
-             float(mu_l), float(mu_o), float(lam), float(mu_l_next) if with_t else 1.0, stream)
+    head = (*pointers, sums.data_ptr(), scratch.data_ptr(), n, block_grid(n, group), aligned)
+    if isinstance(mu_l, torch.Tensor):
+        mus = [x if x.dtype == l.dtype else x.to(l.dtype) for x in (mu_l, mu_o, mu_l_next if with_t else mu_l)]
+        if any(x.get_device() != device.index or x.numel() != 1 for x in mus):
+            raise ValueError(f"the penalties must be 0-d tensors on {device}, the block's device")
+        err = _pointer_entry(variant)(*head, mus[0].data_ptr(), mus[1].data_ptr(), float(lam), mus[2].data_ptr(),
+                                      stream)
+    else:
+        err = fn(*head, float(mu_l), float(mu_o), float(lam), float(mu_l_next) if with_t else 1.0, stream)
     if err:
         from ..runtime import kernels
 
         kernels.check(err, f"{count_key} launch")
     LAUNCHES[count_key] += 1
+    if isinstance(mu_l, torch.Tensor):
+        POINTER_LAUNCHES[f"elementwise_block_ptr[{variant}]"] += 1
     nl, no = sums.unbind(0)
     return o, e_new, y_l_new, y_o_new, nl, no, t_new
 
 
-def elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None):
+def elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None, out=None):
     """Fused O/E/dual/residual update. Returns
     (o, e_new, y_l_new, y_o_new, ||res_l||^2, ||res_o||^2, t_new), where
     t_new = D - O' + Y_L'/mu_l_next in `t_dtype` (default: E's dtype), or
     None when mu_l_next is None. Computes in L's dtype and stores the four
-    tensor outputs in E's."""
+    tensor outputs in E's: in new tensors, or in `out` = (o, e, y_l, y_o, t)
+    (t None without T'), none of them an input. The penalties are host
+    numbers or 0-d tensors on d's device (module docstring)."""
     if d.device.type == "cpu":
-        return _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next,
-                            compute_dtype=l.dtype, store_dtype=e.dtype, t_dtype=t_dtype)
+        got = _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next,
+                           compute_dtype=l.dtype, store_dtype=e.dtype, t_dtype=t_dtype)
+        if out is None:
+            return got
+        _check_out(out, (e.dtype, e.shape, d.device), None if got[6] is None else (got[6].dtype, d.shape, d.device),
+                   (d, l, e, y_l, y_o))
+        for buf, x in zip(out, (*got[:4], got[6])):
+            if buf is not None:
+                buf.copy_(x)
+        return (*out[:4], got[4], got[5], out[4])
     if d.device.type == "cuda":
-        return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype)
+        return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out)
     raise ValueError(f"elementwise_block runs on CPU or CUDA tensors, got {d.device}")
 
 

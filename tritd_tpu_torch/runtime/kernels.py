@@ -1,8 +1,10 @@
 """ctypes binding of the library built by :mod:`tritd_tpu_torch.runtime.build`.
 
 Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
-scalars by value in the compute type. Loading the library builds it, so the
-first CUDA call pays the nvcc compile; importing this module does not.
+scalars by value in the compute type, or, in a variant's pointer entry
+(`..._ptr`), the three penalties as addresses of values in device memory.
+Loading the library builds it, so the first CUDA call pays the nvcc
+compile; importing this module does not.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ _P = ctypes.c_void_p
 _SCALAR_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
-def _block_argtypes(scalar):
+def _block_argtypes(scalar, pointer: bool):
     # d, l, e, y_l, y_o, o, e', y_l', y_o', t', sums, scratch; n; blocks,
-    # aligned; mu_l, mu_o, lam, mu_l_next; stream
-    return [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 2 + [scalar] * 4 + [_P]
+    # aligned; mu_l, mu_o, lam, mu_l_next (the pointer entry: addresses of
+    # mu_l, mu_o and mu_l_next); stream
+    head = [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 2
+    return head + ([_P, _P, scalar, _P] if pointer else [scalar] * 4) + [_P]
 
 
 def bind(path, variants=None) -> ctypes.CDLL:
@@ -44,9 +48,13 @@ def bind(path, variants=None) -> ctypes.CDLL:
     for (compute, *_), variant in KERNEL_VARIANTS.items():
         if variants is not None and variant not in variants:
             continue
-        fn = getattr(lib, f"tritd_elementwise_block_{variant}")
-        fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute])
-        fn.restype = ctypes.c_int
+        name = f"tritd_elementwise_block_{variant}"
+        for suffix in ("", "_ptr"):
+            if suffix and not hasattr(lib, name + suffix):  # not in a library built from an earlier revision
+                continue
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute], pointer=bool(suffix))
+            fn.restype = ctypes.c_int
         group = getattr(lib, f"tritd_elementwise_block_{variant}_group")
         group.argtypes = []
         group.restype = ctypes.c_int

@@ -14,12 +14,22 @@ PyTorch counterpart of `tritd_tpu/solvers/admm.py`, with the semantics of
     err[k] = (||D-L-O|| + ||O-E||) / ||D||
     stop when |err[k] - err[k-1]| < tol * err[k-1]
 
-Everything runs on the device of `d`. The loop is a host loop; the penalties
-and the counter are host numbers (numpy scalars of cfg.dtype, so the
-annealing rounds as the reference's float32 `min(mu*rho, cap)` does), and
-the only device-to-host read is the sticky stop flag, once per block of
-`cfg.unroll` iterations. On a CUDA device the elementwise block is the
-hand-written kernel; it also writes the next iteration's T.
+Everything runs on the device of `d`. On a CUDA device, in one process,
+`tritd_admm` runs as the reference's `lax.while_loop` under `jit` does
+(`tritd_tpu/solvers/admm.py:226-260`): each block of `cfg.unroll`
+iterations is one replay of a captured CUDA graph, and the penalties muL,
+muO and the counter k live in device memory, annealed and advanced by the
+graph (`_run_device_form`). The host reads the sticky stop flag once per block
+and the penalties once at the end. The elementwise block is the
+hand-written kernel, through its pointer entry, which reads the penalties
+from device memory; it also writes the next iteration's T.
+
+The eager loop (`run_admm(..., _eager=True)`, and on the CPU) runs the same
+`admm_iteration` with the penalties and the counter as host numbers (numpy
+scalars of cfg.dtype, so the annealing rounds as the reference's float32
+`min(mu*rho, cap)` does; the device form rounds alike). It is the route of
+the sharded solve (a collective over gloo cannot be captured), of
+`tritd_admm_checkpointed`, and of the CPU.
 
 Narrow storage (`cfg.storage_dtype`: bfloat16, float16, float8_e4m3fn or
 float8_e5m2) keeps D, O, E, Y_L, Y_O and T in that dtype; the factors,
@@ -32,12 +42,15 @@ rounds the RHS contractions' operands to it. Every narrowing goes through
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
+from ..ops import hopper_kernels
 from ..ops.hopper_kernels import elementwise_block
 from ..ops.kruskal import default_device, solver_input
 from ..ops.narrow import narrow_cast
@@ -141,6 +154,38 @@ def _whole(x):
     return x
 
 
+def anneal(mu, cfg: TriTDConfig):
+    """The next penalty, min(mu * rho, mu0 * cap) in cfg.dtype
+    (`tritd_tpu/solvers/admm.py:146-148`): for a host penalty a numpy
+    scalar, for a 0-d tensor a tensor on its device, computed there. Both
+    round rho and the cap to cfg.dtype and take one rounded product, so
+    they give the same bits."""
+    cap = cfg.mu * cfg.mu_cap_factor
+    if isinstance(mu, torch.Tensor):
+        return torch.clamp(mu * cfg.rho, max=cap)
+    dt = cfg.np_dtype().type
+    return np.minimum(mu * dt(cfg.rho), dt(cap))
+
+
+def _reciprocal(mu, dtype: torch.dtype):
+    """1/mu rounded to `dtype`: for a host penalty a Python float, for a 0-d
+    tensor a tensor computed on its device. The masked T multiplies Y_L by
+    it, as PyTorch's CUDA division by a host number does, so that both
+    forms of the penalty, on either device, give the same bits."""
+    if isinstance(mu, torch.Tensor):
+        return torch.reciprocal(mu.to(dtype))
+    np_t = np.dtype(str(dtype).removeprefix("torch.")).type
+    return float(np_t(1) / np_t(mu))
+
+
+def _write(hist: torch.Tensor, k, value: torch.Tensor) -> None:
+    """hist[..., k] = value in place, k a host int or a 0-d index tensor."""
+    if isinstance(k, torch.Tensor):
+        hist.index_copy_(hist.dim() - 1, k.view(1), value.to(hist.dtype).reshape(*hist.shape[:-1], 1))
+    else:
+        hist[..., k] = value
+
+
 def admm_iteration(
     d: torch.Tensor,
     state: TriTDState,
@@ -149,22 +194,37 @@ def admm_iteration(
     origin: torch.Tensor | None = None,
     norm_d: torch.Tensor | None = None,
     norm_origin: torch.Tensor | None = None,
-    disp_log: list | None = None,
+    disp_log=None,
     shard=None,
+    out=None,
 ) -> TriTDState:
     """One ADMM iteration (`triple_decomp_ADMM.m:31-66`). The histories are
-    written in place (entry k). With cfg.disp, every 10th iteration appends
-    (k, errL, errO) to `disp_log` as device scalars, for the caller to print.
+    written in place (entry k).
 
-    With `shard` (see :func:`update_factors`), `d`, `mask`, `origin` and the
-    data-sized state are one shard; `norm_d` and `norm_origin` must then be
-    given, taken over the whole tensor. The two sums of squares, and the
-    RRE numerator when `origin` is given, are reduced as sums in one small
-    vector before their roots are taken, so the error and the stop flag are
-    equal on every shard."""
+    The state's penalties and counter are host numbers (numpy scalars, an
+    int) or, in the device form, 0-d tensors on d's device: then nothing is
+    read back to the host, so that a CUDA graph can capture the iteration,
+    and the stop rule takes the reference's form (err_prev read at
+    max(k-1, 0) and k >= 1 tested on the device). Both forms give the same
+    bits. With cfg.disp, the host form appends (k, errL, errO) to the list
+    `disp_log` every 10th iteration, as device scalars, for the caller to
+    print; the device form writes (errL, errO) into column k of the
+    (2, hist_len) tensor `disp_log` every iteration.
+
+    `out` = (o, e, y_l, y_o, t) buffers that the elementwise block stores
+    into instead of new tensors (t None when masked), none of them a tensor
+    of `state`.
+
+    With `shard` (see :func:`update_factors`; host form only), `d`, `mask`,
+    `origin` and the data-sized state are one shard; `norm_d` and
+    `norm_origin` must then be given, taken over the whole tensor. The two
+    sums of squares, and the RRE numerator when `origin` is given, are
+    reduced as sums in one small vector before their roots are taken, so
+    the error and the stop flag are equal on every shard."""
     a, b, c = state.a, state.b, state.c
     o, e, y_l, y_o = state.o, state.e, state.y_l, state.y_o
     mu_l, mu_o, k = state.mu_l, state.mu_o, state.k
+    on_device = isinstance(k, torch.Tensor)
     if shard is not None and (norm_d is None or (origin is not None and norm_origin is None)):
         raise ValueError("a sharded iteration needs norm_d (and norm_origin) of the whole tensor")
     if norm_d is None:
@@ -177,14 +237,15 @@ def admm_iteration(
         # term binds on observed entries only; T is built from that D. The
         # reference's jnp.where promotes the imputed D: to the compute dtype
         # beside narrow storage, to float64 beside float64 storage at
-        # float32 compute. T is formed in that dtype; the block gets D in
-        # the compute dtype, which holds it exactly (the stored D and O
-        # hold values of the compute dtype).
+        # float32 compute. T is formed in that dtype, with Y_L/muL taken as
+        # Y_L times the rounded 1/muL; the block gets D in the compute
+        # dtype, which holds it exactly (the stored D and O hold values of
+        # the compute dtype).
         l_prev = designs.triple_product(a, b, c, variant=cfg.variant)
         cd = l_prev.dtype
         wide = torch.float64 if torch.float64 in (cd, d.dtype) else cd
         d = torch.where(mask, d.to(wide), (l_prev + o.to(cd)).to(wide))
-        t = d - o.to(wide) + y_l.to(wide) / float(mu_l)
+        t = d - o.to(wide) + y_l.to(wide) * _reciprocal(mu_l, wide)
         d = d.to(cd)
         if td is not None:
             t = narrow_cast(t, td)
@@ -194,16 +255,14 @@ def admm_iteration(
     a, b, c = update_factors(t, a, b, c, cfg, shard=shard)
     l = designs.triple_product(a, b, c, variant=cfg.variant)
 
-    dt = cfg.np_dtype().type
-    mu_cap = dt(cfg.mu * cfg.mu_cap_factor)
-    mu_l_next = np.minimum(mu_l * dt(cfg.rho), mu_cap)
-    mu_o_next = np.minimum(mu_o * dt(cfg.rho), mu_cap)
+    mu_l_next = anneal(mu_l, cfg)
+    mu_o_next = anneal(mu_o, cfg)
 
     # Masked mode rebuilds T from the freshly imputed D each iteration, so
     # the block skips T' and the state's T passes through.
     o, e, y_l, y_o, sq_l, sq_o, t_next = elementwise_block(
         d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1,
-        mu_l_next=None if masked else mu_l_next, t_dtype=td,
+        mu_l_next=None if masked else mu_l_next, t_dtype=td, out=out,
     )
     if masked:
         t_next = state.t
@@ -218,23 +277,29 @@ def admm_iteration(
         sq_rre = rest[0] if rest else None
     root_l, root_o = torch.sqrt(sq_l), torch.sqrt(sq_o)
     err = (root_l + root_o) / norm_d
-    if cfg.disp and disp_log is not None and (k + 1) % 10 == 0:
-        disp_log.append((k + 1, root_l / norm_d, root_o / norm_d))
+    if cfg.disp and disp_log is not None:
+        if on_device:
+            _write(disp_log, k, torch.stack((root_l, root_o)) / norm_d)
+        elif (k + 1) % 10 == 0:
+            disp_log.append((k + 1, root_l / norm_d, root_o / norm_d))
     err_hist = state.err_hist
-    err_hist[k] = err
+    _write(err_hist, k, err)
 
     rre_hist = state.rre_hist
     if sq_rre is not None:
-        rre_hist[k] = torch.sqrt(sq_rre) / norm_origin
+        _write(rre_hist, k, torch.sqrt(sq_rre) / norm_origin)
     elif origin is not None:
         if norm_origin is None:
             norm_origin = torch.linalg.vector_norm(origin)
-        rre_hist[k] = torch.linalg.vector_norm(l - origin) / norm_origin
+        _write(rre_hist, k, torch.linalg.vector_norm(l - origin) / norm_origin)
 
     # relative-change stopping rule (`:63-65`); sticky, so that a block of
     # unrolled iterations cannot un-converge
     done = state.done
-    if k >= 1:
+    if on_device:
+        err_prev = err_hist.index_select(0, torch.clamp(k - 1, min=0).view(1)).view(())
+        done = done | ((k >= 1) & (torch.abs(err - err_prev) < cfg.tol * err_prev))
+    elif k >= 1:
         err_prev = err_hist[k - 1]
         done = done | (torch.abs(err - err_prev) < cfg.tol * err_prev)
 
@@ -269,11 +334,18 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
 
 
 def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
-             norm_d=None, norm_origin=None, shard=None) -> TriTDState:
+             norm_d=None, norm_origin=None, shard=None, _eager: bool = False) -> TriTDState:
     """Iterate from `state` to cfg.max_iter or the stop rule, in blocks of
-    cfg.unroll iterations; the sticky stop flag is the only device-to-host
-    read, once per block. With `shard` (see :func:`admm_iteration`) the flag
-    comes from reduced sums, so every shard leaves the loop together."""
+    cfg.unroll iterations, reading the sticky stop flag between blocks.
+
+    On a CUDA device without `shard`, each block is one replay of a CUDA
+    graph (`_run_device_form`); `_eager=True` (for the comparison of the two
+    routes) and the CPU take the eager loop, whose only device-to-host read
+    is that flag. With `shard` (see :func:`admm_iteration`) the loop is
+    eager and the flag comes from reduced sums, so every shard leaves the
+    loop together. Either way the state comes back in its host form."""
+    if d.device.type == "cuda" and shard is None and not _eager:
+        return _run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=True)
     disp_log: list = []
     while state.k < cfg.max_iter and not bool(state.done):
         for _ in range(cfg.unroll):
@@ -285,6 +357,111 @@ def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
             print(f"Iter {it}, errL={float(el):.2e}, errO={float(eo):.2e}")
         disp_log.clear()
     return state
+
+
+# The fields of the device form that a block carries in place: the factors,
+# the penalties, the counter and the stop flag. The data-sized fields take
+# turns in two sets of buffers instead, and the histories are written in place.
+_CARRIED = ("a", "b", "c", "mu_l", "mu_o", "k", "done")
+
+
+def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_d, norm_origin,
+                     graphs: bool) -> TriTDState:
+    """The loop of `run_admm` on the device form of the state: the
+    penalties and the counter become 0-d tensors on d's device, and each
+    block of cfg.unroll iterations is one call of the same function of
+    device tensors, with no read back to the host inside it.
+
+    The state carries across blocks without a data-sized copy. The
+    data-sized fields take turns in two sets of buffers: the iteration that
+    starts from one set has the kernel store into the other. The factors,
+    penalties, counter and stop flag are copied at the end of each block
+    into buffers that the next block reads (a few (n, r^2) and 0-d
+    tensors). The block is a function of the iterations done before it
+    only through their parity, so with `graphs` (a CUDA device) the first
+    block runs eagerly on a side stream, warming cuBLAS, cuSOLVER and the
+    kernel's scratch there, and the later ones replay one graph captured
+    per parity (one when cfg.unroll is even). Without `graphs` every block
+    runs eagerly: the CPU tests hold this route to the eager loop.
+
+    The host reads the stop flag before each block, (errL, errO) of the
+    block's 10th iterations with cfg.disp, and the penalties once at the
+    end, which must equal the host's numpy schedule bitwise. A failed
+    capture raises."""
+    masked = cfg.masked and mask is not None
+    if norm_d is None:
+        norm_d = torch.linalg.vector_norm(d)
+    if origin is not None and norm_origin is None:
+        norm_origin = torch.linalg.vector_norm(origin)
+    device, dtype = d.device, cfg.torch_dtype()
+    k0 = state.k
+    carry = state._replace(
+        a=state.a.clone(), b=state.b.clone(), c=state.c.clone(),
+        mu_l=torch.full((), float(state.mu_l), dtype=dtype, device=device),
+        mu_o=torch.full((), float(state.mu_o), dtype=dtype, device=device),
+        k=torch.full((), k0, dtype=torch.int64, device=device), done=state.done.clone(),
+    )
+    fields = ("o", "e", "y_l", "y_o") if masked else ("o", "e", "y_l", "y_o", "t")
+    sets = [tuple(torch.empty_like(getattr(state, f), memory_format=torch.contiguous_format) for f in fields)
+            for _ in range(2)]
+    disp_hist = (torch.full((2, state.err_hist.shape[0]), float("nan"), dtype=state.err_hist.dtype, device=device)
+                 if cfg.disp else None)
+
+    def block(done_before: int) -> None:
+        """cfg.unroll iterations from the state after `done_before` of them."""
+        if done_before == 0:
+            st = carry._replace(o=state.o, e=state.e, y_l=state.y_l, y_o=state.y_o, t=state.t)
+        else:
+            st = carry._replace(**dict(zip(fields, sets[done_before % 2])))
+        for i in range(cfg.unroll):
+            out = sets[(done_before + i + 1) % 2]
+            st = admm_iteration(d, st, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
+                                disp_log=disp_hist, out=out if not masked else (*out, None))
+        for f in _CARRIED:
+            getattr(carry, f).copy_(getattr(st, f))
+
+    n_done = 0  # iterations this call has run
+    with contextlib.ExitStack() as stack:
+        if graphs:
+            caller, side = torch.cuda.current_stream(device), torch.cuda.Stream(device=device)
+            side.wait_stream(caller)
+            # unwound last in, first out: the side stream is left, then the
+            # caller's stream waits for its work
+            stack.callback(caller.wait_stream, side)
+            stack.enter_context(torch.cuda.stream(side))
+            captured: dict = {}
+            pool = torch.cuda.graph_pool_handle()
+        while k0 + n_done < cfg.max_iter and not bool(carry.done):
+            if graphs and n_done > 0:
+                parity = n_done % 2
+                if parity not in captured:
+                    captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool)
+                captured[parity].replay()
+            else:
+                block(n_done)
+            if cfg.disp:
+                _print_disp(disp_hist, k0 + n_done, k0 + n_done + cfg.unroll)
+            n_done += cfg.unroll
+
+    mu = torch.stack((carry.mu_l, carry.mu_o)).cpu().numpy()
+    want = np.array([state.mu_l, state.mu_o], dtype=cfg.np_dtype())
+    for _ in range(n_done):
+        want = anneal(want, cfg)
+    if mu.tobytes() != want.tobytes():
+        raise AssertionError(f"the penalties on {device} after {n_done} iterations, {mu}, are not the host's "
+                             f"schedule {want}")
+    last = dict(zip(fields, sets[n_done % 2])) if n_done else {}
+    return state._replace(a=carry.a, b=carry.b, c=carry.c, **last, mu_l=mu[0], mu_o=mu[1], k=k0 + n_done,
+                          done=carry.done)
+
+
+def _print_disp(disp_hist: torch.Tensor, k_from: int, k_to: int) -> None:
+    """The disp lines of iterations k_from+1..k_to that are multiples of 10."""
+    its = [it for it in range(k_from + 1, k_to + 1) if it % 10 == 0 and it <= disp_hist.shape[1]]
+    if its:
+        rows = disp_hist[:, [it - 1 for it in its]].cpu()
+        for it, el, eo in zip(its, rows[0].tolist(), rows[1].tolist()):
+            print(f"Iter {it}, errL={el:.2e}, errO={eo:.2e}")
 
 
 def tritd_admm(

@@ -76,7 +76,8 @@ class TriTDConfig:
                                       # them, computes in cfg.dtype and
                                       # rounds the stores. cfg.dtype itself
                                       # is None
-    unroll: int = 1                 # iterations per block; the stopping
+    unroll: int = 1                 # iterations per block (on the card:
+                                    # per CUDA graph replay); the stopping
                                     # rule is read on the host only between
                                     # blocks, so an early-stopped run may do
                                     # up to unroll-1 extra iterations
@@ -100,8 +101,10 @@ class TriTDConfig:
 
 class TriTDState(NamedTuple):
     """ADMM state. Tensors live on the device of the data; the penalties
-    and the iteration counter live on the host, so the loop needs no
-    device-to-host read except the stopping flag between blocks."""
+    and the iteration counter are host numbers, as `run_admm` returns them
+    and checkpoints hold them. Inside the loop `admm_iteration` also takes
+    a device form, with mu_l, mu_o and k as 0-d tensors on the data's
+    device, which the CUDA graph route of `run_admm` carries."""
 
     a: torch.Tensor        # (n1, r, r)
     b: torch.Tensor        # (r, n2, r)

@@ -14,7 +14,8 @@ and the whole err_hist trajectories are compared (max |difference|, final
 values, iteration counts). On the card in float64 `triple` runs through
 the f64 T' variant of the hand-written kernel, so agreement there holds the
 kernel, the GEMMs and cuSOLVER to the protocol, not only to a plain
-version; each row counts the kernel's launches (`kernel_launches`).
+version; each row counts the kernel's launches (`kernel_launches`; `pointer_launches` those
+through its pointer entry, which the solve's CUDA graph launches).
 
 Data: the port's `load_dataset` (the numpy stand-in of the published shape
 when no .mat file is present), 10% uniform missing from
@@ -189,7 +190,9 @@ def port_side(method: str, prob: Problem, max_iter: int, device, dtype, drawn: d
     sync()
     seconds = time.perf_counter() - t0
     launches = {k[len("elementwise_block["):-1]: v for k, v in hopper_kernels.LAUNCHES.items() if v}
-    return {"hist": hist, "n": int(n), "seconds": seconds, "launches": launches, **extra}
+    pointer = {k[len("elementwise_block_ptr["):-1]: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}
+    return {"hist": hist, "n": int(n), "seconds": seconds, "launches": launches, "pointer_launches": pointer,
+            **extra}
 
 
 def emulator_side(method: str, prob: Problem, max_iter: int, drawn: dict) -> dict:
@@ -239,6 +242,7 @@ def compare(method: str, port: dict, em: dict, device, dtype) -> dict:
         "dtype": f"{str(dtype).removeprefix('torch.')}/float64",
         "device": str(device),
         "kernel_launches": port["launches"],
+        "pointer_launches": port["pointer_launches"],
     }
     if "rre" in port:
         m = min(len(port["rre"]), len(em["rre"]), n)

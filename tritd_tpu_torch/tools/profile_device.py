@@ -20,15 +20,24 @@ Two parts, both float32 unless a variant says otherwise, TF32 off:
   iteration against the unprofiled CUDA-event time per iteration, so the
   share of the time the card is busy, and the kernels that take most of it.
 
+With `--solves`, also `tritd_admm` (triple) at taxi (10% missing,
+COMPLETION_TRITD) and highway (VIDEO_TRITD), f32, 100 iterations, tol 0, on
+both routes of `solvers/admm.py`: the CUDA graph route that it takes on the
+card and the eager loop. For each: CUDA-event ms per iteration of an
+unprofiled solve, and from a trace of one more, device ms per iteration,
+the busy share and the kernels that take most of it. A trace records each
+kernel a graph replay runs, as it records the eager launches.
+
 Needs a CUDA device and exits with an error without one.
 
 Usage: python -m tritd_tpu_torch.tools.profile_device [--iters 8]
-       [--reps 20] [--skip-baselines] [--out result.json]
+       [--reps 20] [--skip-block] [--skip-baselines] [--solves] [--out result.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 
@@ -147,20 +156,58 @@ def profile_baselines(iters: int) -> list[dict]:
     return rows
 
 
+def profile_solves(iters: int = 100) -> list[dict]:
+    """Rows of tritd_admm's two routes at taxi and highway (module docstring)."""
+    from ..solvers import init_factors, init_state, run_admm
+    from ..utils.config import COMPLETION_TRITD, README_MISSING_RATIO, VIDEO_TRITD
+
+    x_np, _spec, _prov = load_dataset("taxi")
+    x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+    mask = torch.as_tensor(uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO),
+                           device="cuda")
+    v = torch.as_tensor(load_dataset("highway")[0], dtype=torch.float32, device="cuda")
+    rows = []
+    for name, d, origin, preset in (("taxi", torch.where(mask, x, torch.zeros_like(x)), x, COMPLETION_TRITD),
+                                    ("highway", v, None, VIDEO_TRITD)):
+        cfg = dataclasses.replace(preset, max_iter=iters, tol=0.0)
+        init = init_factors(torch.Generator().manual_seed(0), tuple(d.shape), cfg.rank, torch.float32)
+        norm_d = torch.linalg.vector_norm(d)
+        for route in ("graph", "eager"):
+            def solve():
+                return run_admm(d, init_state(d, cfg, init), cfg, origin=origin, norm_d=norm_d,
+                                _eager=route == "eager")
+
+            solve()
+            seconds = event_seconds(solve)
+            times = device_times(solve, 1)
+            busy_ms = sum(times.values()) / 1e3
+            top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+            rows.append({"solve": name, "route": route, "iters": iters, "ms_per_iter": seconds / iters * 1e3,
+                         "device_ms_per_iter": busy_ms / iters, "busy_share": busy_ms / 1e3 / seconds,
+                         "top_kernels_ms_per_iter": {k: us / 1e3 / iters for k, us in top}})
+            print(f"triple {name} {route}: {seconds / iters * 1e3:.3f} ms/iter (events), device "
+                  f"{busy_ms / iters:.3f} ms/iter, busy {busy_ms / 1e3 / seconds:.0%}; top: "
+                  + "; ".join(f"{k[:50]} {us / 1e3 / iters:.3f} ms" for k, us in top), flush=True)
+    return rows
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--iters", type=int, default=8, help="iterations of each baseline solve")
     p.add_argument("--reps", type=int, default=20, help="traced calls of each kernel variant")
     p.add_argument("--out", default=None)
-    p.add_argument("--skip-baselines", action="store_true", help="profile the kernel only")
+    p.add_argument("--skip-baselines", action="store_true", help="leave the baselines out")
+    p.add_argument("--skip-block", action="store_true", help="leave the kernel variants out")
+    p.add_argument("--solves", action="store_true", help="also tritd_admm's two routes at taxi and highway")
     a = p.parse_args(argv)
     resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    result = {"card": card, "block": profile_block(a.reps),
-              "baselines": [] if a.skip_baselines else profile_baselines(a.iters)}
+    result = {"card": card, "block": [] if a.skip_block else profile_block(a.reps),
+              "baselines": [] if a.skip_baselines else profile_baselines(a.iters),
+              "solves": profile_solves() if a.solves else []}
     if a.out:
         with open(a.out, "w") as fh:
             json.dump(result, fh, indent=1)

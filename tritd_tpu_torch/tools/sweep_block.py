@@ -29,13 +29,21 @@ builds hold bit for bit on phase 2's kinds of inputs, `--solves` the final
 state of the main path's solves and of one solve per such variant, and
 `--every` times each such variant of both builds in turns (four readings a
 side) and prints each side's spread, and times the variants only this
-build holds four times alone (without `--against`, every variant). `quotient_divisors` and
+build holds four times alone (without `--against`, every variant).
+`--pointer` times every variant's pointer entry (the penalties read from
+device memory, as the solve's CUDA graph launches it) against its by-value
+entry at taxi, in turns, four readings a side, after holding the two
+entries' stores bitwise equal, and prints the registers and spills of both
+instantiations of every variant; with `--pointer-variations` also each of
+POINTER_VARIATIONS, other designs of the pointer instantiation. `quotient_divisors` and
 `quotient_check` hold the kernel's division to '/' on the card
 (`chip_smoke.py` phase 2).
 
 Needs a CUDA device and nvcc. Usage:
     python -m tritd_tpu_torch.tools.sweep_block [--launches 40] [--only NAME ...] [--sass [--sass-out DIR]]
-        [--against OTHER/csrc/elementwise_block.cuh [--bitwise] [--solves] [--every]] [--out result.json]
+        [--against OTHER/csrc/elementwise_block.cuh [--bitwise] [--solves] [--every]]
+        [--pointer [--pointer-variations]]
+        [--out result.json]
 """
 
 from __future__ import annotations
@@ -138,6 +146,31 @@ VARIATIONS = {
         _groups(lambda c, n: min(16 // n, (64 if n == 1 else 32) // c)), True),
 }
 
+# other designs of the pointer instantiation (`--pointer-variations`), timed
+# like the header as built: name -> source substitutions
+_PREFETCH = """    if (first < n_vec) {
+      prefetch_l2(d + first);
+      prefetch_l2(l + first);
+      prefetch_l2(e + first);
+      prefetch_l2(y_l + first);
+      prefetch_l2(y_o + first);
+    }
+"""
+_STAGED = """    if (threadIdx.x == 0) {
+      staged[0] = *mu_l_at;
+      staged[1] = *mu_o_at;
+      staged[2] = *mu_l_next_at;
+    }
+    __syncthreads();
+    mu_l = staged[0];
+    mu_o = staged[1];
+    mu_l_next = staged[2];
+"""
+POINTER_VARIATIONS = {
+    "pointer entry without the L2 prefetch of the first group": [(_PREFETCH, "", 1)],
+    "pointer entry, each thread loading the penalties (__ldg), no staging": [
+        (_STAGED, "    mu_l = __ldg(mu_l_at);\n    mu_o = __ldg(mu_o_at);\n    mu_l_next = __ldg(mu_l_next_at);\n", 1)],
+}
 
 # SASS base opcodes (before the first '.') by what they are counted as
 SASS_KINDS = {
@@ -299,8 +332,9 @@ def sass_loops(text: str, variants, groups: dict) -> dict[str, dict]:
     names = dict(zip(_demangle(mangled), mangled))
     out = {}
     for variant in variants:
-        want = f"elementwise_block_kernel<{kernel_types(variant)}>"
-        found = [m for d, m in names.items() if want in d]
+        # the by-value instantiation (a header before the pointer entries has no flag)
+        want = f"elementwise_block_kernel<{kernel_types(variant)}"
+        found = [m for d, m in names.items() if f"{want}>" in d or f"{want}, false>" in d]
         if len(found) != 1:
             raise RuntimeError(f"{variant}: {len(found)} kernels named {want} in the SASS")
         loop = vector_loop(functions[found[0]])
@@ -405,6 +439,7 @@ class Built:
     @staticmethod
     def _fresh():
         hopper_kernels._entry.cache_clear()
+        hopper_kernels._pointer_entry.cache_clear()
         hopper_kernels._SCRATCH.clear()
 
 
@@ -430,32 +465,41 @@ def make_case(variant: str, shape_name: str):
     return args, kw, plain
 
 
-def launch_again(args, kw):
+def launch_again(args, kw, pointer: bool = False):
     """One wrapper call; returns a function that repeats its launch of the C
     entry point with the same arguments, and the call's outputs (which keep
-    the buffers alive)."""
-    real, seen = hopper_kernels._entry, {}
+    the buffers alive). `pointer`: the call passes the penalties as 0-d
+    tensors, views of a buffer kept alive here, so it takes the pointer
+    entry."""
+    name = "_pointer_entry" if pointer else "_entry"
+    real, seen = getattr(hopper_kernels, name), {}
+    mus = torch.tensor([SCALARS[0], SCALARS[1], kw["mu_l_next"] or SCALARS[0]], dtype=args[1].dtype, device="cuda")
 
     def spy(variant):
-        fn, group, key = real(variant)
+        found = real(variant)
+        fn = found if pointer else found[0]
 
         def record(*argv):
-            seen["again"] = lambda: fn(*argv)
+            seen["again"] = lambda keep=mus: fn(*argv)  # keeps the penalties' buffer alive
             return fn(*argv)
-        return record, group, key
+        return record if pointer else (record, *found[1:])
 
-    hopper_kernels._entry = spy
+    setattr(hopper_kernels, name, spy)
     try:
-        got = hopper_kernels._block_cuda(*args, *SCALARS, **kw)
+        penalties = (mus[0], mus[1], SCALARS[2]) if pointer else SCALARS
+        call_kw = dict(kw, mu_l_next=mus[2]) if pointer and kw["mu_l_next"] is not None else kw
+        got = hopper_kernels._block_cuda(*args, *penalties, **call_kw)
     finally:
-        hopper_kernels._entry = real
+        setattr(hopper_kernels, name, real)
     return seen["again"], got
 
 
-def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool) -> tuple[float, float]:
-    """(device us per launch, largest |kernel - plain| over the outputs)."""
+def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool,
+            pointer: bool = False) -> tuple[float, float]:
+    """(device us per launch, largest |kernel - plain| over the outputs);
+    `pointer`: through the variant's pointer entry."""
     with built:
-        again, got = launch_again(args, kw)
+        again, got = launch_again(args, kw, pointer)
         torch.cuda.synchronize()
         idx = [i for i in (0, 1, 2, 3, 6) if got[i] is not None]
         worst = max(float((got[i].double() - plain[i].double()).abs().nan_to_num().max()) for i in idx)
@@ -524,6 +568,48 @@ def time_in_turns(mine: Built, theirs: Built | None, launches: int) -> list[dict
               f"median {row['change']:+.1%}", flush=True)
         del args, plain
     return rows
+
+
+def pointer_turns(built: Built, launches: int) -> list[dict]:
+    """Every variant of `built` at taxi through its pointer entry and its
+    by-value entry: first both once, every store and both sums compared bit
+    for bit (raises if any differs), then in turns by-value, pointer,
+    pointer, by-value twice (four readings a side, each the median of 5
+    batches), with each side's spread and the pointer entry's change."""
+    rows = []
+    for variant in sorted(built.groups):
+        args, kw, plain = make_case(variant, "taxi")
+        with built:
+            outs = [launch_again(args, kw, pointer)[1] for pointer in (False, True)]
+        torch.cuda.synchronize()
+        wrong = [i for i in (0, 1, 2, 3, 4, 5, 6) if outs[0][i] is not None and not same_bits(outs[0][i], outs[1][i])]
+        if wrong:
+            raise AssertionError(f"{variant}: the pointer entry's outputs {wrong} differ from the by-value entry's")
+        us = {False: [], True: []}
+        for pointer in (False, True, True, False) * 2:
+            us[pointer].append(measure(built, args, kw, plain, launches, True, pointer)[0])
+        by_value, by_pointer = us[False], us[True]
+        row = {"variant": variant, "shape": "taxi", "bound_us": _case_bytes(variant, "taxi") * args[0].numel()
+               / PEAK_BYTES_PER_S * 1e6, "by_value_us": by_value, "pointer_us": by_pointer,
+               "by_value_spread": (max(by_value) - min(by_value)) / np.median(by_value),
+               "pointer_spread": (max(by_pointer) - min(by_pointer)) / np.median(by_pointer),
+               "change": float(np.median(by_pointer) / np.median(by_value) - 1)}
+        rows.append(row)
+        print(f"pointer {variant:24s} taxi bound {row['bound_us']:6.1f} us: by value "
+              + " ".join(f"{x:7.2f}" for x in by_value) + f" (spread {row['by_value_spread']:.1%}); pointer "
+              + " ".join(f"{x:7.2f}" for x in by_pointer) + f" (spread {row['pointer_spread']:.1%}); median "
+              f"{row['change']:+.1%}; stores bitwise equal", flush=True)
+        del args, plain, outs
+    return rows
+
+
+def print_pointer_summary(name: str, rows: list[dict]) -> None:
+    slow = max(rows, key=lambda r: r["change"])
+    spread = max(max(r["by_value_spread"], r["pointer_spread"]) for r in rows)
+    beyond = [r["variant"] for r in rows if abs(r["change"]) > max(r["by_value_spread"], r["pointer_spread"])]
+    print(f"{name}: {len(rows)} variants, stores bitwise the by-value entry's; median change "
+          f"{np.median([r['change'] for r in rows]):+.2%}, largest {slow['variant']} {slow['change']:+.1%}; "
+          f"largest spread {spread:.1%}; {len(beyond)} beyond both sides' spread: {', '.join(beyond)}", flush=True)
 
 
 def host_times(reps: int = 200) -> dict:
@@ -773,6 +859,10 @@ def main(argv=None) -> dict:
     p.add_argument("--every", action="store_true",
                    help="every variant (taxi, and video where compute is float32) timed four times; with "
                         "--against, those both builds hold in turns, four readings a side")
+    p.add_argument("--pointer", action="store_true",
+                   help="every variant's pointer entry against its by-value entry at taxi, in turns")
+    p.add_argument("--pointer-variations", action="store_true",
+                   help="with --pointer: also each of POINTER_VARIATIONS, the same way")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     resolve_device("cuda")
@@ -799,6 +889,22 @@ def main(argv=None) -> dict:
             print(f"SM clock under load {sm_mhz:.0f} MHz (max {max_mhz:.0f})")
             result["sm_mhz"] = sm_mhz
             result["sass"]["as built"] = print_sass("as built", base, sm_mhz, a.sass_out)
+        if a.pointer:
+            mine = Built("as built, every variant", text, {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
+            result["pointer_registers"] = mine.registers
+            for row in mine.registers:
+                print(f"every variant: kernel<{row['kernel_types_c_d_s_t']}> {row['registers']} registers, "
+                      f"{row['spill_bytes']} bytes spilled")
+            rows = pointer_turns(mine, a.launches)
+            result["pointer"] = rows
+            print_pointer_summary("pointer", rows)
+            for name, subs in (POINTER_VARIATIONS.items() if a.pointer_variations else ()):
+                other = Built(name, vary(text, subs), {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
+                spills = [r for r in other.registers if r["spill_bytes"]]
+                print(f"{name}: spills " + (", ".join(f"kernel<{r['kernel_types_c_d_s_t']}> {r['spill_bytes']} bytes"
+                                                       for r in spills) or "none"))
+                result.setdefault("pointer_variations", {})[name] = pointer_turns(other, a.launches)
+                print_pointer_summary(name, result["pointer_variations"][name])
         if a.every and not a.against:
             mine = Built("as built, every variant", text, {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
             result["turns"] = time_in_turns(mine, None, a.launches)
