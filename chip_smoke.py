@@ -109,10 +109,23 @@ Phases, each of which fails the run by raising:
      16x16x8x8 problem, 20 iterations each.
  11. the completion CLI in-process: triple, ttnn, ring and fctn on taxi.
  12. the parallel layer with one rank on NCCL, in this process:
-     tritd_admm_sharded on the taxi stand-in (f32, 100 iterations, origin
-     given) in mode 1 and mode 3, err_hist and rre_hist within rtol 1e-6 of
-     tritd_admm on the same data and init, one kernel launch per iteration,
-     the counted all_reduce words per iteration within the design budget.
+     tritd_admm_sharded on the taxi stand-in (f32, 100 iterations, tol 0,
+     origin given) in mode 1 and mode 3, masked taxi with bf16 storage in
+     mode 1 and the highway video (240x320x300) in mode 3, each on the CUDA
+     graph route that NCCL allows (one replay a block of cfg.unroll
+     iterations, the four all_reduce calls of an iteration inside it, the
+     penalties and the counter on the card) and on the eager loop
+     (`_local_solve`'s `_eager`), in turns graph, eager, eager, graph: final
+     A, B, C, O, E, err_hist and rre_hist bitwise equal between the routes;
+     one kernel launch per iteration, all through the pointer entry on the
+     graph route; 4 all_reduce calls per iteration on both routes, their
+     words within the design budget; ceil(max_iter / unroll) + 1
+     synchronizing calls in a graph-route loop; err_hist and rre_hist within
+     rtol 1e-6 of tritd_admm on the same data and init. Prints CUDA-event ms per
+     iteration of each route, the graph route's time to its first replay
+     and its replays' ms per iteration, and the peak MiB of each. The first
+     graph run of each case is the main path: its launches join the
+     kernels line.
  13. several ranks on the one card, as worker processes of
      tritd_tpu_torch.parallel.distributed with --backend gloo --device
      cuda:0, at full width: taxi in mode 1 at 2, 3 (n1 padded to 102) and 4
@@ -1600,52 +1613,134 @@ def _nccl_one_rank() -> None:
                            timeout_s=120.0)
 
 
+@contextlib.contextmanager
+def _sharded_loop(eager: bool):
+    """tritd_admm_sharded's loop on one route (`_local_solve`'s `_eager`),
+    watched: yields a dict that receives `_watched`'s record of its
+    run_admm call."""
+    import functools
+
+    from tritd_tpu_torch.parallel import sharded_admm
+
+    record: dict = {}
+    local, run = sharded_admm._local_solve, sharded_admm.run_admm
+
+    def watched_run(*args, **kwargs):
+        record.update(_watched(lambda: run(*args, **kwargs)))
+        return record["res"]
+
+    sharded_admm._local_solve = functools.partial(local, _eager=eager)
+    sharded_admm.run_admm = watched_run
+    try:
+        yield record
+    finally:
+        sharded_admm._local_solve, sharded_admm.run_admm = local, run
+
+
+# phase 12's runs: tag, dataset, config, shard_tensor_mode, masked
+PHASE12_RUNS = (
+    ("taxi mode 1", "taxi", dataclasses.replace(COMPLETION_TRITD, tol=0.0), 1, False),
+    ("taxi mode 3", "taxi", dataclasses.replace(COMPLETION_TRITD, tol=0.0), 3, False),
+    ("taxi masked storage=bf16 mode 1", "taxi",
+     dataclasses.replace(COMPLETION_TRITD, tol=0.0, masked=True, storage_dtype="bfloat16"), 1, True),
+    ("video highway mode 3", "highway", dataclasses.replace(VIDEO_TRITD, tol=0.0), 3, False),
+)
+
+
 def phase12() -> dict:
-    """One rank on NCCL, in this process; returns its kernel launches."""
+    """One rank on NCCL, in this process: tritd_admm_sharded on its CUDA
+    graph route against its eager loop; returns the graph route's kernel
+    launches (the first graph run of each case: the main path)."""
     import torch.distributed as dist
 
     from tritd_tpu_torch.parallel import make_mesh, tritd_admm_sharded
 
-    x, _mask, y, _prov = _taxi()
-    cfg = COMPLETION_TRITD
-    init = init_factors(torch.Generator().manual_seed(0), x.shape, cfg.rank, torch.float32)
-    ref = tritd_admm(y, cfg, origin=x, init=init)
+    x, mask, y, _prov = _taxi()
+    v_np, _vspec, _vprov = load_dataset("highway")
+    data = {"taxi": (y, x), "highway": (torch.as_tensor(v_np, dtype=torch.float32, device="cuda"), None)}
+    fields = ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
     _nccl_one_rank()
     total: dict = {}
     try:
         mesh = make_mesh(device_type="cuda")
-        y_host, x_host = y.cpu(), x.cpu()
-        for mode in (1, 3):
-            tritd_admm_sharded(y_host, dataclasses.replace(cfg, max_iter=3), mesh, shard_tensor_mode=mode,
-                               origin=x_host, init=init)  # NCCL's set-up stays out of the time
-            hopper_kernels.reset_launch_counts()
-            audit: dict = {}
-            res = tritd_admm_sharded(y_host, cfg, mesh, shard_tensor_mode=mode, origin=x_host, init=init, audit=audit)
-            torch.cuda.synchronize()
-            launches = _launches()
-            _tally_pointer(_pointer_launches())
-            n = res.n_iters
-            budget = _budget_words(x.shape, cfg.rank, mode)
-            words = audit["per_iter"]["words"]
-            if n != ref.n_iters or launches != {"f32": n} or res.o.device.type != "cuda" or res.o.shape != x.shape:
-                raise AssertionError(f"phase12 mode {mode}: n_iters {n} vs {ref.n_iters}, launches {launches}, "
-                                     f"O {tuple(res.o.shape)} on {res.o.device}")
-            if not (audit["per_iter"]["calls"] == 4 and 0 < words <= budget):
-                raise AssertionError(f"phase12 mode {mode}: all_reduce per iteration {audit['per_iter']}, budget {budget} words")
-            err = _hist_diff(f"phase12 mode {mode} err_hist", res.err_hist.cpu(), ref.err_hist.cpu(), n, 1e-6, 0.0)
-            rre_ = _hist_diff(f"phase12 mode {mode} rre_hist", res.rre_hist.cpu(), ref.rre_hist.cpu(), n, 1e-6, 0.0)
-            for k, v in launches.items():
+        for tag, name, cfg, mode, masked in PHASE12_RUNS:
+            d, origin = data[name]
+            dmask = mask if masked else None
+            init = init_factors(torch.Generator().manual_seed(0), tuple(d.shape), cfg.rank, torch.float32)
+            ref = tritd_admm(d, cfg, mask=dmask, origin=origin, init=init)
+            host = [None if t is None else t.cpu() for t in (d, dmask, origin)]
+
+            def solve(eager, config=cfg):
+                hopper_kernels.reset_launch_counts()
+                audit: dict = {}
+                with _sharded_loop(eager) as record:
+                    res = tritd_admm_sharded(host[0], config, mesh, shard_tensor_mode=mode, mask=host[1],
+                                             origin=host[2], init=init, audit=audit)
+                torch.cuda.synchronize()
+                return dict(record, res=res, audit=audit, launches=_launches(), pointer=_pointer_launches())
+
+            for eager in (False, True):  # NCCL's, cuBLAS's and the captures' set-up stay out of the times
+                solve(eager, dataclasses.replace(cfg, max_iter=3))
+            runs = {False: [], True: []}
+            for eager in (False, True, True, False):
+                runs[eager].append(solve(eager))
+            graph, eager = runs[False][0], runs[True][0]
+            n = graph["res"].n_iters
+            main = graph["launches"]
+            for k, v in main.items():
                 total[k] = total.get(k, 0) + v
-            if mode == 1:  # the counted collectives of the taxi row of phase 18
+            _tally_pointer(graph["pointer"])
+            differ = [f for f in fields if not _same_bits(getattr(graph["res"], f), getattr(eager["res"], f))]
+            again = [f for f in fields for a, b in ((runs[False][1], graph), (runs[True][1], eager))
+                     if not _same_bits(getattr(a["res"], f), getattr(b["res"], f))]
+            if differ or again or n != eager["res"].n_iters or n != ref.n_iters:
+                raise AssertionError(f"phase12 {tag}: the graph route differs from the eager loop in {differ}, a "
+                                     f"route from its own second run in {again}; n_iters {n} / "
+                                     f"{eager['res'].n_iters} / tritd_admm {ref.n_iters}")
+            for on_eager, r in [(route, r) for route, rs in runs.items() for r in rs]:
+                if (len(r["launches"]) != 1 or sum(r["launches"].values()) != n
+                        or r["pointer"] != ({} if on_eager else r["launches"])):
+                    raise AssertionError(f"phase12 {tag}: launches {r['launches']}, through the pointer entry "
+                                         f"{r['pointer']}; want one variant {n} times, all through the pointer "
+                                         f"entry on the graph route and none on the eager loop")
+            budget = _budget_words(tuple(d.shape), cfg.rank, mode)
+            per_iter = [r["audit"]["per_iter"] for r in (*runs[False], *runs[True])]
+            if any(p != per_iter[0] for p in per_iter) or not (per_iter[0]["calls"] == 4
+                                                              and 0 < per_iter[0]["words"] <= budget):
+                raise AssertionError(f"phase12 {tag}: all_reduce per iteration {per_iter}, want 4 calls within "
+                                     f"{budget} words, the same on both routes")
+            want_syncs = -(-cfg.max_iter // cfg.unroll) + 1
+            syncs = [r["syncs"] for r in runs[False]]
+            if any(s != want_syncs for s in syncs):
+                raise AssertionError(f"phase12 {tag}: {syncs} synchronizing calls on the graph route, want {want_syncs}")
+            if graph["res"].o.device.type != "cuda" or graph["res"].o.shape != d.shape:
+                raise AssertionError(f"phase12 {tag}: O {tuple(graph['res'].o.shape)} on {graph['res'].o.device}")
+            # one rank reduces nothing: only the norms differ, roots of reduced
+            # sums of squares here, vector norms there
+            err = _hist_diff(f"phase12 {tag} err_hist", graph["res"].err_hist.cpu(), ref.err_hist.cpu(), n, 1e-6, 0.0)
+            rre_ = ("" if origin is None else ", rre_hist " + _hist_diff(
+                f"phase12 {tag} rre_hist", graph["res"].rre_hist.cpu(), ref.rre_hist.cpu(), n, 1e-6, 0.0))
+            if tag == "taxi mode 1":  # the counted collectives of the taxi row of phase 18
                 for row in T1_ROWS:
                     if row["name"] == "taxi":
-                        row["all_reduce"] = dict(audit["per_iter"])
-                PHASE12_MODE1.update(res=res, cfg=cfg, init=init)
-            print(f"phase12 nccl 1 rank taxi mode {mode}: iters={n} launches={launches} loop={audit['loop_seconds']:.4f} s "
-                  f"(host clock, synchronized) all_reduce/iter: {audit['per_iter']['calls']} calls, {words} words "
-                  f"(budget {budget}), {audit['per_iter']['bytes']} bytes; vs tritd_admm (rtol 1e-6): err_hist {err} "
-                  f"(bitwise: {bool(torch.equal(res.err_hist, ref.err_hist))}), rre_hist {rre_} "
-                  f"(bitwise: {bool(torch.equal(res.rre_hist, ref.rre_hist))})")
+                        row["all_reduce"] = dict(per_iter[0])
+                PHASE12_MODE1.update(res=graph["res"], cfg=cfg, init=init)
+            ms = {route: [r["ms"] / n for r in rs] for route, rs in runs.items()}
+            replayed = n - cfg.unroll
+            split = "; ".join(
+                f"run {i + 1}: {r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
+                f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter"
+                for i, r in enumerate(runs[False]))
+            print(f"phase12 nccl 1 rank {tag} ({'x'.join(map(str, d.shape))}, {n} iterations, unroll {cfg.unroll}): "
+                  f"launches {main} (all through the pointer entry); graph route {ms[False][0]:.4f} / "
+                  f"{ms[False][1]:.4f} ms/iter (events; {split}), eager {ms[True][0]:.4f} / {ms[True][1]:.4f}; "
+                  f"loop {graph['audit']['loop_seconds']:.4f} s graph, {eager['audit']['loop_seconds']:.4f} s eager "
+                  f"(host clock, synchronized); synchronizing calls a solve graph {syncs} (want {want_syncs}), eager "
+                  f"{[r['syncs'] for r in runs[True]]}; peak MiB graph {graph['peak_mib']:.1f}, eager "
+                  f"{eager['peak_mib']:.1f}; all_reduce/iter on both routes: {per_iter[0]['calls']} calls, "
+                  f"{per_iter[0]['words']} words (budget {budget}), {per_iter[0]['bytes']} bytes; A, B, C, O, E, "
+                  f"err_hist, rre_hist bitwise equal between the routes; vs tritd_admm (rtol 1e-6): err_hist "
+                  f"{err}{rre_}; {CARD[0]}", flush=True)
     finally:
         dist.destroy_process_group()
     return total
@@ -2549,23 +2644,29 @@ def phase20() -> None:
 
 def _route_solve(data, cfg, init, eager: bool, mask=None, origin=None) -> dict:
     """One solve as tritd_admm sets it up, then run_admm on the graph route
-    or the eager loop: the result, CUDA-event ms, the synchronizing calls
-    inside run_admm (torch.cuda.set_sync_debug_mode) and the peak MiB. On
-    the graph route also where its time goes: the events' ms up to the
-    first replay (the eager first block and the captures), the host ms of
-    the captures, and the ms from the first replay to the end."""
+    or the eager loop, watched (`_watched`)."""
     dtype = cfg.torch_dtype()
     d = data.to(dtype)
     state = init_state(d, cfg, init)
     norm_d = torch.linalg.vector_norm(d)
     norm_origin = None if origin is None else torch.linalg.vector_norm(origin)
     d = narrow_cast(d, cfg.torch_storage_dtype())
+    return _watched(lambda: run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
+                                     _eager=eager))
+
+
+def _watched(call) -> dict:
+    """`call()`, a call of run_admm, watched: its result, CUDA-event ms, the
+    synchronizing calls inside it (torch.cuda.set_sync_debug_mode) and the
+    peak MiB. On the graph route also where its time goes: the events' ms up
+    to the first replay (the eager first block and the captures), the host
+    ms of the captures, and the ms from the first replay to the end."""
     graphs, replays = [], []
     counted = hopper_kernels.CountedGraph
 
     class Watched(counted):
-        def __init__(self, fn, pool):
-            super().__init__(fn, pool)
+        def __init__(self, fn, pool, tallies=()):
+            super().__init__(fn, pool, tallies)
             graphs.append(self)
 
         def replay(self):
@@ -2583,14 +2684,15 @@ def _route_solve(data, cfg, init, eager: bool, mask=None, origin=None) -> dict:
         hopper_kernels.CountedGraph = Watched
         try:
             start.record()
-            res = run_admm(d, state, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
-                           _eager=eager)
+            res = call()
             end.record()
         finally:
             hopper_kernels.CountedGraph = counted
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    # the warnings of the synchronizing calls; the mode's one-time notice that it is a
+    # prototype also names synchronization
+    syncs = sum("called a synchronizing" in str(w.message) for w in seen)
     split = {}
     if replays:
         split = {"before_replays_ms": start.elapsed_time(replays[0]), "replays_ms": replays[0].elapsed_time(end),

@@ -13,8 +13,12 @@ eagerly (`_run_device_form(..., graphs=False)`), and are held:
   * the tensor penalty schedule to numpy's, and the tensor-penalty plain
     block to the host-penalty one, bitwise.
 
-The checkpoint of a graph-route state needs the card and skips here. JAX
-is imported only by the test that calls it, so that the rest of the file
+The checkpoint of a graph-route state needs the card and skips here; so
+does the sharded solve on one NCCL rank, whose graph route captures the
+four all_reduce calls of an iteration and is held bitwise to its eager loop
+(`_local_solve(..., _eager=True)`), with the kernel once an iteration
+through the pointer entry and ceil(max_iter/unroll) + 1 synchronizing calls.
+JAX is imported only by the test that calls it, so that the rest of the file
 also runs on a machine with the card and without JAX.
 """
 
@@ -27,7 +31,7 @@ torch = pytest.importorskip("torch")
 
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
-from tritd_tpu_torch.solvers import admm, init_state, run_admm  # noqa: E402
+from tritd_tpu_torch.solvers import admm, init_factors, init_state, run_admm  # noqa: E402
 from tritd_tpu_torch.utils import checkpoint  # noqa: E402
 from tritd_tpu_torch.utils.config import COMPLETION_TRITD, VIDEO_TRITD  # noqa: E402
 
@@ -327,3 +331,122 @@ def test_graph_route_checkpoint_resumes_bitwise(tmp_path):
     assert resumed.k == whole.k and resumed.mu_l.tobytes() == whole.mu_l.tobytes()
     for f in STATE_FIELDS:
         assert torch.equal(_bits(getattr(resumed, f)), _bits(getattr(whole, f))), f
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """This process as a one-rank NCCL group on the card, for the module's
+    sharded cases (a second rank would need a second card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL and CUDA graphs run on the card")
+    import socket
+
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh
+    from tritd_tpu_torch.parallel.distributed import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", device="cuda:0",
+                           timeout_s=120.0)
+    try:
+        yield make_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_route(mesh, y, cfg, mode, mask, eager, monkeypatch):
+    """`_local_solve` on one route from one init, as `tritd_admm_sharded`
+    calls it: the final state, the audit, the launches (all, and through
+    the pointer entry) and the synchronizing calls inside `run_admm`."""
+    import warnings
+
+    from tritd_tpu_torch.parallel import sharded_admm
+
+    real, syncs = sharded_admm.run_admm, []
+
+    def watched(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                # the warnings of the synchronizing calls; the mode's one-time notice that it is a
+                # prototype also names synchronization
+                syncs.append(sum("called a synchronizing" in str(w.message) for w in seen))
+
+    monkeypatch.setattr(sharded_admm, "run_admm", watched)
+    init = init_factors(torch.Generator().manual_seed(0), tuple(y.shape), cfg.rank, cfg.torch_dtype(), "cpu")
+    hopper_kernels.reset_launch_counts()
+    coll = sharded_admm.SlabCollective(mesh.get_group("slab"), mode)
+    state, _bounds, audit = sharded_admm._local_solve(y, cfg, coll, mask, y, init, torch.device("cuda", 0),
+                                                      _eager=eager)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(sharded_admm, "run_admm", real)
+    return (state, audit, {k: v for k, v in hopper_kernels.LAUNCHES.items() if v},
+            {k: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}, syncs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "masked_bf16_storage"])
+@pytest.mark.parametrize("unroll", [1, 3], ids=["unroll1", "unroll3"])
+@pytest.mark.parametrize("mode", [1, 3], ids=["mode1", "mode3"])
+def test_sharded_graph_route_is_the_eager_loop_bitwise(nccl_mesh, mode, unroll, case, monkeypatch):
+    """The sharded solve on one NCCL rank at 20x16x24: the graph route (its
+    four all_reduce calls an iteration captured) stores the eager loop's
+    bits in every field and the penalties, launches the kernel once an
+    iteration through the pointer entry, makes ceil(max_iter/unroll) + 1
+    synchronizing calls (the stop flag before each block, the penalties at
+    the end), and counts the collective's calls as the eager loop does."""
+    rng = np.random.default_rng(7)
+    shape = (20, 16, 24)
+    fields = BITWISE_CASES[case]
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=25, tol=0.0, unroll=unroll, **fields)
+    y = (rng.standard_normal(shape) * 10).astype(np.float32)
+    mask = rng.random(shape) >= 0.1 if cfg.masked else None
+    if cfg.masked:
+        y = np.where(mask, y, np.float32(0.0))
+    graph, g_audit, g_launches, g_pointer, g_syncs = _sharded_route(nccl_mesh, y, cfg, mode, mask, False, monkeypatch)
+    eager, e_audit, e_launches, e_pointer, _ = _sharded_route(nccl_mesh, y, cfg, mode, mask, True, monkeypatch)
+    n = -(-cfg.max_iter // unroll) * unroll
+    assert graph.k == eager.k == n and graph.mu_l.tobytes() == eager.mu_l.tobytes()
+    assert g_launches == e_launches and len(g_launches) == 1 and sum(g_launches.values()) == n
+    assert list(g_pointer.values()) == [n] and e_pointer == {}
+    assert g_syncs == [-(-cfg.max_iter // unroll) + 1]
+    assert g_audit["per_iter"] == e_audit["per_iter"] and g_audit["per_iter"]["calls"] == 4
+    assert g_audit["setup"] == e_audit["setup"]
+    for f in STATE_FIELDS:
+        assert torch.equal(_bits(getattr(graph, f)), _bits(getattr(eager, f))), f
+
+
+@pytest.mark.cuda
+def test_sharded_entry_points_take_the_graph_route(nccl_mesh):
+    """`tritd_admm_auto` is `tritd_admm_sharded` mode 1 bit for bit on the
+    graph route, and each entry of `tritd_admm_batch_sharded` is the
+    sharded solve of that entry: the kernel once an iteration, every launch
+    through the pointer entry."""
+    from tritd_tpu_torch.parallel import tritd_admm_auto, tritd_admm_batch_sharded, tritd_admm_sharded
+
+    rng = np.random.default_rng(8)
+    shape = (20, 16, 24)
+    y = (rng.standard_normal((2, *shape)) * 10).astype(np.float32)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=12, tol=0.0, unroll=2)
+    gen = torch.Generator().manual_seed(0)
+    inits = [init_factors(gen, shape, cfg.rank, torch.float32, "cpu") for _ in range(2)]
+    hopper_kernels.reset_launch_counts()
+    sharded = [tritd_admm_sharded(y[i], cfg, nccl_mesh, origin=y[i], init=inits[i]) for i in range(2)]
+    auto = tritd_admm_auto(y[0], cfg, nccl_mesh, origin=y[0], init=inits[0])
+    batch = tritd_admm_batch_sharded(y, cfg, nccl_mesh, origin_batch=y,
+                                     init=tuple(torch.stack(f) for f in zip(*inits)))
+    torch.cuda.synchronize()
+    assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == 5 * 12
+    assert hopper_kernels.POINTER_LAUNCHES["elementwise_block_ptr[f32]"] == 5 * 12
+    for f in ("a", "b", "c", "o", "e", "err_hist", "rre_hist"):
+        assert torch.equal(getattr(auto, f), getattr(sharded[0], f)), f
+        for i in range(2):
+            assert torch.equal(getattr(batch, f)[i], getattr(sharded[i], f)), (f, i)

@@ -135,27 +135,39 @@ class CountedGraph:
     """`fn()` captured as a CUDA graph on the current stream into the memory
     pool `pool`, and replayed with its kernel launches counted. The capture
     launches nothing and counts nothing; each `replay()` counts the wrapper
-    calls the capture met. An error inside the capture (a host sync, an
-    operation that cannot be captured) ends it and is raised.
-    `capture_s`: the host seconds the capture took."""
+    calls the capture met. `tallies`: other dicts of counts that the calls
+    inside add to (a collective's calls and words), taken the same way: the
+    capture leaves each as it was, and each replay adds what the capture
+    met. An error inside the capture (a host sync, an operation that cannot
+    be captured) ends it and is raised. `capture_s`: the host seconds the
+    capture took."""
 
-    def __init__(self, fn, pool):
+    def __init__(self, fn, pool, tallies=()):
         self.graph = torch.cuda.CUDAGraph()
+        before = [dict(t) for t in tallies]
         start = time.perf_counter()
-        with graph_nodes() as self.nodes:
-            self.graph.capture_begin(pool=pool)
-            try:
-                fn()
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    self.graph.capture_end()
-                raise
-            self.graph.capture_end()
+        try:
+            with graph_nodes() as self.nodes:
+                self.graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+        finally:
+            self.tally_nodes = [(t, {key: n - b[key] for key, n in t.items()}) for t, b in zip(tallies, before)]
+            for t, b in zip(tallies, before):
+                t.update(b)
         self.capture_s = time.perf_counter() - start
 
     def replay(self) -> None:
         self.graph.replay()
         count_replay(self.nodes)
+        for tally, nodes in self.tally_nodes:
+            for key, n in nodes.items():
+                tally[key] += n
 
 
 # The kernel's geometry; `_entry` holds both against the built library.

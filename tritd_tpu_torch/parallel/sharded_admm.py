@@ -5,9 +5,16 @@ PyTorch counterpart of `tritd_tpu/parallel/sharded_admm.py`. The reference
 is one program (`shard_map` over a `Mesh`, `jax.lax.psum` inside a
 `while_loop`); here every shard is a process of an SPMD program, holds its
 slab on its own device, and completes sums with `dist.all_reduce` in the
-host loop of :func:`tritd_tpu_torch.solvers.admm.run_admm`. The iteration is
-the single-device one, told where sums are completed (:class:`SlabCollective`);
+loop of :func:`tritd_tpu_torch.solvers.admm.run_admm`. The iteration is the
+single-device one, told where sums are completed (:class:`SlabCollective`);
 it is not written out a second time.
+
+Over NCCL on CUDA devices the loop is the reference's device-resident one:
+the penalties and the counter live on the card, and each block of
+`cfg.unroll` iterations after the first is one replay of a CUDA graph that
+holds the block's `all_reduce` calls; the host reads only the stop flag
+between blocks. Over gloo, which passes a CUDA tensor's collective through
+the host, it is the eager loop. Both give the same bits.
 
 The data-sized tensors (D, O, E, Y_L, Y_O, T and the mode-1 core A) are
 sharded along mode-1 slabs; B, C and every (r^2, r^2) Gram are replicated.
@@ -69,7 +76,9 @@ DATA_AXIS = "data"
 class SlabCollective:
     """Where the sums of a sharded iteration are completed: `all_reduce` over
     the process group `group`, for the layout `shard_mode` (1 or 3). Counts
-    its calls and the words and bytes they carried."""
+    its calls and the words and bytes they carried in the dict `tally`; a
+    CUDA graph that captures the calls counts them at each replay
+    (`hopper_kernels.CountedGraph`), so the counts are the calls made."""
 
     def __init__(self, group, shard_mode: int):
         if shard_mode not in (1, 3):
@@ -78,19 +87,26 @@ class SlabCollective:
         self.shard_mode = shard_mode
         self.size = dist.get_world_size(group)
         self.index = dist.get_rank(group)
-        self.calls = self.words = self.bytes = 0
+        self.tally = {"calls": 0, "words": 0, "bytes": 0}
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture the group's collectives: NCCL's
+        run on the card; gloo passes a CUDA tensor through the host. The
+        answer is the group's, so every rank of it gets the same one."""
+        return dist.get_backend(self.group) == "nccl"
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum `x` over the shards, on its device; returns the sum."""
+        """Sum `x` over the shards, on its device, in place; returns the sum."""
         x = x.contiguous()
         dist.all_reduce(x, group=self.group)
-        self.calls += 1
-        self.words += x.numel()
-        self.bytes += x.numel() * x.element_size()
+        self.tally["calls"] += 1
+        self.tally["words"] += x.numel()
+        self.tally["bytes"] += x.numel() * x.element_size()
         return x
 
     def counts(self) -> dict:
-        return {"calls": self.calls, "words": self.words, "bytes": self.bytes}
+        return dict(self.tally)
 
 
 def _slab_group(mesh_or_group, axis_name: str = AXIS):
@@ -124,13 +140,15 @@ def _check_mask(cfg: TriTDConfig, mask, name: str = "mask") -> None:
         raise ValueError(f"{name} given but cfg.masked=False — pass TriTDConfig(masked=True)")
 
 
-def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, device):
+def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, device, _eager: bool = False):
     """Solve on this rank's shard. Returns the final state (its sharded
     tensors local), (lo, hi, padded size, original size) of the shard along
     the sharded axis, and the audit: the collective's counts in the set-up
     (the norms' one vector) and in one iteration (every iteration makes the
     same calls), the iterations done and the loop's seconds on the host
-    clock, the device synchronized before and after."""
+    clock, the device synchronized before and after. `_eager=True` keeps
+    the loop off the CUDA graph route (see `run_admm`), to compare the
+    two; every rank must pass the same."""
     dtype = cfg.torch_dtype()
     axis = 0 if coll.shard_mode == 1 else 2
     before = coll.counts()
@@ -172,7 +190,7 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     sync(state)
     t0 = time.perf_counter()
     state = sync(run_admm(d_loc, state, cfg, mask=mask_loc, origin=origin_loc,
-                          norm_d=norm_d, norm_origin=norm_origin, shard=coll))
+                          norm_d=norm_d, norm_origin=norm_origin, shard=coll, _eager=_eager))
     counts = {
         "setup": {k: setup[k] - before[k] for k in setup},
         "per_iter": {k: (v - setup[k]) // max(state.k, 1) for k, v in coll.counts().items()},

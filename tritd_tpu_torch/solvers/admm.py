@@ -14,21 +14,25 @@ PyTorch counterpart of `tritd_tpu/solvers/admm.py`, with the semantics of
     err[k] = (||D-L-O|| + ||O-E||) / ||D||
     stop when |err[k] - err[k-1]| < tol * err[k-1]
 
-Everything runs on the device of `d`. On a CUDA device, in one process,
-`tritd_admm` runs as the reference's `lax.while_loop` under `jit` does
+Everything runs on the device of `d`. On a CUDA device `tritd_admm` runs
+as the reference's `lax.while_loop` under `jit` does
 (`tritd_tpu/solvers/admm.py:226-260`): each block of `cfg.unroll`
 iterations is one replay of a captured CUDA graph, and the penalties muL,
 muO and the counter k live in device memory, annealed and advanced by the
 graph (`_run_device_form`). The host reads the sticky stop flag once per block
 and the penalties once at the end. The elementwise block is the
 hand-written kernel, through its pointer entry, which reads the penalties
-from device memory; it also writes the next iteration's T.
+from device memory; it also writes the next iteration's T. The sharded
+solve over NCCL takes the same route, as the reference's `shard_map`ped
+`while_loop` does (`tritd_tpu/parallel/sharded_admm.py:15-16,211`): the
+graph holds the block's `all_reduce` calls.
 
 The eager loop (`run_admm(..., _eager=True)`, and on the CPU) runs the same
 `admm_iteration` with the penalties and the counter as host numbers (numpy
 scalars of cfg.dtype, so the annealing rounds as the reference's float32
 `min(mu*rho, cap)` does; the device form rounds alike). It is the route of
-the sharded solve (a collective over gloo cannot be captured), of
+the sharded solve over gloo (which passes a CUDA tensor's collective
+through the host, where no graph can capture it), of
 `tritd_admm_checkpointed`, and of the CPU.
 
 Narrow storage (`cfg.storage_dtype`: bfloat16, float16, float8_e4m3fn or
@@ -215,7 +219,7 @@ def admm_iteration(
     into instead of new tensors (t None when masked), none of them a tensor
     of `state`.
 
-    With `shard` (see :func:`update_factors`; host form only), `d`, `mask`,
+    With `shard` (see :func:`update_factors`), in either form, `d`, `mask`,
     `origin` and the data-sized state are one shard; `norm_d` and
     `norm_origin` must then be given, taken over the whole tensor. The two
     sums of squares, and the RRE numerator when `origin` is given, are
@@ -338,14 +342,14 @@ def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
     """Iterate from `state` to cfg.max_iter or the stop rule, in blocks of
     cfg.unroll iterations, reading the sticky stop flag between blocks.
 
-    On a CUDA device without `shard`, each block is one replay of a CUDA
-    graph (`_run_device_form`); `_eager=True` (for the comparison of the two
-    routes) and the CPU take the eager loop, whose only device-to-host read
-    is that flag. With `shard` (see :func:`admm_iteration`) the loop is
-    eager and the flag comes from reduced sums, so every shard leaves the
-    loop together. Either way the state comes back in its host form."""
-    if d.device.type == "cuda" and shard is None and not _eager:
-        return _run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=True)
+    On the route that :func:`_graph_route` picks, each block is one replay
+    of a CUDA graph (`_run_device_form`); otherwise the eager loop runs,
+    whose only device-to-host read is that flag. With `shard` (see
+    :func:`admm_iteration`) the flag comes from reduced sums, so every shard
+    leaves the loop together. Either way the state comes back in its host
+    form."""
+    if _graph_route(d.device, shard, _eager):
+        return _run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=True, shard=shard)
     disp_log: list = []
     while state.k < cfg.max_iter and not bool(state.done):
         for _ in range(cfg.unroll):
@@ -359,6 +363,19 @@ def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
     return state
 
 
+def _graph_route(device: torch.device, shard=None, eager: bool = False) -> bool:
+    """Whether `run_admm` replays CUDA graphs: on a CUDA device, unless
+    `eager` (for the comparison of the two routes), when there is no shard
+    or the shard's collective can be captured: a shard given to `run_admm`
+    says so with `capturable` (a NCCL group; not gloo, which passes a CUDA
+    tensor's collective through the host) and keeps its counts in the dict
+    `tally`, which each replay adds to (`hopper_kernels.CountedGraph`).
+    Every rank of a group must take the same route, or a collective
+    captured on one would meet an eager one on another: the backend is the
+    group's, and the caller passes the same `eager` on every rank."""
+    return device.type == "cuda" and not eager and (shard is None or shard.capturable)
+
+
 # The fields of the device form that a block carries in place: the factors,
 # the penalties, the counter and the stop flag. The data-sized fields take
 # turns in two sets of buffers instead, and the histories are written in place.
@@ -366,7 +383,7 @@ _CARRIED = ("a", "b", "c", "mu_l", "mu_o", "k", "done")
 
 
 def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_d, norm_origin,
-                     graphs: bool) -> TriTDState:
+                     graphs: bool, shard=None) -> TriTDState:
     """The loop of `run_admm` on the device form of the state: the
     penalties and the counter become 0-d tensors on d's device, and each
     block of cfg.unroll iterations is one call of the same function of
@@ -383,6 +400,12 @@ def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_
     kernel's scratch there, and the later ones replay one graph captured
     per parity (one when cfg.unroll is even). Without `graphs` every block
     runs eagerly: the CPU tests hold this route to the eager loop.
+
+    With `shard` every iteration completes its sums through it; with
+    `graphs` its collectives, NCCL's, are nodes of the graph. The first
+    block, eager, makes the communicator's work on the side stream before
+    any capture (the caller's norms have made the communicator), and the
+    graph counts the calls it holds in `shard.tally` at each replay.
 
     The host reads the stop flag before each block, (errL, errO) of the
     block's 10th iterations with cfg.disp, and the penalties once at the
@@ -416,7 +439,7 @@ def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_
         for i in range(cfg.unroll):
             out = sets[(done_before + i + 1) % 2]
             st = admm_iteration(d, st, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
-                                disp_log=disp_hist, out=out if not masked else (*out, None))
+                                disp_log=disp_hist, shard=shard, out=out if not masked else (*out, None))
         for f in _CARRIED:
             getattr(carry, f).copy_(getattr(st, f))
 
@@ -431,11 +454,12 @@ def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_
             stack.enter_context(torch.cuda.stream(side))
             captured: dict = {}
             pool = torch.cuda.graph_pool_handle()
+            tallies = () if shard is None else (shard.tally,)
         while k0 + n_done < cfg.max_iter and not bool(carry.done):
             if graphs and n_done > 0:
                 parity = n_done % 2
                 if parity not in captured:
-                    captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool)
+                    captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool, tallies)
                 captured[parity].replay()
             else:
                 block(n_done)
