@@ -52,7 +52,19 @@ Phases, each of which fails the run by raising:
      kernel at once, 50 turns. Every variant's pointer entry (the penalties
      read from device memory, the form the CUDA graph of the solve replays)
      on each of the variant's inputs above: every store and both sums
-     bitwise its by-value entry's.
+     bitwise its by-value entry's. Every variant's batched entry (B entries
+     in one launch, a penalty and two sums an entry: the form phase 22's
+     graph replays) at 3 entries of taxi, of 17x23x31 (n * itemsize no
+     multiple of 16: entries 1 and 2 take the one-element path) and of
+     17x23x31 with every stream starting so far into its buffer that entry
+     0's addresses are not 16-byte aligned and entry 1's are: each
+     entry's stores and sums bitwise the pointer entry's launch on it
+     alone; then timed at 4 x taxi against 4 pointer launches, the card
+     asleep while the host enqueues, beside the batch's bound. Phase 22's
+     variants at its shapes (f32 at 4 x video and 4 x 100x100x2016, bf16
+     storage and f64 at 4 x video) are also held against the plain
+     version, `_block_torch(..., batched=True)`, at the single entries'
+     tolerances and bitwise to 4 pointer launches, and timed.
   3. the main path: robust TriTD-ADMM on the taxi completion stand-in
      (100x100x500, r=5, 10% missing, COMPLETION_TRITD, 100 iterations, f32),
      checked against a float64 CPU rerun of its first 10 iterations, and on
@@ -88,6 +100,9 @@ Phases, each of which fails the run by raising:
      and fails unless it moves the entries past the limit. A float8 solve
      may turn non-finite after the held iterations; float8 RREs are printed,
      not held to the float32 family (the reference promises no such bound).
+     The CPU runs (these references, the controls and taxi's float64 rerun)
+     go to CPU_REF_WORKERS spawned worker processes of CPU_REF_THREADS
+     threads each as the card solves end, and are held when they return.
   4. the completion CLI in a subprocess.
   5. checkpointed resume: a subprocess dies right after its step-25
      checkpoint (exit 17); the resume here is bitwise equal to an
@@ -119,8 +134,9 @@ Phases, each of which fails the run by raising:
      A, B, C, O, E, err_hist and rre_hist bitwise equal between the routes;
      one kernel launch per iteration, all through the pointer entry on the
      graph route; 4 all_reduce calls per iteration on both routes, their
-     words within the design budget; ceil(max_iter / unroll) + 1
-     synchronizing calls in a graph-route loop; err_hist and rre_hist within
+     words within the design budget; max_iter + 1 synchronizing calls in a
+     graph-route loop (one iteration a step, whatever cfg.unroll, as the
+     reference's sharded loop); err_hist and rre_hist within
      rtol 1e-6 of tritd_admm on the same data and init. Prints CUDA-event ms per
      iteration of each route, the graph route's time to its first replay
      and its replays' ms per iteration, and the peak MiB of each. The first
@@ -138,8 +154,9 @@ Phases, each of which fails the run by raising:
      kernel variant once per iteration, and the replicated factors must
      agree across ranks.
  14. DP x TP: four ranks as a 2x2 mesh, a batch of two taxi problems from
-     two seeds through tritd_admm_batch_sharded, each entry held to its own
-     single-process solve as in phase 13.
+     two seeds through tritd_admm_batch_sharded (each data group's entry in
+     the batched loop: the batched entry once an iteration), each entry
+     held to its own single-process solve as in phase 13.
  15. the functional Tensor Toolbox surface (tritd_tpu_torch.ops: kruskal,
      decomp, tenutils, sparse, symmetric, cp_variants) on the card in
      float32, every result checked to lie on the card, each call timed with
@@ -225,6 +242,30 @@ Phases, each of which fails the run by raising:
      the events' ms up to its first replay (the eager first block and the
      captures, with the captures' host ms) and its ms per iteration from
      there. Its launches are checks and stay out of the kernels line.
+ 22. a batch's entries in one loop (tritd_admm_batch_sharded, the
+     reference's vmapped while_loop) on a one-rank NCCL mesh: the four CDnet
+     video stand-ins (highway, sofa, office, PETS2006, 240x320x300,
+     VIDEO_TRITD, 100 iterations, tol 0; the reference's configuration 5)
+     in f32 and with bf16 storage, the four traffic stand-ins (sensor,
+     network, taxi, chicago, 10% missing, zero-padded to 100x100x2016,
+     COMPLETION_TRITD; the reference's batched completion row) at tol 0,
+     and the same with a tol, found from those tol-0 histories, under which
+     two entries stop early at different iterations; and the video batch in
+     float64 for 10 iterations, a second witness that the batched route
+     computes the serial one's function: every field, L included, within
+     1e-10 of the serial route's relative to its largest value. Each on the batched
+     graph route and `_serial=True` (each entry's own sharded solve), in
+     turns batched, serial, serial, batched: n_iters equal, each route
+     bitwise its second run, each entry's fields bitwise the serial route's
+     (the count printed) or its histories within the reference's float32
+     sharded tolerances and L and O within rtol 2e-2; one batched launch an
+     iteration and no single one; one synchronizing call before each
+     iteration and one at the end (max_iter + 1 at tol 0); 4 all_reduce
+     calls an iteration carrying every entry's words; ms per iteration of
+     the whole batch, time to the first replay, replays' ms per iteration
+     and peak MiB of each route; RRE of each entry against its stand-in.
+     The first batched run of each case is the main path: its launches
+     are the kernels line's batch_launches.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -241,7 +282,9 @@ launches nothing and counts nothing. Every launch of phase 3's solves
 must go through the pointer entry. The line before the last is a JSON
 object with one record per kernel variant, all 82 on the main path (the
 launches of phases 3, 12, 17 and 19; pointer_launches, those of them
-through the pointer entry), each naming the .cu file that holds its entry
+through the pointer entry; batch_launches, phase 22's through the batched
+entry; batch_ms, batch_pointer_ms and batch_bound_ms, phase 2's batched
+timings at 4 x taxi), each naming the .cu file that holds its entry
 point; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
@@ -251,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -455,7 +499,7 @@ def phase1() -> None:
     print(f"phase1 build: {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
-def _time_pair(plain, kernel_calls: dict, n_bytes) -> tuple[dict, float, float, dict]:
+def _time_pair(plain, kernel_calls: dict, n_bytes, reps: int = REPS) -> tuple[dict, float, float, dict]:
     """ms per call of each of `kernel_calls` (name -> call), of the plain
     version and of one device-to-device `copy_` that moves `n_bytes` (half
     read, half written): CUDA events around BATCH back-to-back calls,
@@ -467,10 +511,11 @@ def _time_pair(plain, kernel_calls: dict, n_bytes) -> tuple[dict, float, float, 
     about its device time, is timed without (a sleep would double phase 2).
     Also each kernel call's enqueue time in ms: the host's clock around the
     same BATCH calls, before the synchronize (what a call costs the host,
-    whatever the card does)."""
+    whatever the card does). Without `plain` (None) only the kernel calls
+    and the copy are timed, and the plain time is None; `reps` turns."""
     src = torch.empty(n_bytes // 2, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
-    calls = [("plain", plain), *kernel_calls.items(), ("copy", lambda: dst.copy_(src))]
+    calls = [*([("plain", plain)] if plain else []), *kernel_calls.items(), ("copy", lambda: dst.copy_(src))]
     enqueue = {}
     for _ in range(3):
         for name, fn in calls:
@@ -481,7 +526,7 @@ def _time_pair(plain, kernel_calls: dict, n_bytes) -> tuple[dict, float, float, 
     times = {name: [] for name, _fn in calls}
     host = {name: [] for name in kernel_calls}
     timed = calls[:-1]
-    for i in range(REPS):
+    for i in range(reps):
         turn = timed[i % len(timed):] + timed[:i % len(timed)]
         for name, fn in (*turn, calls[-1]):
             if name != "plain":
@@ -498,7 +543,8 @@ def _time_pair(plain, kernel_calls: dict, n_bytes) -> tuple[dict, float, float, 
             times[name].append(start.elapsed_time(end) / BATCH)
             if name in host:
                 host[name].append(spent / BATCH * 1e3)
-    return ({name: statistics.median(times[name]) for name in kernel_calls}, statistics.median(times["plain"]),
+    return ({name: statistics.median(times[name]) for name in kernel_calls},
+            statistics.median(times["plain"]) if plain else None,
             statistics.median(times["copy"]), {name: statistics.median(v) for name, v in host.items()})
 
 
@@ -606,6 +652,180 @@ def _narrow_args(shape, dtypes, seed, offset=0) -> list:
     n = int(np.prod(shape))
     raw = [torch.randn(n + offset, generator=gen, device="cuda") * 3 for _ in range(5)]
     return [narrow_cast(x, dt)[offset:].view(shape) for x, dt in zip(raw, (d_dt, cd, s_dt, s_dt, s_dt))]
+
+
+# The batched entry (`elementwise_block_batch`): held bitwise to its pointer
+# entry launched on each entry alone at BATCH_HELD entries of these shapes
+# (taxi; ragged: n * itemsize no multiple of 16, so that entries 1 and 2 take
+# the one-element path where entry 0 takes the vector path, as a launch on
+# each alone does where its tensors are views of the batch's; offset: the
+# ragged shape with every stream a view that starts so far into its buffer
+# that entry 0's addresses are not 16-byte aligned and entry 1's are), and
+# timed at BATCH_TIMED entries of taxi against as many pointer launches.
+BATCH_HELD = 3
+BATCH_HELD_SHAPES = {"taxi": ((100, 100, 500), False), "ragged": ((17, 23, 31), False),
+                     "offset": ((17, 23, 31), True)}
+BATCH_TIMED = 4
+BATCH_REPS = 8
+# Phase 22's batches: each variant it launches and the entry shapes it gives
+# it (the CDnet stand-ins; the traffic stand-ins padded to one shape). At
+# BATCH_TIMED entries of each the batched entry is also held against the
+# plain version, `_block_torch(..., batched=True)`, at phase 2's single-entry
+# tolerances, and bitwise to per-entry pointer launches, and timed.
+BATCH_MAIN_PATH = {"f32": ("video", "traffic"), "c32_dbf16_sbf16_tbf16": ("video",), "f64": ("video",)}
+BATCH_SHAPES = {**KERNEL_SHAPES, "traffic": (100, 100, 2016)}
+
+
+def _release_cached() -> None:
+    """Hand the card memory no tensor holds back to the driver: the
+    garbage of reference cycles first (a CUDA graph's private pool among
+    it), then the caching allocator's free segments. A CUDA graph's pool
+    cannot take segments the allocator keeps cached for other tensors:
+    without this, phase 22's graphs ran out of memory in a whole smoke
+    (not alone) beside 36 GiB reserved and unused after phase 2's and the
+    earlier phases' large buffers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _batch_mus(cd, nb: int, with_t: bool):
+    """(mu_l, mu_o, mu_l_next) of a batch, one penalty an entry, on the card."""
+    steps = torch.arange(nb, dtype=torch.float64) * 0.25
+    mu_l, mu_o = ((SCALARS[i] * (1 + steps)).to(cd).cuda() for i in (0, 1))
+    return mu_l, mu_o, (MU_NEXT * (1 + steps)).to(cd).cuda() if with_t else None
+
+
+def _offset_like(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """An empty tensor like x that starts `offset` elements into its buffer."""
+    return torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)[offset:].view(x.shape)
+
+
+def _batch_offset(shape, key) -> int:
+    """Elements to start every stream of a batch of `shape` entries into its
+    buffer so that entry 0's addresses are not 16-byte aligned and entry
+    1's are."""
+    cd, d_dt, s_dt, t_dt = key
+    narrowest = min(torch.empty((), dtype=x).element_size() for x in (cd, d_dt, s_dt, t_dt) if x is not None)
+    offset = -int(np.prod(shape)) % (16 // narrowest)
+    if not offset:
+        raise AssertionError(f"{shape}: every entry of a batch shares entry 0's alignment")
+    return offset
+
+
+def _hold_batch_per_entry(tag, args, got, mus, kw, offset=0) -> None:
+    """Each entry's stores and both sums of the batched entry's outputs
+    `got` bitwise the pointer entry's launch on that entry alone, which
+    stores into views of batch-shaped buffers (starting `offset` elements
+    into theirs, as the batch's do), so that its pointers sit where the
+    batch's do."""
+    names = ("o", "e", "y_l", "y_o", "nl", "no", "t")
+    mu_l, mu_o, mu_n = mus
+    bufs = [None if x is None else _offset_like(x, offset) for x in (*got[:4], got[6])]
+    for i in range(args[0].shape[0]):
+        one = hopper_kernels._block_cuda(*(a[i] for a in args), mu_l[i], mu_o[i], SCALARS[2],
+                                         None if mu_n is None else mu_n[i],
+                                         out=[None if b is None else b[i] for b in bufs], **kw)
+        wrong = [names[j] for j in range(7) if (got[j] is None) != (one[j] is None)
+                 or one[j] is not None and not _same_bits(got[j][i], one[j])]
+        if wrong:
+            raise AssertionError(f"{tag}: entry {i}'s {wrong} differ from the pointer entry's launch on it alone")
+
+
+def _hold_batch_against_plain(tag, args, got, mus, key) -> float:
+    """The batched entry's outputs `got` against the plain version on the
+    same card tensors, `_block_torch(..., batched=True)`, each entry at
+    phase 2's single-entry tolerances: same-dtype variants as
+    `_hold_same_dtype`, narrow ones by `check_narrow_against_plain`, the
+    sums rtol 1e-5. Returns the largest absolute difference."""
+    cd, _d_dt, s_dt, t_dt = key
+    mu_l, mu_o, mu_n = mus
+    want = hopper_kernels._block_torch(*args, mu_l, mu_o, SCALARS[2], mu_l_next=mu_n, compute_dtype=cd,
+                                       store_dtype=s_dt, t_dtype=t_dt if mu_n is not None else None, batched=True)
+    torch.cuda.synchronize()
+    idx = (0, 1, 2, 3) if mu_n is None else (0, 1, 2, 3, 6)
+    same_dtype = all(a.dtype == cd for a in args) and (mu_n is None or t_dt == cd)
+    max_abs = 0.0
+    for i in range(args[0].shape[0]):
+        entry_args = [a[i] for a in args]
+        g, w = ([None if x is None else x[i] for x in r] for r in (got, want))
+        if same_dtype:
+            atol = 1e-6 * max(float(a.abs().max()) for a in entry_args)
+            for j in idx:
+                torch.testing.assert_close(g[j], w[j], rtol=1e-6, atol=atol, msg=lambda m: f"{tag} entry {i}: {m}")
+            max_abs = max(max_abs, *(float((g[j] - w[j]).abs().max()) for j in idx))
+        else:
+            agree = hopper_kernels.check_narrow_against_plain(entry_args, g, w,
+                                                              None if mu_n is None else float(mu_n[i]))
+            max_abs = max(max_abs, agree["max_abs_err"])
+    for j in (4, 5):
+        torch.testing.assert_close(got[j], want[j], rtol=1e-5, atol=0.0, msg=lambda m: f"{tag} sums: {m}")
+    return max_abs
+
+
+def _phase2_batch(records: dict) -> None:
+    """Every variant's batched entry: each entry's stores and both sums
+    bitwise the pointer entry's launch on that entry alone, at BATCH_HELD
+    entries of each of BATCH_HELD_SHAPES; then timed at BATCH_TIMED x taxi
+    against BATCH_TIMED pointer launches, the card asleep while the host
+    enqueues, beside the bound of the whole batch. The variants and shapes
+    of phase 22 (BATCH_MAIN_PATH) are held at BATCH_TIMED entries against
+    the plain version and per-entry pointer launches too, and timed. Adds
+    `batch_ms`, `batch_pointer_ms` and `batch_bound_ms` (taxi) to each
+    variant's record."""
+    held = 0
+    for seed, (key, variant) in enumerate(hopper_kernels.KERNEL_VARIANTS.items(), start=500):
+        cd, d_dt, s_dt, t_dt = key
+        with_t = d_dt == s_dt  # masked variants (D in the compute dtype beside other storage) build no T'
+        kw = dict(t_dtype=t_dt if with_t else None)
+        for shape_name, (shape, offset) in BATCH_HELD_SHAPES.items():
+            off = _batch_offset(shape, (cd, d_dt, s_dt, t_dt if with_t else None)) if offset else 0
+            args = _narrow_args((BATCH_HELD, *shape), key, seed, off)
+            mus = _batch_mus(cd, BATCH_HELD, with_t)
+            outs = [_offset_like(args[2], off) for _ in range(4)]
+            outs.append(_offset_like(torch.empty(args[0].shape, dtype=t_dt, device="cuda"), off) if with_t else None)
+            got = hopper_kernels.elementwise_block_batch(*args, *mus[:2], SCALARS[2], mu_l_next=mus[2], out=outs,
+                                                         **kw)
+            _hold_batch_per_entry(f"{variant} batched entry at {BATCH_HELD}x{shape_name}", args, got, mus, kw, off)
+            held += BATCH_HELD
+        for shape_name in ("taxi", *BATCH_MAIN_PATH.get(variant, ())):
+            args = _narrow_args((BATCH_TIMED, *BATCH_SHAPES[shape_name]), key, seed)
+            mus = _batch_mus(cd, BATCH_TIMED, with_t)
+            mu_l, mu_o, mu_n = mus
+            held_text = ""
+            if shape_name != "taxi":
+                tag = f"{variant} batched entry at {BATCH_TIMED}x{shape_name}"
+                got = hopper_kernels.elementwise_block_batch(*args, mu_l, mu_o, SCALARS[2], mu_l_next=mu_n, **kw)
+                max_abs = _hold_batch_against_plain(tag, args, got, mus, key)
+                _hold_batch_per_entry(tag, args, got, mus, kw)
+                del got
+                held += BATCH_TIMED
+                held_text = (f"; held against the plain version (max_abs_err={max_abs:.3e}) and bitwise to "
+                             f"{BATCH_TIMED} pointer launches")
+            entries = [tuple(a[i] for a in args) for i in range(BATCH_TIMED)]
+            calls = {
+                "batch": lambda: hopper_kernels.elementwise_block_batch(*args, mu_l, mu_o, SCALARS[2],
+                                                                        mu_l_next=mu_n, **kw),
+                "pointer": lambda: [hopper_kernels._block_cuda(*entries[i], mu_l[i], mu_o[i], SCALARS[2],
+                                                               None if mu_n is None else mu_n[i], **kw)
+                                    for i in range(BATCH_TIMED)],
+            }
+            t_dtype = t_dt if with_t else None
+            ms, _plain, copy_ms, host = _time_pair(None, calls, _block_bytes(args, t_dtype), reps=BATCH_REPS)
+            bound_ms, bound_by = _block_bound(args, t_dtype)
+            print(f"phase2 batched {BATCH_TIMED}x{shape_name:7s} {variant}: batch={ms['batch'] * 1e3:9.1f} us, "
+                  f"{BATCH_TIMED} pointer launches={ms['pointer'] * 1e3:9.1f} us, copy_us={copy_ms * 1e3:8.1f}, "
+                  f"host_enqueue={host['batch'] * 1e3:6.1f} / {host['pointer'] * 1e3:6.1f} us, bound="
+                  f"{bound_ms * 1e3:.1f} us by {bound_by} ({bound_ms / ms['batch']:.0%} reached; pointer "
+                  f"{bound_ms / ms['pointer']:.0%}){held_text}")
+            if shape_name == "taxi":
+                records[variant].update(batch_ms=ms["batch"], batch_pointer_ms=ms["pointer"],
+                                        batch_bound_ms=bound_ms)
+            del args, entries, calls
+    _release_cached()  # the 4 x video buffers above would pin the allocator's cache for later phases
+    print(f"phase2 batched entries: every variant's, {held} entries of batches at "
+          f"{', '.join(BATCH_HELD_SHAPES)} ({BATCH_HELD} entries) and phase 22's "
+          f"{', '.join(f'{v} {s}' for v, ss in BATCH_MAIN_PATH.items() for s in ss)} ({BATCH_TIMED} entries): every "
+          f"store and both sums bitwise the pointer entry's launch on that entry alone")
 
 
 # An odd count above one resident wave of the widest groups (8 elements).
@@ -831,6 +1051,7 @@ def phase2() -> dict:
     _phase2_conversion_edges()
     _phase2_quotient()
     _phase2_edges()
+    _phase2_batch(records)
     missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - set(POINTER_HELD)
     if missing:
         raise AssertionError(f"pointer entries not held to their by-value entries: {sorted(missing)}")
@@ -961,6 +1182,44 @@ def _check_run(tag, res, launches, variant, dev_s, wall, truth, float8=False) ->
     return rre_truth, err
 
 
+# Phase 3's CPU references run in worker processes while the card solves
+# go on: spawned (a forked CUDA process is unusable), each pinned to
+# CPU_REF_THREADS intra-op threads, so that they share the machine's eight
+# cores with the process that drives the card. main() shuts the pool down.
+CPU_REF_WORKERS = 3
+CPU_REF_THREADS = 2
+_CPU_POOL: list = []
+
+
+def _cpu_pool():
+    if not _CPU_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        _CPU_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn")))
+    return _CPU_POOL[0]
+
+
+def _cpu_reference(data, cfg, init, origin, mask, planted=False) -> tuple:
+    """(function, arguments) for the pool: the err_hist of tritd_admm on the
+    CPU, cfg.max_iter iterations in cfg's dtypes, with these inputs as numpy
+    (the pipe carries them by value; with `planted`, T' rounded toward
+    zero)."""
+    as_np = lambda t: None if t is None else t.detach().cpu().numpy()  # noqa: E731
+    return (_cpu_err_hist, as_np(data), cfg, tuple(as_np(f) for f in init), as_np(origin), as_np(mask), planted)
+
+
+def _cpu_err_hist(data, cfg, init, origin, mask, planted) -> tuple[np.ndarray, float]:
+    """In a worker of `_cpu_pool()`: (the err_hist, seconds) of `_cpu_reference`'s solve."""
+    torch.set_num_threads(CPU_REF_THREADS)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    t0 = time.perf_counter()
+    with _t_rounded_toward_zero() if planted else contextlib.nullcontext():
+        res = tritd_admm(t(data), cfg, init=tuple(map(t, init)), origin=t(origin), mask=t(mask))
+    return trim_history(res.err_hist, cfg.max_iter), time.perf_counter() - t0
+
+
 def _taxi():
     x_np, _spec, prov = load_dataset("taxi")
     mask = torch.as_tensor(uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO),
@@ -991,13 +1250,8 @@ def phase3() -> dict:
     taxi_ms = ms_per_iter["f32"]
 
     # the first 10 iterations again, float64 on the CPU, from the same init
-    cpu = tritd_admm(y.cpu().double(), dataclasses.replace(cfg, dtype="float64", max_iter=10),
-                     origin=x.cpu().double(), init=init)
-    m = min(cpu.n_iters, res.n_iters)
-    ref = trim_history(cpu.err_hist, m)
-    np.testing.assert_allclose(err[:m], ref, rtol=1e-3)
-    print(f"phase3 taxi f32 cuda vs f64 cpu, first {m} iterations: "
-          f"max rel diff {np.max(np.abs(err[:m] - ref) / np.abs(ref)):.3e} (rtol 1e-3)")
+    f64_rerun = _cpu_pool().submit(*_cpu_reference(y.double(), dataclasses.replace(cfg, dtype="float64", max_iter=10),
+                                                init, x.double(), None))
 
     # video protocol: fully observed
     v_np, _vspec, vprov = load_dataset("highway")
@@ -1061,6 +1315,9 @@ def phase3() -> dict:
                 iters = (WIDE_COVERAGE_ITERS if name in WIDE else COVERAGE_ITERS)[data]
                 yield data, _fields_of(name), iters, None
 
+    # First every solve on the card, each one's CPU reference handed to the
+    # pool as it ends; then, as the references come back, the checks.
+    solves = []
     for data, fields, iters, expect in plan():
         dtype = fields.get("dtype", "float32")
         masked = fields.get("masked", False)
@@ -1073,61 +1330,90 @@ def phase3() -> dict:
         data_t, preset, ninit, truth, dmask = problems[data, masked]
         ncfg = dataclasses.replace(preset, max_iter=iters, **fields)
         origin = truth if data == "taxi" else None
-        res, launches, dev_s, wall = _solve(data_t, ncfg, ninit, origin=origin, mask=dmask)
+        nres, launches, dev_s, wall = _solve(data_t, ncfg, ninit, origin=origin, mask=dmask)
         _all_through_the_pointer_entry(tag, launches)
         for k, val in launches.items():
             total[k] = total.get(k, 0) + val
-        if launches != {variant: res.n_iters}:
-            raise AssertionError(f"{tag}: launches {launches}, want {{{variant!r}: {res.n_iters}}}")
+        if launches != {variant: nres.n_iters}:
+            raise AssertionError(f"{tag}: launches {launches}, want {{{variant!r}: {nres.n_iters}}}")
         # the same solve on the CPU in the same dtypes: its first 10 iterations
         depth = min(10, iters)
-        cpu_args = (data_t.cpu(), dataclasses.replace(ncfg, max_iter=depth))
-        cpu_kw = dict(init=ninit, origin=None if origin is None else origin.cpu(),
-                      mask=None if dmask is None else dmask.cpu())
-        t0 = time.perf_counter()
-        want = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
-        tag += f" [CPU reference {time.perf_counter() - t0:.1f} s]"
-        got = trim_history(res.err_hist, res.n_iters)
-        if expect == "nan":
+        cpu_job = (data_t, dataclasses.replace(ncfg, max_iter=depth), ninit, origin, dmask)
+        got = trim_history(nres.err_hist, nres.n_iters)
+        solve = dict(tag=tag, data=data, fields=fields, iters=iters, expect=expect, dtype=dtype, masked=masked,
+                     variant=variant, ncfg=ncfg, preset=preset, depth=depth, cpu_job=cpu_job, got=got,
+                     n_iters=nres.n_iters, launches=launches, dev_s=dev_s, data_max=float(data_t.abs().max()),
+                     future=_cpu_pool().submit(*_cpu_reference(*cpu_job)))
+        float8 = "float8" in str(fields)
+        if expect != "nan" and _finite_prefix(got[:depth]) == depth:
+            # the card's own checks; the CPU run must then be finite over the held iterations too
+            solve["check"] = _check_run(tag, nres, launches, variant, dev_s, wall, truth, float8=float8)
+            solve["tail"] = _nan_tail(got) if float8 else None
+        if expect != "nan":
+            finite.add(variant)  # asserted below, with the CPU run
+        solves.append(solve)
+        del nres
+
+    for solve in solves:
+        want, cpu_s = solve["future"].result()
+        solve.update(want=want, cpu_s=cpu_s)
+    # the controls: with T' rounded toward zero on the CPU, once for each
+    # T dtype with and without feedback, on the first solve that holds
+    # TIGHT_ENTRIES entries
+    for solve in solves:
+        if solve["expect"] == "nan":
+            continue
+        depth, want, got = solve["depth"], solve["want"], solve["got"]
+        cpu_k, card_k = _finite_prefix(want), _finite_prefix(got[:depth])
+        rise = np.flatnonzero(want[:cpu_k] > want[0])
+        solve["held"] = held = min(cpu_k, card_k, int(rise[0]) if rise.size else depth)
+        solve.update(cpu_k=cpu_k, card_k=card_k)
+        fields = solve["fields"]
+        t_dt = t_dtype_of(solve["ncfg"])
+        feedback = bool(fields.get("einsum_dtype") or solve["masked"])
+        kind = (t_dt, feedback)
+        if (t_dt in hopper_kernels.NARROW_ULP and not solve["masked"] and kind not in controlled
+                and held >= TIGHT_ENTRIES):
+            controlled.add(kind)
+            solve["control"] = _cpu_pool().submit(*_cpu_reference(*solve["cpu_job"], planted=True))
+        solve.update(feedback=feedback, t_dt=t_dt)
+
+    for solve in solves:
+        tag, want, got, depth = solve["tag"] + f" [CPU reference {solve['cpu_s']:.1f} s]", solve["want"], \
+            solve["got"], solve["depth"]
+        fields, masked, launches, dev_s, n_iters = (solve[k] for k in ("fields", "masked", "launches", "dev_s",
+                                                                         "n_iters"))
+        if solve["expect"] == "nan":
             # a value past float8_e4m3fn's 448 is NaN in the reference's
             # rounding: the solve is NaN from its first iteration on
-            if not np.isnan(want).all() or res.n_iters != iters or np.isfinite(got).any():
+            if not np.isnan(want).all() or n_iters != solve["iters"] or np.isfinite(got).any():
                 raise AssertionError(f"{tag}: err_hist {got} on the card, {want} on the CPU; want NaN throughout")
-            print(f"phase3 {tag}: iters={res.n_iters} launches={launches} solve={dev_s:.4f} s (events) "
-                  f"{dev_s / res.n_iters * 1e3:.3f} ms/iter; err_hist non-finite from iteration 1, as on the CPU "
-                  f"and in the reference (max |D| {float(data_t.abs().max()):.1f} > 464)")
+            print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                  f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist non-finite from iteration 1, as on the CPU "
+                  f"and in the reference (max |D| {solve['data_max']:.1f} > 464)")
             continue
         # Both runs are held where both are finite and the CPU's has not
         # risen above its first entry; where the CPU run turns non-finite
         # within the held iterations, the card's must too.
-        cpu_k, card_k = _finite_prefix(want), _finite_prefix(got[:depth])
-        rise = np.flatnonzero(want[:cpu_k] > want[0])
-        held = min(cpu_k, card_k, int(rise[0]) if rise.size else depth)
+        cpu_k, card_k, held = solve["cpu_k"], solve["card_k"], solve["held"]
         if held == 0 or (cpu_k < depth) != (card_k < depth):
             raise AssertionError(f"{tag}: err_hist {got[:depth]} on the card, {want} on the CPU")
         narrow = [fields.get("storage_dtype"), fields.get("einsum_dtype")]
-        feedback = bool(fields.get("einsum_dtype") or masked)
+        feedback = solve["feedback"]
         tail_rtol = FLOAT8_FEEDBACK_RTOL if E4M3 in narrow or E5M2 in narrow else FEEDBACK_RTOL
         limits = np.array([(FEEDBACK_RTOL if k < TIGHT_ENTRIES else tail_rtol) if feedback else NO_FEEDBACK_RTOL
                            for k in range(held)])
         rel = np.abs(got[:held] - want[:held]) / np.abs(want[:held])
         if (rel > limits).any():
             raise AssertionError(f"{tag}: first {held} err_hist entries {rel} from the CPU run, limits {limits}")
-        finite.add(variant)
         head = rel[:TIGHT_ENTRIES].max()
         reading = f"first {min(held, TIGHT_ENTRIES)} {head:.3e} (rtol {limits[0]:g})"
         if held > TIGHT_ENTRIES:
             reading += f", entries {TIGHT_ENTRIES + 1}-{held} {rel[TIGHT_ENTRIES:].max():.3e} (rtol {limits[-1]:g})"
-        # the control: the same CPU run with T' rounded toward zero, once for
-        # each T dtype with and without feedback; asserted for float8
-        t_dt = t_dtype_of(ncfg)
-        kind = (t_dt, feedback)
         control = ""
-        # (for a narrow T: a step of float32 or float64 is below the limits)
-        if t_dt in hopper_kernels.NARROW_ULP and not masked and kind not in controlled and held >= TIGHT_ENTRIES:
-            controlled.add(kind)
-            with _t_rounded_toward_zero():
-                bad = trim_history(tritd_admm(*cpu_args, **cpu_kw).err_hist, depth)
+        if "control" in solve:
+            bad, _s = solve["control"].result()
+            t_dt = solve["t_dt"]
             moved = float(np.max(np.abs(got[:TIGHT_ENTRIES] - bad[:TIGHT_ENTRIES]) / np.abs(bad[:TIGHT_ENTRIES])))
             float8_t = t_dt in (torch.float8_e4m3fn, torch.float8_e5m2)
             if float8_t and not moved > limits[0]:
@@ -1136,30 +1422,34 @@ def phase3() -> dict:
             control = (f"; control: with T' rounded toward zero on the CPU, first {TIGHT_ENTRIES} {moved:.3e}"
                        + ("" if float8_t else " (not asserted)"))
         if cpu_k < depth:
-            print(f"phase3 {tag}: iters={res.n_iters} launches={launches} solve={dev_s:.4f} s (events) "
-                  f"{dev_s / res.n_iters * 1e3:.3f} ms/iter; err_hist {got[:depth]} on the card, {want} on the CPU: "
+            print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                  f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist {got[:depth]} on the card, {want} on the CPU: "
                   f"{reading} over the {held} held; non-finite from iteration {card_k + 1} on the card and "
                   f"{cpu_k + 1} on the CPU{control}")
             continue
-        float8 = "float8" in str(fields)
-        tail = _nan_tail(got) if float8 else None
-        nrre, _err = _check_run(tag, res, launches, variant, dev_s, wall, truth, float8=float8)
+        nrre, _err = solve["check"]
         line = f"phase3 {tag}: first {depth} err_hist entries vs the CPU run in the same dtypes: {reading}{control}"
-        key = (data, masked)
-        if not float8 and dtype == "float32" and iters == preset.max_iter and key in wide_rre:
+        key = (solve["data"], masked)
+        if "float8" not in str(fields) and solve["dtype"] == "float32" and solve["iters"] == solve["preset"].max_iter \
+                and key in wide_rre:
             if abs(nrre - wide_rre[key]) > RRE_FAMILY:
                 raise AssertionError(f"{tag}: RRE {nrre} vs f32 {wide_rre[key]}, beyond {RRE_FAMILY}")
             line += f"; RRE {nrre:.6f} vs f32 {wide_rre[key]:.6f} (family {RRE_FAMILY})"
         else:
             line += f"; RRE {nrre:.6f} (not held to the f32 family)"
-        if tail is not None:
-            line += (f"; non-finite from iteration {tail + 1} on, finite before (float8 range passed, as in the "
-                     f"reference at this size: docs/float8_nan_study.py)")
+        if solve["tail"] is not None:
+            line += (f"; non-finite from iteration {solve['tail'] + 1} on, finite before (float8 range passed, as "
+                     f"in the reference at this size: docs/float8_nan_study.py)")
         print(line)
     for kind in [(dt, fb) for dt in (torch.float8_e4m3fn, torch.float8_e5m2) for fb in (False, True)]:
         if kind not in controlled:
             print(f"phase3 no control for T' in {kind[0]} {'with' if kind[1] else 'without'} feedback: no such "
                   f"solve holds {TIGHT_ENTRIES} finite entries")
+    ref, _s = f64_rerun.result()
+    m = min(len(ref), res.n_iters)
+    np.testing.assert_allclose(err[:m], ref[:m], rtol=1e-3)
+    print(f"phase3 taxi f32 cuda vs f64 cpu, first {m} iterations: "
+          f"max rel diff {np.max(np.abs(err[:m] - ref[:m]) / np.abs(ref[:m])):.3e} (rtol 1e-3)")
     missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - finite
     print(f"phase3 variants launched on finite data: {len(finite)} of {len(finite) + len(missing)}; "
           f"only on NaN data: {sorted(missing)}")
@@ -1709,7 +1999,9 @@ def phase12() -> dict:
                                                               and 0 < per_iter[0]["words"] <= budget):
                 raise AssertionError(f"phase12 {tag}: all_reduce per iteration {per_iter}, want 4 calls within "
                                      f"{budget} words, the same on both routes")
-            want_syncs = -(-cfg.max_iter // cfg.unroll) + 1
+            # the stop flag before each iteration (one a step, whatever
+            # cfg.unroll, as the reference's sharded loop) and the penalties
+            want_syncs = cfg.max_iter + 1
             syncs = [r["syncs"] for r in runs[False]]
             if any(s != want_syncs for s in syncs):
                 raise AssertionError(f"phase12 {tag}: {syncs} synchronizing calls on the graph route, want {want_syncs}")
@@ -1726,7 +2018,7 @@ def phase12() -> dict:
                         row["all_reduce"] = dict(per_iter[0])
                 PHASE12_MODE1.update(res=graph["res"], cfg=cfg, init=init)
             ms = {route: [r["ms"] / n for r in rs] for route, rs in runs.items()}
-            replayed = n - cfg.unroll
+            replayed = n - 1
             split = "; ".join(
                 f"run {i + 1}: {r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
                 f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter"
@@ -1777,9 +2069,10 @@ def _run_workers(tag: str, world: int, args: list[str], out: str) -> dict:
 
 
 def _check_ranks(tag, got, variant, iters_by_rank, factor_scale) -> str:
-    """Every rank launched `variant` once per iteration and nothing else, and
-    the replicated factors agree across ranks."""
-    names = [str(n)[len("elementwise_block["):-1] for n in got["launch_names"]]
+    """Every rank launched `variant` (a launch count's key, as
+    "elementwise_block[f32]") once per iteration and nothing else, and the
+    replicated factors agree across ranks."""
+    names = [str(n) for n in got["launch_names"]]
     for rank, (row, n) in enumerate(zip(got["launches"], iters_by_rank)):
         counts = {k: int(v) for k, v in zip(names, row) if v}
         if counts != {variant: n}:
@@ -1826,7 +2119,7 @@ def phase13() -> None:
             words, budget = int(got["all_reduce_words_per_iter"]), _budget_words(shape, cfg.rank, mode)
             if not 0 < words <= budget:
                 raise AssertionError(f"{tag}: {words} all_reduce words per iteration, budget {budget}")
-            ranks = _check_ranks(tag, got, variant, [n] * world, float(ref.b.abs().max()))
+            ranks = _check_ranks(tag, got, f"elementwise_block[{variant}]", [n] * world, float(ref.b.abs().max()))
             print(f"{tag}: iters={n} {float(got['best_loop_seconds']) / n * 100:.3f} s per 100 iterations (second run, "
                   f"slowest rank's loop; the ranks share the card: no scaling number), first run "
                   f"{float(got['loop_seconds']) / n * 100:.3f}; spawn to result {got['spawn_seconds']:.1f} s; all_reduce/iter: "
@@ -1854,8 +2147,10 @@ def phase14() -> None:
                      + _hist_diff(f"{tag} entry {i} err_hist", got["err_hist"][i], ref.err_hist.cpu(), n, 2e-3, 1e-5)
                      + ", rre_hist "
                      + _hist_diff(f"{tag} entry {i} rre_hist", got["rre_hist"][i], ref.rre_hist.cpu(), n, 2e-3, 1e-5))
-    # rank r sits in data group r // 2 and solves that group's one entry
-    ranks = _check_ranks(tag, got, "f32", [iters[r // 2] for r in range(4)], float(ref.b.abs().max()))
+    # rank r sits in data group r // 2 and solves that group's one entry in
+    # the batched loop: one launch of the batched entry an iteration
+    ranks = _check_ranks(tag, got, "elementwise_block_batch[f32]", [iters[r // 2] for r in range(4)],
+                         float(ref.b.abs().max()))
     print(f"{tag}: loop {float(got['best_loop_seconds']):.3f} s (second run, slowest rank; the ranks share the card: "
           f"no scaling number); spawn to result {got['spawn_seconds']:.1f} s; vs each entry's single process "
           f"(rtol 2e-3, atol 1e-5): {'; '.join(texts)}; {ranks}")
@@ -2697,6 +2992,9 @@ def _watched(call) -> dict:
     if replays:
         split = {"before_replays_ms": start.elapsed_time(replays[0]), "replays_ms": replays[0].elapsed_time(end),
                  "capture_host_ms": sum(g.capture_s for g in graphs) * 1e3, "graphs": len(graphs)}
+    # Watched's methods hold `graphs`, which holds Watched graphs: a cycle
+    # that only the garbage collector would free; free them here
+    graphs.clear()
     return {"res": res, "ms": start.elapsed_time(end), "syncs": syncs,
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20, **split}
 
@@ -2747,6 +3045,291 @@ def phase21() -> None:
               f"{CARD[0]}", flush=True)
 
 
+# --- phase 22: a batch's entries in one loop --------------------------------
+
+# the reference's configuration 5 (BASELINE.json: all four CDnet sequences
+# batched) and its batched completion row (bench.py:367-415)
+PHASE22_VIDEO = ("highway", "sofa", "office", "PETS2006")
+PHASE22_TRAFFIC = ("sensor", "network", "taxi", "chicago")
+BATCH_FIELDS = ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
+# The video batch's float32 err_hist against the serial route's: the batched
+# GEMMs round otherwise than one entry's, and on video the difference grows
+# to 0.4% of err_hist by iteration 15-21 in one of four entries (a probe on
+# an NVIDIA H100 80GB HBM3 at 700 W), past the 2e-3 of the reference's
+# sharded tests.
+PHASE22_VIDEO_RTOL = 1e-2
+# Share of L's and O's elements of a traffic entry that may lie beyond rtol
+# 2e-2 of the serial route's, where a pixel passes between L and O when the
+# sums are ordered otherwise.
+PHASE22_MOVED_SHARE = 1e-4
+# A second witness for the video batch: the same four entries in float64 for
+# PHASE22_F64_ITERS iterations, where the batched GEMMs' other order of sums
+# moves the solve by rounding alone, far below any fault of the batched route:
+# every field, L included, within PHASE22_F64_RTOL of the serial route's
+# (relative, atol that times the field's largest magnitude).
+PHASE22_F64_ITERS = 10
+PHASE22_F64_RTOL = 1e-10
+
+
+def _traffic_batch():
+    """The four traffic stand-ins as the reference's batched row takes them
+    (bench.py `_load`): README_MISSING_RATIO missing, zero-filled, each
+    zero-padded to their common shape (100x100x2016); (truth, data) stacked
+    on the CPU in float32, and the unpadded shapes."""
+    xs, ys, shapes = [], [], []
+    for name in PHASE22_TRAFFIC:
+        x, _spec, _prov = load_dataset(name)
+        mask = uniform_missing_mask(np.random.default_rng(0), x.shape, README_MISSING_RATIO)
+        xs.append(x.astype(np.float32))
+        ys.append(np.where(mask, x, 0.0).astype(np.float32))
+        shapes.append(x.shape)
+    pad = tuple(max(s[i] for s in shapes) for i in range(3))
+
+    def padded(arrays):
+        return np.stack([np.pad(a, [(0, pad[i] - a.shape[i]) for i in range(3)]) for a in arrays])
+
+    return padded(xs), padded(ys), shapes
+
+
+def _batch_route(data, cfg, mesh, origin, serial: bool) -> dict:
+    """tritd_admm_batch_sharded on one route, from numpy: the batched loop
+    (its `run_admm_batch` call watched, `_watched`) or `_serial=True` (each
+    entry's `run_admm` call watched); CUDA events around the whole call, the
+    audit, the kernel's launches through each entry point."""
+    from tritd_tpu_torch.parallel import sharded_admm, tritd_admm_batch_sharded
+
+    name = "run_admm" if serial else "run_admm_batch"
+    real, records = getattr(sharded_admm, name), []
+    _release_cached()
+
+    def watched(*args, **kwargs):
+        records.append(_watched(lambda: real(*args, **kwargs)))
+        return records[-1]["res"]
+
+    hopper_kernels.reset_launch_counts()
+    audit: dict = {}
+    setattr(sharded_admm, name, watched)
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = tritd_admm_batch_sharded(data, cfg, mesh, origin_batch=origin, audit=audit, _serial=serial)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        setattr(sharded_admm, name, real)
+    return {"res": res, "records": records, "audit": audit, "call_ms": start.elapsed_time(end),
+            "launches": _launches(), "pointer": _pointer_launches(),
+            "batch": {k[len("elementwise_block_batch["):-1]: v for k, v in hopper_kernels.BATCH_LAUNCHES.items() if v}}
+
+
+def _stop_tol(err_hists: np.ndarray, max_iter: int) -> tuple[float, list[int]]:
+    """A tol under which at least two entries of these tol-0 histories stop
+    before max_iter, at different iterations, by the stop rule (|err[k] -
+    err[k-1]| < tol * err[k-1], k >= 1; n_iters k + 1), every relative change
+    before a stop at least 10% away from tol (so that the routes' rounding
+    cannot move a stop; a non-finite change never stops an entry), the
+    stops within the first 40 iterations, where the routes are nearest: the
+    candidate from 1e-1 down to 1e-7, 24 a decade, that spreads the stops
+    widest. Returns it and the stops it gives."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.abs(np.diff(err_hists, axis=1)) / err_hists[:, :-1]
+    best = None
+    for tol in np.logspace(-1, -7, 6 * 24 + 1):
+        stops, margin = [], True
+        for r in rel:
+            hit = np.flatnonzero(r < tol)
+            k = int(hit[0]) + 2 if hit.size else max_iter
+            stops.append(k)
+            near = r[: k - 1] if hit.size else r
+            near = near[np.isfinite(near) & (near > 0)]
+            margin &= bool(np.all(np.abs(np.log(near / tol)) > np.log(1.1)))
+        early = sorted({k for k in stops if k < max_iter})
+        if margin and len(early) >= 2 and min(stops) >= 3 and early[-1] <= 40:
+            spread = early[-1] - early[0]
+            if best is None or spread > best[0]:
+                best = (spread, float(tol), stops)
+    if best is None:
+        raise AssertionError(f"phase22: no tol stops two entries early at different iterations: {rel}")
+    return best[1], best[2]
+
+
+def phase22() -> dict:
+    """A batch's entries in one loop on one NCCL rank: tritd_admm_batch_sharded
+    on its batched route against `_serial=True`, in turns batched, serial,
+    serial, batched. Returns the batched entry's launches of the first
+    batched run of each case (the main path)."""
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh
+
+    video = [load_dataset(name) for name in PHASE22_VIDEO]
+    v = np.stack([x.astype(np.float32) for x, _spec, _prov in video])
+    provenance = {prov for _x, _spec, prov in video}
+    tx, ty, shapes = _traffic_batch()
+    cases = [
+        ("video f32 (configuration 5)", v, dataclasses.replace(VIDEO_TRITD, tol=0.0), None, "f32"),
+        ("video storage=bf16", v, dataclasses.replace(VIDEO_TRITD, tol=0.0, storage_dtype="bfloat16"), None,
+         "c32_dbf16_sbf16_tbf16"),
+        ("traffic f32 (batched completion row)", ty, dataclasses.replace(COMPLETION_TRITD, tol=0.0), tx, "f32"),
+        (f"video f64 witness ({PHASE22_F64_ITERS} iterations)", v.astype(np.float64),
+         dataclasses.replace(VIDEO_TRITD, tol=0.0, dtype="float64", max_iter=PHASE22_F64_ITERS), None, "f64"),
+    ]
+    total: dict = {}
+    _release_cached()
+    print(f"phase22 start: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved", flush=True)
+    _nccl_one_rank()
+    try:
+        mesh = make_mesh(device_type="cuda")
+        for route in (False, True):  # NCCL's, cuBLAS's and the captures' set-up stay out of the times
+            _batch_route(ty[:, :, :, :50], dataclasses.replace(COMPLETION_TRITD, max_iter=3, tol=0.0), mesh,
+                         tx[:, :, :, :50], route)
+        case_i = 0
+        while case_i < len(cases):
+            tag, data, cfg, origin, variant = cases[case_i]
+            case_i += 1
+            runs = {False: [], True: []}
+            for serial in (False, True, True, False):
+                runs[serial].append(_batch_route(data, cfg, mesh, origin, serial))
+            batched, serial = runs[False][0], runs[True][0]
+            nb = data.shape[0]
+            n_batch = batched["res"].n_iters.tolist()
+            n_serial = serial["res"].n_iters.tolist()
+            steps = batched["audit"]["steps"]
+            if n_batch != n_serial or n_batch != batched["audit"]["n_iters"] or steps != max(n_batch):
+                raise AssertionError(f"phase22 {tag}: n_iters batched {n_batch}, serial {n_serial}, steps {steps}")
+            if cfg.tol == 0 and n_batch != [cfg.max_iter] * nb:
+                raise AssertionError(f"phase22 {tag}: n_iters {n_batch} at tol 0")
+            if cfg.tol:
+                early = sorted({k for k in n_batch if k < cfg.max_iter})
+                if len(early) < 2:
+                    raise AssertionError(f"phase22 {tag}: n_iters {n_batch}: want two entries stopping early at "
+                                         f"different iterations")
+            # the launches: one of the batched entry an iteration, no single
+            # entry; serially every entry's iterations through the pointer entry
+            for r in runs[False]:
+                if r["batch"] != {variant: steps} or r["launches"] or r["pointer"]:
+                    raise AssertionError(f"phase22 {tag}: batched route launched {r['batch']} batched, "
+                                         f"{r['launches']} single; want {{{variant!r}: {steps}}} and none")
+            for r in runs[True]:
+                if r["launches"] != {variant: sum(n_serial)} or r["pointer"] != r["launches"] or r["batch"]:
+                    raise AssertionError(f"phase22 {tag}: serial route launched {r['launches']} ({r['pointer']} "
+                                         f"through the pointer entry), {r['batch']} batched")
+            want_syncs = (steps + (steps < cfg.max_iter) + 1, [n + (n < cfg.max_iter) + 1 for n in n_serial])
+            syncs = ([[x["syncs"] for x in r["records"]] for r in runs[False]],
+                     [[x["syncs"] for x in r["records"]] for r in runs[True]])
+            if any(s != [want_syncs[0]] for s in syncs[0]) or any(s != want_syncs[1] for s in syncs[1]):
+                raise AssertionError(f"phase22 {tag}: synchronizing calls batched {syncs[0]}, serial {syncs[1]}; "
+                                     f"want {want_syncs}")
+            per_iter = batched["audit"]["per_iter"]
+            if per_iter["calls"] != 4 or per_iter["words"] != nb * serial["audit"]["per_iter"]["words"]:
+                raise AssertionError(f"phase22 {tag}: all_reduce per iteration batched {per_iter}, serial "
+                                     f"{serial['audit']['per_iter']}")
+            for k, val in batched["batch"].items():
+                total[k] = total.get(k, 0) + val
+            # each entry against its serial solve: bitwise, else at the
+            # float32 tolerances of the reference's sharded tests
+            # (tests/test_sharding.py) for solves whose sums are ordered
+            # otherwise: histories rtol 2e-3 atol 1e-5 (bf16 storage 2e-2,
+            # 1e-4; on video PHASE22_VIDEO_RTOL, and VIDEO_F32_FLOOR near the
+            # float32 floor of 4e-5 to 1e-4, as phase 13 holds it), L =
+            # TriTD(A, B, C) and O rtol 2e-2 atol 2e-3 max|O| in all but a
+            # share PHASE22_MOVED_SHARE of their elements (O not with bf16
+            # storage, where a flipped rounding moves an element by a bf16
+            # step, as tests/test_torch_parallel.py holds it). On video, where
+            # the solves run on at the float32 floor, L and O are printed, not
+            # held: there pixels pass between L and O (0.8% of O's elements
+            # beyond those limits in a probe), as phase 13 holds its
+            # multi-rank video solve by its histories alone.
+            # The float64 witness holds every field, L included, at
+            # PHASE22_F64_RTOL instead.
+            witness = cfg.dtype == "float64"
+            floor = VIDEO_F32_FLOOR if origin is None and not witness else None
+            bf16 = cfg.storage_dtype is not None
+            h_tol = (2e-2, 1e-4) if bf16 else (PHASE22_VIDEO_RTOL if floor else 2e-3, 1e-5)
+            bitwise, texts = 0, []
+            again = [f for f in BATCH_FIELDS for a, b in ((runs[False][1], batched), (runs[True][1], serial))
+                     if not _same_bits(getattr(a["res"], f), getattr(b["res"], f))]
+            if again:
+                raise AssertionError(f"phase22 {tag}: a route differs from its own second run in {again}")
+            for i in range(nb):
+                got = {f: getattr(batched["res"], f)[i] for f in BATCH_FIELDS}
+                want = {f: getattr(serial["res"], f)[i] for f in BATCH_FIELDS}
+                same = [f for f in BATCH_FIELDS if _same_bits(got[f], want[f])]
+                bitwise += len(same)
+                n = n_batch[i]
+                lg, lw = (triple_product(r["a"], r["b"], r["c"]) for r in (got, want))
+                if witness:
+                    rel = {}
+                    for f, g, w in (*((f, got[f], want[f]) for f in BATCH_FIELDS if f not in same), ("L", lg, lw)):
+                        scale = float(w.abs().nan_to_num(0.0).max())
+                        rel[f] = float((g - w).abs().nan_to_num(0.0).max()) / scale
+                        torch.testing.assert_close(g, w, rtol=PHASE22_F64_RTOL, atol=PHASE22_F64_RTOL * scale,
+                                                   equal_nan=True, msg=lambda m, f=f: f"phase22 {tag} entry {i} {f}: {m}")
+                    texts.append(f"entry {i}: iters={n} max|diff|/max|serial| "
+                                 + ", ".join(f"{f} {x:.1e}" for f, x in rel.items()))
+                    continue
+                for f in ("err_hist", "rre_hist"):
+                    if f not in same and (origin is not None or f == "err_hist"):
+                        _hist_diff(f"phase22 {tag} entry {i} {f}", got[f].cpu(), want[f].cpu(), n, *h_tol, floor)
+                    if not torch.isnan(got[f][n:]).all():
+                        raise AssertionError(f"phase22 {tag} entry {i}: {f} not NaN past the stop")
+                moved = {}
+                for f, g, w in (("L", lg, lw), ("o", got["o"], want["o"]))[: 1 if bf16 else 2]:
+                    if not _same_bits(g, w):
+                        far = ~torch.isclose(g, w, rtol=2e-2, atol=2e-3 * float(w.abs().max()))
+                        moved[f] = float(far.double().mean())
+                        if floor is None and moved[f] > PHASE22_MOVED_SHARE:
+                            raise AssertionError(f"phase22 {tag} entry {i}: {f} differs from the serial route's in "
+                                                 f"{moved[f]:.2e} of its elements, limit {PHASE22_MOVED_SHARE:g}")
+                truth = torch.as_tensor(data[i] if origin is None else origin[i], device="cuda")
+                if origin is not None:
+                    s1, s2, s3 = shapes[i]
+                    lg, truth = lg[:s1, :s2, :s3], truth[:s1, :s2, :s3]
+                diff = {f: float((got[f].double() - want[f].double()).abs().nan_to_num(0.0).max())
+                        for f in BATCH_FIELDS if f not in same}
+                texts.append(f"entry {i}: iters={n} rre={float(rre(lg, truth)):.6f}"
+                             + (f" max|diff| {', '.join(f'{f} {x:.1e}' for f, x in diff.items())}" if diff else "")
+                             + (f"; beyond rtol 2e-2: {', '.join(f'{f} {x:.1e}' for f, x in moved.items())}"
+                                if moved else ""))
+            ms = {}
+            for route, rs in runs.items():
+                rows = []
+                for r in rs:
+                    recs = r["records"]
+                    loop_ms = sum(x["ms"] for x in recs)
+                    first = sum(x.get("before_replays_ms", 0.0) for x in recs)
+                    replays = sum(x.get("replays_ms", 0.0) for x in recs)
+                    replayed = (sum(n_serial) - nb) if route else steps - 1
+                    peak = max(x["peak_mib"] for x in recs)
+                    rows.append(f"{loop_ms / steps if not route else loop_ms / max(n_serial):.4f} ms/iter "
+                                f"({first:.2f} ms to the first replay{'s' if route else ''}, then "
+                                f"{replays / max(replayed, 1) * (nb if route else 1):.4f} ms/iter; peak "
+                                f"{peak:.1f} MiB)")
+                ms[route] = rows
+            print(f"phase22 nccl 1 rank {tag}: {nb} entries of {'x'.join(map(str, data.shape[1:]))}, "
+                  f"{cfg.max_iter} iterations, tol {cfg.tol:g}; n_iters {n_batch}; batched route: "
+                  f"{' / '.join(ms[False])}; serial: {' / '.join(ms[True])}; launches batched "
+                  f"{batched['batch']} (one an iteration), serial {serial['launches']}; synchronizing calls "
+                  f"batched {syncs[0]}, serial {syncs[1]}; all_reduce/iter {per_iter}; {bitwise} of "
+                  f"{nb * len(BATCH_FIELDS)} fields bitwise the serial route's; " + "; ".join(texts)
+                  + f"; {CARD[0]}", flush=True)
+            if tag.startswith("traffic f32 (batched"):
+                # the early stop: a tol under which two entries stop at
+                # different iterations, from these tol-0 histories
+                tol, stops = _stop_tol(batched["res"].err_hist.cpu().double().numpy(), cfg.max_iter)
+                print(f"phase22 early-stop tol {tol:.3e} from the tol-0 histories: entries stop after {stops}")
+                cases.append((f"traffic f32 early stop (tol {tol:.3e})", ty,
+                              dataclasses.replace(COMPLETION_TRITD, tol=tol), tx, "f32"))
+            # this case's results leave the card before the next case's runs
+            runs = batched = serial = got = want = lg = lw = truth = None
+            print(f"phase22 after {tag}: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated", flush=True)
+        print(f"phase22 data: video stand-ins ({', '.join(sorted(provenance))}), traffic padded from {shapes}")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -2764,6 +3347,14 @@ def _timed(n: int, phase):
 
 
 def main() -> None:
+    try:
+        _main()
+    finally:
+        for pool in _CPU_POOL:
+            pool.shutdown(cancel_futures=True)
+
+
+def _main() -> None:
     device = phase0()
     phase1()
     records = _timed(2, phase2)
@@ -2782,6 +3373,7 @@ def main() -> None:
         launches[variant] = launches.get(variant, 0) + count
     _timed(20, phase20)
     _timed(21, phase21)
+    batch_launches = _timed(22, phase22)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:
@@ -2796,6 +3388,7 @@ def main() -> None:
         "replaces": "tritd_tpu/ops/pallas_kernels.py:133",
         "launches": launches[variant],
         "pointer_launches": POINTER_ON_MAIN_PATH.get(variant, 0),
+        "batch_launches": batch_launches.get(variant, 0),
         **record,
     } for variant, record in records.items()]}))
     print(json.dumps({"ok": True, "device": device}))

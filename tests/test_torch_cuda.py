@@ -255,9 +255,9 @@ def test_capture_that_meets_a_host_sync_raises(cuda_device, monkeypatch):
 
     real = admm.update_factors
 
-    def syncing(t, a, b, c, cfg, shard=None):
+    def syncing(t, a, b, c, cfg, **kw):
         float(a.sum())
-        return real(t, a, b, c, cfg, shard)
+        return real(t, a, b, c, cfg, **kw)
 
     y = torch.from_numpy(np.random.default_rng(3).standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
     cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=4, tol=0.0)

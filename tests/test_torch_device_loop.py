@@ -17,7 +17,12 @@ The checkpoint of a graph-route state needs the card and skips here; so
 does the sharded solve on one NCCL rank, whose graph route captures the
 four all_reduce calls of an iteration and is held bitwise to its eager loop
 (`_local_solve(..., _eager=True)`), with the kernel once an iteration
-through the pointer entry and ceil(max_iter/unroll) + 1 synchronizing calls.
+through the pointer entry and max_iter + 1 synchronizing calls (one
+iteration a step, as the reference's sharded loop); and so does the batch
+in one loop on that rank (`tritd_admm_batch_sharded`): the kernel's batched
+entry bitwise its pointer entry launched on each entry alone, one batched
+launch an iteration, max_iter + 1 synchronizing calls, each entry held to
+its serial solve (`_serial=True`).
 JAX is imported only by the test that calls it, so that the rest of the file
 also runs on a machine with the card and without JAX.
 """
@@ -358,29 +363,34 @@ def nccl_mesh():
         dist.destroy_process_group()
 
 
-def _sharded_route(mesh, y, cfg, mode, mask, eager, monkeypatch):
-    """`_local_solve` on one route from one init, as `tritd_admm_sharded`
-    calls it: the final state, the audit, the launches (all, and through
-    the pointer entry) and the synchronizing calls inside `run_admm`."""
+def _counting_syncs(fn, syncs: list):
+    """`fn` that appends to `syncs` the synchronizing calls each call of it
+    made (`torch.cuda.set_sync_debug_mode("warn")`)."""
     import warnings
-
-    from tritd_tpu_torch.parallel import sharded_admm
-
-    real, syncs = sharded_admm.run_admm, []
 
     def watched(*args, **kwargs):
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                return real(*args, **kwargs)
+                return fn(*args, **kwargs)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 # the warnings of the synchronizing calls; the mode's one-time notice that it is a
                 # prototype also names synchronization
                 syncs.append(sum("called a synchronizing" in str(w.message) for w in seen))
 
-    monkeypatch.setattr(sharded_admm, "run_admm", watched)
+    return watched
+
+
+def _sharded_route(mesh, y, cfg, mode, mask, eager, monkeypatch):
+    """`_local_solve` on one route from one init, as `tritd_admm_sharded`
+    calls it: the final state, the audit, the launches (all, and through
+    the pointer entry) and the synchronizing calls inside `run_admm`."""
+    from tritd_tpu_torch.parallel import sharded_admm
+
+    real, syncs = sharded_admm.run_admm, []
+    monkeypatch.setattr(sharded_admm, "run_admm", _counting_syncs(real, syncs))
     init = init_factors(torch.Generator().manual_seed(0), tuple(y.shape), cfg.rank, cfg.torch_dtype(), "cpu")
     hopper_kernels.reset_launch_counts()
     coll = sharded_admm.SlabCollective(mesh.get_group("slab"), mode)
@@ -400,9 +410,10 @@ def test_sharded_graph_route_is_the_eager_loop_bitwise(nccl_mesh, mode, unroll, 
     """The sharded solve on one NCCL rank at 20x16x24: the graph route (its
     four all_reduce calls an iteration captured) stores the eager loop's
     bits in every field and the penalties, launches the kernel once an
-    iteration through the pointer entry, makes ceil(max_iter/unroll) + 1
-    synchronizing calls (the stop flag before each block, the penalties at
-    the end), and counts the collective's calls as the eager loop does."""
+    iteration through the pointer entry, makes max_iter + 1 synchronizing
+    calls (the stop flag before each iteration, one a step whatever
+    `unroll`, as the reference's sharded loop; the penalties at the end),
+    and counts the collective's calls as the eager loop does."""
     rng = np.random.default_rng(7)
     shape = (20, 16, 24)
     fields = BITWISE_CASES[case]
@@ -413,11 +424,11 @@ def test_sharded_graph_route_is_the_eager_loop_bitwise(nccl_mesh, mode, unroll, 
         y = np.where(mask, y, np.float32(0.0))
     graph, g_audit, g_launches, g_pointer, g_syncs = _sharded_route(nccl_mesh, y, cfg, mode, mask, False, monkeypatch)
     eager, e_audit, e_launches, e_pointer, _ = _sharded_route(nccl_mesh, y, cfg, mode, mask, True, monkeypatch)
-    n = -(-cfg.max_iter // unroll) * unroll
+    n = cfg.max_iter
     assert graph.k == eager.k == n and graph.mu_l.tobytes() == eager.mu_l.tobytes()
     assert g_launches == e_launches and len(g_launches) == 1 and sum(g_launches.values()) == n
     assert list(g_pointer.values()) == [n] and e_pointer == {}
-    assert g_syncs == [-(-cfg.max_iter // unroll) + 1]
+    assert g_syncs == [cfg.max_iter + 1]
     assert g_audit["per_iter"] == e_audit["per_iter"] and g_audit["per_iter"]["calls"] == 4
     assert g_audit["setup"] == e_audit["setup"]
     for f in STATE_FIELDS:
@@ -427,26 +438,160 @@ def test_sharded_graph_route_is_the_eager_loop_bitwise(nccl_mesh, mode, unroll, 
 @pytest.mark.cuda
 def test_sharded_entry_points_take_the_graph_route(nccl_mesh):
     """`tritd_admm_auto` is `tritd_admm_sharded` mode 1 bit for bit on the
-    graph route, and each entry of `tritd_admm_batch_sharded` is the
-    sharded solve of that entry: the kernel once an iteration, every launch
-    through the pointer entry."""
+    graph route, at unroll 1 (the sharded loop's step), and each entry of
+    `tritd_admm_batch_sharded(..., _serial=True)` is the sharded solve of
+    that entry: the kernel once an iteration, every launch through the
+    pointer entry. The batch's own loop launches the batched entry once an
+    iteration for both entries and nothing else."""
     from tritd_tpu_torch.parallel import tritd_admm_auto, tritd_admm_batch_sharded, tritd_admm_sharded
 
     rng = np.random.default_rng(8)
     shape = (20, 16, 24)
     y = (rng.standard_normal((2, *shape)) * 10).astype(np.float32)
-    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=12, tol=0.0, unroll=2)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=12, tol=0.0)
     gen = torch.Generator().manual_seed(0)
     inits = [init_factors(gen, shape, cfg.rank, torch.float32, "cpu") for _ in range(2)]
+    stacked = tuple(torch.stack(f) for f in zip(*inits))
     hopper_kernels.reset_launch_counts()
     sharded = [tritd_admm_sharded(y[i], cfg, nccl_mesh, origin=y[i], init=inits[i]) for i in range(2)]
     auto = tritd_admm_auto(y[0], cfg, nccl_mesh, origin=y[0], init=inits[0])
-    batch = tritd_admm_batch_sharded(y, cfg, nccl_mesh, origin_batch=y,
-                                     init=tuple(torch.stack(f) for f in zip(*inits)))
+    serial = tritd_admm_batch_sharded(y, cfg, nccl_mesh, origin_batch=y, init=stacked, _serial=True)
     torch.cuda.synchronize()
     assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == 5 * 12
     assert hopper_kernels.POINTER_LAUNCHES["elementwise_block_ptr[f32]"] == 5 * 12
     for f in ("a", "b", "c", "o", "e", "err_hist", "rre_hist"):
         assert torch.equal(getattr(auto, f), getattr(sharded[0], f)), f
         for i in range(2):
-            assert torch.equal(getattr(batch, f)[i], getattr(sharded[i], f)), (f, i)
+            assert torch.equal(getattr(serial, f)[i], getattr(sharded[i], f)), (f, i)
+    hopper_kernels.reset_launch_counts()
+    tritd_admm_batch_sharded(y, cfg, nccl_mesh, origin_batch=y, init=stacked)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in hopper_kernels.BATCH_LAUNCHES.items() if v} == {"elementwise_block_batch[f32]": 12}
+    assert not any(hopper_kernels.LAUNCHES.values())
+
+
+def _offset(x: torch.Tensor, off: int) -> torch.Tensor:
+    """x copied into a buffer on the card that starts `off` elements before it."""
+    view = torch.empty(x.numel() + off, dtype=x.dtype, device="cuda")[off:].view(x.shape)
+    return view.copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "f64", "c32_de5m2_se5m2_te5m2", "c32_d32_sbf16_tbf16", "c64_d64_s64_tf16"])
+@pytest.mark.parametrize("shape,offset", [((20, 16, 24), False), ((5, 7, 3), False), ((5, 7, 3), True)],
+                         ids=["aligned", "ragged", "offset"])
+def test_batched_entry_is_the_pointer_entry_per_entry(variant, shape, offset):
+    """Three entries in one launch of the batched entry: every store and both
+    sums of each bitwise the pointer entry's launch on that entry alone,
+    also where n * itemsize is no multiple of 16 (the element path), and
+    where every stream is a view that starts so far into its buffer that
+    entry 0's addresses are not 16-byte aligned but entry 1's are (each
+    entry takes the path its own addresses allow)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel runs on the card")
+    cd, d_dt, s_dt, t_dt = next(k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
+    rng = np.random.default_rng(3)
+    nb = 3
+    with_t = d_dt == s_dt  # the masked variants take no T'
+    n = int(np.prod(shape))
+    narrowest = min(torch.empty((), dtype=x).element_size() for x in (cd, d_dt, s_dt) + ((t_dt,) if with_t else ()))
+    off = (-n) % (16 // narrowest) if offset else 0
+    assert off or not offset
+    raw = [torch.from_numpy(rng.standard_normal((nb, *shape)) * 3) for _ in range(5)]
+    d = _offset(narrow_cast(raw[0], d_dt).cuda(), off)
+    l = _offset(raw[1].to(cd).cuda(), off)
+    e, y_l, y_o = (_offset(narrow_cast(x, s_dt).cuda(), off) for x in raw[2:])
+    mu_l, mu_o = (torch.tensor(v, dtype=cd, device="cuda") for v in ([0.7, 1.3, 2.9], [0.4, 0.9, 5.0]))
+    mu_next = mu_l * 1.05 if with_t else None
+
+    def outs():
+        return [_offset(torch.zeros_like(e), off) for _ in range(4)] + \
+            [_offset(torch.zeros_like(d, dtype=t_dt), off) if with_t else None]
+
+    hopper_kernels.reset_launch_counts()
+    got = hopper_kernels.elementwise_block_batch(d, l, e, y_l, y_o, mu_l, mu_o, 0.8, mu_l_next=mu_next,
+                                                 t_dtype=t_dt if with_t else None, out=outs())
+    assert hopper_kernels.BATCH_LAUNCHES[f"elementwise_block_batch[{variant}]"] == 1
+    if offset:
+        streams = [d, l, e, y_l, y_o, *(x for x in got[:4]), *([got[6]] if with_t else [])]
+        assert not hopper_kernels.pointers_aligned(*(x[0].data_ptr() for x in streams))
+        assert hopper_kernels.pointers_aligned(*(x[1].data_ptr() for x in streams))
+    # the launch on one entry stores into views of batch-shaped buffers, so
+    # that its pointers sit where the batch's do (an entry whose pointers are
+    # not 16-byte aligned takes the one-element path, which sums in another
+    # order than the vector path)
+    bufs = outs()
+    for i in range(nb):
+        want = hopper_kernels.elementwise_block(d[i], l[i], e[i], y_l[i], y_o[i], mu_l[i], mu_o[i], 0.8,
+                                                mu_l_next=None if mu_next is None else mu_next[i],
+                                                t_dtype=t_dt if with_t else None,
+                                                out=[None if b is None else b[i] for b in bufs])
+        for j, w in enumerate(want):
+            if w is not None:
+                assert torch.equal(_bits(got[j][i]), _bits(w)), (i, j)
+    assert hopper_kernels.POINTER_LAUNCHES[f"elementwise_block_ptr[{variant}]"] == nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [dict(tol=0.0), dict(tol=1e-2), dict(masked=True, storage_dtype="bfloat16",
+                                                                          tol=0.0)],
+                         ids=["tol0", "early_stop", "masked_bf16_storage"])
+def test_batch_graph_route_is_the_serial_route(nccl_mesh, fields, monkeypatch):
+    """Three entries on one NCCL rank at 20x16x24: the batched loop on the
+    graph route launches the batched entry once an iteration and no single
+    entry, reads the flags once before each iteration it runs and the
+    penalties once (max_iter + 1 synchronizing calls at tol 0), and stores
+    the bits of the same loop run eagerly. Each entry's iteration count is
+    its serial solve's (`_serial=True`), its histories within the float32
+    tolerances of tests/test_torch_parallel.py (rtol 2e-3, atol 1e-5; bf16
+    storage 2e-2, 1e-4), L and O (but with bf16 storage) within rtol 2e-2,
+    atol 2e-3 max|O|: cuBLAS picks other kernels for the batched products
+    than for one entry's."""
+    from tritd_tpu_torch.parallel import sharded_admm, tritd_admm_batch_sharded
+
+    rng = np.random.default_rng(9)
+    shape = (20, 16, 24)
+    ys = []
+    for scale in (1.0, 4.0, 20.0):  # low rank + noise + spikes, each entry falling at its own rate
+        a, b, c = (rng.standard_normal(s) for s in ((shape[0], 3, 3), (3, shape[1], 3), (3, 3, shape[2])))
+        x = np.einsum("iqs,qjs,qst->ijt", a, b, c)
+        x = scale * x / np.sqrt(np.mean(x**2)) + 0.02 * scale * rng.standard_normal(shape)
+        ys.append(x + (rng.random(shape) < 0.02) * 5.0 * scale)
+    y = np.stack(ys).astype(np.float32)
+    cfg = dataclasses.replace(COMPLETION_TRITD, rank=3, max_iter=25, **fields)
+    mask = rng.random((3, *shape)) >= 0.1 if cfg.masked else None
+    if cfg.masked:
+        y = np.where(mask, y, np.float32(0.0))
+    syncs: list = []
+    real = sharded_admm.run_admm_batch
+    monkeypatch.setattr(sharded_admm, "run_admm_batch", _counting_syncs(real, syncs))
+    hopper_kernels.reset_launch_counts()
+    audit: dict = {}
+    got = tritd_admm_batch_sharded(y, cfg, nccl_mesh, mask_batch=mask, origin_batch=y, audit=audit)
+    torch.cuda.synchronize()
+    steps = audit["steps"]
+    assert not any(hopper_kernels.LAUNCHES.values()) and sum(hopper_kernels.BATCH_LAUNCHES.values()) == steps
+    # a read before each iteration run, one more if every entry stopped early, and the penalties
+    assert syncs == [steps + (steps < cfg.max_iter) + 1]
+    if not cfg.tol:
+        assert syncs == [cfg.max_iter + 1]
+    monkeypatch.setattr(sharded_admm, "_graph_route", lambda *args: False)
+    eager = tritd_admm_batch_sharded(y, cfg, nccl_mesh, mask_batch=mask, origin_batch=y)
+    want = tritd_admm_batch_sharded(y, cfg, nccl_mesh, mask_batch=mask, origin_batch=y, _serial=True)
+    n = got.n_iters.tolist()
+    assert n == eager.n_iters.tolist() == want.n_iters.tolist()
+    if cfg.tol:
+        assert len(set(n)) > 1 and max(n) < cfg.max_iter
+    for f in ("a", "b", "c", "o", "e", "err_hist", "rre_hist"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(eager, f))), f
+    h_tol = dict(rtol=2e-2, atol=1e-4) if cfg.storage_dtype else dict(rtol=2e-3, atol=1e-5)
+    for i in range(3):
+        for f in ("err_hist", "rre_hist"):
+            torch.testing.assert_close(getattr(got, f)[i], getattr(want, f)[i], equal_nan=True, **h_tol,
+                                       msg=lambda m, f=f, i=i: f"entry {i} {f}: {m}")
+        # O not with bf16 storage, where a flipped rounding moves an element
+        # by a bf16 step (tests/test_torch_parallel.py holds it so too)
+        for f, g, w in (("L", *(admm.designs.triple_product(r.a[i], r.b[i], r.c[i]) for r in (got, want))),
+                        ("o", got.o[i], want.o[i]))[: 1 if cfg.storage_dtype else 2]:
+            torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-3 * float(w.abs().max()),
+                                       msg=lambda m, f=f, i=i: f"entry {i} {f}: {m}")

@@ -23,6 +23,7 @@ Tolerances, with reasons:
 """
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import threading
@@ -298,18 +299,42 @@ def mesh1():
 def test_one_shard_is_the_single_device_solver(mesh1, problem, mode, fields):
     """One shard reduces nothing: the histories are tritd_admm's to the last
     bits (the norms here are roots of sums of squares, there vector norms),
-    and O is bitwise equal."""
+    and O is bitwise equal. The sharded loop tests the stop rule after every
+    iteration, as the reference's sharded `while_loop` does whatever
+    `unroll`: its twin is tritd_admm at unroll 1."""
     d, mask = problem
     cfg = TriTDConfig(**{**dict(rank=RANK, max_iter=20, tol=0.0, dtype="float64"), **fields})
     kw = dict(mask=torch.from_numpy(mask) if cfg.masked else None, origin=torch.from_numpy(d * 0.9))
     audit = {}
     got = tritd_admm_sharded(d.astype(np.float64), cfg, mesh1, shard_tensor_mode=mode, audit=audit, **kw)
-    want = tritd_admm(torch.from_numpy(d.astype(np.float64)), cfg, **kw)
+    want = tritd_admm(torch.from_numpy(d.astype(np.float64)), dataclasses.replace(cfg, unroll=1), **kw)
     assert got.n_iters == want.n_iters == audit["n_iters"]
     torch.testing.assert_close(got.err_hist, want.err_hist, rtol=1e-13, atol=0, equal_nan=True)
     torch.testing.assert_close(got.rre_hist, want.rre_hist, rtol=1e-13, atol=0, equal_nan=True)
     torch.testing.assert_close(got.o, want.o, rtol=0, atol=0)
     assert audit["per_iter"]["calls"] == 4 and audit["setup"] == {"calls": 1, "words": 2, "bytes": 16}
+
+
+def test_auto_keeps_tritd_admms_unroll(mesh1, problem):
+    """The reference's auto is `tritd_admm` on the padded tensor, which tests
+    the stop rule every `unroll` iterations: with unroll 4 and an early stop,
+    `tritd_admm_auto` stops where the port's tritd_admm and the reference's
+    auto do, a multiple of 4, past where the sharded solve stops."""
+    d, _mask = problem
+    cfg = TriTDConfig(rank=RANK, max_iter=60, tol=1e-3, dtype="float64", unroll=4)
+    d = d.astype(np.float64)
+    with jax.enable_x64(True):
+        init = tuple(np.asarray(u) for u in j_init_factors(jax.random.PRNGKey(0), SHAPE, RANK, np.float64))
+        ref = j_auto(jnp.asarray(d), JConfig(**dataclasses.asdict(cfg)), j_make_mesh(n_slab=1))
+        ref = {f: np.asarray(getattr(ref, f)) for f in ("err_hist", "n_iters")}
+    got = tritd_admm_auto(d, cfg, mesh1, init=init, device="cpu")
+    want = tritd_admm(torch.from_numpy(d), cfg, init=init)
+    sharded = tritd_admm_sharded(d, cfg, mesh1, init=init, device="cpu")
+    assert got.n_iters == want.n_iters == int(ref["n_iters"]) and got.n_iters % 4 == 0
+    assert sharded.n_iters < got.n_iters < cfg.max_iter
+    torch.testing.assert_close(got.err_hist, want.err_hist, rtol=1e-13, atol=0, equal_nan=True)
+    np.testing.assert_allclose(got.err_hist.numpy()[: got.n_iters], ref["err_hist"][: got.n_iters], rtol=1e-8)
+    torch.testing.assert_close(got.o, want.o, rtol=0, atol=0)
 
 
 def test_sharded_masked_requires_mask(mesh1, problem):

@@ -1,7 +1,7 @@
 """PyTorch port, the sharded solve on the device form of the loop: the
-penalties and the counter as 0-d tensors, each block of `unroll` iterations
-one function of device tensors whose sums go through the shard's
-`all_reduce`. On CUDA devices over NCCL each block after the first is one
+penalties and the counter as 0-d tensors, each iteration one function of
+device tensors whose sums go through the shard's `all_reduce`; as in the
+reference's sharded `while_loop`, one iteration a step whatever `unroll`. On CUDA devices over NCCL each block after the first is one
 replay of a CUDA graph that holds those calls; here, on the CPU over gloo,
 the same blocks run eagerly (`_run_device_form(..., graphs=False,
 shard=...)`), reached through `sharded_admm._local_solve` as
@@ -12,8 +12,9 @@ and are held:
     the penalties and the collective's counts (4 calls an iteration, the same
     words), on a one-rank gloo group in this process and on 2 spawned gloo
     ranks: modes 1 and 3; float32, float64, masked and bf16 storage; origin
-    given; unroll 1 and 3; tol 0 and an early stop. The same arithmetic on
-    the same values, with the same sums;
+    given; unroll 1 and 3 (which the sharded loop does not read); tol 0 and
+    an early stop. The same arithmetic on the same values, with the same
+    sums;
   * to the JAX package's `tritd_admm_sharded` (on the virtual CPU devices)
     at tests/test_torch_parallel.py's tolerances: float64 rtol 1e-8 on the
     histories, float32 rtol 2e-3 (atol 1e-5), bf16 storage rtol 2e-2 (atol
@@ -124,14 +125,15 @@ def _bits(x) -> np.ndarray:
 def _assert_same_routes(got: dict, key: str, run: str) -> None:
     """The two routes' entries of `arrays_of` for `key`: every field, the
     penalties, the counter and the audit bit for bit; an early-stop run
-    stopped early, a tol-0 run ran to the end of its last block."""
+    stopped early, a tol-0 run ran max_iter iterations (one a step, whatever
+    `unroll`)."""
     eager, device = ({k.split("/", 2)[2]: v for k, v in got.items() if k.startswith(f"{key}/{r}/")} for r in ROUTES)
     assert sorted(eager) == sorted(device)
     k = int(eager["k"])
     if RUNS[run]["tol"]:
         assert 2 < k < MAX_ITER and bool(eager["done"])
     else:
-        assert k == -(-MAX_ITER // RUNS[run]["unroll"]) * RUNS[run]["unroll"]
+        assert k == MAX_ITER and eager["err_hist"].shape == (MAX_ITER,)
     audit = json.loads(str(eager["audit"]))
     assert audit["per_iter"]["calls"] == 4 and audit["n_iters"] == k and audit["setup"]["calls"] == 1
     assert str(eager["audit"]) == str(device["audit"])
@@ -243,24 +245,21 @@ def _tolerance(case: str) -> dict:
 @pytest.mark.parametrize("world", [1, 2], ids=["one_rank", "two_ranks"])
 def test_device_form_matches_jax_sharded(mesh1, two_ranks, world, mode, case, run):
     """The device form's sharded solve against the reference's, from the
-    reference's init: the histories, the iteration count and O. The
-    reference's sharded loop takes one iteration a step whatever
-    `cfg.unroll`; here a block of `unroll` runs to its end, so an early
-    stop comes up to unroll-1 iterations later (`TriTDConfig.unroll`), and
-    O is compared where both stopped at the same iteration."""
+    reference's init: the histories, the iteration count and O. Both loops
+    take one iteration a step whatever `cfg.unroll`, so an early stop comes
+    at the reference's iteration, and O is compared in every case."""
     key = f"{case}-{run}-mode{mode}"
     got = arrays_of(key, _one_rank(mesh1, case, run, mode)) if world == 1 else two_ranks[0]
     want = _jax_sharded(case, run, mode, world)
     tol = _tolerance(case)
-    unroll = RUNS[run]["unroll"]
     n, n_jax = int(got[f"{key}/device/k"]), int(want["n_iters"])
-    assert min(n, MAX_ITER) == min(-(-n_jax // unroll) * unroll, MAX_ITER)
-    m = min(n, n_jax, MAX_ITER)
+    assert n == n_jax
     for hist in ("err_hist", "rre_hist"):
-        mine = got[f"{key}/device/{hist}"][:MAX_ITER]
-        np.testing.assert_allclose(mine[:m], want[hist][:m], err_msg=f"{hist} vs JAX sharded", **tol)
+        mine = got[f"{key}/device/{hist}"]
+        assert mine.shape == want[hist].shape == (MAX_ITER,)
+        np.testing.assert_allclose(mine[:n], want[hist][:n], err_msg=f"{hist} vs JAX sharded", **tol)
         assert np.isnan(mine[n:]).all()
-    if case != "bf16_storage" and n == n_jax:
+    if case != "bf16_storage":
         o_tol = (dict(rtol=1e-6, atol=1e-8 * np.abs(want["o"]).max()) if case == "f64"
                  else dict(rtol=2e-2, atol=2e-3))
         np.testing.assert_allclose(got[f"{key}/device/o_full"], want["o"], err_msg="O vs JAX sharded", **o_tol)

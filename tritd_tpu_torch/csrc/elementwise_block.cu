@@ -65,7 +65,7 @@ extern "C" {
 
 int tritd_max_blocks(void) { return kMaxBlocks; }
 int tritd_block_threads(void) { return kThreads; }
-int tritd_scratch_len(void) { return 2 * kMaxBlocks + 1; }
+int tritd_scratch_len(void) { return kScratchLen; }
 
 const char* tritd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -35,6 +35,11 @@ graph replays with the penalties of each replay (`solvers/admm.py`). Both
 forms round them to the compute dtype and combine them in it (lam/muO,
 muL+muO), as the reference does in float32, and store the same bits.
 
+`elementwise_block_batch` is the block over a stack of B independent
+entries, the counterpart of the reference's `jax.vmap` of the block: one
+launch of the kernel's batched entry, the penalties and the two sums one
+per entry, each entry's stores and sums those of a launch on it alone.
+
 The kernel's launch plan is made here, in plain functions of integers:
 `group_size` (elements a thread takes per turn, so that the narrowest stream
 moves 16 bytes), `block_grid` (one resident wave of blocks that all make the
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import time
 
 import numpy as np
@@ -96,14 +102,17 @@ def _variants() -> dict:
 KERNEL_VARIANTS = _variants()
 
 # Launches of each variant of the hand-written kernel, counted where the
-# wrapper launches it, through either entry; POINTER_LAUNCHES counts those of
-# them through the pointer entry.
+# wrapper launches it, through either single-entry entry point;
+# POINTER_LAUNCHES counts those of them through the pointer entry;
+# BATCH_LAUNCHES the launches of the batched entry (one for a whole batch).
 LAUNCHES = {f"elementwise_block[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 POINTER_LAUNCHES = {f"elementwise_block_ptr[{v}]": 0 for v in KERNEL_VARIANTS.values()}
+BATCH_LAUNCHES = {f"elementwise_block_batch[{v}]": 0 for v in KERNEL_VARIANTS.values()}
+_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, POINTER_LAUNCHES):
+    for counts in _COUNTS:
         for name in counts:
             counts[name] = 0
 
@@ -115,12 +124,12 @@ def graph_nodes():
     dict that receives {count key: nodes} when the block ends, and leaves
     the counts as they were before; `count_replay(nodes)` then counts each
     replay's launches."""
-    before = {**LAUNCHES, **POINTER_LAUNCHES}
+    before = {**LAUNCHES, **POINTER_LAUNCHES, **BATCH_LAUNCHES}
     nodes: dict = {}
     try:
         yield nodes
     finally:
-        for counts in (LAUNCHES, POINTER_LAUNCHES):
+        for counts in _COUNTS:
             nodes.update({key: n - before[key] for key, n in counts.items() if n != before[key]})
             counts.update({key: before[key] for key in counts})
 
@@ -128,7 +137,7 @@ def graph_nodes():
 def count_replay(nodes: dict) -> None:
     """Count the kernel launches of one replay of a graph with these nodes."""
     for key, n in nodes.items():
-        (LAUNCHES if key in LAUNCHES else POINTER_LAUNCHES)[key] += n
+        next(counts for counts in _COUNTS if key in counts)[key] += n
 
 
 class CountedGraph:
@@ -140,12 +149,17 @@ class CountedGraph:
     capture leaves each as it was, and each replay adds what the capture
     met. An error inside the capture (a host sync, an operation that cannot
     be captured) ends it and is raised. `capture_s`: the host seconds the
-    capture took."""
+    capture took. Python's cyclic garbage collector is off during the
+    capture: a CUDA graph it freed then (one held in a reference cycle)
+    would be destroyed inside the capture, which invalidates it (cuBLAS
+    then failed with CUBLAS_STATUS_EXECUTION_FAILED)."""
 
     def __init__(self, fn, pool, tallies=()):
         self.graph = torch.cuda.CUDAGraph()
         before = [dict(t) for t in tallies]
         start = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with graph_nodes() as self.nodes:
                 self.graph.capture_begin(pool=pool)
@@ -157,6 +171,8 @@ class CountedGraph:
                     raise
                 self.graph.capture_end()
         finally:
+            if collecting:
+                gc.enable()
             self.tally_nodes = [(t, {key: n - b[key] for key, n in t.items()}) for t, b in zip(tallies, before)]
             for t, b in zip(tallies, before):
                 t.update(b)
@@ -178,7 +194,10 @@ BLOCK_THREADS = 256
 # the order of the two sums, is the same on every card.
 RESIDENT_BLOCKS = 132 * 2
 # doubles of scratch: a partial sum of each residual per block, and the counter
+# (a batched launch: this much for each entry)
 SCRATCH_LEN = 2 * RESIDENT_BLOCKS + 1
+# entries of a batched launch: the grid's y dimension
+MAX_BATCH = 65535
 
 
 def group_size(widest_size: int, narrowest_size: int) -> int:
@@ -254,14 +273,20 @@ def _operand(x):
 
 
 def _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None,
-                 compute_dtype=None, store_dtype=None, t_dtype=None):
+                 compute_dtype=None, store_dtype=None, t_dtype=None, batched=False):
     """Plain PyTorch version: a line-for-line port of `_block_jnp`
     (`tritd_tpu/ops/pallas_kernels.py:45-66`), plus T'. compute_dtype
     defaults to d's dtype, t_dtype to the dtype the outputs are stored in.
     Stores round with `narrow_cast`, as the reference's `astype` does. The
     penalties may be host numbers or 0-d tensors on d's device (nothing is
-    read back to the host); on the CPU the two forms give the same bits."""
+    read back to the host); on the CPU the two forms give the same bits.
+    `batched`: the five inputs stack B entries on their first axis, the
+    penalties are (B,) tensors (one an entry, broadcast over it) and the two
+    sums come back as (B,) tensors, each entry's sum taken alone."""
     cd = compute_dtype or d.dtype
+    if batched:
+        mu_l, mu_o, mu_l_next = (None if m is None else m.view(-1, *(1,) * (d.dim() - 1))
+                                 for m in (mu_l, mu_o, mu_l_next))
     mu_l, mu_o, lam, mu_l_next = _scalars(cd, mu_l, mu_o, lam, mu_l_next)
     d, l, e, y_l, y_o = (x.to(cd) for x in (d, l, e, y_l, y_o))
     m_l, m_o = _operand(mu_l), _operand(mu_o)
@@ -276,8 +301,12 @@ def _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None,
     res_o = o - e_new
     y_l_new = y_l + m_l * res_l
     y_o_new = y_o + m_o * res_o
-    nl = torch.sum(res_l * res_l)
-    no = torch.sum(res_o * res_o)
+    if batched:
+        nl = torch.stack([torch.sum(r * r) for r in res_l])
+        no = torch.stack([torch.sum(r * r) for r in res_o])
+    else:
+        nl = torch.sum(res_l * res_l)
+        no = torch.sum(res_o * res_o)
     if store_dtype is not None:
         o, e_new, y_l_new, y_o_new = (narrow_cast(x, store_dtype) for x in (o, e_new, y_l_new, y_o_new))
     t_new = None
@@ -550,6 +579,16 @@ def _pointer_entry(variant: str):
     return getattr(kernels.library(), f"tritd_elementwise_block_{variant}_ptr")
 
 
+@functools.cache
+def _batch_entry(variant: str):
+    """The variant's batched entry (`..._batch`), looked up once, after
+    `_entry` has checked the library."""
+    from ..runtime import kernels
+
+    _entry(variant)
+    return getattr(kernels.library(), f"tritd_elementwise_block_{variant}_batch")
+
+
 def _check_out(out, like, t_like, inputs) -> None:
     """`out` = (o, e, y_l, y_o, t) buffers for the kernel's stores: each of
     the shape, dtype and device of the output it takes, contiguous, and
@@ -570,15 +609,17 @@ def _check_out(out, like, t_like, inputs) -> None:
             raise ValueError("an out buffer is one of the block's inputs")
 
 
-def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None, out=None):
+def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None, out=None, batched=False):
     """Launch the variant's kernel (`csrc/elementwise_block.cuh`) on the
     current stream: one kernel. Returns the same tuple as `_block_torch`;
-    the norms are 0-d views of one 2-vector on the device, so nothing waits
+    the norms are views of one small tensor on the device, so nothing waits
     for the device. Host penalties are passed by value, rounded to the
     compute dtype; 0-d tensors go to the pointer entry by address (mu_l
     again in place of mu_l_next without T': a divisor the kernel then
     skips), converted to the compute dtype on the device where they are not
-    in it. `out`: buffers the four outputs and T' are stored in
+    in it. `batched`: the inputs stack B entries on their first axis and the
+    penalties are (B,) tensors, which go to the batched entry by address;
+    the norms are (B,). `out`: buffers the four outputs and T' are stored in
     (`_check_out`), else new tensors."""
     tensors = (d, l, e, y_l, y_o)
     # without T' its dtype is moot: the variant with T' in the storage dtype
@@ -588,10 +629,15 @@ def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None
     device = d.device
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out)
+            return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out,
+                               batched=batched)
     fn, group, count_key = _entry(variant)
-    n = d.numel()
     with_t = mu_l_next is not None
+    n_batch = d.shape[0] if batched else 1
+    if batched and not (d.dim() >= 1 and 1 <= n_batch <= MAX_BATCH):
+        raise ValueError(f"a batched block takes 1 to {MAX_BATCH} entries on the first axis, got shape "
+                         f"{tuple(d.shape)}")
+    n = d.numel() // n_batch
     if out is None:
         outs = [torch.empty_like(e) for _ in range(4)]
         t_new = None
@@ -601,32 +647,40 @@ def _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None
         _check_out(out, (e.dtype, e.shape, device), (t_dtype, d.shape, device) if with_t else None, tensors)
         *outs, t_new = out
     o, e_new, y_l_new, y_o_new = outs
-    sums = torch.empty(2, dtype=l.dtype, device=device)
-    pointers = [x.data_ptr() for x in (*tensors, *outs)]
-    if with_t:
-        pointers.append(t_new.data_ptr())
-    aligned = pointers_aligned(*pointers)
+    sums = torch.empty((n_batch, 2) if batched else (2,), dtype=l.dtype, device=device)
+    streams = [*tensors, *outs] + ([t_new] if with_t else [])
+    pointers = [x.data_ptr() for x in streams]
+    # a batch: each entry tests its own addresses in the kernel, as here
+    aligned = () if batched else (pointers_aligned(*pointers),)
     if not with_t:
         pointers.append(None)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
-    scratch = _scratch_for((device.index, stream), lambda: torch.zeros(SCRATCH_LEN, dtype=_F64, device=device))
-    head = (*pointers, sums.data_ptr(), scratch.data_ptr(), n, block_grid(n, group), aligned)
-    if isinstance(mu_l, torch.Tensor):
+    key = (device.index, stream, n_batch) if batched else (device.index, stream)
+    scratch = _scratch_for(key, lambda: torch.zeros(n_batch * SCRATCH_LEN, dtype=_F64, device=device))
+    grid = (n, n_batch, block_grid(n, group)) if batched else (n, block_grid(n, group))
+    head = (*pointers, sums.data_ptr(), scratch.data_ptr(), *grid, *aligned)
+    if batched or isinstance(mu_l, torch.Tensor):
         mus = [x if x.dtype == l.dtype else x.to(l.dtype) for x in (mu_l, mu_o, mu_l_next if with_t else mu_l)]
-        if any(x.get_device() != device.index or x.numel() != 1 for x in mus):
+        if batched and any(x.get_device() != device.index or x.shape != (n_batch,) or not x.is_contiguous()
+                           for x in mus):
+            raise ValueError(f"the penalties must be contiguous ({n_batch},) tensors on {device}, the block's device")
+        if any(x.get_device() != device.index or (x.numel() != 1 and not batched) for x in mus):
             raise ValueError(f"the penalties must be 0-d tensors on {device}, the block's device")
-        err = _pointer_entry(variant)(*head, mus[0].data_ptr(), mus[1].data_ptr(), float(lam), mus[2].data_ptr(),
-                                      stream)
+        entry = _batch_entry(variant) if batched else _pointer_entry(variant)
+        err = entry(*head, mus[0].data_ptr(), mus[1].data_ptr(), float(lam), mus[2].data_ptr(), stream)
     else:
         err = fn(*head, float(mu_l), float(mu_o), float(lam), float(mu_l_next) if with_t else 1.0, stream)
     if err:
         from ..runtime import kernels
 
         kernels.check(err, f"{count_key} launch")
-    LAUNCHES[count_key] += 1
-    if isinstance(mu_l, torch.Tensor):
-        POINTER_LAUNCHES[f"elementwise_block_ptr[{variant}]"] += 1
-    nl, no = sums.unbind(0)
+    if batched:
+        BATCH_LAUNCHES[f"elementwise_block_batch[{variant}]"] += 1
+    else:
+        LAUNCHES[count_key] += 1
+        if isinstance(mu_l, torch.Tensor):
+            POINTER_LAUNCHES[f"elementwise_block_ptr[{variant}]"] += 1
+    nl, no = sums.unbind(-1)
     return o, e_new, y_l_new, y_o_new, nl, no, t_new
 
 
@@ -652,6 +706,38 @@ def elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtyp
     if d.device.type == "cuda":
         return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out)
     raise ValueError(f"elementwise_block runs on CPU or CUDA tensors, got {d.device}")
+
+
+def elementwise_block_batch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next=None, t_dtype=None, out=None):
+    """`elementwise_block` over B independent entries stacked on the first
+    axis of the five inputs (each contiguous), with the penalties mu_l,
+    mu_o and mu_l_next as (B,) tensors on d's device, one an entry; lam is
+    a host number. Returns the same tuple with (B,) tensors for the two
+    sums of squares. On CUDA tensors one launch of the kernel's batched
+    entry, which reads the penalties from device memory when it runs (the
+    form a CUDA graph replays); each entry's stores and sums are bitwise
+    those of the pointer entry launched on it alone (each entry takes the
+    vector or the one-element path its own addresses allow, as that
+    launch does). On CPU tensors the
+    plain version, `_block_torch(..., batched=True)`."""
+    nb = d.shape[0] if d.dim() else 0
+    for name, m in (("mu_l", mu_l), ("mu_o", mu_o), ("mu_l_next", mu_l_next)):
+        if m is not None and not (isinstance(m, torch.Tensor) and m.shape == (nb,) and m.device == d.device):
+            raise ValueError(f"{name} must be a tensor of shape ({nb},) on {d.device}, one penalty an entry")
+    if d.device.type == "cpu":
+        got = _block_torch(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next,
+                           compute_dtype=l.dtype, store_dtype=e.dtype, t_dtype=t_dtype, batched=True)
+        if out is None:
+            return got
+        _check_out(out, (e.dtype, e.shape, d.device), None if got[6] is None else (got[6].dtype, d.shape, d.device),
+                   (d, l, e, y_l, y_o))
+        for buf, x in zip(out, (*got[:4], got[6])):
+            if buf is not None:
+                buf.copy_(x)
+        return (*out[:4], got[4], got[5], out[4])
+    if d.device.type == "cuda":
+        return _block_cuda(d, l, e, y_l, y_o, mu_l, mu_o, lam, mu_l_next, t_dtype=t_dtype, out=out, batched=True)
+    raise ValueError(f"elementwise_block_batch runs on CPU or CUDA tensors, got {d.device}")
 
 
 def _as_dtype(dtype) -> torch.dtype | None:

@@ -227,8 +227,9 @@ def _worker(args) -> None:
 
         hopper_kernels.reset_launch_counts()
         res, audit = run()
-        names = sorted(hopper_kernels.LAUNCHES)
-        launches = _gather_rows(torch.tensor([hopper_kernels.LAUNCHES[n] for n in names], device=device))
+        counts = hopper_kernels.BATCH_LAUNCHES if args.batch else hopper_kernels.LAUNCHES
+        names = sorted(counts)
+        launches = _gather_rows(torch.tensor([counts[n] for n in names], device=device))
         # the replicated solves must have stayed replicated: rank 0's factors
         # against everyone's, the largest difference over all ranks
         diffs = []
@@ -249,7 +250,8 @@ def _worker(args) -> None:
             print(json.dumps({
                 "n_shards": world // args.n_data, "n_data": args.n_data, "world_size": world,
                 "backend": dist.get_backend(), "device": str(device),
-                "iters_per_s": timed["n_iters"] / best, "seconds": best, "n_iters": timed["n_iters"],
+                "iters_per_s": timed["steps" if args.batch else "n_iters"] / best, "seconds": best,
+                "n_iters": timed["n_iters"],
             }), flush=True)
 
         if args.out and rank == 0:

@@ -10,11 +10,21 @@ single-device one, told where sums are completed (:class:`SlabCollective`);
 it is not written out a second time.
 
 Over NCCL on CUDA devices the loop is the reference's device-resident one:
-the penalties and the counter live on the card, and each block of
-`cfg.unroll` iterations after the first is one replay of a CUDA graph that
-holds the block's `all_reduce` calls; the host reads only the stop flag
-between blocks. Over gloo, which passes a CUDA tensor's collective through
-the host, it is the eager loop. Both give the same bits.
+the penalties and the counter live on the card, and each iteration after
+the first is one replay of a CUDA graph that holds its `all_reduce` calls;
+the host reads only the stop flag between iterations. Over gloo, which
+passes a CUDA tensor's collective through the host, it is the eager loop.
+Both give the same bits. As the reference's sharded `while_loop`
+(`tritd_tpu/parallel/sharded_admm.py:152-209`), the loop takes one
+iteration a step and tests the stop rule after each, whatever
+`cfg.unroll`; only `tritd_admm_auto`, whose reference is `tritd_admm`,
+runs blocks of `cfg.unroll`.
+
+`tritd_admm_batch_sharded` solves a data group's entries in one loop, the
+reference's `jax.vmap` of that `while_loop`: every entry in the same
+batched operations, one launch of the elementwise kernel's batched entry an
+iteration, the four `all_reduce` calls carrying the stacked sums, each
+entry stopping on its own (`solvers.admm.run_admm_batch`).
 
 The data-sized tensors (D, O, E, Y_L, Y_O, T and the mode-1 core A) are
 sharded along mode-1 slabs; B, C and every (r^2, r^2) Gram are replicated.
@@ -56,6 +66,7 @@ solver's operations.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -64,7 +75,7 @@ import torch.distributed as dist
 from .. import interop
 from ..ops.kruskal import input_device
 from ..ops.narrow import narrow_cast
-from ..solvers.admm import init_factors, init_state, run_admm
+from ..solvers.admm import _graph_route, init_factors, init_state, run_admm, run_admm_batch
 from ..solvers.base import TriTDConfig, TriTDResult
 from ..utils.timing import sync
 from .mesh import _pad_with, shard_bounds
@@ -140,35 +151,58 @@ def _check_mask(cfg: TriTDConfig, mask, name: str = "mask") -> None:
         raise ValueError(f"{name} given but cfg.masked=False — pass TriTDConfig(masked=True)")
 
 
-def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, device, _eager: bool = False):
+def _slab_of(coll: SlabCollective, n_orig: int) -> tuple:
+    """(lo, hi, padded size, original size) of this rank's shard of an axis
+    of n_orig entries, padded to a multiple of the shard count."""
+    target = -(-n_orig // coll.size) * coll.size
+    lo, hi = shard_bounds(target, coll.size, coll.index)
+    return lo, hi, target, n_orig
+
+
+def _local(x, axis: int, bounds, fill, dtype, device) -> torch.Tensor:
+    """This rank's slab of `x` along `axis` on `device` in `dtype`: cut from
+    what exists of it, moved alone, the rest padded with `fill`."""
+    lo, hi, _target, n_orig = bounds
+    x = torch.as_tensor(x).narrow(axis, min(lo, n_orig), max(min(hi, n_orig) - lo, 0))
+    return _pad_with(narrow_cast(x.to(device), dtype), axis, hi - lo, fill).contiguous()
+
+
+def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, device, _eager: bool = False,
+                 unroll: int = 1, batched: bool = False):
     """Solve on this rank's shard. Returns the final state (its sharded
     tensors local), (lo, hi, padded size, original size) of the shard along
     the sharded axis, and the audit: the collective's counts in the set-up
     (the norms' one vector) and in one iteration (every iteration makes the
     same calls), the iterations done and the loop's seconds on the host
-    clock, the device synchronized before and after. `_eager=True` keeps
-    the loop off the CUDA graph route (see `run_admm`), to compare the
-    two; every rank must pass the same."""
+    clock, the device synchronized before and after. `unroll`: the
+    iterations the loop runs between two reads of the stop flag, 1 as in
+    the reference's sharded `while_loop` (histories max_iter long);
+    `tritd_admm_auto` passes cfg.unroll. `_eager=True` keeps the loop off
+    the CUDA graph route (see `run_admm`), to compare the two; every rank
+    must pass the same.
+
+    `batched` (mode-1 slabs): `d` (B, n1, n2, n3) and the init's factors
+    stack a data group's entries, solved in one loop (`run_admm_batch`,
+    one iteration a step) with each entry's norms; then the result is that
+    loop's TriTDResult and the audit's `n_iters` counts the loop's steps."""
+    cfg = dataclasses.replace(cfg, unroll=1 if batched else unroll)
     dtype = cfg.torch_dtype()
-    axis = 0 if coll.shard_mode == 1 else 2
+    lead = 1 if batched else 0  # the batch axis
+    axis = lead + (0 if coll.shard_mode == 1 else 2)
     before = coll.counts()
-    n_orig = d.shape[axis]
-    target = -(-n_orig // coll.size) * coll.size
-    lo, hi = shard_bounds(target, coll.size, coll.index)
+    bounds = _slab_of(coll, d.shape[axis])
+    lo, hi, target, n_orig = bounds
+    d_loc = _local(d, axis, bounds, 0, dtype, device)
+    mask_loc = None if mask is None else _local(mask, axis, bounds, True, torch.bool, device)
+    origin_loc = None if origin is None else _local(origin, axis, bounds, 0, dtype, device)
 
-    def local(x, fill, dt):
-        # cut the slab from what exists of it, move that alone, pad the rest
-        x = torch.as_tensor(x).narrow(axis, min(lo, n_orig), max(min(hi, n_orig) - lo, 0))
-        return _pad_with(narrow_cast(x.to(device), dt), axis, hi - lo, fill).contiguous()
+    # the norms of the whole tensor (of each entry's), reduced once, as sums of squares
+    def squares(x):
+        return torch.stack([torch.sum(y * y) for y in x]) if batched else torch.sum(x * x)
 
-    d_loc = local(d, 0, dtype)
-    mask_loc = None if mask is None else local(mask, True, torch.bool)
-    origin_loc = None if origin is None else local(origin, 0, dtype)
-
-    # the norms of the whole tensor, reduced once, as sums of squares
-    sums = [torch.sum(d_loc * d_loc)]
+    sums = [squares(d_loc)]
     if origin_loc is not None:
-        sums.append(torch.sum(origin_loc * origin_loc))
+        sums.append(squares(origin_loc))
     norm_d, *rest = torch.sqrt(coll.all_reduce(torch.stack(sums)))
     norm_origin = rest[0] if rest else None
     setup = coll.counts()
@@ -178,9 +212,9 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     # padded frames must be zero: GramC is reduced before the first C solve).
     a0, b0, c0 = interop.factors_from_numpy(*init, device=device, dtype=dtype)
     if coll.shard_mode == 1:
-        if a0.shape[0] not in (n_orig, target):
-            raise ValueError(f"a0 has {a0.shape[0]} rows, want {n_orig} (or {target}, padded)")
-        a0 = _pad_with(a0, 0, target, 0)[lo:hi]
+        if a0.shape[lead] not in (n_orig, target):
+            raise ValueError(f"a0 has {a0.shape[lead]} rows, want {n_orig} (or {target}, padded)")
+        a0 = _pad_with(a0, lead, target, 0).narrow(lead, lo, hi - lo)
     else:
         c0 = _pad_with(c0, 2, target, 0)[:, :, lo:hi]
     state = init_state(d_loc, cfg, (a0, b0, c0))
@@ -189,17 +223,23 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     d_loc = narrow_cast(d_loc, cfg.torch_storage_dtype())
     sync(state)
     t0 = time.perf_counter()
-    state = sync(run_admm(d_loc, state, cfg, mask=mask_loc, origin=origin_loc,
-                          norm_d=norm_d, norm_origin=norm_origin, shard=coll, _eager=_eager))
+    if batched:
+        state = sync(run_admm_batch(d_loc, state, cfg, coll, mask=mask_loc, origin=origin_loc, norm_d=norm_d,
+                                    norm_origin=norm_origin, graphs=_graph_route(device, coll, _eager)))
+        steps = max(state.n_iters)
+    else:
+        state = sync(run_admm(d_loc, state, cfg, mask=mask_loc, origin=origin_loc,
+                              norm_d=norm_d, norm_origin=norm_origin, shard=coll, _eager=_eager))
+        steps = state.k
     counts = {
         "setup": {k: setup[k] - before[k] for k in setup},
-        "per_iter": {k: (v - setup[k]) // max(state.k, 1) for k, v in coll.counts().items()},
-        "n_iters": state.k,
+        "per_iter": {k: (v - setup[k]) // max(steps, 1) for k, v in coll.counts().items()},
+        "n_iters": steps,
         # the loop alone: the slab's transfer before it and the assembly
         # after it are outside
         "loop_seconds": time.perf_counter() - t0,
     }
-    return state, (lo, hi, target, n_orig), counts
+    return state, bounds, counts
 
 
 def _assemble(x_loc: torch.Tensor, axis: int, bounds, group) -> torch.Tensor:
@@ -277,6 +317,14 @@ def tritd_admm_sharded(
     Semantics are those of `tritd_admm` up to the order of sums. The result
     holds full-size tensors on every rank, on the rank's device.
     """
+    return _sharded(d, cfg, mesh_or_group, shard_tensor_mode, mask, origin, init, generator, device, audit,
+                    axis_name, unroll=1)
+
+
+def _sharded(d, cfg, mesh_or_group, shard_tensor_mode, mask, origin, init, generator, device, audit, axis_name,
+             unroll):
+    """`tritd_admm_sharded`, its loop reading the stop flag every `unroll`
+    iterations (`_local_solve`)."""
     _check_mask(cfg, mask)
     coll = SlabCollective(_slab_group(mesh_or_group, axis_name), shard_tensor_mode)
     device = _shard_device(mesh_or_group, d, device)
@@ -284,7 +332,7 @@ def tritd_admm_sharded(
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init = init_factors(generator, tuple(d.shape), cfg.rank, cfg.torch_dtype(), "cpu")
-    state, bounds, counts = _local_solve(d, cfg, coll, mask, origin, init, device)
+    state, bounds, counts = _local_solve(d, cfg, coll, mask, origin, init, device, unroll=unroll)
     if audit is not None:
         audit.update(n_shards=coll.size, **counts)
     return _result(state, cfg, shard_tensor_mode, bounds, coll.group)
@@ -302,12 +350,17 @@ def tritd_admm_batch_sharded(
     audit: dict | None = None,
     data_axis: str = DATA_AXIS,
     slab_axis: str = AXIS,
+    _serial: bool = False,
 ) -> TriTDResult:
     """A batch of independent TriTD problems, data-parallel over the mesh's
     `data_axis` dimension, each problem's mode-1 slabs sharded over its
-    `slab_axis`: DP x TP on a 2-D mesh. A data group takes batch / n_data consecutive
-    entries and solves them one after another, each with its own early
-    stop. Every rank of the mesh calls this with the same arguments.
+    `slab_axis`: DP x TP on a 2-D mesh. A data group takes batch / n_data
+    consecutive entries and solves them in one loop, each entry with its own
+    early stop, as the reference's vmapped `while_loop` does
+    (`_local_solve(..., batched=True)`; on the CUDA graph route over NCCL). Every rank of
+    the mesh calls this with the same arguments. `_serial=True` solves the
+    group's entries one after another instead, each as
+    `tritd_admm_sharded` would: the comparison for the batched loop.
 
     init: optional (a0, b0, c0) with the batch axis first. A's init is
     overwritten by the first solve and read before that only by masked
@@ -315,8 +368,11 @@ def tritd_admm_batch_sharded(
     to a multiple of the slab count. Default: drawn entry by entry from
     `generator` (seed 0) at the unpadded shape.
 
-    audit: as in :func:`tritd_admm_sharded`, with `n_iters` and
-    `loop_seconds` summed over this rank's entries.
+    audit: the `all_reduce` calls, words and bytes of the set-up and of one
+    loop step (`setup`, `per_iter`, for the data group's entries together;
+    serially, one entry's), the loop steps (`steps`), `n_iters` of every
+    entry of the batch, and `loop_seconds` (host clock around this rank's
+    loops).
 
     The result's fields carry the batch axis first, full size on every rank.
     """
@@ -338,31 +394,40 @@ def tritd_admm_batch_sharded(
         draws = [init_factors(generator, tuple(d_batch.shape[1:]), cfg.rank, dtype, "cpu") for _ in range(nb)]
         init = tuple(torch.stack(f) for f in zip(*draws))
 
-    def entry(x, i):
-        return None if x is None else x[i]
+    def mine(x):
+        return None if x is None else x[first:first + per]
 
-    mine = {}
-    for i in range(first, first + per):
-        state, bounds, counts = _local_solve(d_batch[i], cfg, coll, entry(mask_batch, i), entry(origin_batch, i),
-                                             tuple(f[i] for f in init), device)
-        mine[i] = _result(state, cfg, 1, bounds, slab_group)
-        if audit is not None:
-            for key in ("n_iters", "loop_seconds"):
-                counts[key] += audit.get(key, 0)
-            audit.update(n_shards=coll.size, **counts)
+    if _serial:
+        results, counts = [], {"steps": 0, "loop_seconds": 0.0}
+        for i in range(first, first + per):
+            state, bounds, one = _local_solve(d_batch[i], cfg, coll, None if mask_batch is None else mask_batch[i],
+                                              None if origin_batch is None else origin_batch[i],
+                                              tuple(f[i] for f in init), device)
+            results.append(_result(state, cfg, 1, bounds, slab_group))
+            counts.update(setup=one["setup"], per_iter=one["per_iter"], steps=counts["steps"] + one["n_iters"],
+                          loop_seconds=counts["loop_seconds"] + one["loop_seconds"])
+        group = TriTDResult(*(torch.stack([torch.as_tensor(getattr(r, f), device=device) for r in results])
+                              for f in TriTDResult._fields))
+    else:
+        res, bounds, counts = _local_solve(mine(d_batch), cfg, coll, mine(mask_batch), mine(origin_batch),
+                                           tuple(mine(f) for f in init), device, batched=True)
+        counts["steps"] = counts.pop("n_iters")
+        group = res._replace(a=_assemble(res.a, 1, bounds, slab_group), o=_assemble(res.o, 1, bounds, slab_group),
+                             e=_assemble(res.e, 1, bounds, slab_group),
+                             n_iters=torch.tensor(res.n_iters, device=device))
 
     # every rank holds its group's entries in full; the data groups swap
     # theirs through a zero-filled batch buffer, summed over the data axis
     fields = {}
-    sample = next(iter(mine.values()))
     for name in TriTDResult._fields:
-        one = torch.as_tensor(getattr(sample, name), device=device)
-        full = torch.zeros((nb, *one.shape), dtype=one.dtype, device=device)
-        for i, res in mine.items():
-            full[i] = torch.as_tensor(getattr(res, name), device=device)
+        part = getattr(group, name)
+        full = torch.zeros((nb, *part.shape[1:]), dtype=part.dtype, device=device)
+        full[first:first + per] = part
         if n_data > 1:
             dist.all_reduce(full, group=data_group)
         fields[name] = full
+    if audit is not None:
+        audit.update(n_shards=coll.size, n_iters=fields["n_iters"].tolist(), **counts)
     return TriTDResult(**fields)
 
 
@@ -389,6 +454,10 @@ def tritd_admm_auto(
     `generator`, `init`, `device` and `audit` are those of
     :func:`tritd_admm_sharded` (`generator` in place of the reference's
     `key`): the default init is tritd_admm's at the unpadded shape, and an
-    `a0` may also carry the padded rows, as the reference draws it."""
-    return tritd_admm_sharded(d, cfg, mesh, shard_tensor_mode=1, mask=mask, origin=origin, init=init,
-                              generator=generator, device=device, audit=audit, axis_name=axis_name)
+    `a0` may also carry the padded rows, as the reference draws it.
+
+    The reference's auto is `tritd_admm` on the padded tensor, whose loop
+    tests the stop rule every `cfg.unroll` iterations (an early stop may
+    come up to unroll-1 iterations late): so does this one, where the
+    sharded solve tests it after every iteration."""
+    return _sharded(d, cfg, mesh, 1, mask, origin, init, generator, device, audit, axis_name, unroll=cfg.unroll)

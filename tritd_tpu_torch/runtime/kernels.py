@@ -2,7 +2,9 @@
 
 Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
 scalars by value in the compute type, or, in a variant's pointer entry
-(`..._ptr`), the three penalties as addresses of values in device memory.
+(`..._ptr`), the three penalties as addresses of values in device memory;
+its batched entry (`..._batch`) takes the entry count after n and the
+penalties as addresses of arrays of one value an entry.
 Loading the library builds it, so the first CUDA call pays the nvcc
 compile; importing this module does not.
 """
@@ -23,12 +25,13 @@ _P = ctypes.c_void_p
 _SCALAR_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
-def _block_argtypes(scalar, pointer: bool):
+def _block_argtypes(scalar, pointer: bool, batch: bool = False):
     # d, l, e, y_l, y_o, o, e', y_l', y_o', t', sums, scratch; n; blocks,
-    # aligned; mu_l, mu_o, lam, mu_l_next (the pointer entry: addresses of
-    # mu_l, mu_o and mu_l_next); stream
+    # aligned (the batched entry: n_batch, blocks); mu_l, mu_o, lam,
+    # mu_l_next (the pointer and batched entries: addresses of mu_l, mu_o
+    # and mu_l_next); stream
     head = [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 2
-    return head + ([_P, _P, scalar, _P] if pointer else [scalar] * 4) + [_P]
+    return head + ([_P, _P, scalar, _P] if pointer or batch else [scalar] * 4) + [_P]
 
 
 def bind(path, variants=None) -> ctypes.CDLL:
@@ -49,11 +52,11 @@ def bind(path, variants=None) -> ctypes.CDLL:
         if variants is not None and variant not in variants:
             continue
         name = f"tritd_elementwise_block_{variant}"
-        for suffix in ("", "_ptr"):
+        for suffix in ("", "_ptr", "_batch"):
             if suffix and not hasattr(lib, name + suffix):  # not in a library built from an earlier revision
                 continue
             fn = getattr(lib, name + suffix)
-            fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute], pointer=bool(suffix))
+            fn.argtypes = _block_argtypes(_SCALAR_TYPES[compute], pointer=suffix == "_ptr", batch=suffix == "_batch")
             fn.restype = ctypes.c_int
         group = getattr(lib, f"tritd_elementwise_block_{variant}_group")
         group.argtypes = []

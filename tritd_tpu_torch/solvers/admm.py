@@ -47,6 +47,7 @@ rounds the RHS contractions' operands to it. Every narrowing goes through
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -55,7 +56,7 @@ from .. import interop
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
 from ..ops import hopper_kernels
-from ..ops.hopper_kernels import elementwise_block
+from ..ops.hopper_kernels import elementwise_block, elementwise_block_batch
 from ..ops.kruskal import default_device, solver_input
 from ..ops.narrow import narrow_cast
 from .base import TriTDConfig, TriTDResult, TriTDState
@@ -93,7 +94,7 @@ def init_factors(
     )
 
 
-def update_factors(t, a, b, c, cfg: TriTDConfig, shard=None):
+def update_factors(t, a, b, c, cfg: TriTDConfig, shard=None, batched: bool = False):
     """One Gauss-Seidel sweep of the three ridge mode solves
     (`triple_decomp_ADMM.m:73-95`); each later solve sees the fresh factors.
 
@@ -101,14 +102,22 @@ def update_factors(t, a, b, c, cfg: TriTDConfig, shard=None):
     tensor: an object with `shard_mode` (1: `t` holds mode-1 slabs and `a`
     their rows; 3: `t` holds mode-3 frames and `c` those frames) and
     `all_reduce(tensor)`, which sums over the shards and returns the sum.
-    None means `t` is the whole tensor."""
+    None means `t` is the whole tensor.
+
+    `batched` (with a shard): `t` and the factors stack independent
+    problems on their first axis, and each local step of the sweep is the
+    `torch.func.vmap` of the single problem's, the counterpart of the
+    reference's vmap of its sharded body; every reduced sum is the stacked
+    one, so the shard makes the same four calls as for one problem."""
     r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
     ed = cfg.torch_einsum_dtype()
     if ed is None:
         # a narrow T is widened once per sweep, not once per mode
         t = t.to(a.dtype)
     if shard is not None:
-        return _update_factors_sharded(t, a, b, c, cfg, shard)
+        return _update_factors_sharded(t, a, b, c, cfg, shard, batched=batched)
+    if batched:
+        raise ValueError("a batched sweep takes a shard")
     k1, rhs1 = normal_eq.gram_and_rhs(1, t, a, b, c, variant=variant, einsum_dtype=ed)
     a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
     k2, rhs2 = normal_eq.gram_and_rhs(2, t, a, b, c, variant=variant, einsum_dtype=ed)
@@ -123,7 +132,7 @@ def update_factors(t, a, b, c, cfg: TriTDConfig, shard=None):
     return a.contiguous(), b.contiguous(), c.contiguous()
 
 
-def _update_factors_sharded(t, a, b, c, cfg: TriTDConfig, shard):
+def _update_factors_sharded(t, a, b, c, cfg: TriTDConfig, shard, batched: bool = False):
     """The sweep on one shard, with the collective placement of
     `tritd_tpu/parallel/sharded_admm.py:62-114`. A sum over the sharded
     index is completed by `shard.all_reduce`; a sum over the other indices
@@ -131,31 +140,65 @@ def _update_factors_sharded(t, a, b, c, cfg: TriTDConfig, shard):
     right-hand sides are reduced and the A solve is local. Mode-3 frames
     shard t: GramC (before the first solve) and the mode-1/2 right-hand
     sides are reduced and the C solve is local. Solves on reduced inputs
-    give the same B, C (mode 1) or A, B (mode 3) on every shard."""
+    give the same B, C (mode 1) or A, B (mode 3) on every shard.
+
+    `batched` (`update_factors`): each local step is the vmap of the single
+    problem's, but for the ridge solves (`_ridge_per_entry`)."""
     r, variant, method = cfg.rank, cfg.variant, cfg.solve_method
     ed = cfg.torch_einsum_dtype()
+    each, ridge = (_vmapped, _ridge_per_entry) if batched else (_call, normal_eq.ridge_solve)
     if shard.shard_mode not in (1, 3):
         raise ValueError(f"shard_mode must be 1 or 3, got {shard.shard_mode}")
     over_i, over_t = (shard.all_reduce, _whole) if shard.shard_mode == 1 else (_whole, shard.all_reduce)
 
-    gc = over_t(normal_eq.gram_c(c))
-    k1 = normal_eq.combine_grams(1, None, normal_eq.gram_b(b), gc, variant)
-    rhs1 = over_t(normal_eq.rhs_mode(1, t, a, b, c, variant=variant, einsum_dtype=ed))
-    a = core_a_from_mat(normal_eq.ridge_solve(k1, rhs1, cfg.lambda2, method), r)
+    def rhs(mode):
+        return functools.partial(normal_eq.rhs_mode, mode, variant=variant, einsum_dtype=ed)
 
-    ga = over_i(normal_eq.gram_a(a))
-    k2 = normal_eq.combine_grams(2, ga, None, gc, variant)
-    rhs2 = shard.all_reduce(normal_eq.rhs_mode(2, t, a, b, c, variant=variant, einsum_dtype=ed))
-    b = core_b_from_mat(normal_eq.ridge_solve(k2, rhs2, cfg.lambda2, method), r)
+    def solve(from_mat, k, rhs_, alpha):
+        return each(lambda m: from_mat(m, r), ridge(k, rhs_, alpha, method))
 
-    k3 = normal_eq.combine_grams(3, ga, normal_eq.gram_b(b), None, variant)
-    rhs3 = over_i(normal_eq.rhs_mode(3, t, a, b, c, variant=variant, einsum_dtype=ed))
-    c = core_c_from_mat(normal_eq.ridge_solve(k3, rhs3, cfg.alpha_c, method), r)
+    gc = over_t(each(normal_eq.gram_c, c))
+    k1 = each(lambda gb, gc_: normal_eq.combine_grams(1, None, gb, gc_, variant), each(normal_eq.gram_b, b), gc)
+    rhs1 = over_t(each(rhs(1), t, a, b, c))
+    a = solve(core_a_from_mat, k1, rhs1, cfg.lambda2)
+
+    ga = over_i(each(normal_eq.gram_a, a))
+    k2 = each(lambda ga_, gc_: normal_eq.combine_grams(2, ga_, None, gc_, variant), ga, gc)
+    rhs2 = shard.all_reduce(each(rhs(2), t, a, b, c))
+    b = solve(core_b_from_mat, k2, rhs2, cfg.lambda2)
+
+    k3 = each(lambda ga_, gb: normal_eq.combine_grams(3, ga_, gb, None, variant), ga, each(normal_eq.gram_b, b))
+    rhs3 = over_i(each(rhs(3), t, a, b, c))
+    c = solve(core_c_from_mat, k3, rhs3, cfg.alpha_c)
     return a.contiguous(), b.contiguous(), c.contiguous()
 
 
 def _whole(x):
     return x
+
+
+def _call(fn, *xs):
+    return fn(*xs)
+
+
+def _vmapped(fn, *xs):
+    """fn over the first axis of every argument: `torch.func.vmap`, which
+    runs one batched operation per operation of fn (every operation of the
+    sweep has a batching rule; tests/test_torch_batch_loop.py turns vmap's
+    per-entry fallback into an error)."""
+    return torch.func.vmap(fn)(*xs)
+
+
+def _ridge_per_entry(k, rhs, alpha, method):
+    """`normal_eq.ridge_solve` of each entry of a batch, one after another:
+    the one step of the batched sweep that loops over the entries, two small
+    launches an entry and a mode. On CUDA, torch's batched Cholesky factor
+    and solve under its default linalg back end go to MAGMA, which aborts
+    under CUDA graph capture (torch 2.11.0+cu128); under cuSOLVER, chosen
+    only by a process-wide setting (`preferred_linalg_library`), they
+    capture and replay their own bits, which are not the single calls'
+    (`tools/batched_ridge_capture.py`)."""
+    return torch.stack([normal_eq.ridge_solve(ki, ri, alpha, method) for ki, ri in zip(k, rhs)])
 
 
 def anneal(mu, cfg: TriTDConfig):
@@ -201,6 +244,7 @@ def admm_iteration(
     disp_log=None,
     shard=None,
     out=None,
+    batched: bool = False,
 ) -> TriTDState:
     """One ADMM iteration (`triple_decomp_ADMM.m:31-66`). The histories are
     written in place (entry k).
@@ -224,18 +268,34 @@ def admm_iteration(
     `norm_origin` must then be given, taken over the whole tensor. The two
     sums of squares, and the RRE numerator when `origin` is given, are
     reduced as sums in one small vector before their roots are taken, so
-    the error and the stop flag are equal on every shard."""
+    the error and the stop flag are equal on every shard.
+
+    `batched` (device form, with a shard): B independent problems stacked
+    on the first axis, the counterpart of the reference's `jax.vmap` of its
+    sharded body (`tritd_tpu/parallel/sharded_admm.py:117-214,391-402`).
+    Every field carries the batch axis: penalties (B,), histories
+    (B, hist_len), the sticky stop flag (B,); k is one 0-d counter, which
+    every entry advances. `norm_d` and `norm_origin` are (B,). The mode
+    solves and the reconstruction are the vmap of the single problem's
+    (`update_factors(..., batched=True)`), the block is one batched launch
+    (`elementwise_block_batch`), and each of the shard's four `all_reduce`
+    calls carries the stacked sums of every entry."""
     a, b, c = state.a, state.b, state.c
     o, e, y_l, y_o = state.o, state.e, state.y_l, state.y_o
     mu_l, mu_o, k = state.mu_l, state.mu_o, state.k
     on_device = isinstance(k, torch.Tensor)
     if shard is not None and (norm_d is None or (origin is not None and norm_origin is None)):
         raise ValueError("a sharded iteration needs norm_d (and norm_origin) of the whole tensor")
+    if batched and (shard is None or not on_device):
+        raise ValueError("a batched iteration takes the device form and a shard")
     if norm_d is None:
         norm_d = torch.linalg.vector_norm(d)
 
     masked = cfg.masked and mask is not None
     td = t_dtype_of(cfg)
+    reconstruct = functools.partial(designs.triple_product, variant=cfg.variant)
+    if batched:
+        reconstruct = torch.func.vmap(reconstruct)
     if masked:
         # Impute unobserved entries with the current estimate, so the data
         # term binds on observed entries only; T is built from that D. The
@@ -245,26 +305,29 @@ def admm_iteration(
         # Y_L times the rounded 1/muL; the block gets D in the compute
         # dtype, which holds it exactly (the stored D and O hold values of
         # the compute dtype).
-        l_prev = designs.triple_product(a, b, c, variant=cfg.variant)
+        l_prev = reconstruct(a, b, c)
         cd = l_prev.dtype
         wide = torch.float64 if torch.float64 in (cd, d.dtype) else cd
         d = torch.where(mask, d.to(wide), (l_prev + o.to(cd)).to(wide))
-        t = d - o.to(wide) + y_l.to(wide) * _reciprocal(mu_l, wide)
+        inv_mu = _reciprocal(mu_l, wide)
+        if batched:  # one an entry, against the entry's tensor
+            inv_mu = inv_mu.view(-1, *(1,) * (d.dim() - 1))
+        t = d - o.to(wide) + y_l.to(wide) * inv_mu
         d = d.to(cd)
         if td is not None:
             t = narrow_cast(t, td)
     else:
         t = state.t
 
-    a, b, c = update_factors(t, a, b, c, cfg, shard=shard)
-    l = designs.triple_product(a, b, c, variant=cfg.variant)
+    a, b, c = update_factors(t, a, b, c, cfg, shard=shard, batched=batched)
+    l = reconstruct(a, b, c)
 
     mu_l_next = anneal(mu_l, cfg)
     mu_o_next = anneal(mu_o, cfg)
 
     # Masked mode rebuilds T from the freshly imputed D each iteration, so
     # the block skips T' and the state's T passes through.
-    o, e, y_l, y_o, sq_l, sq_o, t_next = elementwise_block(
+    o, e, y_l, y_o, sq_l, sq_o, t_next = (elementwise_block_batch if batched else elementwise_block)(
         d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1,
         mu_l_next=None if masked else mu_l_next, t_dtype=td, out=out,
     )
@@ -275,8 +338,10 @@ def admm_iteration(
     if shard is not None:
         sums = [sq_l, sq_o]
         if origin is not None:
-            diff = l - origin
-            sums.append(torch.sum(diff * diff))
+            def squares(diff):
+                return torch.sum(diff * diff)
+
+            sums.append((torch.func.vmap(squares) if batched else squares)(l - origin))
         sq_l, sq_o, *rest = shard.all_reduce(torch.stack(sums))
         sq_rre = rest[0] if rest else None
     root_l, root_o = torch.sqrt(sq_l), torch.sqrt(sq_o)
@@ -301,7 +366,7 @@ def admm_iteration(
     # unrolled iterations cannot un-converge
     done = state.done
     if on_device:
-        err_prev = err_hist.index_select(0, torch.clamp(k - 1, min=0).view(1)).view(())
+        err_prev = err_hist.index_select(err_hist.dim() - 1, torch.clamp(k - 1, min=0).view(1)).squeeze(-1)
         done = done | ((k >= 1) & (torch.abs(err - err_prev) < cfg.tol * err_prev))
     elif k >= 1:
         err_prev = err_hist[k - 1]
@@ -315,7 +380,9 @@ def admm_iteration(
 
 
 def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
-    """Initial state for data `d` with factor init `factors` = (a, b, c)."""
+    """Initial state for data `d` with factor init `factors` = (a, b, c).
+    A `d` with leading axes before its three modes (a batch, with factors
+    stacked alike) gets histories and a stop flag per entry."""
     dtype = cfg.torch_dtype()
     d = d.to(dtype)
     a, b, c = interop.factors_from_numpy(*factors, device=d.device, dtype=dtype)
@@ -325,7 +392,8 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
     # padded to a multiple of cfg.unroll: a block may overshoot max_iter by
     # up to unroll-1 iterations
     hist_len = -(-cfg.max_iter // cfg.unroll) * cfg.unroll
-    nan_hist = torch.full((hist_len,), float("nan"), dtype=dtype, device=d.device)
+    batch = tuple(d.shape[:-3])
+    nan_hist = torch.full((*batch, hist_len), float("nan"), dtype=dtype, device=d.device)
     mu = cfg.np_dtype().type(cfg.mu)
     td = t_dtype_of(cfg)
     return TriTDState(
@@ -333,7 +401,7 @@ def init_state(d: torch.Tensor, cfg: TriTDConfig, factors) -> TriTDState:
         t=d if td is None else narrow_cast(d, td),  # T_0 = D - 0 + 0/mu = D
         mu_l=mu, mu_o=mu, k=0,
         err_hist=nan_hist, rre_hist=nan_hist.clone(),
-        done=torch.zeros((), dtype=torch.bool, device=d.device),
+        done=torch.zeros(batch, dtype=torch.bool, device=d.device),
     )
 
 
@@ -383,7 +451,7 @@ _CARRIED = ("a", "b", "c", "mu_l", "mu_o", "k", "done")
 
 
 def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_d, norm_origin,
-                     graphs: bool, shard=None) -> TriTDState:
+                     graphs: bool, shard=None, batched: bool = False) -> TriTDState:
     """The loop of `run_admm` on the device form of the state: the
     penalties and the counter become 0-d tensors on d's device, and each
     block of cfg.unroll iterations is one call of the same function of
@@ -410,7 +478,15 @@ def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_
     The host reads the stop flag before each block, (errL, errO) of the
     block's 10th iterations with cfg.disp, and the penalties once at the
     end, which must equal the host's numpy schedule bitwise. A failed
-    capture raises."""
+    capture raises.
+
+    `batched` (:func:`run_admm_batch`): the state stacks B problems
+    (`admm_iteration(..., batched=True)`, the penalties (B,)), a block is
+    one iteration whatever cfg.unroll, and the loop runs while any entry
+    runs. An entry whose flag has just turned has its result copied on the
+    device when the host reads the flags, before the next replay (A, B, C,
+    O, E and both histories); that copy is what comes back for it, and k
+    comes back as a list of each entry's iterations."""
     masked = cfg.masked and mask is not None
     if norm_d is None:
         norm_d = torch.linalg.vector_norm(d)
@@ -418,65 +494,136 @@ def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_
         norm_origin = torch.linalg.vector_norm(origin)
     device, dtype = d.device, cfg.torch_dtype()
     k0 = state.k
+    unroll = 1 if batched else cfg.unroll
+    batch = tuple(state.done.shape)
     carry = state._replace(
         a=state.a.clone(), b=state.b.clone(), c=state.c.clone(),
-        mu_l=torch.full((), float(state.mu_l), dtype=dtype, device=device),
-        mu_o=torch.full((), float(state.mu_o), dtype=dtype, device=device),
+        mu_l=torch.full(batch, float(state.mu_l), dtype=dtype, device=device),
+        mu_o=torch.full(batch, float(state.mu_o), dtype=dtype, device=device),
         k=torch.full((), k0, dtype=torch.int64, device=device), done=state.done.clone(),
     )
     fields = ("o", "e", "y_l", "y_o") if masked else ("o", "e", "y_l", "y_o", "t")
     sets = [tuple(torch.empty_like(getattr(state, f), memory_format=torch.contiguous_format) for f in fields)
             for _ in range(2)]
     disp_hist = (torch.full((2, state.err_hist.shape[0]), float("nan"), dtype=state.err_hist.dtype, device=device)
-                 if cfg.disp else None)
+                 if cfg.disp and not batched else None)
 
     def block(done_before: int) -> None:
-        """cfg.unroll iterations from the state after `done_before` of them."""
+        """`unroll` iterations from the state after `done_before` of them."""
         if done_before == 0:
             st = carry._replace(o=state.o, e=state.e, y_l=state.y_l, y_o=state.y_o, t=state.t)
         else:
             st = carry._replace(**dict(zip(fields, sets[done_before % 2])))
-        for i in range(cfg.unroll):
+        for i in range(unroll):
             out = sets[(done_before + i + 1) % 2]
             st = admm_iteration(d, st, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
-                                disp_log=disp_hist, shard=shard, out=out if not masked else (*out, None))
+                                disp_log=disp_hist, shard=shard, out=out if not masked else (*out, None),
+                                batched=batched)
         for f in _CARRIED:
             getattr(carry, f).copy_(getattr(st, f))
 
+    def last(n_done: int) -> dict:
+        """The data-sized fields after n_done iterations of this call."""
+        return dict(zip(fields, sets[n_done % 2])) if n_done else {}
+
+    stopped: dict = {}  # a batch entry -> (its iterations, its result copied on the device)
+
+    def running(n_done: int) -> bool:
+        """Reads the stop flags: one synchronizing call."""
+        if not batched:
+            return not bool(carry.done)
+        for i, flag in enumerate(carry.done.tolist()):
+            if flag and i not in stopped:
+                now = {**carry._asdict(), **last(n_done)}
+                stopped[i] = (k0 + n_done, {f: now[f][i].clone() for f in _STOPPED})
+        return len(stopped) < batch[0]
+
     n_done = 0  # iterations this call has run
-    with contextlib.ExitStack() as stack:
-        if graphs:
-            caller, side = torch.cuda.current_stream(device), torch.cuda.Stream(device=device)
-            side.wait_stream(caller)
-            # unwound last in, first out: the side stream is left, then the
-            # caller's stream waits for its work
-            stack.callback(caller.wait_stream, side)
-            stack.enter_context(torch.cuda.stream(side))
-            captured: dict = {}
-            pool = torch.cuda.graph_pool_handle()
-            tallies = () if shard is None else (shard.tally,)
-        while k0 + n_done < cfg.max_iter and not bool(carry.done):
-            if graphs and n_done > 0:
-                parity = n_done % 2
-                if parity not in captured:
-                    captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool, tallies)
-                captured[parity].replay()
-            else:
-                block(n_done)
-            if cfg.disp:
-                _print_disp(disp_hist, k0 + n_done, k0 + n_done + cfg.unroll)
-            n_done += cfg.unroll
+    with _stepper(device, graphs, shard) as step:
+        while k0 + n_done < cfg.max_iter and running(n_done):
+            step(block, n_done)
+            if disp_hist is not None:
+                _print_disp(disp_hist, k0 + n_done, k0 + n_done + unroll)
+            n_done += unroll
 
     mu = torch.stack((carry.mu_l, carry.mu_o)).cpu().numpy()
     want = np.array([state.mu_l, state.mu_o], dtype=cfg.np_dtype())
     for _ in range(n_done):
         want = anneal(want, cfg)
-    if mu.tobytes() != want.tobytes():
+    if mu.tobytes() != np.broadcast_to(want.reshape(2, *(1,) * len(batch)), mu.shape).tobytes():
         raise AssertionError(f"the penalties on {device} after {n_done} iterations, {mu}, are not the host's "
                              f"schedule {want}")
-    last = dict(zip(fields, sets[n_done % 2])) if n_done else {}
-    return state._replace(a=carry.a, b=carry.b, c=carry.c, **last, mu_l=mu[0], mu_o=mu[1], k=k0 + n_done,
-                          done=carry.done)
+    out = state._replace(a=carry.a, b=carry.b, c=carry.c, **last(n_done), mu_l=mu[0], mu_o=mu[1], k=k0 + n_done,
+                         done=carry.done)
+    if not batched:
+        return out
+    for i, (_k, at_stop) in stopped.items():
+        for f, x in at_stop.items():
+            getattr(out, f)[i].copy_(x)
+    return out._replace(k=[stopped[i][0] if i in stopped else k0 + n_done for i in range(batch[0])])
+
+
+# The fields of a batch entry's result, copied when its stop flag turns.
+_STOPPED = ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
+
+
+def run_admm_batch(d, state: TriTDState, cfg: TriTDConfig, shard, mask=None, origin=None, norm_d=None,
+                   norm_origin=None, graphs: bool = False) -> TriTDResult:
+    """B problems from their initial batched state (`init_state` of the
+    stacked data, at cfg.unroll 1) to cfg.max_iter, each stopping on its
+    own, as the reference's vmapped `while_loop` does: one iteration a step,
+    every entry in the same operations, the loop running while any entry
+    runs (`_run_device_form(..., batched=True)`; with `graphs` on the CUDA
+    graph route). A finished entry goes on computing, as the reference's
+    body does for every entry, but its result is the copy made when its
+    flag turned. `norm_d` and `norm_origin` are (B,), of each whole tensor.
+
+    Returns a TriTDResult of the local shards, each field with the batch
+    axis first, the histories (B, max_iter), n_iters a list of ints."""
+    nb = d.shape[0]
+    if state.err_hist.shape != (nb, cfg.max_iter):
+        raise ValueError(f"the batched loop takes one iteration a step: histories of shape ({nb}, {cfg.max_iter}) "
+                         f"(init_state with unroll 1), got {tuple(state.err_hist.shape)}")
+    st = _run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=graphs, shard=shard,
+                          batched=True)
+    dtype = cfg.torch_dtype()
+    return TriTDResult(a=st.a, b=st.b, c=st.c, o=st.o.to(dtype, copy=True), e=st.e.to(dtype, copy=True),
+                       err_hist=st.err_hist, rre_hist=st.rre_hist, n_iters=st.k)
+
+
+@contextlib.contextmanager
+def _stepper(device, graphs: bool, shard=None):
+    """Yields `step(block, n_done)`, which runs `block(n_done)`, the next
+    block of a device-form loop after n_done iterations: without `graphs`
+    eagerly; with them, on a side stream, the first block eagerly and each
+    later one as the replay of the CUDA graph captured for n_done's parity
+    (captured at its first use, `hopper_kernels.CountedGraph`; the shard's
+    collectives counted in its `tally`). On exit the caller's stream waits
+    for the side stream's work."""
+    if not graphs:
+        yield lambda block, n_done: block(n_done)
+        return
+    caller, side = torch.cuda.current_stream(device), torch.cuda.Stream(device=device)
+    side.wait_stream(caller)
+    captured: dict = {}
+    pool = torch.cuda.graph_pool_handle()
+    tallies = () if shard is None else (shard.tally,)
+
+    def step(block, n_done: int) -> None:
+        if n_done == 0:
+            block(0)
+            return
+        parity = n_done % 2
+        if parity not in captured:
+            captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool, tallies)
+        captured[parity].replay()
+
+    try:
+        with torch.cuda.stream(side):
+            yield step
+    finally:
+        # after the side stream is left: the caller's stream waits for it
+        caller.wait_stream(side)
 
 
 def _print_disp(disp_hist: torch.Tensor, k_from: int, k_to: int) -> None:

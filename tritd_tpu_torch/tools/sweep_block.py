@@ -35,14 +35,21 @@ device memory, as the solve's CUDA graph launches it) against its by-value
 entry at taxi, in turns, four readings a side, after holding the two
 entries' stores bitwise equal, and prints the registers and spills of both
 instantiations of every variant; with `--pointer-variations` also each of
-POINTER_VARIATIONS, other designs of the pointer instantiation. `quotient_divisors` and
+POINTER_VARIATIONS, other designs of the pointer instantiation. With
+`--against` and `--every`, `--pointer` also times every variant's pointer
+entry of both builds in turns, and `--bitwise` compares both entries.
+`--batch` times every variant's batched entry (`elementwise_block_batch`:
+BATCH_ENTRIES entries of taxi in one launch) against as many launches of
+its pointer entry, one an entry, in turns, four readings a side, after
+holding each entry's stores and sums bitwise the pointer entry's launch on
+that entry alone. `quotient_divisors` and
 `quotient_check` hold the kernel's division to '/' on the card
 (`chip_smoke.py` phase 2).
 
 Needs a CUDA device and nvcc. Usage:
     python -m tritd_tpu_torch.tools.sweep_block [--launches 40] [--only NAME ...] [--sass [--sass-out DIR]]
         [--against OTHER/csrc/elementwise_block.cuh [--bitwise] [--solves] [--every]]
-        [--pointer [--pointer-variations]]
+        [--pointer [--pointer-variations]] [--batch]
         [--out result.json]
 """
 
@@ -77,6 +84,9 @@ CASES = (("f32", "taxi"), ("f32", "video"), ("f32", "slab4"), ("f32", "slab3"),
          ("c64_d64_s64_tbf16", "taxi"), ("c32_df16_sf16_tf16", "taxi"), ("c32_de4m3_se4m3_te4m3", "taxi"),
          ("c32_de5m2_se5m2_te5m2", "taxi"), ("c32_de5m2_se5m2_te5m2", "video"), ("c64_de5m2_se5m2_te5m2", "taxi"))
 # the variants whose vector loop `--sass` counts
+# entries of `--batch`'s launches: the batch of four of the reference's
+# batched rows (BASELINE.json configuration 5, bench.py's batched completion)
+BATCH_ENTRIES = 4
 SASS_VARIANTS = ("c32_de5m2_se5m2_te5m2", "c64_de5m2_se5m2_te5m2", "c32_de4m3_se4m3_te4m3", "c32_df16_sf16_tf16",
                  "f32")
 
@@ -440,6 +450,7 @@ class Built:
     def _fresh():
         hopper_kernels._entry.cache_clear()
         hopper_kernels._pointer_entry.cache_clear()
+        hopper_kernels._batch_entry.cache_clear()
         hopper_kernels._SCRATCH.clear()
 
 
@@ -451,12 +462,16 @@ def vary(text: str, subs) -> str:
     return text
 
 
-def make_case(variant: str, shape_name: str):
+def make_case(variant: str, shape_name: str, batch: int | None = None):
+    """(inputs, keywords, plain outputs) of a variant at a shape; with
+    `batch`, that many entries of it stacked on a first axis."""
     (cd, d_dt, s_dt, t_dt), = (k for k, v in hopper_kernels.KERNEL_VARIANTS.items() if v == variant)
     if d_dt == cd and s_dt != cd:
         t_dt = None  # masked narrow storage carries no T'
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = SHAPES.get(shape_name) or SLAB_SHAPES[shape_name]
+    if batch is not None:
+        shape = (batch, *shape)
     raw = [torch.randn(shape, generator=gen, device="cuda") * 3 for _ in range(5)]
     args = [narrow_cast(raw[0], d_dt), raw[1].to(cd), *(narrow_cast(x, s_dt) for x in raw[2:])]
     kw = dict(mu_l_next=None if t_dt is None else MU_NEXT, t_dtype=t_dt)
@@ -494,6 +509,88 @@ def launch_again(args, kw, pointer: bool = False):
     return seen["again"], got
 
 
+def batch_again(args, kw):
+    """One call of the batched entry on the stacked `args`, the penalties
+    SCALARS for every entry; returns a function that repeats its launch of
+    the C entry point with the same arguments, and the call's outputs."""
+    real, seen = hopper_kernels._batch_entry, {}
+    nb = args[0].shape[0]
+    mus = torch.tensor([SCALARS[0], SCALARS[1], kw["mu_l_next"] or SCALARS[0]], dtype=args[1].dtype,
+                       device="cuda").repeat_interleave(nb).view(3, nb)
+
+    def spy(variant):
+        fn = real(variant)
+
+        def record(*argv):
+            seen["again"] = lambda keep=mus: fn(*argv)  # keeps the penalties' buffer alive
+            return fn(*argv)
+        return record
+
+    hopper_kernels._batch_entry = spy
+    try:
+        got = hopper_kernels.elementwise_block_batch(*args, mus[0], mus[1], SCALARS[2],
+                                                     mu_l_next=None if kw["mu_l_next"] is None else mus[2],
+                                                     t_dtype=kw["t_dtype"])
+    finally:
+        hopper_kernels._batch_entry = real
+    return seen["again"], got
+
+
+def device_us(fn, launches: int) -> float:
+    """Device microseconds per call of `fn`: CUDA events around `launches`
+    calls, the median of 5 such batches."""
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches * 1e3)
+    return sorted(times)[2]
+
+
+def batch_turns(built: Built, launches: int) -> list[dict]:
+    """Every variant of `built` at BATCH_ENTRIES x taxi: one launch of its
+    batched entry against BATCH_ENTRIES launches of its pointer entry, one
+    on each entry; first each entry's stores and both sums held bitwise
+    (raises if any differs), then in turns batch, pointer, pointer, batch
+    twice (four readings a side), each side's spread and the change."""
+    names = ("o", "e", "y_l", "y_o", "nl", "no", "t")
+    rows = []
+    for variant in sorted(built.groups):
+        args, kw, _plain = make_case(variant, "taxi", batch=BATCH_ENTRIES)
+        with built:
+            again, got = batch_again(args, kw)
+            singles = [launch_again([a[i] for a in args], kw, pointer=True) for i in range(BATCH_ENTRIES)]
+            torch.cuda.synchronize()
+            wrong = [(i, names[j]) for i, (_again, one) in enumerate(singles) for j in range(7)
+                     if one[j] is not None and not same_bits(got[j][i], one[j])]
+            if wrong:
+                raise AssertionError(f"{variant}: the batched entry's (entry, output) {wrong} differ from the "
+                                     f"pointer entry's launch on that entry alone")
+            sides = {"batch": again, "pointer": lambda: [one_again() for one_again, _out in singles]}
+            us = {"batch": [], "pointer": []}
+            for side in ("batch", "pointer", "pointer", "batch") * 2:
+                us[side].append(device_us(sides[side], launches))
+        batch, pointer = us["batch"], us["pointer"]
+        row = {"variant": variant, "shape": f"{BATCH_ENTRIES}x taxi",
+               "bound_us": _case_bytes(variant, "taxi") * args[0].numel() / PEAK_BYTES_PER_S * 1e6,
+               "batch_us": batch, "pointer_us": pointer,
+               "batch_spread": (max(batch) - min(batch)) / np.median(batch),
+               "pointer_spread": (max(pointer) - min(pointer)) / np.median(pointer),
+               "change": float(np.median(batch) / np.median(pointer) - 1)}
+        rows.append(row)
+        print(f"batch {variant:24s} {BATCH_ENTRIES}x taxi bound {row['bound_us']:6.1f} us: batched "
+              + " ".join(f"{x:7.2f}" for x in batch) + f" (spread {row['batch_spread']:.1%}); {BATCH_ENTRIES} "
+              f"pointer launches " + " ".join(f"{x:7.2f}" for x in pointer)
+              + f" (spread {row['pointer_spread']:.1%}); median {row['change']:+.1%}; share of the bound "
+              f"{row['bound_us'] / np.median(batch):.0%}; stores and sums bitwise", flush=True)
+        del args, got, singles
+    return rows
+
+
 def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool,
             pointer: bool = False) -> tuple[float, float]:
     """(device us per launch, largest |kernel - plain| over the outputs);
@@ -506,16 +603,8 @@ def measure(built: Built, args, kw, plain, launches: int, sums_valid: bool,
         if sums_valid:
             for i in (4, 5):
                 torch.testing.assert_close(got[i], plain[i], rtol=1e-5, atol=0.0)
-        times = []
-        for _ in range(5):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(launches):
-                again()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / launches * 1e3)
-    return sorted(times)[2], worst
+        us = device_us(again, launches)
+    return us, worst
 
 
 def every_case(variants=None) -> list[tuple[str, str]]:
@@ -525,22 +614,24 @@ def every_case(variants=None) -> list[tuple[str, str]]:
     return [(v, "taxi") for v in variants] + [(v, "video") for v in variants if _key(v)[0] == torch.float32]
 
 
-def time_in_turns(mine: Built, theirs: Built | None, launches: int) -> list[dict]:
+def time_in_turns(mine: Built, theirs: Built | None, launches: int, pointer: bool = False) -> list[dict]:
     """Device us per launch of every case of `every_case` of `mine`'s
     variants. One that `theirs` holds too is taken with both builds, mine,
     theirs, theirs, mine, mine, theirs, theirs, mine (four readings a side,
     each the median of 5 batches as `measure` takes them), and printed with
     its readings, their spread ((max - min) / median) and the change of
     mine's median against theirs; the others (all, with no `theirs`) four
-    readings of mine alone, beside the byte bound."""
+    readings of mine alone, beside the byte bound. `pointer`: through the
+    pointer entry."""
     rows = []
+    entry = "pointer " if pointer else ""
     for variant, shape in every_case(mine.groups):
         args, kw, plain = make_case(variant, shape)
         alone = theirs is None or variant not in theirs.groups
         us = {mine.name: []} if alone else {mine.name: [], theirs.name: []}
         worst = 0.0
         for built in (mine,) * 4 if alone else (mine, theirs, theirs, mine) * 2:
-            t, err = measure(built, args, kw, plain, launches, True)
+            t, err = measure(built, args, kw, plain, launches, True, pointer)
             us[built.name].append(t)
             worst = max(worst, err)
         new = us[mine.name]
@@ -556,13 +647,14 @@ def time_in_turns(mine: Built, theirs: Built | None, launches: int) -> list[dict
             del args, plain
             continue
         old = us[theirs.name]
-        row = {"variant": variant, "shape": shape, "bound_us": _case_bytes(variant, shape) * args[0].numel()
+        row = {"variant": variant, "shape": shape, "entry": "pointer" if pointer else "by value",
+               "bound_us": _case_bytes(variant, shape) * args[0].numel()
                / PEAK_BYTES_PER_S * 1e6, "us": new, "against_us": old, "max_abs_err": worst,
                "spread": (max(new) - min(new)) / np.median(new),
                "against_spread": (max(old) - min(old)) / np.median(old),
                "change": float(np.median(new) / np.median(old) - 1)}
         rows.append(row)
-        print(f"turns {variant:24s} {shape:6s} bound {row['bound_us']:6.1f} us: as built "
+        print(f"turns {entry}{variant:24s} {shape:6s} bound {row['bound_us']:6.1f} us: as built "
               + " ".join(f"{x:7.2f}" for x in new) + f" (spread {row['spread']:.1%}); against "
               + " ".join(f"{x:7.2f}" for x in old) + f" (spread {row['against_spread']:.1%}); "
               f"median {row['change']:+.1%}", flush=True)
@@ -681,20 +773,27 @@ def same_bits(a, b) -> bool:
 
 
 def compare_stores(base: Built, other: Built) -> dict[str, list[str]]:
-    """variant -> the outputs (and input kinds) where `base` and `other`
-    differ in any bit, over every variant both hold and `variant_inputs`."""
+    """variant -> the outputs (and input kinds and entries) where `base` and
+    `other` differ in any bit, over every variant both hold and
+    `variant_inputs`, through the by-value entry and the pointer entry (the
+    penalties as 0-d tensors on the card)."""
     names = ("o", "e", "y_l", "y_o", "nl", "no", "t")
     kinds = ("random", "edges", "codes", "codes")
     differ = {}
     for variant in sorted(set(base.groups) & set(other.groups)):
         wrong = []
         for kind, (args, kw, scalars) in zip(kinds, variant_inputs(variant)):
-            outs = []
-            for built in (base, other):
-                with built:
-                    outs.append(hopper_kernels._block_cuda(*args, *scalars, **kw))
-            torch.cuda.synchronize()
-            wrong += [f"{names[i]} ({kind})" for i in range(7) if not same_bits(outs[0][i], outs[1][i])]
+            on_card = [torch.tensor(x, dtype=args[1].dtype, device="cuda") for x in scalars[:2]]
+            pointer_kw = dict(kw, mu_l_next=None if kw["mu_l_next"] is None else
+                              torch.tensor(kw["mu_l_next"], dtype=args[1].dtype, device="cuda"))
+            for entry, penalties, entry_kw in (("by value", scalars, kw),
+                                               ("pointer", (*on_card, scalars[2]), pointer_kw)):
+                outs = []
+                for built in (base, other):
+                    with built:
+                        outs.append(hopper_kernels._block_cuda(*args, *penalties, **entry_kw))
+                torch.cuda.synchronize()
+                wrong += [f"{names[i]} ({kind}, {entry})" for i in range(7) if not same_bits(outs[0][i], outs[1][i])]
         differ[variant] = wrong
     return differ
 
@@ -860,9 +959,13 @@ def main(argv=None) -> dict:
                    help="every variant (taxi, and video where compute is float32) timed four times; with "
                         "--against, those both builds hold in turns, four readings a side")
     p.add_argument("--pointer", action="store_true",
-                   help="every variant's pointer entry against its by-value entry at taxi, in turns")
+                   help="every variant's pointer entry against its by-value entry at taxi, in turns; with "
+                        "--against and --every, every variant's pointer entry of both builds in turns instead")
     p.add_argument("--pointer-variations", action="store_true",
                    help="with --pointer: also each of POINTER_VARIATIONS, the same way")
+    p.add_argument("--batch", action="store_true",
+                   help=f"every variant's batched entry at {BATCH_ENTRIES}x taxi against {BATCH_ENTRIES} launches "
+                        "of its pointer entry, in turns, after holding every entry's stores bitwise")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     resolve_device("cuda")
@@ -889,7 +992,7 @@ def main(argv=None) -> dict:
             print(f"SM clock under load {sm_mhz:.0f} MHz (max {max_mhz:.0f})")
             result["sm_mhz"] = sm_mhz
             result["sass"]["as built"] = print_sass("as built", base, sm_mhz, a.sass_out)
-        if a.pointer:
+        if a.pointer and not a.against:
             mine = Built("as built, every variant", text, {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
             result["pointer_registers"] = mine.registers
             for row in mine.registers:
@@ -908,6 +1011,20 @@ def main(argv=None) -> dict:
         if a.every and not a.against:
             mine = Built("as built, every variant", text, {}, tmp, set(hopper_kernels.KERNEL_VARIANTS.values()))
             result["turns"] = time_in_turns(mine, None, a.launches)
+        if a.batch:
+            mine = Built("as built, every variant, batched", text, {}, tmp,
+                         set(hopper_kernels.KERNEL_VARIANTS.values()))
+            result["batch_registers"] = mine.registers
+            for row in mine.registers:
+                print(f"every variant: kernel<{row['kernel_types_c_d_s_t']}> {row['registers']} registers, "
+                      f"{row['spill_bytes']} bytes spilled")
+            rows = batch_turns(mine, a.launches)
+            result["batch"] = rows
+            beyond = [r["variant"] for r in rows if abs(r["change"]) > max(r["batch_spread"], r["pointer_spread"])]
+            print(f"batch: {len(rows)} variants, every entry bitwise; median change against {BATCH_ENTRIES} pointer "
+                  f"launches {np.median([r['change'] for r in rows]):+.2%}, from "
+                  f"{min(r['change'] for r in rows):+.1%} to {max(r['change'] for r in rows):+.1%}; "
+                  f"{len(beyond)} beyond both sides' spread", flush=True)
         if a.against and (a.bitwise or a.solves or a.every):
             every = set(hopper_kernels.KERNEL_VARIANTS.values())
             mine = Built("as built, every variant", text, {}, tmp, every)
@@ -923,14 +1040,17 @@ def main(argv=None) -> dict:
             if a.solves:
                 result["solves_differ"] = compare_solves(mine, theirs)
                 print(f"solves differing from {a.against}: {result['solves_differ'] or 'none'}")
-            if a.every:
-                rows = time_in_turns(mine, theirs, a.launches)
-                result["turns"] = rows
+            for pointer in (False, True) if a.every and a.pointer else (False,) if a.every else ():
+                rows = time_in_turns(mine, theirs, a.launches, pointer)
+                result["pointer_turns" if pointer else "turns"] = rows
                 rows = [r for r in rows if "change" in r]
                 slow = max(rows, key=lambda r: r["change"])
                 spread = max(max(r["spread"], r["against_spread"]) for r in rows)
-                print(f"turns: {len(rows)} cases; slowest against {a.against}: {slow['variant']} {slow['shape']} "
-                      f"{slow['change']:+.1%}; largest spread {spread:.1%}", flush=True)
+                beyond = sum(abs(r["change"]) > max(r["spread"], r["against_spread"]) for r in rows)
+                print(f"turns{' (pointer entries)' if pointer else ''}: {len(rows)} cases; median change "
+                      f"{np.median([r['change'] for r in rows]):+.2%}; slowest against {a.against}: {slow['variant']} "
+                      f"{slow['shape']} {slow['change']:+.1%}; largest spread {spread:.1%}; {beyond} beyond both "
+                      f"sides' spread", flush=True)
         variations = dict(VARIATIONS)
         if a.against:
             variations[f"the source {a.against}"] = (None, {}, True)
