@@ -107,8 +107,12 @@ Phases, each of which fails the run by raising:
   5. checkpointed resume: a subprocess dies right after its step-25
      checkpoint (exit 17); the resume here is bitwise equal to an
      uninterrupted checkpointed run and within rtol 1e-6 of tritd_admm.
+     Both run on the graph route (one device-form loop a call, one
+     iteration a replay): every launch through the pointer entry; their
+     launches join the kernels line.
   6. the other solvers: tritd_admm_outlier on the highway stand-in,
-     tritd_als and tritd_mals on the taxi stand-in.
+     tritd_als and tritd_mals on the taxi stand-in, each on its graph
+     route.
   7. the video CLI in a subprocess at 240x320x300, 100 iterations.
   8. the SVT routes on the card, float32, at 100x50000 and 1000x5000: gram
      and a warm refresh against the svd route within 1e-4 of ||M||, and
@@ -266,6 +270,27 @@ Phases, each of which fails the run by raising:
      and peak MiB of each route; RRE of each entry against its stand-in.
      The first batched run of each case is the main path: its launches
      are the kernels line's batch_launches.
+ 23. the other solve loops on their graph route against their eager loops:
+     tritd_admm_checkpointed at taxi f32 (every=25, 50 iterations, tol 0;
+     one graph run and one eager run (`checkpointed._solve(...,
+     graphs=None)`), each with its two saves,
+     about 8 s each): bitwise A, B, C, O, E and the histories, the same
+     checkpoint files, two captures for the call, max_iter + one
+     synchronizing call a segment (the saves' reads left out), one launch
+     an iteration through the pointer entry; ms per iteration of each route
+     with the saves timed apart (events), the time to the first replay.
+     tritd_admm_outlier at highway, tritd_als and tritd_mals at taxi, 100
+     iterations (tol 0; MALS has no stop), in turns graph, eager, eager,
+     graph: bitwise, captures (outlier 2, ALS and MALS 1), synchronizing
+     calls (outlier and ALS one a flag read after each iteration short of
+     max_iter and one at the end, MALS 1), ms per iteration of each route,
+     peak MiB. Then solve_method "pinv" and "lstsq" at taxi (3
+     iterations) through tritd_admm and, on one NCCL rank,
+     tritd_admm_sharded and tritd_admm_batch_sharded (taxi and its mirror
+     image): the eager loop on the card, no capture, the kernel through
+     its by-value entry (the batched one once an iteration), finite
+     histories, the route printed. These launches are checks and stay out
+     of the kernels line.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -281,7 +306,7 @@ eagerly, and each replay of a graph counts its kernel nodes: a capture
 launches nothing and counts nothing. Every launch of phase 3's solves
 must go through the pointer entry. The line before the last is a JSON
 object with one record per kernel variant, all 82 on the main path (the
-launches of phases 3, 12, 17 and 19; pointer_launches, those of them
+launches of phases 3, 5, 12, 17 and 19; pointer_launches, those of them
 through the pointer entry; batch_launches, phase 22's through the batched
 entry; batch_ms, batch_pointer_ms and batch_bound_ms, phase 2's batched
 timings at 4 x taxi), each naming the .cu file that holds its entry
@@ -1071,7 +1096,7 @@ def _pointer_launches() -> dict:
     return {k[len("elementwise_block_ptr["):-1]: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}
 
 
-# the main path's launches through the pointer entries (phases 3, 12, 17, 19)
+# the main path's launches through the pointer entries (phases 3, 5, 12, 17, 19)
 POINTER_ON_MAIN_PATH: dict = {}
 
 
@@ -1491,8 +1516,10 @@ sys.exit(3)
 """
 
 
-def phase5() -> None:
-    """Checkpointed resume on the card (taxi, f32, every=25, 50 iterations)."""
+def phase5() -> dict:
+    """Checkpointed resume on the card (taxi, f32, every=25, 50 iterations),
+    on the graph route; returns the launches of the resume and the
+    uninterrupted run (the main path)."""
     _x, _mask, y, _prov = _taxi()
     cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=50)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1516,12 +1543,14 @@ def phase5() -> None:
         end.record()
         torch.cuda.synchronize()
         resume_launches = _launches()
+        _all_through_the_pointer_entry("phase5 resume", resume_launches)
         hopper_kernels.reset_launch_counts()
         t1 = time.perf_counter()
         full = tritd_admm_checkpointed(y, cfg, os.path.join(tmp, "full"), every=25)
         torch.cuda.synchronize()
         full_s = time.perf_counter() - t1
         full_launches = _launches()
+        _all_through_the_pointer_entry("phase5 uninterrupted", full_launches)
     if resumed.n_iters != 50 or resume_launches != {"f32": 25} or full_launches != {"f32": 50}:
         raise AssertionError(f"resume: n_iters {resumed.n_iters}, launches {resume_launches} / {full_launches}")
     for f in ("err_hist", "a", "b", "c", "o", "e"):
@@ -1532,7 +1561,8 @@ def phase5() -> None:
     print(f"phase5 checkpoint: drill exit 17 after step 25 in {drill_s:.2f} s (subprocess); resume 25->50 "
           f"{start.elapsed_time(end) / 1e3:.4f} s (events); uninterrupted 50 iterations with 2 saves "
           f"{full_s:.4f} s (wall); resumed == uninterrupted bitwise; vs tritd_admm rtol 1e-6 "
-          f"(bitwise: {same})")
+          f"(bitwise: {same}); launches through the pointer entry {resume_launches} / {full_launches}")
+    return {"f32": resume_launches["f32"] + full_launches["f32"]}
 
 
 def phase6() -> None:
@@ -2019,10 +2049,7 @@ def phase12() -> dict:
                 PHASE12_MODE1.update(res=graph["res"], cfg=cfg, init=init)
             ms = {route: [r["ms"] / n for r in rs] for route, rs in runs.items()}
             replayed = n - 1
-            split = "; ".join(
-                f"run {i + 1}: {r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
-                f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter"
-                for i, r in enumerate(runs[False]))
+            split = "; ".join(f"run {i + 1}: {_split_text(r, replayed)}" for i, r in enumerate(runs[False]))
             print(f"phase12 nccl 1 rank {tag} ({'x'.join(map(str, d.shape))}, {n} iterations, unroll {cfg.unroll}): "
                   f"launches {main} (all through the pointer entry); graph route {ms[False][0]:.4f} / "
                   f"{ms[False][1]:.4f} ms/iter (events; {split}), eager {ms[True][0]:.4f} / {ms[True][1]:.4f}; "
@@ -2951,11 +2978,12 @@ def _route_solve(data, cfg, init, eager: bool, mask=None, origin=None) -> dict:
 
 
 def _watched(call) -> dict:
-    """`call()`, a call of run_admm, watched: its result, CUDA-event ms, the
+    """`call()`, a solve, watched: its result, CUDA-event ms, the
     synchronizing calls inside it (torch.cuda.set_sync_debug_mode) and the
     peak MiB. On the graph route also where its time goes: the events' ms up
     to the first replay (the eager first block and the captures), the host
-    ms of the captures, and the ms from the first replay to the end."""
+    ms of the captures, the ms from the first replay to the end, and the
+    graphs captured."""
     graphs, replays = [], []
     counted = hopper_kernels.CountedGraph
 
@@ -2988,10 +3016,10 @@ def _watched(call) -> dict:
     # the warnings of the synchronizing calls; the mode's one-time notice that it is a
     # prototype also names synchronization
     syncs = sum("called a synchronizing" in str(w.message) for w in seen)
-    split = {}
+    split = {"graphs": len(graphs)}
     if replays:
-        split = {"before_replays_ms": start.elapsed_time(replays[0]), "replays_ms": replays[0].elapsed_time(end),
-                 "capture_host_ms": sum(g.capture_s for g in graphs) * 1e3, "graphs": len(graphs)}
+        split.update(before_replays_ms=start.elapsed_time(replays[0]), replays_ms=replays[0].elapsed_time(end),
+                     capture_host_ms=sum(g.capture_s for g in graphs) * 1e3)
     # Watched's methods hold `graphs`, which holds Watched graphs: a cycle
     # that only the garbage collector would free; free them here
     graphs.clear()
@@ -3032,10 +3060,7 @@ def phase21() -> None:
             raise AssertionError(f"phase21 {tag}: {syncs} synchronizing calls on the graph route, want {want_syncs}")
         ms = {route: [r["ms"] / cfg.max_iter for r in rs] for route, rs in runs.items()}
         replayed = cfg.max_iter - cfg.unroll
-        split = "; ".join(
-            f"run {i + 1}: {r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
-            f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter"
-            for i, r in enumerate(runs[False]))
+        split = "; ".join(f"run {i + 1}: {_split_text(r, replayed)}" for i, r in enumerate(runs[False]))
         print(f"phase21 {tag} ({'x'.join(map(str, data.shape))}, {cfg.max_iter} iterations, unroll {cfg.unroll}): "
               f"graph route {ms[False][0]:.4f} / {ms[False][1]:.4f} ms/iter (events; {split}), eager "
               f"{ms[True][0]:.4f} / {ms[True][1]:.4f}; synchronizing calls a solve graph {syncs} (want "
@@ -3330,6 +3355,201 @@ def phase22() -> dict:
     return total
 
 
+# --- phase 23: the other solve loops on their graph route -------------------
+
+PHASE23_EVERY = 25
+PHASE23_CKPT_ITERS = 50
+RESULT_FIELDS = ("a", "b", "c", "o", "e", "err_hist", "rre_hist")
+
+
+@contextlib.contextmanager
+def _saves_apart(saves: list):
+    """Inside, each checkpoint save of tritd_admm_checkpointed runs with the
+    sync debug mode off (its reads to the host are the save's, not the
+    loop's) between two CUDA events; `saves` gets (events ms, host s) of
+    each."""
+    from tritd_tpu_torch.solvers import checkpointed
+
+    real = checkpointed.save_state
+
+    def save(path, state):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        try:
+            return real(path, state)
+        finally:
+            end.record()
+            end.synchronize()
+            saves.append((start.elapsed_time(end), time.perf_counter() - t0))
+            torch.cuda.set_sync_debug_mode(mode)
+
+    checkpointed.save_state = save
+    try:
+        yield saves
+    finally:
+        checkpointed.save_state = real
+
+
+def _routes_differ(graph, eager) -> list:
+    return [f for f in RESULT_FIELDS if not _same_bits(getattr(graph, f), getattr(eager, f))]
+
+
+# The `graphs` argument of a solve loop's private function on each route.
+ROUTE_GRAPHS = {"graphs": True, "eager": None}
+
+
+def _split_text(r: dict, replayed: int) -> str:
+    """One graph-route run's time split: to the first replay, then each
+    replayed iteration's."""
+    return (f"{r['before_replays_ms']:.2f} ms to the first replay ({r['graphs']} captures, "
+            f"{r['capture_host_ms']:.2f} ms of host), then {r['replays_ms'] / replayed:.4f} ms/iter")
+
+
+def phase23() -> None:
+    """The solve loops other than tritd_admm's on the graph route against
+    their eager loops: tritd_admm_checkpointed (taxi f32, every=25, 50
+    iterations: one loop for the call, two captures), tritd_admm_outlier at
+    highway, tritd_als and tritd_mals at taxi (100 iterations each); then
+    the solve methods "pinv" and "lstsq", which take the eager loop in
+    tritd_admm and in the sharded and batched sharded solves on one NCCL
+    rank."""
+    from tritd_tpu_torch.solvers import als, checkpointed, outlier
+
+    _release_cached()
+    x, _mask, y, _prov = _taxi()
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    init = init_factors(gen(), tuple(y.shape), COMPLETION_TRITD.rank, torch.float32)
+
+    # the checkpointed segments: one graph run, one eager, each with its two saves
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=PHASE23_CKPT_ITERS, tol=0.0)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for eager in (False, True):
+            saves: list = []
+            ckpt = os.path.join(tmp, str(eager))
+            with _saves_apart(saves):
+                hopper_kernels.reset_launch_counts()
+                # the graph route through the entry point, the eager loop through `_solve(..., graphs=None)`
+                runs[eager] = _watched(lambda: checkpointed._solve(y, cfg, ckpt, PHASE23_EVERY, init, None, True,
+                                                                   graphs=None) if eager else
+                                       checkpointed.tritd_admm_checkpointed(y, cfg, ckpt, every=PHASE23_EVERY,
+                                                                            init=init))
+            runs[eager].update(saves=saves, launches=_launches(), pointer=_pointer_launches(),
+                               steps=sorted(os.listdir(ckpt)))
+        files_differ = []
+        for step in runs[False]["steps"]:
+            if step in runs[True]["steps"]:
+                with np.load(os.path.join(tmp, "False", step)) as g, np.load(os.path.join(tmp, "True", step)) as e:
+                    files_differ += [(step, k) for k in e.files if g[k].tobytes() != e[k].tobytes()]
+    graph, eager = runs[False], runs[True]
+    segments = -(-cfg.max_iter // PHASE23_EVERY)
+    differ = _routes_differ(graph["res"], eager["res"])
+    want_syncs = cfg.max_iter + segments
+    if (differ or files_differ or graph["res"].n_iters != cfg.max_iter or graph["graphs"] != 2
+            or graph["syncs"] != want_syncs or graph["steps"] != eager["steps"] or len(graph["steps"]) != segments
+            or graph["launches"] != {"f32": cfg.max_iter} or graph["pointer"] != graph["launches"]):
+        raise AssertionError(
+            f"phase23 checkpointed: graph route differs from the eager loop in {differ}, its checkpoints in "
+            f"{files_differ}; n_iters "
+            f"{graph['res'].n_iters}; {graph['graphs']} captures (want 2); {graph['syncs']} synchronizing calls "
+            f"(want {want_syncs}); saves {graph['steps']} / {eager['steps']}; launches {graph['launches']}, "
+            f"through the pointer entry {graph['pointer']}")
+    # every save comes after the first replay (iteration 2): take them out of both spans
+    loop_ms = {route: (r["ms"] - sum(ms for ms, _s in r["saves"])) / cfg.max_iter for route, r in runs.items()}
+    graph["replays_ms"] -= sum(ms for ms, _s in graph["saves"])
+    print(f"phase23 checkpointed taxi f32 (every {PHASE23_EVERY}, {cfg.max_iter} iterations, {segments} saves): "
+          f"graph route {loop_ms[False]:.4f} ms/iter without the saves (events; "
+          f"{_split_text(graph, cfg.max_iter - 1)}), eager {loop_ms[True]:.4f}; saves ms (events) graph "
+          f"{[round(ms, 1) for ms, _s in graph['saves']]}, eager {[round(ms, 1) for ms, _s in eager['saves']]}; "
+          f"{graph['graphs']} captures for the call; synchronizing calls graph {graph['syncs']} (want "
+          f"{want_syncs}, the saves apart), eager {eager['syncs']}; launches {graph['launches']} all through the "
+          f"pointer entry; A, B, C, O, E, err_hist and the checkpoint files bitwise the eager loop's; {CARD[0]}",
+          flush=True)
+    runs = graph = eager = None
+
+    # the outlier solver, ALS and MALS, in turns graph, eager, eager, graph
+    v_np, _vspec, _vprov = load_dataset("highway")
+    v = torch.as_tensor(v_np, dtype=torch.float32, device="cuda")
+    init_v = init_factors(gen(), tuple(v.shape), OutlierConfig().rank, torch.float32)
+    loops = (
+        ("outlier highway 240x320x300", OutlierConfig(tol=0.0), 2,
+         lambda c, route: outlier._outlier_run(v, c, init_v, None, ROUTE_GRAPHS[route])),
+        ("als taxi 100x100x500", TriTDConfig(tol=0.0), 1,
+         lambda c, route: als._als_run(x, c, False, init, None, ROUTE_GRAPHS[route])),
+        ("mals taxi 100x100x500", TriTDConfig(), 1,
+         lambda c, route: als._als_run(x, c, True, init, None, ROUTE_GRAPHS[route])),
+    )
+    for tag, c, captures, solve in loops:
+        for route in ("graphs", "eager"):  # cuBLAS's, cuSOLVER's and the side stream's set-up out of the times
+            solve(dataclasses.replace(c, max_iter=3), route)
+        runs = {"graphs": [], "eager": []}
+        for route in ("graphs", "eager", "eager", "graphs"):
+            runs[route].append(_watched(lambda: solve(c, route)))
+        graph, eager = runs["graphs"][0], runs["eager"][0]
+        differ = _routes_differ(graph["res"], eager["res"])
+        again = _routes_differ(runs["graphs"][1]["res"], graph["res"])
+        want_syncs = 1 if tag.startswith("mals") else c.max_iter
+        syncs = [r["syncs"] for r in runs["graphs"]]
+        if (differ or again or graph["res"].n_iters != c.max_iter or any(r["graphs"] != captures for r in
+                                                                          runs["graphs"])
+                or any(n != want_syncs for n in syncs)):
+            raise AssertionError(f"phase23 {tag}: the graph route differs from the eager loop in {differ}, from its "
+                                 f"own second run in {again}; n_iters {graph['res'].n_iters}; captures "
+                                 f"{[r['graphs'] for r in runs['graphs']]} (want {captures}); synchronizing calls "
+                                 f"{syncs} (want {want_syncs})")
+        ms = {route: [r["ms"] / c.max_iter for r in rs] for route, rs in runs.items()}
+        split = "; ".join(f"run {i + 1}: {_split_text(r, c.max_iter - 1)}" for i, r in enumerate(runs["graphs"]))
+        print(f"phase23 {tag} ({c.max_iter} iterations, tol {c.tol:g}): graph route {ms['graphs'][0]:.4f} / "
+              f"{ms['graphs'][1]:.4f} ms/iter (events; {split}), eager {ms['eager'][0]:.4f} / "
+              f"{ms['eager'][1]:.4f}; synchronizing calls a solve graph {syncs} (want {want_syncs}), eager "
+              f"{[r['syncs'] for r in runs['eager']]}; peak MiB graph {graph['peak_mib']:.1f}, eager "
+              f"{eager['peak_mib']:.1f}; factors, O and err_hist bitwise the eager loop's; {CARD[0]}", flush=True)
+        runs = graph = eager = None
+
+    # the solve methods whose torch forms cannot be captured take the eager
+    # loop: tritd_admm, and on one NCCL rank the sharded solve and the
+    # batched sharded one (taxi and its mirror image), whose collectives the
+    # graph route would capture
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_batch_sharded, tritd_admm_sharded
+
+    pair = torch.stack([y, y.flip(0)])
+    _nccl_one_rank()
+    try:
+        mesh = make_mesh(device_type="cuda")
+        for method in ("pinv", "lstsq"):
+            c = dataclasses.replace(COMPLETION_TRITD, max_iter=3, tol=0.0, solve_method=method)
+            for tag, solve, want in (
+                    ("tritd_admm", lambda: tritd_admm(y, c, init=init), ({"f32": 3}, {})),
+                    ("tritd_admm_sharded", lambda: tritd_admm_sharded(y, c, mesh, init=init), ({"f32": 3}, {})),
+                    ("tritd_admm_batch_sharded", lambda: tritd_admm_batch_sharded(pair, c, mesh),
+                     ({}, {"elementwise_block_batch[f32]": 3}))):
+                hopper_kernels.reset_launch_counts()
+                r = _watched(solve)
+                launches, pointer = _launches(), _pointer_launches()
+                batch = {k: v for k, v in hopper_kernels.BATCH_LAUNCHES.items() if v}
+                n = r["res"].n_iters
+                n = n.tolist() if isinstance(n, torch.Tensor) else [n]
+                route = "graph route" if r["graphs"] else "eager loop"
+                if r["graphs"] or set(n) != {3} or (launches, batch) != want or pointer:
+                    raise AssertionError(f"phase23 {tag} solve_method={method}: {route} ({r['graphs']} captures), "
+                                         f"n_iters {n}, launches {launches}, batched {batch}, through the pointer "
+                                         f"entry {pointer}; want {want}")
+                err = r["res"].err_hist.reshape(-1, 3)
+                if not torch.isfinite(err).all():
+                    raise AssertionError(f"phase23 {tag} solve_method={method}: err_hist {err.tolist()}")
+                print(f"phase23 {tag} solve_method={method} taxi{' x2' if len(n) > 1 else ''}: the {route} (no "
+                      f"capture; admm.UNCAPTURED_METHODS), {r['ms'] / 3:.4f} ms/iter (events), launches "
+                      f"{launches or batch} by value, err_hist {err.tolist()}", flush=True)
+                r = None
+    finally:
+        dist.destroy_process_group()
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -3359,8 +3579,10 @@ def _main() -> None:
     phase1()
     records = _timed(2, phase2)
     launches = _timed(3, phase3)
-    for n, phase in ((4, phase4), (5, phase5), (6, phase6), (7, phase7), (8, phase8), (9, phase9), (10, phase10),
-                     (11, phase11)):
+    _timed(4, phase4)
+    for variant, count in _timed(5, phase5).items():
+        launches[variant] = launches.get(variant, 0) + count
+    for n, phase in ((6, phase6), (7, phase7), (8, phase8), (9, phase9), (10, phase10), (11, phase11)):
         _timed(n, phase)
     for variant, count in _timed(12, phase12).items():
         launches[variant] = launches.get(variant, 0) + count
@@ -3374,6 +3596,7 @@ def _main() -> None:
     _timed(20, phase20)
     _timed(21, phase21)
     batch_launches = _timed(22, phase22)
+    _timed(23, phase23)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:

@@ -46,9 +46,21 @@ launch of the f64 T' kernel variant per iteration.
 
 `tritd_admm` on the card runs each block of `unroll` iterations as one
 replay of a CUDA graph; its results are held bitwise to the eager loop's
-(`run_admm(..., _eager=True)`): the same kernels on the same values."""
+(`run_admm(..., _eager=True)`): the same kernels on the same values. So
+are the other solve loops' graph routes: `tritd_admm_checkpointed`'s
+segments (one loop for the call, at most two captures, max_iter + one
+synchronizing call a segment, the saves apart), `tritd_admm_outlier` and
+`tritd_als` (a read of the stop flag after each iteration short of
+max_iter and one at the end), `tritd_mals` (one synchronizing call). The
+solve methods "pinv" and "lstsq" take the eager loop on the card: their
+torch forms cannot be captured (a subprocess shows the capture raising)."""
 
+import contextlib
 import dataclasses
+import os
+import subprocess
+import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -303,31 +315,43 @@ def test_numpy_input_solves_on_the_card(cuda_device, tmp_path):
     assert checkpoint.load_state(str(tmp_path / "step_000005.npz")).o.is_cuda
 
 
-@pytest.mark.cuda
-def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
-    """The parallel layer with one rank on NCCL: the slab (padded by
-    nothing) lives on the card, the kernel runs once per iteration, and the
-    histories are tritd_admm's within rtol 1e-6 (one rank reduces nothing;
-    the norms are roots of reduced sums of squares, there vector norms)."""
+@contextlib.contextmanager
+def _one_nccl_rank():
+    """This process as a one-rank NCCL group on the card; yields its mesh."""
     import socket
 
     import torch.distributed as dist
 
-    from tritd_tpu_torch.parallel import make_mesh, tritd_admm_auto, tritd_admm_sharded
+    from tritd_tpu_torch.parallel import make_mesh
     from tritd_tpu_torch.parallel.distributed import initialize_distributed
 
-    rng = np.random.default_rng(1)
-    shape = (22, 16, 27)
-    y = rng.standard_normal(shape).astype(np.float32) * 10
-    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=15, tol=0.0)
-    init = init_factors(torch.Generator().manual_seed(0), shape, cfg.rank, torch.float32)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", device="cuda:0",
                            timeout_s=120.0)
     try:
-        mesh = make_mesh(device_type="cuda")
+        yield make_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
+    """The parallel layer with one rank on NCCL: the slab (padded by
+    nothing) lives on the card, the kernel runs once per iteration, and the
+    histories are tritd_admm's within rtol 1e-6 (one rank reduces nothing;
+    the norms are roots of reduced sums of squares, there vector norms)."""
+    import torch.distributed as dist
+
+    from tritd_tpu_torch.parallel import tritd_admm_auto, tritd_admm_sharded
+
+    rng = np.random.default_rng(1)
+    shape = (22, 16, 27)
+    y = rng.standard_normal(shape).astype(np.float32) * 10
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=15, tol=0.0)
+    init = init_factors(torch.Generator().manual_seed(0), shape, cfg.rank, torch.float32)
+    with _one_nccl_rank() as mesh:
         want = tritd_admm(torch.from_numpy(y).to(cuda_device), cfg, origin=torch.from_numpy(y).to(cuda_device), init=init)
         for mode in (1, 3):
             hopper_kernels.reset_launch_counts()
@@ -344,8 +368,6 @@ def test_sharded_solve_on_one_nccl_rank_matches_tritd_admm(cuda_device):
         assert bare.o.device.type == auto.o.device.type == "cuda"
         for f in ("a", "o", "e", "err_hist", "rre_hist"):
             assert torch.equal(getattr(auto, f), getattr(bare, f)), f
-    finally:
-        dist.destroy_process_group()
 
 
 @pytest.mark.cuda
@@ -916,3 +938,164 @@ def test_emulator_parity_tiny_in_float64_on_the_card(cuda_device):
         assert row["max_abs_diff_err_hist"] < 1e-10, row
         want = {"f64": row["n_iters_port"]} if method == "triple" else {}
         assert row["kernel_launches"] == want, row
+
+
+# --- the other solve loops on their graph route -----------------------------
+
+
+@contextlib.contextmanager
+def _watch(monkeypatch):
+    """Counts, inside, the synchronizing calls (torch.cuda.set_sync_debug_mode's
+    warnings, a checkpoint save's left out) and the graphs captured. Yields a
+    dict that holds both after the block."""
+    from tritd_tpu_torch.solvers import checkpointed
+
+    seen = {"graphs": 0}
+
+    class Counted(hopper_kernels.CountedGraph):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["graphs"] += 1
+
+    def save(path, state, real=checkpointed.save_state):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(path, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    monkeypatch.setattr(hopper_kernels, "CountedGraph", Counted)
+    monkeypatch.setattr(checkpointed, "save_state", save)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            monkeypatch.undo()
+    seen["syncs"] = sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _bitwise(got, want, fields=("a", "b", "c", "o", "e", "err_hist", "rre_hist")):
+    assert got.n_iters == want.n_iters
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every,fields", [(1, dict()), (4, dict()), (4, dict(unroll=3, storage_dtype="bfloat16"))],
+                         ids=["every1", "every4", "every4_unroll3_bf16"])
+def test_checkpointed_graph_route_is_the_eager_loop_bitwise(cuda_device, tmp_path, monkeypatch, every, fields):
+    """One loop for the call, one iteration a replay whatever cfg.unroll:
+    the result and the checkpoints bitwise the eager loop's; two captures in
+    all; one synchronizing call when the loop is made, one after each
+    iteration short of max_iter and one a segment (the penalties), the saves
+    apart; one launch an iteration, all through the pointer entry."""
+    from tritd_tpu_torch.solvers import checkpointed, tritd_admm_checkpointed
+
+    y = torch.from_numpy(np.random.default_rng(6).standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, **{"max_iter": 10, "tol": 0.0, **fields})
+    init = init_factors(torch.Generator().manual_seed(0), tuple(y.shape), cfg.rank, torch.float32)
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        graph = tritd_admm_checkpointed(y, cfg, str(tmp_path / "graph"), every=every, init=init)
+    segments = -(-cfg.max_iter // every)
+    launches = {k: v for k, v in hopper_kernels.LAUNCHES.items() if v}
+    pointer = {k: v for k, v in hopper_kernels.POINTER_LAUNCHES.items() if v}
+    eager = checkpointed._solve(y, cfg, str(tmp_path / "eager"), every, init, None, True, graphs=None)
+    _bitwise(graph, eager)
+    assert graph.n_iters == cfg.max_iter and seen["graphs"] == 2
+    assert seen["syncs"] == cfg.max_iter + segments
+    assert sum(launches.values()) == sum(pointer.values()) == cfg.max_iter
+    steps = sorted(os.listdir(tmp_path / "graph"))
+    assert steps == sorted(os.listdir(tmp_path / "eager")) and len(steps) == segments
+    for step in steps:
+        with np.load(tmp_path / "graph" / step) as g, np.load(tmp_path / "eager" / step) as e:
+            for name in e.files:
+                assert g[name].tobytes() == e[name].tobytes(), (step, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["outlier", "outlier_early_stop", "als", "als_early_stop", "mals"])
+def test_carried_loops_graph_route_is_the_eager_loop_bitwise(cuda_device, monkeypatch, solver):
+    """The outlier solver, ALS and MALS: bitwise their eager loops; the
+    outlier one captures two graphs (O and the duals alternate between two
+    sets of buffers), ALS and MALS one; a read of the stop flag after each
+    iteration short of max_iter and one of the counter at the end, MALS only
+    the last."""
+    from tritd_tpu_torch.solvers import als, outlier
+
+    rng = np.random.default_rng(7)
+    shape = (20, 16, 24)
+    parts = [rng.standard_normal(s) for s in ((20, 3, 3), (3, 16, 3), (3, 3, 24))]
+    x = np.einsum("iqs,qjs,qst->ijt", *parts)
+    x = 10.0 * x / np.sqrt(np.mean(x**2)) + 0.05 * rng.standard_normal(shape)
+    x = torch.from_numpy(x + (rng.random(shape) < 0.03) * 20.0).float().to(cuda_device)
+    init = init_factors(torch.Generator().manual_seed(0), shape, 3, torch.float32)
+    early = solver.endswith("early_stop")
+    if solver.startswith("outlier"):
+        cfg = OutlierConfig(rank=3, max_iter=30, tol=1e-2 if early else 0.0)
+
+        def run(graphs):
+            return outlier._outlier_run(x, cfg, init, None, graphs)
+    else:
+        cfg = TriTDConfig(rank=3, max_iter=30, tol=1e-2 if early else 0.0)
+
+        def run(graphs):
+            return als._als_run(x, cfg, solver == "mals", init, None, graphs)
+    with _watch(monkeypatch) as seen:
+        graph = run(True)
+    eager = run(None)
+    _bitwise(graph, eager)
+    n = graph.n_iters
+    assert (n < cfg.max_iter) == early
+    assert seen["graphs"] == (2 if solver.startswith("outlier") else 1)
+    assert seen["syncs"] == (1 if solver == "mals" else n + 1 if early else n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pinv", "lstsq"])
+def test_uncaptured_methods_take_the_eager_loop_on_the_card(cuda_device, tmp_path, monkeypatch, method):
+    """`tritd_admm`, the sharded solve, the batched sharded solve (on a
+    one-rank NCCL group, whose collectives the graph route would capture)
+    and the other loops with solve_method "pinv" or "lstsq" run on the card
+    without a capture, the kernel through its by-value entry (the batched
+    one once an iteration); on the graph route the capture raises (in a
+    subprocess, so that the failed capture cannot touch this process's
+    card)."""
+    from tritd_tpu_torch.parallel import tritd_admm_batch_sharded, tritd_admm_sharded
+    from tritd_tpu_torch.solvers import tritd_admm_checkpointed
+
+    y = torch.from_numpy(np.random.default_rng(8).standard_normal((20, 16, 24)) * 10).float().to(cuda_device)
+    cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=4, tol=0.0, solve_method=method)
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        res = tritd_admm(y, cfg)
+        tritd_admm_checkpointed(y, cfg, str(tmp_path), every=2)
+        tritd_admm_outlier(y, OutlierConfig(max_iter=3, tol=0.0, solve_method=method))
+        tritd_als(y, dataclasses.replace(cfg, max_iter=3))
+        tritd_mals(y, dataclasses.replace(cfg, max_iter=3))
+        with _one_nccl_rank() as mesh:
+            sharded = tritd_admm_sharded(y, cfg, mesh)
+            batch = tritd_admm_batch_sharded(torch.stack([y, y.flip(0)]), cfg, mesh)
+    assert res.n_iters == sharded.n_iters == 4 and batch.n_iters.tolist() == [4, 4] and seen["graphs"] == 0
+    assert hopper_kernels.LAUNCHES["elementwise_block[f32]"] == 12
+    assert sum(hopper_kernels.BATCH_LAUNCHES.values()) == 4
+    assert not any(hopper_kernels.POINTER_LAUNCHES.values())
+    assert torch.isfinite(batch.err_hist).all() and torch.isfinite(sharded.err_hist).all()
+    code = (
+        "import dataclasses, torch\n"
+        "from tritd_tpu_torch.solvers import admm, init_factors, init_state\n"
+        "from tritd_tpu_torch.utils.config import COMPLETION_TRITD\n"
+        "y = torch.randn(20, 16, 24, generator=torch.Generator().manual_seed(0)).cuda()\n"
+        f"cfg = dataclasses.replace(COMPLETION_TRITD, max_iter=4, tol=0.0, solve_method={method!r})\n"
+        "state = init_state(y, cfg, init_factors(torch.Generator().manual_seed(0), (20, 16, 24), 5, torch.float32))\n"
+        "admm._run_device_form(y, state, cfg, None, None, None, None, graphs=True)\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, timeout=300)
+    assert proc.returncode != 0 and "captur" in proc.stderr, proc.stderr[-2000:]
+

@@ -575,7 +575,7 @@ def test_batch_graph_route_is_the_serial_route(nccl_mesh, fields, monkeypatch):
     assert syncs == [steps + (steps < cfg.max_iter) + 1]
     if not cfg.tol:
         assert syncs == [cfg.max_iter + 1]
-    monkeypatch.setattr(sharded_admm, "_graph_route", lambda *args: False)
+    monkeypatch.setattr(sharded_admm, "_graph_route", lambda *args, **kwargs: False)
     eager = tritd_admm_batch_sharded(y, cfg, nccl_mesh, mask_batch=mask, origin_batch=y)
     want = tritd_admm_batch_sharded(y, cfg, nccl_mesh, mask_batch=mask, origin_batch=y, _serial=True)
     n = got.n_iters.tolist()

@@ -30,6 +30,7 @@ backend and the graph stubbed; the graph route itself needs the card
 """
 
 import dataclasses
+import functools
 import json
 import os
 from pathlib import Path
@@ -51,7 +52,7 @@ from tritd_tpu.solvers.admm import init_factors as j_init_factors  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.parallel import SlabCollective, make_mesh, sharded_admm  # noqa: E402
 from tritd_tpu_torch.parallel.distributed import launch_local  # noqa: E402
-from tritd_tpu_torch.solvers import admm  # noqa: E402
+from tritd_tpu_torch.solvers import TriTDResult, admm  # noqa: E402
 from tritd_tpu_torch.utils.config import COMPLETION_TRITD  # noqa: E402
 
 SHAPE = (12, 10, 14)
@@ -277,11 +278,12 @@ def test_route_choice_follows_the_groups_backend(mesh1, monkeypatch):
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     coll = SlabCollective(mesh1.get_group("slab"), 1)
     assert not coll.capturable
-    assert admm._graph_route(cuda, None) and not admm._graph_route(cuda, coll)
+    route = functools.partial(admm._graph_route, method="cholesky")
+    assert route(cuda, None) and not route(cuda, coll)
     monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
-    assert coll.capturable and admm._graph_route(cuda, coll)
-    assert not admm._graph_route(cuda, coll, eager=True) and not admm._graph_route(cpu, coll)
-    assert not admm._graph_route(cpu, None)
+    assert coll.capturable and route(cuda, coll)
+    assert not route(cuda, coll, eager=True) and not route(cpu, coll)
+    assert not route(cpu, None)
 
 
 @pytest.mark.parametrize("eager", [False, True], ids=["graph", "eager"])
@@ -290,7 +292,8 @@ def test_local_solve_hands_the_route_and_the_shard_to_run_admm(mesh1, monkeypatc
     graph route gets the shard: `_run_device_form(..., graphs=True,
     shard=coll)`."""
     seen = []
-    monkeypatch.setattr(admm, "_graph_route", lambda device, shard, eager: seen.append((shard, eager)) or not eager)
+    monkeypatch.setattr(admm, "_graph_route",
+                        lambda device, shard, eager, method: seen.append((shard, eager)) or not eager)
 
     def device_form(d, state, cfg, *args, graphs, shard=None):
         seen.append((graphs, shard))
@@ -306,6 +309,34 @@ def test_local_solve_hands_the_route_and_the_shard_to_run_admm(mesh1, monkeypatc
         assert len(seen) == 1 and audit["n_iters"] == MAX_ITER and audit["per_iter"]["calls"] == 4
     else:
         assert seen[1] == (True, coll) and audit["n_iters"] == MAX_ITER
+
+
+@pytest.mark.parametrize("method", ["cholesky", "pinv", "lstsq"])
+def test_batched_local_solve_routes_by_the_solve_method(mesh1, monkeypatch, method):
+    """`_local_solve(..., batched=True)` hands the solve method to the route
+    choice: beside a capturable (NCCL) group on a CUDA device the batched
+    loop gets graphs for "cholesky", none for "pinv" and "lstsq", whose
+    capture raises (`admm.UNCAPTURED_METHODS`). The device is the card's
+    for the choice only; the loop is stubbed."""
+    real, seen = sharded_admm._graph_route, []
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(sharded_admm, "_graph_route",
+                        lambda device, shard, eager, *, method: real(torch.device("cuda", 0), shard, eager,
+                                                                     method=method))
+
+    def batch(d, state, cfg, shard, *args, graphs, **kwargs):
+        seen.append((graphs, shard, cfg.solve_method))
+        return TriTDResult(a=state.a, b=state.b, c=state.c, o=state.o, e=state.e, err_hist=state.err_hist,
+                           rre_hist=state.rre_hist, n_iters=[cfg.max_iter] * d.shape[0])
+
+    monkeypatch.setattr(sharded_admm, "run_admm_batch", batch)
+    cfg, d, _mask, origin, init = _inputs("f32", "unroll1")
+    coll = SlabCollective(mesh1.get_group("slab"), 1)
+    assert coll.capturable
+    sharded_admm._local_solve(np.stack([d, d]), dataclasses.replace(cfg, solve_method=method), coll, None,
+                              np.stack([origin, origin]), tuple(np.stack([u, u]) for u in init),
+                              torch.device("cpu"), batched=True)
+    assert seen == [(method == "cholesky", coll, method)]
 
 
 class _FakeGraph:

@@ -21,10 +21,11 @@ def soft_threshold(x: torch.Tensor, lam) -> torch.Tensor:
 
 
 @on_input_device("x", "w")
-def weighted_soft_threshold(x: torch.Tensor, tau, w: torch.Tensor) -> torch.Tensor:
+def weighted_soft_threshold(x: torch.Tensor, tau, w: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """sign(x) * max(|x| - tau * w, 0) — per-element thresholds
-    (`fast_robust_triple_tensor/test.m:77-101`)."""
-    return torch.sign(x) * torch.clamp(torch.abs(x) - tau * w, min=0.0)
+    (`fast_robust_triple_tensor/test.m:77-101`); stored into `out` when
+    given (a solve loop's buffer)."""
+    return torch.mul(torch.sign(x), torch.clamp(torch.abs(x) - tau * w, min=0.0), out=out)
 
 
 @on_input_device("x")

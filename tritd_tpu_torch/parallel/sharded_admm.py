@@ -225,7 +225,8 @@ def _local_solve(d, cfg: TriTDConfig, coll: SlabCollective, mask, origin, init, 
     t0 = time.perf_counter()
     if batched:
         state = sync(run_admm_batch(d_loc, state, cfg, coll, mask=mask_loc, origin=origin_loc, norm_d=norm_d,
-                                    norm_origin=norm_origin, graphs=_graph_route(device, coll, _eager)))
+                                    norm_origin=norm_origin,
+                                    graphs=_graph_route(device, coll, _eager, method=cfg.solve_method)))
         steps = max(state.n_iters)
     else:
         state = sync(run_admm(d_loc, state, cfg, mask=mask_loc, origin=origin_loc,

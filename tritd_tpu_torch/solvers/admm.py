@@ -19,8 +19,9 @@ as the reference's `lax.while_loop` under `jit` does
 (`tritd_tpu/solvers/admm.py:226-260`): each block of `cfg.unroll`
 iterations is one replay of a captured CUDA graph, and the penalties muL,
 muO and the counter k live in device memory, annealed and advanced by the
-graph (`_run_device_form`). The host reads the sticky stop flag once per block
-and the penalties once at the end. The elementwise block is the
+graph (`_run_device_form`, :class:`_AdmmLoop`). The host reads the sticky
+stop flag once per block and the penalties once at the end. The
+elementwise block is the
 hand-written kernel, through its pointer entry, which reads the penalties
 from device memory; it also writes the next iteration's T. The sharded
 solve over NCCL takes the same route, as the reference's `shard_map`ped
@@ -32,8 +33,12 @@ The eager loop (`run_admm(..., _eager=True)`, and on the CPU) runs the same
 scalars of cfg.dtype, so the annealing rounds as the reference's float32
 `min(mu*rho, cap)` does; the device form rounds alike). It is the route of
 the sharded solve over gloo (which passes a CUDA tensor's collective
-through the host, where no graph can capture it), of
-`tritd_admm_checkpointed`, and of the CPU.
+through the host, where no graph can capture it), of the solve methods
+"pinv" and "lstsq" (UNCAPTURED_METHODS), and of the CPU. On the card
+`tritd_admm_checkpointed` advances one device-form loop (`_AdmmLoop`)
+segment by segment, one iteration a replay, its graphs kept across the
+saves; `tritd_admm_outlier`, `tritd_als` and `tritd_mals` replay graphs of
+their own iterations through the same loop object (`_DeviceLoop`).
 
 Narrow storage (`cfg.storage_dtype`: bfloat16, float16, float8_e4m3fn or
 float8_e5m2) keeps D, O, E, Y_L, Y_O and T in that dtype; the factors,
@@ -233,6 +238,22 @@ def _write(hist: torch.Tensor, k, value: torch.Tensor) -> None:
         hist[..., k] = value
 
 
+def _relative_change_stop(err_hist: torch.Tensor, k, err: torch.Tensor, tol: float):
+    """The relative-change stopping rule (`triple_decomp_ADMM.m:63-65`):
+    |err - err_prev| < tol * err_prev, err_prev = err_hist[..., k - 1], after
+    err was written at k. For a host k, False at k = 0, else a bool tensor;
+    for a 0-d index tensor k, computed on the device as the reference does
+    (err_prev read at max(k - 1, 0), k >= 1 tested there), which reads
+    nothing back to the host. Both give the same values."""
+    if isinstance(k, torch.Tensor):
+        err_prev = err_hist.index_select(err_hist.dim() - 1, torch.clamp(k - 1, min=0).view(1)).squeeze(-1)
+        return (k >= 1) & (torch.abs(err - err_prev) < tol * err_prev)
+    if k == 0:
+        return False
+    err_prev = err_hist[..., k - 1]
+    return torch.abs(err - err_prev) < tol * err_prev
+
+
 def admm_iteration(
     d: torch.Tensor,
     state: TriTDState,
@@ -362,15 +383,8 @@ def admm_iteration(
             norm_origin = torch.linalg.vector_norm(origin)
         _write(rre_hist, k, torch.linalg.vector_norm(l - origin) / norm_origin)
 
-    # relative-change stopping rule (`:63-65`); sticky, so that a block of
-    # unrolled iterations cannot un-converge
-    done = state.done
-    if on_device:
-        err_prev = err_hist.index_select(err_hist.dim() - 1, torch.clamp(k - 1, min=0).view(1)).squeeze(-1)
-        done = done | ((k >= 1) & (torch.abs(err - err_prev) < cfg.tol * err_prev))
-    elif k >= 1:
-        err_prev = err_hist[k - 1]
-        done = done | (torch.abs(err - err_prev) < cfg.tol * err_prev)
+    # sticky, so that a block of unrolled iterations cannot un-converge
+    done = state.done | _relative_change_stop(err_hist, k, err, cfg.tol)
 
     return TriTDState(
         a=a, b=b, c=c, o=o, e=e, y_l=y_l, y_o=y_o, t=t_next,
@@ -416,7 +430,7 @@ def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
     :func:`admm_iteration`) the flag comes from reduced sums, so every shard
     leaves the loop together. Either way the state comes back in its host
     form."""
-    if _graph_route(d.device, shard, _eager):
+    if _graph_route(d.device, shard, _eager, method=cfg.solve_method):
         return _run_device_form(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=True, shard=shard)
     disp_log: list = []
     while state.k < cfg.max_iter and not bool(state.done):
@@ -431,136 +445,228 @@ def run_admm(d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None,
     return state
 
 
-def _graph_route(device: torch.device, shard=None, eager: bool = False) -> bool:
-    """Whether `run_admm` replays CUDA graphs: on a CUDA device, unless
-    `eager` (for the comparison of the two routes), when there is no shard
-    or the shard's collective can be captured: a shard given to `run_admm`
-    says so with `capturable` (a NCCL group; not gloo, which passes a CUDA
-    tensor's collective through the host) and keeps its counts in the dict
-    `tally`, which each replay adds to (`hopper_kernels.CountedGraph`).
-    Every rank of a group must take the same route, or a collective
-    captured on one would meet an eager one on another: the backend is the
+# Solve methods whose torch form reads back to the host inside the solve, so
+# that no CUDA graph can capture it: `torch.linalg.pinv` (an SVD) and
+# `torch.linalg.lstsq` check their LAPACK `info` on the host (`cholesky_ex`,
+# the "cholesky" method's, does not).
+UNCAPTURED_METHODS = ("pinv", "lstsq")
+
+
+def _graph_route(device: torch.device, shard=None, eager: bool = False, *, method: str) -> bool:
+    """Whether a solve loop replays CUDA graphs: on a CUDA device, unless
+    `eager` (for the comparison of the two routes) or the solve `method`
+    is one of UNCAPTURED_METHODS (then the eager loop runs on the card,
+    chosen here before any capture), when there is no shard or the shard's
+    collective can be captured: a shard given to `run_admm` says so with
+    `capturable` (a NCCL group; not gloo, which passes a CUDA tensor's
+    collective through the host) and keeps its counts in the dict `tally`,
+    which each replay adds to (`hopper_kernels.CountedGraph`). Every rank
+    of a group must take the same route, or a collective captured on one
+    would meet an eager one on another: the backend and the method are the
     group's, and the caller passes the same `eager` on every rank."""
-    return device.type == "cuda" and not eager and (shard is None or shard.capturable)
+    return (device.type == "cuda" and not eager and method not in UNCAPTURED_METHODS
+            and (shard is None or shard.capturable))
 
 
-# The fields of the device form that a block carries in place: the factors,
-# the penalties, the counter and the stop flag. The data-sized fields take
-# turns in two sets of buffers instead, and the histories are written in place.
+class _DeviceLoop:
+    """The device form of a solve loop, the counterpart of a
+    `lax.while_loop`, kept across calls of :meth:`advance`. `carry` holds
+    the small tensors the iterations carry in place (the factors, the 0-d
+    counter `k` and stop flag `done`, ADMM's penalties), `data` the
+    data-sized ones. `iteration(carry, data, out)` runs one iteration, with
+    no read back to the host: it stores the next data-sized tensors into the
+    tensors of `out` and returns the next values of the carried fields it
+    changes. A block is `unroll` iterations, one call of the same function
+    of device tensors.
+
+    The state carries across blocks without a data-sized copy. The
+    data-sized tensors take turns in two sets of buffers: the iteration
+    that starts from one set stores into the other. The carried fields are
+    copied at the end of each block into the carry's tensors, which the
+    next block reads. The block is a function of the iterations done before
+    it only through their parity, so with `graphs` (a CUDA device) the
+    first block runs eagerly on a side stream, warming cuBLAS, cuSOLVER and
+    the kernel's scratch there, and the later ones replay one graph
+    captured per parity (one when `data` is empty or `unroll` even), for
+    the life of the loop: a loop advanced in segments
+    (`tritd_admm_checkpointed`, with a save between two) captures at most
+    two graphs in all (`_Stepper`). Without `graphs` every block runs
+    eagerly: the CPU tests hold this route to the eager loop. With `shard`
+    (NCCL's, on the graph route) the graph holds the shard's collectives
+    and counts them in `shard.tally` at each replay.
+
+    The host reads the stop flags (:meth:`_read_flags`) after each block
+    short of `max_iter`, or, without `stops` (MALS), never, and at the end
+    of each :meth:`advance` what it checks against its own count
+    (:meth:`_result`): here the device's counter. A failed capture
+    raises."""
+
+    def __init__(self, iteration, carry: dict, data: tuple, max_iter: int, device, graphs: bool, k: int = 0,
+                 unroll: int = 1, shard=None, stops: bool = True):
+        self.iteration, self.carry, self.data, self.max_iter = iteration, carry, data, max_iter
+        self.k0, self.unroll, self.stops = k, unroll, stops
+        self.sets = [tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in data)
+                     for _ in range(2)]
+        self.stepper = _Stepper(device, graphs, shard, period=2 if data else 1)
+        self.n_done = 0  # iterations this loop has run
+        self.running = True
+
+    @property
+    def k(self) -> int:
+        """Iterations done, the loop's start state's included."""
+        return self.k0 + self.n_done
+
+    def _data(self, n_done: int) -> tuple:
+        """The data-sized tensors after n_done of this loop's iterations."""
+        return self.sets[n_done % 2] if n_done else self.data
+
+    def _block(self, done_before: int) -> None:
+        """`unroll` iterations from the state after `done_before` of them."""
+        new: dict = {}
+        for i in range(self.unroll):
+            n = done_before + i
+            new.update(self.iteration({**self.carry, **new}, self._data(n), self.sets[(n + 1) % 2]))
+        for f, x in new.items():
+            self.carry[f].copy_(x)
+
+    def _read_flags(self) -> bool:
+        """Reads the stop flag, one synchronizing call: whether to go on."""
+        return not bool(self.carry["done"])
+
+    def _after_block(self) -> None:
+        """Host work after each block (ADMM's disp lines)."""
+
+    def _result(self):
+        """Checks the device's counter against the host's, one synchronizing
+        call; returns the carry and the data-sized tensors after the last
+        iteration, the loop's own buffers, which a later advance
+        overwrites."""
+        k = int(self.carry["k"])
+        if k != self.k:
+            raise AssertionError(f"the counter on the device reads {k} after {self.k} iterations")
+        return self.carry, self._data(self.n_done)
+
+    def advance(self, k_end: int):
+        """Runs blocks while the loop runs and the iterations done are fewer
+        than k_end and max_iter; returns :meth:`_result`."""
+        with self.stepper.segment():
+            while self.running and self.k < min(k_end, self.max_iter):
+                self.stepper.step(self._block, self.n_done)
+                self._after_block()
+                self.n_done += self.unroll
+                if self.stops and self.k < self.max_iter:
+                    self.running = self._read_flags()
+        return self._result()
+
+
+# The fields of ADMM's device form that a block carries in place: the
+# factors, the penalties, the counter and the stop flag. The data-sized
+# fields take turns in two sets of buffers instead, and the histories are
+# written in place.
 _CARRIED = ("a", "b", "c", "mu_l", "mu_o", "k", "done")
+
+
+class _AdmmLoop(_DeviceLoop):
+    """The loop of `run_admm` on the device form of the state: the
+    penalties and the counter become 0-d tensors on d's device, and each
+    block of cfg.unroll iterations is `admm_iteration`'s. With `shard`
+    every iteration completes its sums through it; the first block, eager,
+    makes the communicator's work on the side stream before any capture
+    (the caller's norms have made the communicator).
+
+    The host reads the stop flag also when the loop is made, (errL, errO)
+    of the block's 10th iterations with cfg.disp, and at the end of each
+    :meth:`advance` the penalties, which must equal the host's numpy
+    schedule bitwise; :meth:`advance` returns the host form of the state,
+    its data-sized fields and factors the loop's buffers.
+
+    `batched` (:func:`run_admm_batch`): the state stacks B problems
+    (`admm_iteration(..., batched=True)`, the penalties (B,)), a block is
+    one iteration, and the loop runs while any entry runs. An entry whose
+    flag has just turned has its result copied on the device when the host
+    reads the flags, before the next replay (A, B, C, O, E and both
+    histories), into `stopped`: entry -> (its iterations, that copy)."""
+
+    def __init__(self, d, state: TriTDState, cfg: TriTDConfig, mask=None, origin=None, norm_d=None,
+                 norm_origin=None, graphs: bool = False, shard=None, batched: bool = False):
+        if norm_d is None:
+            norm_d = torch.linalg.vector_norm(d)
+        if origin is not None and norm_origin is None:
+            norm_origin = torch.linalg.vector_norm(origin)
+        self.d, self.state, self.cfg, self.mask, self.origin = d, state, cfg, mask, origin
+        self.norm_d, self.norm_origin, self.shard, self.batched = norm_d, norm_origin, shard, batched
+        self.masked = cfg.masked and mask is not None
+        device, dtype = d.device, cfg.torch_dtype()
+        self.batch = tuple(state.done.shape)
+        carry = dict(
+            a=state.a.clone(), b=state.b.clone(), c=state.c.clone(),
+            mu_l=torch.full(self.batch, float(state.mu_l), dtype=dtype, device=device),
+            mu_o=torch.full(self.batch, float(state.mu_o), dtype=dtype, device=device),
+            k=torch.full((), state.k, dtype=torch.int64, device=device), done=state.done.clone(),
+        )
+        self.fields = ("o", "e", "y_l", "y_o") if self.masked else ("o", "e", "y_l", "y_o", "t")
+        self.disp_hist = (torch.full((2, state.err_hist.shape[0]), float("nan"), dtype=state.err_hist.dtype,
+                                     device=device) if cfg.disp and not batched else None)
+        super().__init__(self._iteration, carry, tuple(getattr(state, f) for f in self.fields), cfg.max_iter,
+                         device, graphs, k=state.k, unroll=1 if batched else cfg.unroll, shard=shard)
+        self.stopped: dict = {}
+        self.running = self._read_flags()
+
+    def _iteration(self, carry: dict, data: tuple, out: tuple) -> dict:
+        st = admm_iteration(self.d, self.state._replace(**carry, **dict(zip(self.fields, data))), self.cfg,
+                            mask=self.mask, origin=self.origin, norm_d=self.norm_d, norm_origin=self.norm_origin,
+                            disp_log=self.disp_hist, shard=self.shard, out=out if not self.masked else (*out, None),
+                            batched=self.batched)
+        return {f: getattr(st, f) for f in _CARRIED}
+
+    def _last(self) -> dict:
+        """The data-sized fields after the iterations run so far."""
+        return dict(zip(self.fields, self._data(self.n_done)))
+
+    def _read_flags(self) -> bool:
+        if not self.batched:
+            return super()._read_flags()
+        for i, flag in enumerate(self.carry["done"].tolist()):
+            if flag and i not in self.stopped:
+                now = {**self.state._asdict(), **self.carry, **self._last()}
+                self.stopped[i] = (self.k, {f: now[f][i].clone() for f in _STOPPED})
+        return len(self.stopped) < self.batch[0]
+
+    def _after_block(self) -> None:
+        if self.disp_hist is not None:
+            _print_disp(self.disp_hist, self.k, self.k + self.unroll)
+
+    def _result(self) -> TriTDState:
+        """Checks the penalties against the host's schedule, one
+        synchronizing call; returns the host form of the state."""
+        state, carry, cfg = self.state, self.carry, self.cfg
+        mu = torch.stack((carry["mu_l"], carry["mu_o"])).cpu().numpy()
+        want = np.array([state.mu_l, state.mu_o], dtype=cfg.np_dtype())
+        for _ in range(self.n_done):
+            want = anneal(want, cfg)
+        if mu.tobytes() != np.broadcast_to(want.reshape(2, *(1,) * len(self.batch)), mu.shape).tobytes():
+            raise AssertionError(f"the penalties on {self.d.device} after {self.n_done} iterations, {mu}, are not "
+                                 f"the host's schedule {want}")
+        return state._replace(a=carry["a"], b=carry["b"], c=carry["c"], **self._last(), mu_l=mu[0], mu_o=mu[1],
+                              k=self.k, done=carry["done"])
 
 
 def _run_device_form(d, state: TriTDState, cfg: TriTDConfig, mask, origin, norm_d, norm_origin,
                      graphs: bool, shard=None, batched: bool = False) -> TriTDState:
-    """The loop of `run_admm` on the device form of the state: the
-    penalties and the counter become 0-d tensors on d's device, and each
-    block of cfg.unroll iterations is one call of the same function of
-    device tensors, with no read back to the host inside it.
+    """The loop of `run_admm` on the device form of the state
+    (:class:`_AdmmLoop`), from `state` to cfg.max_iter or the stop rule.
 
-    The state carries across blocks without a data-sized copy. The
-    data-sized fields take turns in two sets of buffers: the iteration that
-    starts from one set has the kernel store into the other. The factors,
-    penalties, counter and stop flag are copied at the end of each block
-    into buffers that the next block reads (a few (n, r^2) and 0-d
-    tensors). The block is a function of the iterations done before it
-    only through their parity, so with `graphs` (a CUDA device) the first
-    block runs eagerly on a side stream, warming cuBLAS, cuSOLVER and the
-    kernel's scratch there, and the later ones replay one graph captured
-    per parity (one when cfg.unroll is even). Without `graphs` every block
-    runs eagerly: the CPU tests hold this route to the eager loop.
-
-    With `shard` every iteration completes its sums through it; with
-    `graphs` its collectives, NCCL's, are nodes of the graph. The first
-    block, eager, makes the communicator's work on the side stream before
-    any capture (the caller's norms have made the communicator), and the
-    graph counts the calls it holds in `shard.tally` at each replay.
-
-    The host reads the stop flag before each block, (errL, errO) of the
-    block's 10th iterations with cfg.disp, and the penalties once at the
-    end, which must equal the host's numpy schedule bitwise. A failed
-    capture raises.
-
-    `batched` (:func:`run_admm_batch`): the state stacks B problems
-    (`admm_iteration(..., batched=True)`, the penalties (B,)), a block is
-    one iteration whatever cfg.unroll, and the loop runs while any entry
-    runs. An entry whose flag has just turned has its result copied on the
-    device when the host reads the flags, before the next replay (A, B, C,
-    O, E and both histories); that copy is what comes back for it, and k
-    comes back as a list of each entry's iterations."""
-    masked = cfg.masked and mask is not None
-    if norm_d is None:
-        norm_d = torch.linalg.vector_norm(d)
-    if origin is not None and norm_origin is None:
-        norm_origin = torch.linalg.vector_norm(origin)
-    device, dtype = d.device, cfg.torch_dtype()
-    k0 = state.k
-    unroll = 1 if batched else cfg.unroll
-    batch = tuple(state.done.shape)
-    carry = state._replace(
-        a=state.a.clone(), b=state.b.clone(), c=state.c.clone(),
-        mu_l=torch.full(batch, float(state.mu_l), dtype=dtype, device=device),
-        mu_o=torch.full(batch, float(state.mu_o), dtype=dtype, device=device),
-        k=torch.full((), k0, dtype=torch.int64, device=device), done=state.done.clone(),
-    )
-    fields = ("o", "e", "y_l", "y_o") if masked else ("o", "e", "y_l", "y_o", "t")
-    sets = [tuple(torch.empty_like(getattr(state, f), memory_format=torch.contiguous_format) for f in fields)
-            for _ in range(2)]
-    disp_hist = (torch.full((2, state.err_hist.shape[0]), float("nan"), dtype=state.err_hist.dtype, device=device)
-                 if cfg.disp and not batched else None)
-
-    def block(done_before: int) -> None:
-        """`unroll` iterations from the state after `done_before` of them."""
-        if done_before == 0:
-            st = carry._replace(o=state.o, e=state.e, y_l=state.y_l, y_o=state.y_o, t=state.t)
-        else:
-            st = carry._replace(**dict(zip(fields, sets[done_before % 2])))
-        for i in range(unroll):
-            out = sets[(done_before + i + 1) % 2]
-            st = admm_iteration(d, st, cfg, mask=mask, origin=origin, norm_d=norm_d, norm_origin=norm_origin,
-                                disp_log=disp_hist, shard=shard, out=out if not masked else (*out, None),
-                                batched=batched)
-        for f in _CARRIED:
-            getattr(carry, f).copy_(getattr(st, f))
-
-    def last(n_done: int) -> dict:
-        """The data-sized fields after n_done iterations of this call."""
-        return dict(zip(fields, sets[n_done % 2])) if n_done else {}
-
-    stopped: dict = {}  # a batch entry -> (its iterations, its result copied on the device)
-
-    def running(n_done: int) -> bool:
-        """Reads the stop flags: one synchronizing call."""
-        if not batched:
-            return not bool(carry.done)
-        for i, flag in enumerate(carry.done.tolist()):
-            if flag and i not in stopped:
-                now = {**carry._asdict(), **last(n_done)}
-                stopped[i] = (k0 + n_done, {f: now[f][i].clone() for f in _STOPPED})
-        return len(stopped) < batch[0]
-
-    n_done = 0  # iterations this call has run
-    with _stepper(device, graphs, shard) as step:
-        while k0 + n_done < cfg.max_iter and running(n_done):
-            step(block, n_done)
-            if disp_hist is not None:
-                _print_disp(disp_hist, k0 + n_done, k0 + n_done + unroll)
-            n_done += unroll
-
-    mu = torch.stack((carry.mu_l, carry.mu_o)).cpu().numpy()
-    want = np.array([state.mu_l, state.mu_o], dtype=cfg.np_dtype())
-    for _ in range(n_done):
-        want = anneal(want, cfg)
-    if mu.tobytes() != np.broadcast_to(want.reshape(2, *(1,) * len(batch)), mu.shape).tobytes():
-        raise AssertionError(f"the penalties on {device} after {n_done} iterations, {mu}, are not the host's "
-                             f"schedule {want}")
-    out = state._replace(a=carry.a, b=carry.b, c=carry.c, **last(n_done), mu_l=mu[0], mu_o=mu[1], k=k0 + n_done,
-                         done=carry.done)
+    `batched`: a stopped entry's result is the copy made when its flag
+    turned, and k comes back as a list of each entry's iterations."""
+    loop = _AdmmLoop(d, state, cfg, mask, origin, norm_d, norm_origin, graphs=graphs, shard=shard,
+                     batched=batched)
+    out = loop.advance(cfg.max_iter)
     if not batched:
         return out
-    for i, (_k, at_stop) in stopped.items():
+    for i, (_k, at_stop) in loop.stopped.items():
         for f, x in at_stop.items():
             getattr(out, f)[i].copy_(x)
-    return out._replace(k=[stopped[i][0] if i in stopped else k0 + n_done for i in range(batch[0])])
+    return out._replace(k=[loop.stopped[i][0] if i in loop.stopped else loop.k for i in range(loop.batch[0])])
 
 
 # The fields of a batch entry's result, copied when its stop flag turns.
@@ -591,39 +697,48 @@ def run_admm_batch(d, state: TriTDState, cfg: TriTDConfig, shard, mask=None, ori
                        err_hist=st.err_hist, rre_hist=st.rre_hist, n_iters=st.k)
 
 
-@contextlib.contextmanager
-def _stepper(device, graphs: bool, shard=None):
-    """Yields `step(block, n_done)`, which runs `block(n_done)`, the next
-    block of a device-form loop after n_done iterations: without `graphs`
+class _Stepper:
+    """Runs the blocks of a device-form loop, `step(block, n_done)` running
+    `block(n_done)`, the block after n_done iterations: without `graphs`
     eagerly; with them, on a side stream, the first block eagerly and each
-    later one as the replay of the CUDA graph captured for n_done's parity
-    (captured at its first use, `hopper_kernels.CountedGraph`; the shard's
-    collectives counted in its `tally`). On exit the caller's stream waits
-    for the side stream's work."""
-    if not graphs:
-        yield lambda block, n_done: block(n_done)
-        return
-    caller, side = torch.cuda.current_stream(device), torch.cuda.Stream(device=device)
-    side.wait_stream(caller)
-    captured: dict = {}
-    pool = torch.cuda.graph_pool_handle()
-    tallies = () if shard is None else (shard.tally,)
+    later one as the replay of the CUDA graph captured at its first use for
+    n_done % period (`hopper_kernels.CountedGraph`; the shard's collectives
+    counted in its `tally`). Blocks are stepped inside :meth:`segment`; the
+    graphs outlive it, so that a loop that pauses between segments captures
+    nothing new when it goes on. `captured`: the graphs, by n_done % period."""
 
-    def step(block, n_done: int) -> None:
-        if n_done == 0:
-            block(0)
+    def __init__(self, device, graphs: bool, shard=None, period: int = 2):
+        self.device, self.graphs, self.period = device, graphs, period
+        self.captured: dict = {}
+        if graphs:
+            self.side = torch.cuda.Stream(device=device)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.tallies = () if shard is None else (shard.tally,)
+
+    @contextlib.contextmanager
+    def segment(self):
+        """Blocks stepped inside run on the side stream after the caller's
+        stream's work so far; on exit the caller's stream waits for them."""
+        if not self.graphs:
+            yield
             return
-        parity = n_done % 2
-        if parity not in captured:
-            captured[parity] = hopper_kernels.CountedGraph(lambda: block(n_done), pool, tallies)
-        captured[parity].replay()
+        caller = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self.side):
+                yield
+        finally:
+            # after the side stream is left: the caller's stream waits for it
+            caller.wait_stream(self.side)
 
-    try:
-        with torch.cuda.stream(side):
-            yield step
-    finally:
-        # after the side stream is left: the caller's stream waits for it
-        caller.wait_stream(side)
+    def step(self, block, n_done: int) -> None:
+        if not self.graphs or n_done == 0:
+            block(n_done)
+            return
+        key = n_done % self.period
+        if key not in self.captured:
+            self.captured[key] = hopper_kernels.CountedGraph(lambda: block(n_done), self.pool, self.tallies)
+        self.captured[key].replay()
 
 
 def _print_disp(disp_hist: torch.Tensor, k_from: int, k_to: int) -> None:

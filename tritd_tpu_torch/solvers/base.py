@@ -104,7 +104,10 @@ class TriTDState(NamedTuple):
     and the iteration counter are host numbers, as `run_admm` returns them
     and checkpoints hold them. Inside the loop `admm_iteration` also takes
     a device form, with mu_l, mu_o and k as 0-d tensors on the data's
-    device, which the CUDA graph route of `run_admm` carries."""
+    device, which the CUDA graph route carries (`admm._AdmmLoop`: the
+    loop of `run_admm` and the segments of `tritd_admm_checkpointed`). The
+    host form that a loop hands back between two segments, for a save,
+    holds the loop's own buffers, which its next segment overwrites."""
 
     a: torch.Tensor        # (n1, r, r)
     b: torch.Tensor        # (r, n2, r)

@@ -6,10 +6,15 @@ each, so a long run restarts where it stopped. A resumed run is bitwise
 equal to an uninterrupted checkpointed run on the same device: the state
 carries the duals, the penalties, the histories and the counter, and every
 iteration is the same `admm_iteration` call on the same inputs.
+
+On the card a call advances one device-form loop segment by segment (the
+reference jits each segment as a `lax.while_loop`,
+`tritd_tpu/solvers/checkpointed.py:23-38`); the saves stay on the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -17,6 +22,7 @@ import torch
 from ..ops.kruskal import solver_input
 from ..ops.narrow import narrow_cast
 from ..utils.checkpoint import CheckpointManager, load_state, save_state
+from . import admm
 from .admm import admm_iteration, init_factors, init_state
 from .base import TriTDConfig, TriTDResult, TriTDState
 
@@ -26,9 +32,9 @@ DIE_AFTER_SAVE_STEP = "TRITD_DIE_AFTER_SAVE_STEP"
 
 
 def run_segment(d: torch.Tensor, state: TriTDState, k_end: int, cfg: TriTDConfig) -> TriTDState:
-    """Advance the solver to iteration min(k_end, max_iter) or convergence.
-    The stop flag is read on the host after every iteration, as the
-    reference's segment loop tests it every iteration."""
+    """Advance the solver to iteration min(k_end, max_iter) or convergence
+    on the eager route: the stop flag is read on the host after every
+    iteration, as the reference's segment loop tests it every iteration."""
     d = d.to(cfg.torch_dtype())
     norm_d = torch.linalg.vector_norm(d)
     d = narrow_cast(d, cfg.torch_storage_dtype())  # narrow copy when configured
@@ -50,9 +56,28 @@ def tritd_admm_checkpointed(
     """Run robust TriTD-ADMM on the device of `d` with a checkpoint every
     `every` iterations. If `resume` and ckpt_dir holds a checkpoint, the run
     continues from the latest one. `init`/`generator`/`device` as for
-    `tritd_admm`."""
+    `tritd_admm`.
+
+    On the card the segments are the device form's (`admm._AdmmLoop`, as
+    `tritd_admm`'s loop): one loop for the whole call, one iteration a
+    replay of a CUDA graph after the first, so that it stops exactly at
+    each segment's end, at max_iter or at the flag, as the reference's
+    `run_segment` (which ignores cfg.unroll); at most two graphs are
+    captured in the call, none after a save. Each save runs on the host
+    after the card's work, from the buffers the last iteration stored
+    into. The eager loop (`run_segment`) is the route of the CPU and of the
+    solve methods "pinv" and "lstsq" (`admm._graph_route`)."""
+    d = solver_input(d, cfg.torch_dtype(), device)
+    return _solve(d, cfg, ckpt_dir, every, init, generator, resume,
+                  graphs=True if admm._graph_route(d.device, method=cfg.solve_method) else None)
+
+
+def _solve(d, cfg: TriTDConfig, ckpt_dir: str, every: int, init, generator, resume: bool,
+           graphs: bool | None) -> TriTDResult:
+    """The checkpointed solve of `d` (a tensor in cfg.dtype): with `graphs`
+    None the eager loop (`run_segment`), else the device form, its blocks
+    replayed as CUDA graphs when `graphs` is True."""
     dtype = cfg.torch_dtype()
-    d = solver_input(d, dtype, device)
     latest = CheckpointManager(ckpt_dir, every).latest() if resume else None
     if latest:
         sd = cfg.torch_storage_dtype()
@@ -76,17 +101,31 @@ def tritd_admm_checkpointed(
             rre_hist=torch.cat([state.rre_hist, pad]),
         )
 
-    while state.k < cfg.max_iter and not bool(state.done):
-        state = run_segment(d, state, state.k + every, cfg)
-        save_state(os.path.join(ckpt_dir, f"step_{state.k:06d}.npz"), state)
-        # Failure drill: die abruptly right after a checkpoint lands, so that
-        # resume is exercised under a real process death.
-        die_at = os.environ.get(DIE_AFTER_SAVE_STEP)
-        if die_at is not None and state.k >= int(die_at):
-            os._exit(17)
+    if graphs is None:
+        while state.k < cfg.max_iter and not bool(state.done):
+            state = run_segment(d, state, state.k + every, cfg)
+            _save(ckpt_dir, state)
+    else:
+        # one iteration a block, as `run_segment`; the eager segments print
+        # no disp lines, and neither do these
+        loop = admm._AdmmLoop(narrow_cast(d, cfg.torch_storage_dtype()), state,
+                              dataclasses.replace(cfg, unroll=1, disp=False), norm_d=torch.linalg.vector_norm(d),
+                              graphs=graphs)
+        while loop.k < cfg.max_iter and loop.running:
+            state = loop.advance(loop.k + every)
+            _save(ckpt_dir, state)
 
     return TriTDResult(
         a=state.a, b=state.b, c=state.c,
         o=state.o.to(dtype), e=state.e.to(dtype),
         err_hist=state.err_hist, rre_hist=state.rre_hist, n_iters=state.k,
     )
+
+
+def _save(ckpt_dir: str, state: TriTDState) -> None:
+    save_state(os.path.join(ckpt_dir, f"step_{state.k:06d}.npz"), state)
+    # Failure drill: die abruptly right after a checkpoint lands, so that
+    # resume is exercised under a real process death.
+    die_at = os.environ.get(DIE_AFTER_SAVE_STEP)
+    if die_at is not None and state.k >= int(die_at):
+        os._exit(17)
