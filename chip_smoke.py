@@ -102,7 +102,9 @@ Phases, each of which fails the run by raising:
      not held to the float32 family (the reference promises no such bound).
      The CPU runs (these references, the controls and taxi's float64 rerun)
      go to CPU_REF_WORKERS spawned worker processes of CPU_REF_THREADS
-     threads each as the card solves end, and are held when they return.
+     threads each as the card solves end, and are held when they return:
+     after phase 24 (`phase3 checks took`), so that they overlap the card's
+     later phases.
   4. the completion CLI in a subprocess.
   5. checkpointed resume: a subprocess dies right after its step-25
      checkpoint (exit 17); the resume here is bitwise equal to an
@@ -122,7 +124,16 @@ Phases, each of which fails the run by raising:
   9. the SVT baselines (ttnn, ring, fctn) through run_method at the full taxi
      shape, 10% missing, gram route, 100 iterations, each with an svd control
      of 10 iterations (err_hist within rtol 1e-3); fctn again with warm:8
-     (final RRE within 1e-3 of gram's); sofia for 10 epochs.
+     (final RRE within 1e-3 of gram's); sofia for 10 epochs. Then SOFIA's
+     two kernels (csrc/sofia_kernels.cu) against their plain versions at the
+     shapes the main path gives them at taxi, highway and network (the
+     mode-1 and mode-2 grams and the mode-3 sweep, from the stand-ins with
+     10% missing, one mode-1 slice all missing, one observed at one entry),
+     float32 and float64: pinv_rows within PINV_EPS_FACTOR r eps times each
+     gram's condition of its row's scale, the all-zero gram's row exactly
+     zero; the sweep within SWEEP_EPS_FACTOR eps of its largest value; each
+     timed beside its bound, its plain version (the row loop at taxi) and,
+     for pinv_rows, torch.linalg.pinv with the row product.
  10. RC-FCTN's video driver at 240x320x300 with its default route (auto:512)
      for 10 iterations; trpca_tnn on a 64x64x32 slab and rnc_fctn on a
      16x16x8x8 problem, 20 iterations each.
@@ -153,8 +164,9 @@ Phases, each of which fails the run by raising:
      mode 3 at 4 ranks. Each is held to the single-process solve on the same
      data (err_hist, rre_hist: rtol 2e-3, atol 1e-5; rtol 2e-2, atol 1e-4
      with bf16 storage; atol 2e-4 where the video's err_hist nears its
-     float32 floor, below 4e-3; n_iters equal; the workers run a fixed
-     count of iterations, tol 0); every rank must have launched its
+     float32 floor, below 4e-3; n_iters equal; the workers run RANKS_ITERS
+     iterations, tol 0, once: a depth cut from 100 and no second timed
+     run, since the ranks share the card); every rank must have launched its
      kernel variant once per iteration, and the replicated factors must
      agree across ranks.
  14. DP x TP: four ranks as a 2x2 mesh, a batch of two taxi problems from
@@ -291,13 +303,28 @@ Phases, each of which fails the run by raising:
      its by-value entry (the batched one once an iteration), finite
      histories, the route printed. These launches are checks and stay out
      of the kernels line.
+ 24. SOFIA's three device loops, the reference's ALS and epoch
+     while_loops and its stream scan: first the main path, sofia_init at
+     taxi (SOFIA_PRESET, 10 epochs, float32) and in float64 (2 epochs) on
+     the CUDA graph route, whose launches of the two kernels are the
+     kernels line's; then sofia_init at taxi (10 epochs) and highway (2
+     epochs, a depth cut) on the graph route and without graphs, in turns
+     graph, eager, eager, graph: factors, X, O and err_hist bitwise, at
+     most SOFIA_CAPTURES captures a call, the synchronizing calls, ms an
+     epoch (events); the ALS loop alone (taxi, 20 iterations, tol 0), ms an
+     iteration; sofia_stream_device at taxi on both routes (4 runs),
+     bitwise, ms a frame (events around the scan); then taxi's float32
+     sofia_init on the card against float64 on the CPU (err_hist rtol
+     1e-3), the sweep (rtol 1e-3, atol 1e-4) and a 100x100 stream (rtol
+     1e-3, atol 1e-3 max|X|) likewise.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
 
-Phases 8-11, 15 and 16 launch no kernel of this package but the one inside `triple`:
-the baselines' SVD, eigh, QR, FFT and GEMMs are torch.linalg, torch.fft and
-torch.matmul, as the reference leaves them to its compiler.
+Phases 8-11, 15 and 16 launch no kernel of this package but the one inside `triple`
+and SOFIA's two: the baselines' SVD, eigh, QR, FFT and GEMMs are
+torch.linalg, torch.fft and torch.matmul, as the reference leaves them to
+its compiler.
 
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration (in phases 13-14 every rank counts its own). On
@@ -310,7 +337,9 @@ launches of phases 3, 5, 12, 17 and 19; pointer_launches, those of them
 through the pointer entry; batch_launches, phase 22's through the batched
 entry; batch_ms, batch_pointer_ms and batch_bound_ms, phase 2's batched
 timings at 4 x taxi), each naming the .cu file that holds its entry
-point; the last line is
+point, then SOFIA's two kernels in float32 and float64 (phase 9's taxi
+records, phase 24's main-path launches), each naming the reference
+function it stands for; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
 """
@@ -362,7 +391,7 @@ from tritd_tpu_torch.solvers import (  # noqa: E402
     tritd_mals,
 )
 from tritd_tpu_torch.solvers.admm import t_dtype_of  # noqa: E402
-from tritd_tpu_torch.utils.config import COMPLETION_TRITD, README_MISSING_RATIO, VIDEO_TRITD  # noqa: E402
+from tritd_tpu_torch.utils.config import COMPLETION_TRITD, README_MISSING_RATIO, SOFIA_PRESET, VIDEO_TRITD  # noqa: E402
 
 KERNEL_SHAPES = {
     "taxi": (100, 100, 500),
@@ -1253,8 +1282,9 @@ def _taxi():
     return x, mask, torch.where(mask, x, torch.zeros_like(x)), prov
 
 
-def phase3() -> dict:
-    """The main path; returns the launches of each kernel variant in it."""
+def phase3() -> tuple:
+    """The main path; returns the launches of each kernel variant in it and
+    the function that holds its solves to their CPU references (`checks`)."""
     total: dict = {}
 
     ms_per_iter: dict = {}  # of the last run of each variant
@@ -1379,110 +1409,115 @@ def phase3() -> dict:
         solves.append(solve)
         del nres
 
-    for solve in solves:
-        want, cpu_s = solve["future"].result()
-        solve.update(want=want, cpu_s=cpu_s)
-    # the controls: with T' rounded toward zero on the CPU, once for each
-    # T dtype with and without feedback, on the first solve that holds
-    # TIGHT_ENTRIES entries
-    for solve in solves:
-        if solve["expect"] == "nan":
-            continue
-        depth, want, got = solve["depth"], solve["want"], solve["got"]
-        cpu_k, card_k = _finite_prefix(want), _finite_prefix(got[:depth])
-        rise = np.flatnonzero(want[:cpu_k] > want[0])
-        solve["held"] = held = min(cpu_k, card_k, int(rise[0]) if rise.size else depth)
-        solve.update(cpu_k=cpu_k, card_k=card_k)
-        fields = solve["fields"]
-        t_dt = t_dtype_of(solve["ncfg"])
-        feedback = bool(fields.get("einsum_dtype") or solve["masked"])
-        kind = (t_dt, feedback)
-        if (t_dt in hopper_kernels.NARROW_ULP and not solve["masked"] and kind not in controlled
-                and held >= TIGHT_ENTRIES):
-            controlled.add(kind)
-            solve["control"] = _cpu_pool().submit(*_cpu_reference(*solve["cpu_job"], planted=True))
-        solve.update(feedback=feedback, t_dt=t_dt)
+    def checks() -> None:
+        """Phase 3's checks against its CPU references, collected when they
+        return: `_main` calls it after the card's later phases, which the
+        references' worker processes overlap."""
+        for solve in solves:
+            want, cpu_s = solve["future"].result()
+            solve.update(want=want, cpu_s=cpu_s)
+        # the controls: with T' rounded toward zero on the CPU, once for each
+        # T dtype with and without feedback, on the first solve that holds
+        # TIGHT_ENTRIES entries
+        for solve in solves:
+            if solve["expect"] == "nan":
+                continue
+            depth, want, got = solve["depth"], solve["want"], solve["got"]
+            cpu_k, card_k = _finite_prefix(want), _finite_prefix(got[:depth])
+            rise = np.flatnonzero(want[:cpu_k] > want[0])
+            solve["held"] = held = min(cpu_k, card_k, int(rise[0]) if rise.size else depth)
+            solve.update(cpu_k=cpu_k, card_k=card_k)
+            fields = solve["fields"]
+            t_dt = t_dtype_of(solve["ncfg"])
+            feedback = bool(fields.get("einsum_dtype") or solve["masked"])
+            kind = (t_dt, feedback)
+            if (t_dt in hopper_kernels.NARROW_ULP and not solve["masked"] and kind not in controlled
+                    and held >= TIGHT_ENTRIES):
+                controlled.add(kind)
+                solve["control"] = _cpu_pool().submit(*_cpu_reference(*solve["cpu_job"], planted=True))
+            solve.update(feedback=feedback, t_dt=t_dt)
 
-    for solve in solves:
-        tag, want, got, depth = solve["tag"] + f" [CPU reference {solve['cpu_s']:.1f} s]", solve["want"], \
-            solve["got"], solve["depth"]
-        fields, masked, launches, dev_s, n_iters = (solve[k] for k in ("fields", "masked", "launches", "dev_s",
-                                                                         "n_iters"))
-        if solve["expect"] == "nan":
-            # a value past float8_e4m3fn's 448 is NaN in the reference's
-            # rounding: the solve is NaN from its first iteration on
-            if not np.isnan(want).all() or n_iters != solve["iters"] or np.isfinite(got).any():
-                raise AssertionError(f"{tag}: err_hist {got} on the card, {want} on the CPU; want NaN throughout")
-            print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
-                  f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist non-finite from iteration 1, as on the CPU "
-                  f"and in the reference (max |D| {solve['data_max']:.1f} > 464)")
-            continue
-        # Both runs are held where both are finite and the CPU's has not
-        # risen above its first entry; where the CPU run turns non-finite
-        # within the held iterations, the card's must too.
-        cpu_k, card_k, held = solve["cpu_k"], solve["card_k"], solve["held"]
-        if held == 0 or (cpu_k < depth) != (card_k < depth):
-            raise AssertionError(f"{tag}: err_hist {got[:depth]} on the card, {want} on the CPU")
-        narrow = [fields.get("storage_dtype"), fields.get("einsum_dtype")]
-        feedback = solve["feedback"]
-        tail_rtol = FLOAT8_FEEDBACK_RTOL if E4M3 in narrow or E5M2 in narrow else FEEDBACK_RTOL
-        limits = np.array([(FEEDBACK_RTOL if k < TIGHT_ENTRIES else tail_rtol) if feedback else NO_FEEDBACK_RTOL
-                           for k in range(held)])
-        rel = np.abs(got[:held] - want[:held]) / np.abs(want[:held])
-        if (rel > limits).any():
-            raise AssertionError(f"{tag}: first {held} err_hist entries {rel} from the CPU run, limits {limits}")
-        head = rel[:TIGHT_ENTRIES].max()
-        reading = f"first {min(held, TIGHT_ENTRIES)} {head:.3e} (rtol {limits[0]:g})"
-        if held > TIGHT_ENTRIES:
-            reading += f", entries {TIGHT_ENTRIES + 1}-{held} {rel[TIGHT_ENTRIES:].max():.3e} (rtol {limits[-1]:g})"
-        control = ""
-        if "control" in solve:
-            bad, _s = solve["control"].result()
-            t_dt = solve["t_dt"]
-            moved = float(np.max(np.abs(got[:TIGHT_ENTRIES] - bad[:TIGHT_ENTRIES]) / np.abs(bad[:TIGHT_ENTRIES])))
-            float8_t = t_dt in (torch.float8_e4m3fn, torch.float8_e5m2)
-            if float8_t and not moved > limits[0]:
-                raise AssertionError(f"{tag}: with T' rounded toward zero the CPU run is {moved:.3e} from the card's, "
-                                     f"within rtol {limits[0]:g}: the check does not catch that fault")
-            control = (f"; control: with T' rounded toward zero on the CPU, first {TIGHT_ENTRIES} {moved:.3e}"
-                       + ("" if float8_t else " (not asserted)"))
-        if cpu_k < depth:
-            print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
-                  f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist {got[:depth]} on the card, {want} on the CPU: "
-                  f"{reading} over the {held} held; non-finite from iteration {card_k + 1} on the card and "
-                  f"{cpu_k + 1} on the CPU{control}")
-            continue
-        nrre, _err = solve["check"]
-        line = f"phase3 {tag}: first {depth} err_hist entries vs the CPU run in the same dtypes: {reading}{control}"
-        key = (solve["data"], masked)
-        if "float8" not in str(fields) and solve["dtype"] == "float32" and solve["iters"] == solve["preset"].max_iter \
-                and key in wide_rre:
-            if abs(nrre - wide_rre[key]) > RRE_FAMILY:
-                raise AssertionError(f"{tag}: RRE {nrre} vs f32 {wide_rre[key]}, beyond {RRE_FAMILY}")
-            line += f"; RRE {nrre:.6f} vs f32 {wide_rre[key]:.6f} (family {RRE_FAMILY})"
-        else:
-            line += f"; RRE {nrre:.6f} (not held to the f32 family)"
-        if solve["tail"] is not None:
-            line += (f"; non-finite from iteration {solve['tail'] + 1} on, finite before (float8 range passed, as "
-                     f"in the reference at this size: docs/float8_nan_study.py)")
-        print(line)
-    for kind in [(dt, fb) for dt in (torch.float8_e4m3fn, torch.float8_e5m2) for fb in (False, True)]:
-        if kind not in controlled:
-            print(f"phase3 no control for T' in {kind[0]} {'with' if kind[1] else 'without'} feedback: no such "
-                  f"solve holds {TIGHT_ENTRIES} finite entries")
-    ref, _s = f64_rerun.result()
-    m = min(len(ref), res.n_iters)
-    np.testing.assert_allclose(err[:m], ref[:m], rtol=1e-3)
-    print(f"phase3 taxi f32 cuda vs f64 cpu, first {m} iterations: "
-          f"max rel diff {np.max(np.abs(err[:m] - ref[:m]) / np.abs(ref[:m])):.3e} (rtol 1e-3)")
-    missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - finite
-    print(f"phase3 variants launched on finite data: {len(finite)} of {len(finite) + len(missing)}; "
-          f"only on NaN data: {sorted(missing)}")
+        for solve in solves:
+            tag, want, got, depth = solve["tag"] + f" [CPU reference {solve['cpu_s']:.1f} s]", solve["want"], \
+                solve["got"], solve["depth"]
+            fields, masked, launches, dev_s, n_iters = (solve[k] for k in ("fields", "masked", "launches", "dev_s",
+                                                                             "n_iters"))
+            if solve["expect"] == "nan":
+                # a value past float8_e4m3fn's 448 is NaN in the reference's
+                # rounding: the solve is NaN from its first iteration on
+                if not np.isnan(want).all() or n_iters != solve["iters"] or np.isfinite(got).any():
+                    raise AssertionError(f"{tag}: err_hist {got} on the card, {want} on the CPU; want NaN throughout")
+                print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                      f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist non-finite from iteration 1, as on the CPU "
+                      f"and in the reference (max |D| {solve['data_max']:.1f} > 464)")
+                continue
+            # Both runs are held where both are finite and the CPU's has not
+            # risen above its first entry; where the CPU run turns non-finite
+            # within the held iterations, the card's must too.
+            cpu_k, card_k, held = solve["cpu_k"], solve["card_k"], solve["held"]
+            if held == 0 or (cpu_k < depth) != (card_k < depth):
+                raise AssertionError(f"{tag}: err_hist {got[:depth]} on the card, {want} on the CPU")
+            narrow = [fields.get("storage_dtype"), fields.get("einsum_dtype")]
+            feedback = solve["feedback"]
+            tail_rtol = FLOAT8_FEEDBACK_RTOL if E4M3 in narrow or E5M2 in narrow else FEEDBACK_RTOL
+            limits = np.array([(FEEDBACK_RTOL if k < TIGHT_ENTRIES else tail_rtol) if feedback else NO_FEEDBACK_RTOL
+                               for k in range(held)])
+            rel = np.abs(got[:held] - want[:held]) / np.abs(want[:held])
+            if (rel > limits).any():
+                raise AssertionError(f"{tag}: first {held} err_hist entries {rel} from the CPU run, limits {limits}")
+            head = rel[:TIGHT_ENTRIES].max()
+            reading = f"first {min(held, TIGHT_ENTRIES)} {head:.3e} (rtol {limits[0]:g})"
+            if held > TIGHT_ENTRIES:
+                reading += f", entries {TIGHT_ENTRIES + 1}-{held} {rel[TIGHT_ENTRIES:].max():.3e} (rtol {limits[-1]:g})"
+            control = ""
+            if "control" in solve:
+                bad, _s = solve["control"].result()
+                t_dt = solve["t_dt"]
+                moved = float(np.max(np.abs(got[:TIGHT_ENTRIES] - bad[:TIGHT_ENTRIES]) / np.abs(bad[:TIGHT_ENTRIES])))
+                float8_t = t_dt in (torch.float8_e4m3fn, torch.float8_e5m2)
+                if float8_t and not moved > limits[0]:
+                    raise AssertionError(f"{tag}: with T' rounded toward zero the CPU run is {moved:.3e} from the card's, "
+                                         f"within rtol {limits[0]:g}: the check does not catch that fault")
+                control = (f"; control: with T' rounded toward zero on the CPU, first {TIGHT_ENTRIES} {moved:.3e}"
+                           + ("" if float8_t else " (not asserted)"))
+            if cpu_k < depth:
+                print(f"phase3 {tag}: iters={n_iters} launches={launches} solve={dev_s:.4f} s (events) "
+                      f"{dev_s / n_iters * 1e3:.3f} ms/iter; err_hist {got[:depth]} on the card, {want} on the CPU: "
+                      f"{reading} over the {held} held; non-finite from iteration {card_k + 1} on the card and "
+                      f"{cpu_k + 1} on the CPU{control}")
+                continue
+            nrre, _err = solve["check"]
+            line = f"phase3 {tag}: first {depth} err_hist entries vs the CPU run in the same dtypes: {reading}{control}"
+            key = (solve["data"], masked)
+            if "float8" not in str(fields) and solve["dtype"] == "float32" and solve["iters"] == solve["preset"].max_iter \
+                    and key in wide_rre:
+                if abs(nrre - wide_rre[key]) > RRE_FAMILY:
+                    raise AssertionError(f"{tag}: RRE {nrre} vs f32 {wide_rre[key]}, beyond {RRE_FAMILY}")
+                line += f"; RRE {nrre:.6f} vs f32 {wide_rre[key]:.6f} (family {RRE_FAMILY})"
+            else:
+                line += f"; RRE {nrre:.6f} (not held to the f32 family)"
+            if solve["tail"] is not None:
+                line += (f"; non-finite from iteration {solve['tail'] + 1} on, finite before (float8 range passed, as "
+                         f"in the reference at this size: docs/float8_nan_study.py)")
+            print(line)
+        for kind in [(dt, fb) for dt in (torch.float8_e4m3fn, torch.float8_e5m2) for fb in (False, True)]:
+            if kind not in controlled:
+                print(f"phase3 no control for T' in {kind[0]} {'with' if kind[1] else 'without'} feedback: no such "
+                      f"solve holds {TIGHT_ENTRIES} finite entries")
+        ref, _s = f64_rerun.result()
+        m = min(len(ref), res.n_iters)
+        np.testing.assert_allclose(err[:m], ref[:m], rtol=1e-3)
+        print(f"phase3 taxi f32 cuda vs f64 cpu, first {m} iterations: "
+              f"max rel diff {np.max(np.abs(err[:m] - ref[:m]) / np.abs(ref[:m])):.3e} (rtol 1e-3)")
+        missing = set(hopper_kernels.KERNEL_VARIANTS.values()) - finite
+        print(f"phase3 variants launched on finite data: {len(finite)} of {len(finite) + len(missing)}; "
+              f"only on NaN data: {sorted(missing)}")
+
     T1_ROWS.extend([
         {"name": "taxi", "shape": list(x.shape), "rank": cfg.rank, "ms_per_iter": taxi_ms, "card": CARD[0]},
         {"name": "video", "shape": list(v.shape), "rank": VIDEO_TRITD.rank, "ms_per_iter": video_ms, "card": CARD[0]},
     ])
-    return total
+    return total, checks
 
 
 def phase4() -> None:
@@ -1726,8 +1761,10 @@ def _falling(tag, hist) -> np.ndarray:
     return hist
 
 
-def phase9() -> None:
-    """The baselines at the full taxi shape, through the CLI's dispatch."""
+def phase9() -> dict:
+    """The baselines at the full taxi shape, through the CLI's dispatch;
+    then SOFIA's kernels against their plain versions (`_sofia_kernels`,
+    whose records it returns)."""
     from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
     from tritd_tpu_torch.cli.run_completion import run_method
 
@@ -1771,50 +1808,7 @@ def phase9() -> None:
         raise AssertionError(f"phase9 sofia: rre {sofia_rre}, err_hist {hist}")
     print(f"phase9 sofia taxi r=3 m={spec.sofia_period}: epochs={hist.shape[0]} solve={sec:.3f} s (events) "
           f"peak_mem={mib:.1f} MiB rre={sofia_rre:.6f} err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
-    _sofia_loops()
-
-
-def _sofia_loops() -> None:
-    """SOFIA's two sequential loops at the taxi sizes, each a chain of tiny
-    launches: the Gauss-Seidel sweep over the 500 time rows (one per ALS
-    iteration) and the streaming step per 100x100 frame, float32 on the
-    card against the same code in float64 on the CPU."""
-    from tritd_tpu_torch.baselines import sofia
-
-    gen = torch.Generator().manual_seed(9)
-    n3, r, m = 500, 3, 7
-    half = torch.randn((n3, r, 4), generator=gen, dtype=torch.float64)
-    args = (torch.randn((n3, r), generator=gen, dtype=torch.float64),
-            torch.randn((n3, r), generator=gen, dtype=torch.float64), half @ half.transpose(1, 2))
-    want = sofia._mode3_gauss_seidel(*args, 0.1, 0.001, m)
-    on_card = [a.float().cuda() for a in args]
-    sofia._mode3_gauss_seidel(*on_card, 0.1, 0.001, m)
-    got, sec, _ = _events(lambda: sofia._mode3_gauss_seidel(*on_card, 0.1, 0.001, m))
-    _on_card("phase9 gauss-seidel sweep", got)
-    torch.testing.assert_close(got.cpu().double(), want, rtol=1e-3, atol=1e-4)
-    print(f"phase9 sofia gauss-seidel sweep n3={n3} r={r} m={m}: {sec * 1e3:.2f} ms a sweep, "
-          f"{sec / n3 * 1e6:.1f} us a row (events); against float64 on the CPU rtol 1e-3, atol 1e-4")
-
-    n, frames = 100, 50
-    u1, u2 = (torch.linalg.qr(torch.randn((n, r), generator=gen, dtype=torch.float64))[0] for _ in range(2))
-    w = 5.0 + torch.rand((frames + m, r), generator=gen, dtype=torch.float64)
-    y = torch.einsum("ir,jr,tr->tij", u1, u2, w[m:]) + 0.01 * torch.randn((frames, n, n), generator=gen,
-                                                                           dtype=torch.float64)
-    omega = (torch.rand((frames, n, n), generator=gen) > 0.1).double()
-    state = (y, omega, u1, u2, w[:m], w[m - 1], torch.zeros(r, dtype=torch.float64),
-             torch.zeros((m, r), dtype=torch.float64), torch.full((3, r), 0.1, dtype=torch.float64),
-             torch.full((n, n), 0.1, dtype=torch.float64))
-    rest = (m, 0.1, 0.001, 0.1, 0.05, True)
-    want = sofia._stream_scan(*state, *rest)
-    on_card = [a.float().cuda() for a in state]
-    sofia._stream_scan(*on_card, *rest)
-    got, sec, _ = _events(lambda: sofia._stream_scan(*on_card, *rest))
-    _on_card("phase9 stream step", *got)
-    scale = float(want[3].abs().max())
-    for name, g, w_ in zip(("u1", "u2", "W", "X_hat", "O"), got, want):
-        torch.testing.assert_close(g.cpu().double(), w_, rtol=1e-3, atol=1e-3 * scale, msg=lambda s_, n_=name: f"{n_}: {s_}")
-    print(f"phase9 sofia stream step {n}x{n} r={r} m={m}: {sec / frames * 1e3:.3f} ms a frame over {frames} frames "
-          f"(events); against float64 on the CPU rtol 1e-3, atol 1e-3 max|X|")
+    return _sofia_kernels()
 
 
 def phase10() -> None:
@@ -2066,6 +2060,11 @@ def phase12() -> dict:
 
 
 WORKER_TIMEOUT_S = 300.0
+# phase 13's iterations: its checks hold every iteration's histories to the
+# single process, and the ranks share the card, so its seconds are no
+# scaling number: a depth cut from 100 keeps every check and drops the
+# second timed run
+RANKS_ITERS = 25
 # twice the largest distance seen between the single-process float32 run's
 # err_hist and the float64 trajectory on the video stand-in (1e-4)
 VIDEO_F32_FLOOR = 2e-4
@@ -2080,13 +2079,14 @@ def _single_process(prob: dict, init=None, entry: int | None = None):
                       init=init)
 
 
-def _run_workers(tag: str, world: int, args: list[str], out: str) -> dict:
-    """`world` workers on cuda:0 over gloo; returns rank 0's .npz as a dict."""
+def _run_workers(tag: str, world: int, args: list[str], out: str, iters: int = 100, repeats: int = 1) -> dict:
+    """`world` workers on cuda:0 over gloo, `iters` iterations and `repeats`
+    timed runs after the first; returns rank 0's .npz as a dict."""
     from tritd_tpu_torch.parallel.distributed import launch_local
 
     t0 = time.perf_counter()
-    launch_local(world, ["--backend", "gloo", "--device", "cuda:0", "--max-iter", "100", "--bench-repeats", "1",
-                         "--out", out, *args], timeout_s=WORKER_TIMEOUT_S)
+    launch_local(world, ["--backend", "gloo", "--device", "cuda:0", "--max-iter", str(iters), "--bench-repeats",
+                         str(repeats), "--out", out, *args], timeout_s=WORKER_TIMEOUT_S)
     with np.load(out) as f:
         got = dict(f)
     got["spawn_seconds"] = time.perf_counter() - t0
@@ -2132,11 +2132,12 @@ def phase13() -> None:
         for tag, world, problem, args, variant, (rtol, atol, floor) in runs:
             key = json.dumps(problem, sort_keys=True)
             if key not in refs:
-                prob = build_problem(max_iter=100, **problem)
+                prob = build_problem(max_iter=RANKS_ITERS, **problem)
                 refs[key] = (_single_process(prob), prob["cfg"], prob["d"].shape)
             ref, cfg, shape = refs[key]
             tag = f"phase13 gloo {world} ranks on cuda:0, {tag}"
-            got = _run_workers(tag, world, ["--dataset", problem["dataset"], *args], os.path.join(tmp, "out.npz"))
+            got = _run_workers(tag, world, ["--dataset", problem["dataset"], *args], os.path.join(tmp, "out.npz"),
+                               iters=RANKS_ITERS, repeats=0)
             n = int(got["n_iters"])
             if n != ref.n_iters:
                 raise AssertionError(f"{tag}: n_iters {n}, single process {ref.n_iters}")
@@ -2147,9 +2148,9 @@ def phase13() -> None:
             if not 0 < words <= budget:
                 raise AssertionError(f"{tag}: {words} all_reduce words per iteration, budget {budget}")
             ranks = _check_ranks(tag, got, f"elementwise_block[{variant}]", [n] * world, float(ref.b.abs().max()))
-            print(f"{tag}: iters={n} {float(got['best_loop_seconds']) / n * 100:.3f} s per 100 iterations (second run, "
-                  f"slowest rank's loop; the ranks share the card: no scaling number), first run "
-                  f"{float(got['loop_seconds']) / n * 100:.3f}; spawn to result {got['spawn_seconds']:.1f} s; all_reduce/iter: "
+            print(f"{tag}: iters={n} {float(got['loop_seconds']) / n * 1e3:.3f} ms an iteration (the one run, the "
+                  f"slowest rank's loop; the ranks share the card: no scaling number); spawn to result "
+                  f"{got['spawn_seconds']:.1f} s; all_reduce/iter: "
                   f"{int(got['all_reduce_calls_per_iter'])} calls, {words} words (budget {budget}); vs single process "
                   f"(rtol {rtol:g}, atol {atol:g}{f', {floor:g} on the float32 floor' if floor else ''}): err_hist {err}, rre_hist {rre_}; {ranks}")
 
@@ -3550,6 +3551,342 @@ def phase23() -> None:
         dist.destroy_process_group()
 
 
+# SOFIA's two kernels (ops/sofia_kernels.py): the datasets of the slice, at
+# their full widths, whose main-path shapes the checks of phase 9 take, and
+# the reference functions each kernel stands for.
+SOFIA_DATASETS = ("taxi", "highway", "network")
+SOFIA_REPLACES = {"pinv_rows": "tritd_tpu/baselines/sofia.py:69", "gauss_seidel_sweep": "tritd_tpu/baselines/sofia.py:175"}
+SOFIA_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+# pinv_rows against torch's SVD pinv: each row within PINV_EPS_FACTOR * r eps
+# of its largest value times the condition of the eigenvalues its gram keeps
+# (two backward-stable solves of one system differ by about that); the
+# sweep within SWEEP_EPS_FACTOR eps of the largest value (one chain of
+# products and sums in two orders)
+PINV_EPS_FACTOR = 64
+SWEEP_EPS_FACTOR = 256
+SOFIA_PLAIN_REPS = 4  # turns of the plain sweep, a Python loop over the rows
+
+
+def _sofia_problem(name: str, dtype, seed: int = 0):
+    """The kernels' inputs at a dataset's main-path shapes, from its stand-in
+    with 10% missing and uniform factors of rank SOFIA_PRESET.rank: the
+    mode-1 and mode-2 right-hand sides and grams (mode-1 slice 0 all
+    missing, a zero gram; slice 1 observed at one entry, a rank-one gram)
+    and the mode-3 sweep's right-hand sides and inverses; and the period."""
+    from tritd_tpu_torch.baselines import sofia
+
+    x_np, spec, _prov = load_dataset(name)
+    mask = uniform_missing_mask(np.random.default_rng(seed), x_np.shape, README_MISSING_RATIO)
+    mask[0] = False
+    mask[1] = False
+    mask[1, 0, 0] = True
+    om = torch.as_tensor(mask, device="cuda").to(dtype)
+    y = torch.as_tensor(np.where(mask, x_np, 0.0), device="cuda").to(dtype)
+    gen = torch.Generator().manual_seed(seed)
+    u1, u2, u3 = (torch.rand((n, SOFIA_PRESET.rank), generator=gen, dtype=torch.float64).to("cuda", dtype)
+                  for n in x_np.shape)
+    kr = sofia._khatri_rao
+    rows = [sofia._masked_row_systems(y, om, kr(u2, u3)),
+            sofia._masked_row_systems(y.transpose(0, 1).contiguous(), om.transpose(0, 1).contiguous(), kr(u1, u3))]
+    rhs_base, gram_base = sofia._masked_row_systems(torch.movedim(y, 2, 0).contiguous(),
+                                                    torch.movedim(om, 2, 0).contiguous(), kr(u1, u2))
+    m = spec.sofia_period
+    sweep = sofia._mode3_systems(u3, rhs_base, gram_base, SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2, m)
+    return rows, sweep, m
+
+
+def _sofia_bound(kind: str, n: int, r: int, dtype) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for one call on n
+    systems of rank r, its inputs read and its output written once (rhs,
+    the r x r matrices, the rows out), against the least arithmetic any
+    method needs: a pinv r^3 + 4 r^2 a system (one factorization's worth
+    and the two products), a sweep step 2 r^2 + 4 r."""
+    size = torch.empty((), dtype=dtype).element_size()
+    by_bytes = n * (2 * r + r * r) * size / PEAK_BYTES_PER_S * 1e3
+    ops = n * ((r**3 + 4 * r * r) if kind == "pinv_rows" else (2 * r * r + 4 * r))
+    by_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _check_pinv(tag, rhs, gram, zero_gram: bool) -> tuple[float, float]:
+    """pinv_rows against its plain version on these rows, of which some
+    grams are all zero if `zero_gram`: (max abs error, the largest error
+    over its limit's eps * condition * scale)."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    dtype, r = gram.dtype, gram.shape[-1]
+    eps = torch.finfo(dtype).eps
+    rtol = 10.0 * r * eps
+    got, want = sofia_kernels.pinv_rows(rhs, gram, rtol), sofia_kernels.pinv_rows_torch(rhs, gram, rtol)
+    torch.cuda.synchronize()
+    zero = (gram == 0).flatten(1).all(1)
+    if bool(zero.any()) != zero_gram or not (got[zero] == 0).all() or not (want[zero] == 0).all():
+        raise AssertionError(f"{tag}: the all-zero grams' rows are not exactly zero: {got[zero]}")
+    lam = torch.linalg.eigvalsh(gram.double()).abs()
+    kept = torch.where(lam > rtol * lam.amax(-1, keepdim=True), lam, torch.full_like(lam, float("inf")))
+    cond = torch.where(torch.isfinite(kept.amin(-1)), lam.amax(-1) / kept.amin(-1), torch.ones_like(lam[:, 0]))
+    err = (got - want).abs().amax(-1).double()
+    scale = want.abs().amax(-1).double()
+    ratio = float((err / (eps * cond * scale.clamp(min=1e-300))).max())
+    if not ratio <= PINV_EPS_FACTOR * r:
+        raise AssertionError(f"{tag}: a row {ratio:.1f} eps x condition x scale from torch's pinv, limit "
+                             f"{PINV_EPS_FACTOR * r}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: non-finite rows")
+    return float(err.max()), ratio
+
+
+def _check_sweep(tag, rhs0, inv, m) -> float:
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    lam1, lam2 = SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2
+    got = sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)
+    want = sofia_kernels.gauss_seidel_sweep_torch(rhs0, inv, lam1, lam2, m)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not err <= SWEEP_EPS_FACTOR * torch.finfo(rhs0.dtype).eps * scale:
+        raise AssertionError(f"{tag}: max |error| {err:.3e} of {scale:.3e}, limit {SWEEP_EPS_FACTOR} eps")
+    return err
+
+
+def _sofia_kernels() -> dict:
+    """Each of SOFIA's kernels against its plain version on the card, at the
+    shapes the main path gives it at taxi, highway and network, in float32
+    and float64 (phase 9); timed beside its bound, its plain version and,
+    for pinv_rows, torch.linalg.pinv and the row product (the one PyTorch
+    call for its function), at each shape (the plain sweep, a Python loop
+    of the rows, at taxi). Returns the taxi records of the kernels line,
+    by (name, dtype tag)."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = SOFIA_TAGS[dtype]
+        for name in SOFIA_DATASETS:
+            rows, (rhs0, inv), m = _sofia_problem(name, dtype)
+            r = rhs0.shape[1]
+            for mode, (rhs, gram) in enumerate(rows, 1):
+                label = f"phase9 pinv_rows[{tag}] {name} mode {mode} ({gram.shape[0]} grams, r={r})"
+                max_abs, ratio = _check_pinv(label, rhs, gram, zero_gram=mode == 1)
+                rtol = 10.0 * r * torch.finfo(dtype).eps
+                plain = lambda rhs=rhs, gram=gram, rtol=rtol: sofia_kernels.pinv_rows_torch(rhs, gram, rtol)  # noqa: E731
+                calls = {"kernel": lambda rhs=rhs, gram=gram, rtol=rtol: sofia_kernels.pinv_rows(rhs, gram, rtol),
+                         "library": lambda gram=gram, rhs=rhs, rtol=rtol: torch.bmm(
+                             rhs[:, None, :], torch.linalg.pinv(gram, rtol=rtol))}
+                ms, plain_ms, _copy, _host = _time_pair(plain, calls, 1 << 20, reps=8)
+                bound_ms, bound_by = _sofia_bound("pinv_rows", gram.shape[0], r, dtype)
+                print(f"{label}: max_abs_err={max_abs:.3e} (worst row {ratio:.2f} eps x condition x scale, limit "
+                      f"{PINV_EPS_FACTOR * r}){', the zero gram row exactly 0' if mode == 1 else ''}; "
+                      f"kernel={ms['kernel'] * 1e3:.1f} us "
+                      f"plain={plain_ms * 1e3:.1f} us torch.linalg.pinv+bmm={ms['library'] * 1e3:.1f} us "
+                      f"bound={bound_ms * 1e3:.4f} us by {bound_by} (events)", flush=True)
+                if name == "taxi" and mode == 1:
+                    records["pinv_rows", tag] = {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": plain_ms,
+                                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                                 "library_ms": ms["library"]}
+            label = f"phase9 gauss_seidel_sweep[{tag}] {name} (n3={rhs0.shape[0]}, r={r}, m={m})"
+            max_abs = _check_sweep(label, rhs0, inv, m)
+            lam1, lam2 = SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2
+            kernel = {"kernel": lambda rhs0=rhs0, inv=inv, m=m: sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)}
+            plain = None
+            if name == "taxi":
+                plain = lambda rhs0=rhs0, inv=inv, m=m: sofia_kernels.gauss_seidel_sweep_torch(  # noqa: E731
+                    rhs0, inv, lam1, lam2, m)
+            ms, plain_ms, _copy, _host = _time_pair(plain, kernel, 1 << 20, reps=SOFIA_PLAIN_REPS if plain else 8)
+            bound_ms, bound_by = _sofia_bound("gauss_seidel_sweep", rhs0.shape[0], r, dtype)
+            print(f"{label}: max_abs_err={max_abs:.3e} (limit {SWEEP_EPS_FACTOR} eps of max |row|); "
+                  f"kernel={ms['kernel'] * 1e3:.1f} us ({ms['kernel'] * 1e3 / rhs0.shape[0]:.3f} us a row) "
+                  + (f"plain={plain_ms * 1e3:.1f} us " if plain else "")
+                  + f"bound={bound_ms * 1e3:.4f} us by {bound_by}; the chain of {rhs0.shape[0]} dependent rows "
+                  f"(events)", flush=True)
+            if name == "taxi":
+                records["gauss_seidel_sweep", tag] = {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": plain_ms,
+                                                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return records
+
+
+SOFIA_EPOCHS = {"taxi": 10, "highway": 2}  # highway's 2 epochs: a depth cut
+SOFIA_ALS_ITERS = 20  # the ALS loop timed alone, tol 0
+SOFIA_INIT_RTOL = 1e-3  # float32 on the card against float64 on the CPU: err_hist (tests/test_torch_cuda.py's)
+SOFIA_SWEEP_TOL = (1e-3, 1e-4)  # the sweep, float32 on the card against float64 on the CPU (rtol, atol)
+SOFIA_STREAM_RTOL = 1e-3  # the stream, the same, atol SOFIA_STREAM_RTOL * max |X|
+SOFIA_CAPTURES = 3  # most graphs a sofia_init call may capture: the ALS start, an ALS iteration, the epoch step
+
+
+def _sofia_data(name: str):
+    """(y, mask, truth, period): taxi with 10% missing, highway fully observed."""
+    if name == "taxi":
+        x, mask, y, _prov = _taxi()
+    else:
+        x_np, _spec, _prov = load_dataset(name)
+        x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+        mask, y = torch.ones_like(x, dtype=torch.bool), x
+    return y, mask, x, load_dataset(name)[1].sofia_period
+
+
+def _sofia_init_route(name: str, graphs: bool, dtype=torch.float32) -> dict:
+    """sofia_init's device form at a dataset, SOFIA_PRESET, its epochs, from
+    a seeded uniform init, on one route, watched (`_watched`)."""
+    from tritd_tpu_torch.baselines import sofia
+
+    y, mask, x, m = _sofia_data(name)
+    p = SOFIA_PRESET
+    init = tuple(torch.rand((n, p.rank), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+                 for n in y.shape)
+    return _watched(lambda: sofia._init_run(y.to(dtype), mask, p.rank, m, p.lambda1, p.lambda2, p.lambda3,
+                                            x.to(dtype), SOFIA_EPOCHS[name], p.tol, 300, None, init, graphs))
+
+
+def _same_sofia(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_sofia(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or a is None:
+        return (a is None and b is None) or np.array_equal(a, b, equal_nan=True)
+    return _same_bits(a, b)
+
+
+def phase24() -> dict:
+    """SOFIA's three device loops (the ALS and epoch while_loops of
+    sofia_init and the stream's scan) on the CUDA graph route against the
+    same device programs without graphs; returns the main path's launches
+    of each SOFIA kernel, by (name, dtype tag)."""
+    from tritd_tpu_torch.baselines import sofia
+
+    p = SOFIA_PRESET
+    counts = hopper_kernels.SOFIA_LAUNCHES
+    y, mask, x, m = _sofia_data("taxi")
+    init = tuple(torch.rand((n, p.rank), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+                 for n in y.shape)
+    kw = dict(r=p.rank, m=m, lam1=p.lambda1, lam2=p.lambda2, lam3=p.lambda3, tol=p.tol, u_init=init)
+    # the main path: the public entry point on its graph route, float32
+    # (10 epochs) and float64 (2), the counts zeroed just before
+    for key in counts:
+        counts[key] = 0
+    main = sofia.sofia_init(y, mask, origin=x, max_epoch=SOFIA_EPOCHS["taxi"], **kw)
+    sofia.sofia_init(y.double(), mask, origin=x.double(), max_epoch=2, dtype=torch.float64, **kw)
+    launches = {(key.split("[")[0], key.split("[")[1][:-1]): n for key, n in counts.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"phase24: a SOFIA kernel was not launched on the main path: {launches}")
+    print(f"phase24 main path: sofia_init taxi f32 ({len(main[3])} epochs) and f64 (2 epochs) on the graph "
+          f"route: launches {counts}", flush=True)
+
+    for name in ("taxi", "highway"):
+        runs = {}
+        for turn, graphs in enumerate((True, False, False, True)):
+            runs.setdefault(graphs, []).append(_sofia_init_route(name, graphs))
+        graph, eager = runs[True], runs[False]
+        for r_ in (*graph[1:], *eager):
+            if not _same_sofia(r_["res"], graph[0]["res"]):
+                raise AssertionError(f"phase24 sofia_init {name}: the routes' factors, X, O or err_hist differ")
+        if name == "taxi" and not _same_sofia(graph[0]["res"], main):
+            raise AssertionError("phase24 sofia_init taxi: the device form differs from the public entry point")
+        n_ep = len(graph[0]["res"][3])
+        for g in graph:
+            if g["graphs"] > SOFIA_CAPTURES:
+                raise AssertionError(f"phase24 sofia_init {name}: {g['graphs']} captures, at most {SOFIA_CAPTURES}")
+        print(f"phase24 sofia_init {name} ({n_ep} epochs, r={p.rank}, m={_sofia_data(name)[3]}): graph route "
+              f"bitwise the route without graphs (factors, X, O, err_hist; 2 runs each); graph "
+              f"{[round(g['ms'] / n_ep, 3) for g in graph]} ms an epoch ({graph[0]['graphs']} captures a call, "
+              f"{graph[-1]['syncs']} synchronizing calls, {graph[-1]['before_replays_ms']:.2f} ms to the first replay, "
+              f"{graph[-1]['capture_host_ms']:.2f} ms of it the captures' host time), eager "
+              f"{[round(e['ms'] / n_ep, 3) for e in eager]} ms an epoch ({eager[-1]['syncs']} synchronizing calls); "
+              f"peak {graph[-1]['peak_mib']:.1f} / {eager[-1]['peak_mib']:.1f} MiB; err_hist "
+              f"{np.round(graph[0]['res'][3], 6).tolist()} ({CARD[0]})", flush=True)
+
+    # an ALS iteration, the loop alone (tol 0)
+    u = tuple(torch.as_tensor(v, device="cuda").float() for v in init)
+    als = {g: [_watched(lambda g=g: sofia._als_loop(y, mask, *u, m, p.lambda1, p.lambda2, SOFIA_ALS_ITERS, 0.0,
+                                                    graphs=g)) for _ in range(2)] for g in (True, False)}
+    if not all(_same_sofia(r_["res"], als[True][0]["res"]) for r_ in (*als[True], *als[False])):
+        raise AssertionError("phase24 sofia ALS loop: the routes differ")
+    print(f"phase24 sofia ALS loop taxi, {SOFIA_ALS_ITERS} iterations, tol 0: graph "
+          f"{[round(r_['ms'] / SOFIA_ALS_ITERS, 4) for r_ in als[True]]} ms an iteration "
+          f"({_split_text(als[True][-1], SOFIA_ALS_ITERS - 1)}, {als[True][-1]['syncs']} synchronizing calls), eager "
+          f"{[round(r_['ms'] / SOFIA_ALS_ITERS, 4) for r_ in als[False]]} ({als[False][-1]['syncs']} synchronizing "
+          f"calls), bitwise", flush=True)
+
+    # the stream at taxi, both routes; its scan timed apart
+    frames = []
+    scan = sofia._stream_scan
+
+    def timed_scan(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scan(*args)
+        end.record()
+        end.synchronize()
+        frames.append((start.elapsed_time(end), args[0].shape[0]))
+        return out
+
+    x_np, _spec, _prov = load_dataset("taxi")
+    mask_np = mask.cpu().numpy()
+    sofia._stream_scan = timed_scan
+    try:
+        streams = [sofia._stream_device_run(x_np, mask_np, p.rank, m, 3, p.lambda1, p.lambda2, p.lambda3, 0.1, 0.05,
+                                            p.max_epoch, 1e-3, True, torch.Generator().manual_seed(0),
+                                            torch.float32, torch.device("cuda"), graphs)
+                   for graphs in (True, False, False, True)]
+    finally:
+        sofia._stream_scan = scan
+    if not all(_same_sofia(s_, streams[0]) for s_ in streams[1:]):
+        raise AssertionError("phase24 sofia_stream_device taxi: the routes differ")
+    w = streams[0][1]
+    if not np.isfinite(w).all() or not np.isfinite(streams[0][2]).all():
+        raise AssertionError("phase24 sofia_stream_device taxi: non-finite output")
+    per = [ms / n for ms, n in frames]
+    print(f"phase24 sofia_stream_device taxi (m={m}, {frames[0][1]} streamed frames after {3 * m} of batch init): "
+          f"graph route bitwise the route without graphs (4 runs); ms a frame graph {per[0]:.4f}, {per[3]:.4f}, "
+          f"eager {per[1]:.4f}, {per[2]:.4f} (events around the scan) ({CARD[0]})", flush=True)
+
+    # float32 on the card against float64 on the CPU
+    p32 = sofia._init_run(y, mask, p.rank, m, p.lambda1, p.lambda2, p.lambda3, x, SOFIA_EPOCHS["taxi"], p.tol, 300,
+                          None, init, True)
+    p64 = sofia._init_run(y.double().cpu(), mask.cpu(), p.rank, m, p.lambda1, p.lambda2, p.lambda3, x.double().cpu(),
+                          SOFIA_EPOCHS["taxi"], p.tol, 300, None, init, False)
+    np.testing.assert_allclose(p32[3], p64[3], rtol=SOFIA_INIT_RTOL)
+    print(f"phase24 sofia_init taxi f32 card vs f64 CPU: err_hist max rel diff "
+          f"{np.max(np.abs(p32[3] - p64[3]) / np.abs(p64[3])):.3e} over {len(p64[3])} epochs (rtol {SOFIA_INIT_RTOL})")
+    _sofia_sweep_and_stream_against_the_cpu()
+    return launches
+
+
+def _sofia_sweep_and_stream_against_the_cpu() -> None:
+    """The Gauss-Seidel sweep over taxi's 500 time rows and the stream over
+    100x100 frames, float32 on the card against the same code in float64
+    on the CPU."""
+    from tritd_tpu_torch.baselines import sofia
+
+    gen = torch.Generator().manual_seed(9)
+    n3, r, m = 500, 3, 7
+    half = torch.randn((n3, r, 4), generator=gen, dtype=torch.float64)
+    args = (torch.randn((n3, r), generator=gen, dtype=torch.float64),
+            torch.randn((n3, r), generator=gen, dtype=torch.float64), half @ half.transpose(1, 2))
+    want = sofia._mode3_gauss_seidel(*args, 0.1, 0.001, m)
+    got = sofia._mode3_gauss_seidel(*[a.float().cuda() for a in args], 0.1, 0.001, m)
+    rtol, atol = SOFIA_SWEEP_TOL
+    torch.testing.assert_close(got.cpu().double(), want, rtol=rtol, atol=atol)
+    print(f"phase24 sofia gauss-seidel sweep n3={n3} r={r} m={m}: f32 card vs f64 CPU within rtol {rtol}, atol {atol}")
+
+    n, frames = 100, 50
+    u1, u2 = (torch.linalg.qr(torch.randn((n, r), generator=gen, dtype=torch.float64))[0] for _ in range(2))
+    w = 5.0 + torch.rand((frames + m, r), generator=gen, dtype=torch.float64)
+    y = torch.einsum("ir,jr,tr->tij", u1, u2, w[m:]) + 0.01 * torch.randn((frames, n, n), generator=gen,
+                                                                           dtype=torch.float64)
+    omega = (torch.rand((frames, n, n), generator=gen) > 0.1).double()
+    state = (y, omega, u1, u2, w[:m], w[m - 1], torch.zeros(r, dtype=torch.float64),
+             torch.zeros((m, r), dtype=torch.float64), torch.full((3, r), 0.1, dtype=torch.float64),
+             torch.full((n, n), 0.1, dtype=torch.float64))
+    rest = (m, 0.1, 0.001, 0.1, 0.05, True)
+    want = sofia._stream_scan(*state, *rest, False)
+    got = sofia._stream_scan(*[a.float().cuda() for a in state], *rest, True)
+    scale = float(want[3].abs().max())
+    for name, g, w_ in zip(("u1", "u2", "W", "X_hat", "O"), got, want):
+        torch.testing.assert_close(g.cpu().double(), w_, rtol=SOFIA_STREAM_RTOL, atol=SOFIA_STREAM_RTOL * scale,
+                                   msg=lambda s_, n_=name: f"{n_}: {s_}")
+    print(f"phase24 sofia stream {n}x{n} r={r} m={m}, {frames} frames: f32 card (graph route) vs f64 CPU within rtol "
+          f"{SOFIA_STREAM_RTOL}, atol {SOFIA_STREAM_RTOL} max|X|")
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -3559,7 +3896,7 @@ def _source_of() -> dict:
     return where
 
 
-def _timed(n: int, phase):
+def _timed(n, phase):
     t0 = time.perf_counter()
     out = phase()
     print(f"phase{n} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3578,11 +3915,14 @@ def _main() -> None:
     device = phase0()
     phase1()
     records = _timed(2, phase2)
-    launches = _timed(3, phase3)
+    launches, phase3_checks = _timed(3, phase3)
     _timed(4, phase4)
     for variant, count in _timed(5, phase5).items():
         launches[variant] = launches.get(variant, 0) + count
-    for n, phase in ((6, phase6), (7, phase7), (8, phase8), (9, phase9), (10, phase10), (11, phase11)):
+    for n, phase in ((6, phase6), (7, phase7), (8, phase8)):
+        _timed(n, phase)
+    sofia_records = _timed(9, phase9)
+    for n, phase in ((10, phase10), (11, phase11)):
         _timed(n, phase)
     for variant, count in _timed(12, phase12).items():
         launches[variant] = launches.get(variant, 0) + count
@@ -3597,6 +3937,9 @@ def _main() -> None:
     _timed(21, phase21)
     batch_launches = _timed(22, phase22)
     _timed(23, phase23)
+    sofia_launches = _timed(24, phase24)
+    # phase 3's CPU references ran in worker processes through phases 4-24
+    _timed("3 checks", phase3_checks)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:
@@ -3613,7 +3956,15 @@ def _main() -> None:
         "pointer_launches": POINTER_ON_MAIN_PATH.get(variant, 0),
         "batch_launches": batch_launches.get(variant, 0),
         **record,
-    } for variant, record in records.items()]}))
+    } for variant, record in records.items()] + [{
+        "name": name,
+        "variant": tag,
+        "route": "cuda",
+        "source": "tritd_tpu_torch/csrc/sofia_kernels.cu",
+        "replaces": SOFIA_REPLACES[name],
+        "launches": sofia_launches[name, tag],
+        **record,
+    } for (name, tag), record in sofia_records.items()]}))
     print(json.dumps({"ok": True, "device": device}))
 
 

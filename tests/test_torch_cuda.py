@@ -53,7 +53,12 @@ synchronizing call a segment, the saves apart), `tritd_admm_outlier` and
 `tritd_als` (a read of the stop flag after each iteration short of
 max_iter and one at the end), `tritd_mals` (one synchronizing call). The
 solve methods "pinv" and "lstsq" take the eager loop on the card: their
-torch forms cannot be captured (a subprocess shows the capture raising)."""
+torch forms cannot be captured (a subprocess shows the capture raising).
+SOFIA's two kernels (`ops/sofia_kernels.py`) against their plain versions:
+the row pinv within 64 r eps times each gram's condition of its row's
+scale (two backward-stable solves of one system), an all-zero gram's row
+exactly zero; the sweep within 256 eps of its largest value. SOFIA's loops
+on the graph route bitwise their device programs without graphs."""
 
 import contextlib
 import dataclasses
@@ -1099,3 +1104,95 @@ def test_uncaptured_methods_take_the_eager_loop_on_the_card(cuda_device, tmp_pat
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, timeout=300)
     assert proc.returncode != 0 and "captur" in proc.stderr, proc.stderr[-2000:]
 
+
+
+# --- SOFIA's kernels and device loops ---------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("r", [1, 3, 8, 32])
+def test_sofia_kernels_match_their_plain_versions(cuda_device, dtype, r):
+    """pinv_rows within 64 r eps times each gram's condition of its row's
+    scale of torch's pinv, an all-zero gram's row exactly zero; the sweep
+    within 256 eps of its largest value of the row loop; one launch each;
+    a rank past the limit raises."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    g = torch.Generator().manual_seed(r)
+    a = torch.randn((40, r, r), generator=g, dtype=torch.float64)
+    gram = a @ a.transpose(1, 2) + 0.1 * torch.eye(r, dtype=torch.float64)
+    gram[0] = 0.0
+    gram[1] = torch.outer(a[1, 0], a[1, 0])
+    rhs = torch.randn((40, r), generator=g, dtype=torch.float64)
+    gram, rhs = gram.to(cuda_device, dtype), rhs.to(cuda_device, dtype)
+    eps = torch.finfo(dtype).eps
+    rtol = 10.0 * r * eps
+    hopper_kernels.reset_launch_counts()
+    got = sofia_kernels.pinv_rows(rhs, gram, rtol)
+    want = sofia_kernels.pinv_rows_torch(rhs, gram, rtol)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert hopper_kernels.SOFIA_LAUNCHES[f"pinv_rows[{tag}]"] == 1
+    assert torch.equal(got[0], torch.zeros_like(got[0])) and torch.isfinite(got).all()
+    lam = torch.linalg.eigvalsh(gram.double()).abs()
+    kept = torch.where(lam > rtol * lam.amax(-1, keepdim=True), lam, torch.full_like(lam, float("inf")))
+    cond = torch.where(torch.isfinite(kept.amin(-1)), lam.amax(-1) / kept.amin(-1), torch.ones_like(lam[:, 0]))
+    err = (got - want).abs().amax(-1).double()
+    assert (err <= 64 * r * eps * cond * want.abs().amax(-1).double()).all()
+    n3, m = 300, 7
+    rhs0 = torch.randn((n3, r), generator=g, dtype=torch.float64)
+    b = torch.randn((n3, r, r), generator=g, dtype=torch.float64)
+    inv = torch.linalg.inv(b @ b.transpose(1, 2) + 2.0 * torch.eye(r, dtype=torch.float64)).contiguous()
+    rhs0, inv = rhs0.to(cuda_device, dtype), inv.to(cuda_device, dtype)
+    got = sofia_kernels.gauss_seidel_sweep(rhs0, inv, 0.1, 0.001, m)
+    want = sofia_kernels.gauss_seidel_sweep_torch(rhs0, inv, 0.1, 0.001, m)
+    assert hopper_kernels.SOFIA_LAUNCHES[f"gauss_seidel_sweep[{tag}]"] == 1
+    assert float((got - want).abs().max()) <= 256 * eps * float(want.abs().max())
+    too_wide = sofia_kernels.MAX_RANK + 1
+    with pytest.raises(ValueError, match=f"ranks 1 to {sofia_kernels.MAX_RANK}"):
+        sofia_kernels.pinv_rows(torch.zeros((2, too_wide), device=cuda_device, dtype=dtype),
+                                torch.zeros((2, too_wide, too_wide), device=cuda_device, dtype=dtype), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [7, 1], ids=["traffic", "video_m1"])
+def test_sofia_graph_routes_are_their_device_forms_bitwise(cuda_device, monkeypatch, m):
+    """sofia_init (at most three captures a call: the ALS start, an ALS
+    iteration, the epoch step), the ALS loop alone (one capture) and the
+    stream (one capture) on the graph route: bitwise the same device
+    programs without graphs; the public entry points take the graph route
+    on the card."""
+    from tritd_tpu_torch.baselines import sofia
+
+    spec = DatasetSpec("tiny", "traffic", "T", (16, 14, 28), sofia_period=m)
+    x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(3))).float().to(cuda_device)
+    mask = torch.from_numpy(np.random.default_rng(4).random(spec.shape) > 0.1).to(cuda_device)
+    init = tuple(torch.rand((n, 3), generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+                 for n in spec.shape)
+    args = (x, mask, 3, m, 0.1, 0.001, 10.0, x, 6, 0.0, 300, None, init)
+    with _watch(monkeypatch) as seen:
+        graph = sofia._init_run(*args, True)
+    eager = sofia._init_run(*args, False)
+    public = sofia.sofia_init(x, mask, 3, m, origin=x, max_epoch=6, tol=0.0, u_init=init)
+    assert 1 <= seen["graphs"] <= 3 and len(graph[3]) == 6
+    for got in (eager, public):
+        for a, b in zip((*graph[0], graph[1], graph[2]), (*got[0], got[1], got[2])):
+            assert torch.equal(a, b)
+        assert np.array_equal(graph[3], got[3])
+    u = tuple(v.to(cuda_device).float() for v in init)
+    with _watch(monkeypatch) as seen:
+        als_graph = sofia._als_loop(x, mask, *u, m, 0.1, 0.001, 12, 0.0, graphs=True)
+    assert seen["graphs"] == 1
+    for a, b in zip(als_graph, sofia._als_loop(x, mask, *u, m, 0.1, 0.001, 12, 0.0, graphs=False)):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(5)
+    n1, n2, r, frames = 16, 14, 3, 20
+    state = tuple(torch.from_numpy(v).float().to(cuda_device) for v in (
+        rng.random((frames, n1, n2)), (rng.random((frames, n1, n2)) > 0.1).astype(np.float64), rng.random((n1, r)),
+        rng.random((n2, r)), rng.random((m, r)) + 1.0, rng.random(r) + 1.0, 0.01 * rng.random(r),
+        0.1 * rng.random((m, r)), np.full((3, r), 0.2), np.full((n1, n2), 0.1)))
+    with _watch(monkeypatch) as seen:
+        stream = sofia._stream_scan(*state, m, 0.1, 0.001, 0.1, 0.05, True, True)
+    assert seen["graphs"] == 1 and seen["syncs"] == 1  # the frame counter, read at the end
+    for a, b in zip(stream, sofia._stream_scan(*state, m, 0.1, 0.001, 0.1, 0.05, True, False)):
+        assert torch.equal(a, b)

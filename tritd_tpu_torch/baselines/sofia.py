@@ -24,18 +24,28 @@ Three phases:
      the stream in numpy on the host and is the oracle of
      `sofia_stream_device`, which runs it in tensors on a device.
 
-The ALS stop (fit change) and the epoch stop (relative change) are read on
-the host once per ALS iteration and once per epoch.
+The three loops run as the reference's device loops do: the ALS
+`while_loop` (`_Als`), the epoch `while_loop` (`_Epochs`) and the stream's
+`scan` (`_Stream`), each iteration, epoch step or frame a device program of
+`solvers.admm._DeviceLoop`/`_Stepper` with its counter, flags and scalars
+on the device. On the card each program is a CUDA graph, captured once a
+call and replayed (`_graph_route`), and the host reads the ALS stop flag
+once an ALS iteration and the epoch's once an epoch, the stream nothing
+before its end; the row pinv and the Gauss-Seidel sweep are the two kernels
+of `ops/sofia_kernels.py`. The CPU runs the same programs without graphs.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..ops import sofia_kernels
 from ..ops.kruskal import input_device, solver_input
 from ..ops.shrinkage import soft_threshold
-from .penalty import host_scalar_type
+from ..solvers import admm
 
 
 def _normalize_into_last(us: list, eps: float = 1e-30):
@@ -70,17 +80,18 @@ def _masked_row_systems(y, omega, wkr):
 
 
 def _pinv_rows(rhs, gram):
-    """row_i <- rhs_i @ pinv(gram_i) (the reference's per-row pinv solve).
+    """row_i <- rhs_i @ pinv(gram_i) (the reference's per-row pinv solve),
+    one launch of the `pinv_rows` kernel on the card, torch's SVD pinv on
+    the CPU (`ops/sofia_kernels.py`).
 
-    Kept as true SVD pinv: the mode-1/2 masked Grams carry no Tikhonov
+    Kept a true pinv: the mode-1/2 masked Grams carry no Tikhonov
     diagonal, so an all-missing (or degenerate) slice is genuinely singular
     and the reference's min-norm behavior must be preserved, with the
     reference's cut-off 10 * r * eps (torch's default is ten times
     smaller). The mode-3 batch uses the SPD closed form below instead (its
     systems are provably PD)."""
     r = gram.shape[-1]
-    pinv = torch.linalg.pinv(gram, rtol=10.0 * r * torch.finfo(gram.dtype).eps)
-    return (rhs[:, None, :] @ pinv)[:, 0, :]
+    return sofia_kernels.pinv_rows(rhs, gram, 10.0 * r * torch.finfo(gram.dtype).eps)
 
 
 def _spd_inverse(mats: torch.Tensor) -> torch.Tensor:
@@ -90,7 +101,9 @@ def _spd_inverse(mats: torch.Tensor) -> torch.Tensor:
     lambda1 > 0, so pinv == inv exactly (no singular-value truncation can
     trigger); the closed adjugate form for r <= 3 is then equivalent to the
     reference's pinv up to rounding, in a few elementwise operations. r > 3
-    goes through a Cholesky factorization."""
+    goes through a Cholesky factorization, `cholesky_ex`, which reads
+    nothing back to the host: a matrix it cannot factor comes out NaN, as
+    the reference's does."""
     r = mats.shape[-1]
     if r == 1:
         return 1.0 / mats
@@ -122,7 +135,9 @@ def _spd_inverse(mats: torch.Tensor) -> torch.Tensor:
             -1,
         ).reshape(a.shape)
         return adj / det[..., None, None]
-    return torch.cholesky_inverse(torch.linalg.cholesky(a))
+    low, info = torch.linalg.cholesky_ex(a)
+    low = torch.where((info > 0)[..., None, None], torch.full_like(low, math.nan), low)
+    return torch.cholesky_inverse(low)
 
 
 def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
@@ -139,10 +154,17 @@ def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
     * reads of NOT-yet-updated rows (t+1, t+m) are reads of the INPUT
       state, folded into rhs0 for all rows at once;
     * reads of already-updated rows (t-1, t-m) are rows of the output
-      written so far.
+      written so far: the sweep itself, one launch of the
+      `gauss_seidel_sweep` kernel on the card (a row loop on the CPU,
+      `ops/sofia_kernels.py`)."""
+    rhs0, inv_all = _mode3_systems(u3, rhs_base, gram_base, lam1, lam2, m)
+    return sofia_kernels.gauss_seidel_sweep(rhs0, inv_all, lam1, lam2, m)
 
-    A step is then two scaled adds of r-vectors and one r x r product,
-    each a launch of its own on a device: the sweep is bound by launches."""
+
+def _mode3_systems(u3, rhs_base, gram_base, lam1, lam2, m):
+    """The sweep's inputs (`_mode3_gauss_seidel`): each row's right-hand
+    side with the old rows t+1, t+m folded in, and the inverse of its
+    system, both contiguous."""
     n3, r = u3.shape
     dtype, device = u3.dtype, u3.device
     eye = torch.eye(r, dtype=dtype, device=device)
@@ -162,15 +184,7 @@ def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
         + lam1 * has_next[:, None] * torch.roll(u3, -1, dims=0)
         + lam2 * use_fwd[:, None] * torch.roll(u3, -m, dims=0)
     )
-    out = torch.empty_like(u3)
-    for t in range(n3):
-        rhs = rhs0[t]
-        if t > 0:
-            rhs = torch.add(rhs, out[t - 1], alpha=lam1)
-        if t >= m:
-            rhs = torch.add(rhs, out[t - m], alpha=lam2)
-        out[t] = rhs @ inv_all[t]
-    return out
+    return rhs0.contiguous(), inv_all.contiguous()
 
 
 def _recon(u1, u2, u3):
@@ -179,50 +193,195 @@ def _recon(u1, u2, u3):
     return (_khatri_rao(u1, u2).reshape(n1 * n2, -1) @ u3.T).reshape(n1, n2, n3)
 
 
-def _als_loop(y, omega, u1, u2, u3, m, lam1, lam2, max_iters, fitchangetol):
-    """The masked CP-ALS loop, shared by `sofia_als` and `sofia_init`."""
-    y = torch.where(omega, y, torch.zeros_like(y))
-    omega_f = omega.to(y.dtype)
-    norm_y = torch.linalg.vector_norm(y)
-    u1, u2, u3 = _normalize_into_last([u1, u2, u3])
-    y2, omega2 = y.transpose(0, 1), omega_f.transpose(0, 1)
-    y3, omega3 = torch.movedim(y, 2, 0), torch.movedim(omega_f, 2, 0)
+def _graph_route(device: torch.device, r: int) -> bool:
+    """Whether SOFIA's loops replay CUDA graphs: on a CUDA device, for r <=
+    3. A larger rank inverts its mode-3 systems by torch's batched
+    Cholesky, which cannot be captured under its default back end on the
+    card (`solvers/admm.py` `run_admm_batch`): it runs the same device
+    form without graphs."""
+    return device.type == "cuda" and r <= 3
 
-    def fit_of(u1, u2, u3):
-        return float(1.0 - torch.linalg.vector_norm(omega_f * (y - _recon(u1, u2, u3))) / norm_y)
 
-    fit = fit_of(u1, u2, u3)
-    it, done = 0, False
-    while it < max_iters and not done:
+def _fit_stop(k, fit, fit_new, tol: float):
+    """The ALS stop, `(k >= 1) & (|fit - fit_new| < tol)`, on the device in
+    the fits' dtype, as the reference computes it (tol rounded to that
+    dtype, as a weakly typed constant is)."""
+    return (k >= 1) & (torch.abs(fit - fit_new) < tol)
+
+
+class _Als:
+    """The masked smoothed CP-ALS loop of `sofia_als.m:51-140` in its device
+    form, the reference's `lax.while_loop` (`tritd_tpu/baselines/sofia.py
+    :_als_loop`): the data in fixed buffers (the zero-filled data laid out
+    for each mode, its norm, the mask), the carry (u1, u2, u3, the fit, the
+    0-d counter k, the flag done) in tensors that each iteration writes in
+    place, one iteration a block of `admm._DeviceLoop`, whose graph (with
+    `graphs`) is kept across :meth:`start` calls, as `sofia_init` starts the
+    loop anew in each epoch. :meth:`start` is a device program of its own:
+    the data from `y` (the mask applied), the factors normalized, the first
+    fit. The host reads the flag after each iteration short of the cap, and
+    nothing else: the counter is checked by the caller (:meth:`check`)."""
+
+    def __init__(self, omega, u, m, lam1, lam2, max_iters, fitchangetol, graphs: bool):
+        self.omega = omega
+        self.omega_f = omega.to(u[0].dtype)
+        self.om2 = self.omega_f.transpose(0, 1).contiguous()
+        self.om3 = torch.movedim(self.omega_f, 2, 0).contiguous()
+        shape = tuple(omega.shape)
+        dtype, device = u[0].dtype, u[0].device
+        self.y = torch.zeros(shape, dtype=dtype, device=device)
+        self.y2 = torch.zeros_like(self.om2)
+        self.y3 = torch.zeros_like(self.om3)
+        self.norm_y = torch.zeros((), dtype=dtype, device=device)
+        self.m, self.lam1, self.lam2, self.tol = int(m), float(lam1), float(lam2), float(fitchangetol)
+        carry = dict(u1=u[0].clone(), u2=u[1].clone(), u3=u[2].clone(), fit=torch.zeros((), dtype=dtype, device=device),
+                     k=torch.zeros((), dtype=torch.int64, device=device),
+                     done=torch.zeros((), dtype=torch.bool, device=device))
+        self.loop = _AlsLoop(lambda c, _data, _out: self._iteration(c), carry, (), int(max_iters), device, graphs)
+        self.stepper = self.loop.stepper  # one side stream and pool for the caller's programs too
+
+    @property
+    def carry(self) -> dict:
+        return self.loop.carry
+
+    def _fit(self, u1, u2, u3):
+        return 1.0 - torch.linalg.vector_norm(self.omega_f * (self.y - _recon(u1, u2, u3))) / self.norm_y
+
+    def _prologue(self, y_of) -> None:
+        y = y_of()
+        ya = torch.where(self.omega, y, torch.zeros_like(y))
+        self.y.copy_(ya)
+        self.y2.copy_(ya.transpose(0, 1))
+        self.y3.copy_(torch.movedim(ya, 2, 0))
+        self.norm_y.copy_(torch.linalg.vector_norm(ya))
+        c = self.carry
+        us = _normalize_into_last([c["u1"], c["u2"], c["u3"]])
+        for f, u in zip(("u1", "u2", "u3"), us):
+            c[f].copy_(u)
+        c["fit"].copy_(self._fit(*us))
+
+    def _iteration(self, carry: dict) -> dict:
+        u2, u3 = carry["u2"], carry["u3"]
         # Mode 1
-        rhs, gram = _masked_row_systems(y, omega_f, _khatri_rao(u2, u3))
+        rhs, gram = _masked_row_systems(self.y, self.omega_f, _khatri_rao(u2, u3))
         u1 = _pinv_rows(rhs, gram)
         u1, u3 = _normalize_into_last([u1, u3])
         # Mode 2
-        rhs, gram = _masked_row_systems(y2, omega2, _khatri_rao(u1, u3))
+        rhs, gram = _masked_row_systems(self.y2, self.om2, _khatri_rao(u1, u3))
         u2 = _pinv_rows(rhs, gram)
         u2, u3 = _normalize_into_last([u2, u3])
         # Mode 3 (temporal, Gauss-Seidel)
-        rhs_base, gram_base = _masked_row_systems(y3, omega3, _khatri_rao(u1, u2))
-        u3 = _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m)
+        rhs_base, gram_base = _masked_row_systems(self.y3, self.om3, _khatri_rao(u1, u2))
+        u3 = _mode3_gauss_seidel(u3, rhs_base, gram_base, self.lam1, self.lam2, self.m)
+        fit_new = self._fit(u1, u2, u3)
+        k = carry["k"]
+        return dict(u1=u1, u2=u2, u3=u3, fit=fit_new, k=k + 1, done=_fit_stop(k, carry["fit"], fit_new, self.tol))
 
-        fit_new = fit_of(u1, u2, u3)
-        done = it >= 1 and abs(fit - fit_new) < fitchangetol
-        fit = fit_new
-        it += 1
-    return u1, u2, u3, _recon(u1, u2, u3)
+    def start(self, y_of) -> None:
+        """The loop anew from the factors in the carry, on the data that
+        `y_of()` makes inside the start's program (from tensors that outlive
+        its graph)."""
+        self.stepper.run(lambda: self._prologue(y_of), "als start")
+        if self.loop.n_done:
+            self.loop.restart()
+
+    def run(self) -> int:
+        """Iterates to the cap or the stop; returns the iterations run."""
+        self.loop.advance(self.loop.max_iter)
+        return self.loop.k
+
+    def check(self, counted: torch.Tensor, want: int) -> None:
+        """One read: a device counter of iterations against the host's."""
+        got = int(counted)
+        if got != want:
+            raise AssertionError(f"the ALS counter on the device reads {got} after {want} iterations")
+
+
+class _AlsLoop(admm._DeviceLoop):
+    """`admm._DeviceLoop` whose :meth:`advance` reads nothing at its end:
+    `_Als.check` compares the counter once a call."""
+
+    def _result(self):
+        return self.carry
+
+
+def _als_loop(y, omega, u1, u2, u3, m, lam1, lam2, max_iters, fitchangetol, graphs: bool = False):
+    """The masked CP-ALS loop from (u1, u2, u3) on `y`, in its device form
+    (`_Als`); returns (u1, u2, u3, X_hat)."""
+    als = _Als(omega, (u1, u2, u3), m, lam1, lam2, max_iters, fitchangetol, graphs)
+    with als.stepper.segment():
+        als.start(lambda: y)
+        n = als.run()
+    als.check(als.carry["k"], n)
+    c = als.carry
+    return c["u1"], c["u2"], c["u3"], _recon(c["u1"], c["u2"], c["u3"])
 
 
 def sofia_als(y, omega, r, m, lam1, lam2, u_init, max_iters=300, fitchangetol=1e-3, device=None):
     """One masked smoothed CP-ALS solve. u_init = (u1, u2, u3). Returns
     (u1, u2, u3, X_hat), on the device of `y`: a tensor's unless `device`
     names another; the card for numpy (`RuntimeError` without CUDA;
-    `device="cpu"` for the plain path). `omega` and `u_init` follow `y`."""
+    `device="cpu"` for the plain path). `omega` and `u_init` follow `y`.
+    On the card the loop replays a CUDA graph an iteration (`_Als`)."""
     y = solver_input(y, device=device)
     omega = solver_input(omega, torch.bool, y.device)
     u1, u2, u3 = (torch.as_tensor(u, dtype=y.dtype, device=y.device) for u in u_init)
-    return _als_loop(y, omega, u1, u2, u3, int(m), float(lam1), float(lam2),
-                     int(max_iters), float(fitchangetol))
+    return _als_loop(y, omega, u1, u2, u3, int(m), float(lam1), float(lam2), int(max_iters), float(fitchangetol),
+                     _graph_route(y.device, u1.shape[1]))
+
+
+class _Epochs:
+    """The epoch loop of `sofia_init.m:60-101` in its device form, the
+    reference's `_sofia_init_epochs` `while_loop`: each epoch starts the ALS
+    loop (`_Als`) on Y - O, runs it to its stop, then one device program
+    makes X, peels O = soft(Y - X, lam3), anneals lam3 (a 0-d tensor in the
+    run's dtype: max(0.85 lam3, lam3_init / 100)), writes err_hist at the
+    device's epoch counter and the epoch's stop flag (rel < tol after the
+    first epoch). With `graphs` the ALS start, an ALS iteration and the
+    epoch step are three graphs, captured once a call and replayed; the
+    host reads the ALS flag after each ALS iteration and the epoch flag
+    after each epoch but the first."""
+
+    def __init__(self, y, omega, u, origin, m, lam1, lam2, lam3, max_epoch, tol, als_max_iters, graphs: bool):
+        self.y, self.origin, self.tol = y, origin, float(tol)
+        self.als = _Als(omega, u, m, lam1, lam2, als_max_iters, 1e-3, graphs)
+        self.stepper = self.als.stepper
+        dtype, device = y.dtype, y.device
+        scalar = lambda v, dt=dtype: torch.full((), v, dtype=dt, device=device)  # noqa: E731
+        self.norm_origin = None if origin is None else torch.linalg.vector_norm(origin)
+        self.o, self.x = torch.zeros_like(y), torch.zeros_like(y)
+        self.lam3, self.lam3_floor = scalar(lam3), scalar(lam3 / 100.0)
+        self.err_hist = torch.full((max_epoch,), float("nan"), dtype=dtype, device=device)
+        self.epoch, self.als_total = scalar(0, torch.int64), scalar(0, torch.int64)
+        self.done = scalar(False, torch.bool)
+
+    def _step(self) -> None:
+        c = self.als.carry
+        x_new = _recon(c["u1"], c["u2"], c["u3"])
+        self.o.copy_(soft_threshold(self.y - x_new, self.lam3))
+        self.lam3.copy_(torch.maximum(self.lam3 * 0.85, self.lam3_floor))
+        at = self.epoch.reshape(1)
+        if self.origin is not None:
+            self.err_hist.index_copy_(0, at, (torch.linalg.vector_norm(self.origin - x_new) / self.norm_origin)[None])
+        rel = torch.linalg.vector_norm(self.x - x_new) / torch.clamp(torch.linalg.vector_norm(self.x), min=1e-30)
+        self.done.copy_((self.epoch > 0) & (rel < self.tol))
+        self.x.copy_(x_new)
+        self.als_total.add_(c["k"])
+        self.epoch.add_(1)
+
+    def run(self, max_epoch: int) -> int:
+        """Runs the epochs; returns how many ran."""
+        als_iters = n_epochs = 0
+        with self.stepper.segment():
+            for epoch in range(max_epoch):
+                self.als.start(lambda: self.y - self.o)
+                als_iters += self.als.run()
+                self.stepper.run(self._step, "epoch step")
+                n_epochs = epoch + 1
+                if epoch > 0 and bool(self.done):
+                    break
+        self.als.check(self.als_total, als_iters)
+        return n_epochs
 
 
 def sofia_init(
@@ -249,43 +408,34 @@ def sofia_init(
     True=observed. Factor init is uniform [0, 1) (`rand`,
     `sofia_init.m:46`), drawn on the CPU from `generator` (default seed 0),
     unless an explicit `u_init=(u1, u2, u3)` is given (a parity harness
-    hands both sides identical inits that way)."""
+    hands both sides identical inits that way). On the card the epochs and
+    the ALS iterations replay CUDA graphs (`_Epochs`)."""
     y = solver_input(y, dtype, device)
-    device = y.device
+    return _init_run(y, omega, r, m, lam1, lam2, lam3, origin, max_epoch, tol, als_max_iters, generator, u_init,
+                     _graph_route(y.device, r))
+
+
+def _init_run(y, omega, r, m, lam1, lam2, lam3, origin, max_epoch, tol, als_max_iters, generator, u_init,
+              graphs: bool):
+    """`sofia_init` on a tensor `y` in the run's dtype: with `graphs` on the
+    CUDA graph route, without them the same device programs eagerly (the
+    CPU, and the card's comparison route)."""
+    dtype, device = y.dtype, y.device
     omega = solver_input(omega, torch.bool, device)
-    shape = tuple(y.shape)
     if u_init is not None:
-        u1, u2, u3 = (torch.as_tensor(u, device=device).to(dtype) for u in u_init)
+        u = tuple(torch.as_tensor(v, device=device).to(dtype) for v in u_init)
     else:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        u1, u2, u3 = (torch.rand((n, r), generator=generator, dtype=dtype).to(device) for n in shape)
-
-    norm_origin = None
+        u = tuple(torch.rand((n, r), generator=generator, dtype=dtype).to(device) for n in y.shape)
     if origin is not None:
         origin = torch.as_tensor(origin, device=device).to(dtype)
-        norm_origin = torch.linalg.vector_norm(origin)
-    o = x = torch.zeros_like(y)
-    # the threshold anneals on the host, in the run's dtype
-    dt = host_scalar_type(dtype)
-    lam3_k, lam3_floor = dt(lam3), dt(lam3 / 100.0)
-    err_hist = torch.full((max_epoch,), float("nan"), dtype=dtype, device=device)
-    n_epochs = 0
-    for epoch in range(max_epoch):
-        x_pre = x
-        u1, u2, u3, x = _als_loop(y - o, omega, u1, u2, u3, int(m), float(lam1), float(lam2),
-                                  int(als_max_iters), 1e-3)
-        o = soft_threshold(y - x, float(lam3_k))
-        lam3_k = max(lam3_k * dt(0.85), lam3_floor)
-        if origin is not None:
-            err_hist[epoch] = torch.linalg.vector_norm(origin - x) / norm_origin
-        n_epochs = epoch + 1
-        if epoch > 0:
-            rel = torch.linalg.vector_norm(x_pre - x) / torch.clamp(torch.linalg.vector_norm(x_pre), min=1e-30)
-            if float(rel) < tol:
-                break
-    hist = err_hist[:n_epochs].cpu().numpy() if origin is not None else np.zeros((0,))
-    return (u1, u2, u3), x, o, hist
+    epochs = _Epochs(y, omega, u, origin, int(m), float(lam1), float(lam2), float(lam3), int(max_epoch), tol,
+                     int(als_max_iters), graphs)
+    n_epochs = epochs.run(int(max_epoch))
+    c = epochs.als.carry
+    hist = epochs.err_hist[:n_epochs].cpu().numpy() if origin is not None else np.zeros((0,))
+    return (c["u1"], c["u2"], c["u3"]), epochs.x, epochs.o, hist
 
 
 # ---------------------------------------------------------------------------
@@ -427,33 +577,39 @@ def _biweight(x: np.ndarray, k: float = 4.685) -> np.ndarray:
 
 def _stream_scan(
     y_tail, omega_tail, u1, u2, w_ring, l_last, b_last, ss_ring, fs, sigma0,
-    m, lam1, lam2, mu, phi, need_outlier,
+    m, lam1, lam2, mu, phi, need_outlier, graphs: bool = False,
 ):
-    """The streaming phase in tensors (`sofia.m:89-130`): one step per
-    incoming frame: HW forecast, Huber residual clean, biweight sigma
-    update, norm-clipped scaled SGD on (u1, u2, w_t), factor
-    renormalization, HW state update. The HW level and trend are
-    scalars-per-rank, and the season and time-factor histories only ever
-    look back m steps, so the state holds (m, r) rings (written round-robin)
+    """The streaming phase in tensors (`sofia.m:89-130`), the reference's
+    `lax.scan` over the frames: one step per incoming frame: HW forecast,
+    Huber residual clean, biweight sigma update, norm-clipped scaled SGD on
+    (u1, u2, w_t), factor renormalization, HW state update. The HW level
+    and trend are scalars-per-rank, and the season and time-factor
+    histories only ever look back m steps, so the carry holds (m, r) rings
+    shifted by one row a step (row 0 is step t-m, the last row step t-1)
     instead of the full trajectories. Returns (u1, u2, W, X_hat, O) with one
     entry per frame stacked along axis 0.
 
-    The host numpy path (sofia_stream) is the oracle; the tests pin these
-    steps against it step for step."""
+    A frame's step is one device program of `admm._DeviceLoop` (no stop
+    flag): it reads frame t and writes its outputs at the device's frame
+    counter (`index_select`/`index_copy_`), so every step is the same
+    function; with `graphs` one CUDA graph, replayed once a frame, and the
+    host reads nothing before the end. The host numpy path (sofia_stream)
+    is the oracle; the tests pin these steps against it step for step."""
     n_frames = y_tail.shape[0]
     r = u1.shape[1]
     sqrt_r = float(r) ** 0.5
     alpha, beta, gamma = fs[0], fs[1], fs[2]
-    sigma = sigma0
-    w_ring, ss_ring = w_ring.clone(), ss_ring.clone()
-    w_out = torch.empty((n_frames, r), dtype=u1.dtype, device=u1.device)
-    x_out = torch.empty_like(y_tail)
+    dtype, device = u1.dtype, u1.device
+    w_out = torch.zeros((n_frames, r), dtype=dtype, device=device)
+    x_out = torch.zeros_like(y_tail)
     o_out = torch.zeros_like(y_tail)
 
-    for t in range(n_frames):
-        yt, omt = y_tail[t], omega_tail[t]
-        slot = t % m  # the ring slot that holds step t-m, and takes step t
-        s_old = ss_ring[slot]
+    def step(c: dict, _data, _out) -> dict:
+        u1, u2, w_ring, ss_ring, l_last, b_last, sigma = (
+            c[f] for f in ("u1", "u2", "w_ring", "ss_ring", "l", "b", "sigma"))
+        at = c["k"].reshape(1)
+        yt, omt = y_tail.index_select(0, at)[0], omega_tail.index_select(0, at)[0]
+        s_old = ss_ring[0]
         # forecast (`hw_add_add_forecast.m`, h=1): l + b + s_{t-m}
         ut = l_last + b_last + s_old
         yt_hat = (u1 * ut) @ u2.T
@@ -470,7 +626,7 @@ def _stream_scan(
         g1 = cu2 * ut
         g2 = (crt.T @ u1) * ut
         g3 = torch.sum(u1 * cu2, dim=0)
-        g3 = g3 + lam1 * (w_ring[(t - 1) % m] - ut) + lam2 * (w_ring[slot] - ut)
+        g3 = g3 + lam1 * (w_ring[-1] - ut) + lam2 * (w_ring[0] - ut)
         new = []
         for u, g in ((u1, g1), (u2, g2), (ut, g3)):
             scale = torch.clamp(mu * sqrt_r / (torch.linalg.vector_norm(g) + 1e-30), max=1.0)
@@ -480,33 +636,42 @@ def _stream_scan(
             wts = torch.sqrt(torch.sum(new[i] ** 2, dim=0))
             new[i] = new[i] / (wts + 1e-30)
             ut = ut * wts
-        u1, u2 = new[0], new[1]
         # HW update (`hw_add_add_update.m`)
         l_new = alpha * ut - alpha * s_old + (1 - alpha) * (l_last + b_last)
         b_new = beta * (l_new - l_last) + (1 - beta) * b_last
         s_new = gamma * ut - gamma * (l_last + b_last) + (1 - gamma) * s_old
-        ss_ring[slot] = s_new
-        w_ring[slot] = ut
-        l_last, b_last = l_new, b_new
-        w_out[t] = ut
-        x_out[t] = (u1 * ut) @ u2.T
+        w_out.index_copy_(0, at, ut[None])
+        x_out.index_copy_(0, at, ((new[0] * ut) @ new[1].T)[None])
         if need_outlier:
-            o_out[t] = yt - (yt_hat + crt)
-    return u1, u2, w_out, x_out, o_out
+            o_out.index_copy_(0, at, (yt - (yt_hat + crt))[None])
+        return dict(u1=new[0], u2=new[1], w_ring=torch.cat([w_ring[1:], ut[None]]),
+                    ss_ring=torch.cat([ss_ring[1:], s_new[None]]), l=l_new, b=b_new, sigma=sigma, k=c["k"] + 1)
+
+    carry = dict(u1=u1.clone(), u2=u2.clone(), w_ring=w_ring.clone(), ss_ring=ss_ring.clone(), l=l_last.clone(),
+                 b=b_last.clone(), sigma=sigma0.clone(), k=torch.zeros((), dtype=torch.int64, device=device))
+    loop = admm._DeviceLoop(step, carry, (), n_frames, device, graphs, stops=False)
+    loop.advance(n_frames)
+    return carry["u1"], carry["u2"], w_out, x_out, o_out
 
 
-def _stream_setup(y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device):
+def _stream_setup(y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device,
+                  graphs: bool | None = None):
     """What both streaming paths share: the zero-filled float64 stream on
-    the host, the batch init on its first m*cycles frames (on `device`),
-    and the normalized factors with their Holt-Winters fit."""
+    the host, the batch init on its first m*cycles frames (on `device`;
+    `graphs` None: the route `sofia_init` takes, else `_init_run`'s), and
+    the normalized factors with their Holt-Winters fit."""
     y = torch.as_tensor(y).cpu().numpy().astype(np.float64)
     omega_np = torch.as_tensor(omega).cpu().numpy().astype(bool)
     y = np.where(omega_np, y, 0.0)
     ti = m * cycles
-    (u1, u2, u3), x_init, o_init, _ = sofia_init(
-        torch.as_tensor(y[:, :, :ti], device=device), omega_np[:, :, :ti], r, m, lam1, lam2, lam3,
-        max_epoch=max_epoch, tol=tol, generator=generator, dtype=dtype,
-    )
+    head = torch.as_tensor(y[:, :, :ti], device=device).to(dtype)
+    if graphs is None:
+        init = sofia_init(head, omega_np[:, :, :ti], r, m, lam1, lam2, lam3, max_epoch=max_epoch, tol=tol,
+                          generator=generator, dtype=dtype)
+    else:
+        init = _init_run(head, omega_np[:, :, :ti], r, m, lam1, lam2, lam3, None, max_epoch, tol, 300, generator,
+                         None, graphs)
+    (u1, u2, u3), x_init, o_init, _ = init
     u1 = u1.cpu().numpy().astype(np.float64)
     u2 = u2.cpu().numpy().astype(np.float64)
     w_init = u3.cpu().numpy().astype(np.float64)
@@ -542,10 +707,22 @@ def sofia_stream_device(
     :func:`sofia_stream`:
     batch init on the first m*cycles frames, host-side HW fit (scipy
     L-BFGS-B, one-time), then the steps. Returns (U=(u1, u2), W, X_hat, O)
-    as numpy, like the numpy path."""
+    as numpy, like the numpy path. On the card the batch init and the
+    stream replay CUDA graphs (`_Epochs`, `_stream_scan`)."""
     device = input_device(y, device)
+    return _stream_device_run(y, omega, r, m, cycles, lam1, lam2, lam3, mu, phi, max_epoch, tol, need_outlier,
+                              generator, dtype, device, None)
+
+
+def _stream_device_run(y, omega, r, m, cycles, lam1, lam2, lam3, mu, phi, max_epoch, tol, need_outlier, generator,
+                       dtype, device, graphs: bool | None):
+    """`sofia_stream_device` on `device`, its init and stream with `graphs`
+    on the CUDA graph route, without them eagerly (the comparison route);
+    None: the route `sofia_init` and `_graph_route` pick."""
     y, omega_np, ti, u1, u2, w_init, x_init, o_init, (ls, bs, ss, fs) = _stream_setup(
-        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device)
+        y, omega, r, m, cycles, lam1, lam2, lam3, max_epoch, tol, generator, dtype, device, graphs)
+    if graphs is None:
+        graphs = _graph_route(device, r)
     n1, n2, ntimes = y.shape
 
     def dev(a):
@@ -556,7 +733,7 @@ def sofia_stream_device(
         dev(np.moveaxis(omega_np[:, :, ti:], 2, 0).astype(np.float64)),
         dev(u1), dev(u2), dev(w_init[-m:]), dev(ls[-1]), dev(bs[-1]), dev(ss[-m:]), dev(fs),
         dev(0.1 * np.ones((n1, n2))),
-        int(m), float(lam1), float(lam2), float(mu), float(phi), bool(need_outlier),
+        int(m), float(lam1), float(lam2), float(mu), float(phi), bool(need_outlier), graphs,
     )
 
     def host(a):

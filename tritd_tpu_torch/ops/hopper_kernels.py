@@ -108,7 +108,9 @@ KERNEL_VARIANTS = _variants()
 LAUNCHES = {f"elementwise_block[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 POINTER_LAUNCHES = {f"elementwise_block_ptr[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 BATCH_LAUNCHES = {f"elementwise_block_batch[{v}]": 0 for v in KERNEL_VARIANTS.values()}
-_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES)
+# Launches of SOFIA's two kernels (`ops/sofia_kernels.py`), by dtype.
+SOFIA_LAUNCHES = {f"{name}[{dt}]": 0 for name in ("pinv_rows", "gauss_seidel_sweep") for dt in ("f32", "f64")}
+_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
@@ -124,7 +126,7 @@ def graph_nodes():
     dict that receives {count key: nodes} when the block ends, and leaves
     the counts as they were before; `count_replay(nodes)` then counts each
     replay's launches."""
-    before = {**LAUNCHES, **POINTER_LAUNCHES, **BATCH_LAUNCHES}
+    before = {key: n for counts in _COUNTS for key, n in counts.items()}
     nodes: dict = {}
     try:
         yield nodes

@@ -80,19 +80,50 @@ def rank_device(device: str, rank: int) -> torch.device:
 
 
 def initialize_distributed(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    local_devices: int | None = None,
+    platform: str | None = None,
+    *,
+    backend: str | None = None,
+    device: str | None = None,
+    timeout_s: float = 300.0,
     init_method: str | None = None,
     world_size: int | None = None,
     rank: int | None = None,
-    backend: str | None = None,
-    device: str = "cuda",
-    timeout_s: float = 300.0,
 ) -> tuple[int, int]:
-    """Join this process to the default process group. With no
-    `init_method` the launcher's environment (`MASTER_ADDR`, `MASTER_PORT`,
-    `RANK`, `WORLD_SIZE`, as `torchrun` sets them) is read. `backend`
-    defaults to `nccl` for a CUDA device and `gloo` for the CPU; a CUDA
-    device becomes the process's current device first. Every collective
-    waits at most `timeout_s`. Returns (rank, world_size)."""
+    """Join this process to the default process group, under the
+    reference's names: `coordinator_address` "host:port" is the store at
+    `tcp://host:port` (a URL, `tcp://` or `file://`, is taken as it is;
+    `init_method` names the same), `num_processes` the world size
+    (`world_size`), `process_id` this process's rank (`rank`), `platform`
+    "cpu" or "gpu"/"cuda" the device type (`device`: also `cuda:i`).
+    `local_devices`, the reference's count of virtual CPU devices in one
+    process, has no counterpart: a torch process is one rank on one device,
+    so any count but 1 raises.
+
+    With no address the launcher's environment (`MASTER_ADDR`,
+    `MASTER_PORT`, `RANK`, `WORLD_SIZE`, as `torchrun` sets them) is read.
+    `backend` defaults to `nccl` for a CUDA device and `gloo` for the CPU; a
+    CUDA device becomes the process's current device first. Every
+    collective waits at most `timeout_s`. Returns (rank, world_size)."""
+    init_method = _one_of("coordinator_address", coordinator_address, "init_method", init_method)
+    if init_method is not None and "://" not in init_method:
+        init_method = f"tcp://{init_method}"
+    world_size = _one_of("num_processes", num_processes, "world_size", world_size)
+    rank = _one_of("process_id", process_id, "rank", rank)
+    if local_devices not in (None, 1):
+        raise ValueError(f"local_devices={local_devices}: a torch process is one rank on one device; start one "
+                         "process a device")
+    if platform is not None:
+        kinds = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+        if platform not in kinds:
+            raise ValueError(f"platform {platform!r}: the port runs on {sorted(kinds)}")
+        if device is not None and torch.device(device).type != kinds[platform]:
+            raise ValueError(f"platform {platform!r} and device {device!r} disagree")
+        device = device or kinds[platform]
+    device = device or "cuda"
     if rank is None:
         rank = int(os.environ["RANK"])
     if world_size is None:
@@ -107,6 +138,13 @@ def initialize_distributed(
         timeout=datetime.timedelta(seconds=timeout_s),
     )
     return dist.get_rank(), dist.get_world_size()
+
+
+def _one_of(name, value, alias, alias_value):
+    """The value given under the reference's name or the port's, not both."""
+    if value is not None and alias_value is not None and value != alias_value:
+        raise ValueError(f"{name}={value!r} and {alias}={alias_value!r} name one setting")
+    return value if value is not None else alias_value
 
 
 def make_host_chip_mesh(axis_names: tuple[str, str] = AXES, local_world_size: int | None = None,
@@ -126,10 +164,13 @@ def make_host_chip_mesh(axis_names: tuple[str, str] = AXES, local_world_size: in
     return init_device_mesh(device_type, (world // local_world_size, local_world_size), mesh_dim_names=axis_names)
 
 
-def make_global_slab_mesh(device_type: str = "cuda"):
-    """Mesh with every rank of every host on the "slab" axis, host-major, so
-    mode-1 slabs lie contiguously per host."""
-    return make_mesh(n_data=1, device_type=device_type)
+def make_global_slab_mesh(axis_name: str = "slab", *, device_type: str = "cuda"):
+    """1-D mesh with every rank of every host on the `axis_name` axis,
+    host-major (ranks numbered so), so that mode-1 slabs lie contiguously
+    per host: the reference's mesh of the same name."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (dist.get_world_size(),), mesh_dim_names=(axis_name,))
 
 
 # ----------------------------------------------------------------------------

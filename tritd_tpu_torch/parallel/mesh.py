@@ -21,14 +21,22 @@ import torch.distributed as dist
 AXES = ("data", "slab")
 
 
-def make_mesh(n_slab: int | None = None, n_data: int = 1, device_type: str = "cuda"):
+def make_mesh(n_slab: int | None = None, n_data: int = 1, devices=None, *, device_type: str = "cuda"):
     """2-D `DeviceMesh` ("data", "slab") over the ranks of the default
     process group, which must be initialized. `n_slab` defaults to the world
     size over `n_data`; the mesh must cover every rank (each rank is a
-    process and cannot sit out of a collective program)."""
+    process and cannot sit out of a collective program). `devices`, as the
+    reference takes them: the devices of the ranks (`torch.device`s or
+    names, one a rank, of one type), whose type is `device_type` and whose
+    count is the world size."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
+    if devices is not None:
+        kinds = {torch.device(d).type for d in devices}
+        if len(kinds) != 1 or len(devices) != world:
+            raise ValueError(f"devices: one device of one type a rank, {world} in all; got {list(devices)}")
+        device_type = kinds.pop()
     if n_slab is None:
         n_slab = world // n_data
     if n_data * n_slab != world:

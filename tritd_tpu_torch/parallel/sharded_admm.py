@@ -281,15 +281,15 @@ def _result(state, cfg: TriTDConfig, mode: int, bounds, group) -> TriTDResult:
 def tritd_admm_sharded(
     d,
     cfg: TriTDConfig,
-    mesh_or_group,
+    mesh,
+    generator: torch.Generator | None = None,
+    axis_name: str = AXIS,
     shard_tensor_mode: int = 1,
     mask=None,
     origin=None,
     init=None,
-    generator: torch.Generator | None = None,
     device=None,
     audit: dict | None = None,
-    axis_name: str = AXIS,
 ) -> TriTDResult:
     """Sharded robust TriTD-ADMM; every rank of the slab group calls it with
     the same arguments. shard_tensor_mode=1 shards mode-1 slabs (rows i and
@@ -298,8 +298,10 @@ def tritd_admm_sharded(
     Args:
       d: the full tensor (n1, n2, n3), numpy or a tensor, the same on every
         rank; a rank moves only its slab to its device.
-      mesh_or_group: a `DeviceMesh` with an `axis_name` dimension ("slab",
+      mesh: a `DeviceMesh` with an `axis_name` dimension ("slab",
         :func:`tritd_tpu_torch.parallel.make_mesh`) or a process group.
+        The parameters follow the reference's order, `generator` in its
+        `key`'s place; `init`, `device` and `audit` come after them.
       mask: bool tensor of *observed* entries (required iff cfg.masked).
       origin: optional ground truth; rre_hist records ||L - origin|| /
         ||origin|| per iteration (NaN when absent).
@@ -318,8 +320,8 @@ def tritd_admm_sharded(
     Semantics are those of `tritd_admm` up to the order of sums. The result
     holds full-size tensors on every rank, on the rank's device.
     """
-    return _sharded(d, cfg, mesh_or_group, shard_tensor_mode, mask, origin, init, generator, device, audit,
-                    axis_name, unroll=1)
+    return _sharded(d, cfg, mesh, shard_tensor_mode, mask, origin, init, generator, device, audit, axis_name,
+                    unroll=1)
 
 
 def _sharded(d, cfg, mesh_or_group, shard_tensor_mode, mask, origin, init, generator, device, audit, axis_name,
@@ -343,14 +345,14 @@ def tritd_admm_batch_sharded(
     d_batch,
     cfg: TriTDConfig,
     mesh,
+    generator: torch.Generator | None = None,
+    data_axis: str = DATA_AXIS,
+    slab_axis: str = AXIS,
     mask_batch=None,
     origin_batch=None,
     init=None,
-    generator: torch.Generator | None = None,
     device=None,
     audit: dict | None = None,
-    data_axis: str = DATA_AXIS,
-    slab_axis: str = AXIS,
     _serial: bool = False,
 ) -> TriTDResult:
     """A batch of independent TriTD problems, data-parallel over the mesh's
@@ -361,7 +363,9 @@ def tritd_admm_batch_sharded(
     (`_local_solve(..., batched=True)`; on the CUDA graph route over NCCL). Every rank of
     the mesh calls this with the same arguments. `_serial=True` solves the
     group's entries one after another instead, each as
-    `tritd_admm_sharded` would: the comparison for the batched loop.
+    `tritd_admm_sharded` would: the comparison for the batched loop. The
+    parameters follow the reference's order, `generator` in its `key`'s
+    place; `init`, `device` and `audit` come after them.
 
     init: optional (a0, b0, c0) with the batch axis first. A's init is
     overwritten by the first solve and read before that only by masked

@@ -4,7 +4,9 @@ Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
 scalars by value in the compute type, or, in a variant's pointer entry
 (`..._ptr`), the three penalties as addresses of values in device memory;
 its batched entry (`..._batch`) takes the entry count after n and the
-penalties as addresses of arrays of one value an entry.
+penalties as addresses of arrays of one value an entry. SOFIA's two kernels
+(`csrc/sofia_kernels.cu`, :mod:`tritd_tpu_torch.ops.sofia_kernels`) take
+their counts as `c_int64`, the rank as `c_int` and their scalars by value.
 Loading the library builds it, so the first CUDA call pays the nvcc
 compile; importing this module does not.
 """
@@ -61,6 +63,17 @@ def bind(path, variants=None) -> ctypes.CDLL:
         group = getattr(lib, f"tritd_elementwise_block_{variant}_group")
         group.argtypes = []
         group.restype = ctypes.c_int
+    if hasattr(lib, "tritd_sofia_max_rank"):  # not in a library built from an earlier revision
+        lib.tritd_sofia_max_rank.argtypes = []
+        lib.tritd_sofia_max_rank.restype = ctypes.c_int
+        for tag, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            # rhs, gram, out, n, r, rtol, stream
+            getattr(lib, f"tritd_pinv_rows_{tag}").argtypes = [_P, _P, _P, ctypes.c_int64, ctypes.c_int, scalar, _P]
+            # rhs0, inv, out, n3, r, lam1, lam2, m, stream
+            getattr(lib, f"tritd_gauss_seidel_sweep_{tag}").argtypes = [
+                _P, _P, _P, ctypes.c_int64, ctypes.c_int, scalar, scalar, ctypes.c_int64, _P]
+            for name in ("pinv_rows", "gauss_seidel_sweep"):
+                getattr(lib, f"tritd_{name}_{tag}").restype = ctypes.c_int
     return lib
 
 

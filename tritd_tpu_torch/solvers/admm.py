@@ -499,7 +499,13 @@ class _DeviceLoop:
     short of `max_iter`, or, without `stops` (MALS), never, and at the end
     of each :meth:`advance` what it checks against its own count
     (:meth:`_result`): here the device's counter. A failed capture
-    raises."""
+    raises.
+
+    A loop without data-sized tensors can be restarted (:meth:`restart`),
+    as the reference's ALS `while_loop` starts anew in each epoch of
+    SOFIA's: its graph is kept, and its stepper can run the caller's other
+    device programs (`_Stepper.run`) on the same side stream and memory
+    pool."""
 
     def __init__(self, iteration, carry: dict, data: tuple, max_iter: int, device, graphs: bool, k: int = 0,
                  unroll: int = 1, shard=None, stops: bool = True):
@@ -510,6 +516,18 @@ class _DeviceLoop:
         self.stepper = _Stepper(device, graphs, shard, period=2 if data else 1)
         self.n_done = 0  # iterations this loop has run
         self.running = True
+
+    def restart(self) -> None:
+        """Starts the loop anew from the carry as it stands: the counter and
+        the stop flag set to 0 on the device (two launches, no read), the
+        host's count to 0, the captured graph kept. Only a loop without
+        data-sized tensors, whose one graph reads nothing that depends on
+        the iterations done."""
+        if self.data:
+            raise ValueError("only a loop without data-sized tensors restarts")
+        self.carry["k"].zero_()
+        self.carry["done"].zero_()
+        self.k0, self.n_done, self.running = 0, 0, True
 
     @property
     def k(self) -> int:
@@ -700,16 +718,20 @@ def run_admm_batch(d, state: TriTDState, cfg: TriTDConfig, shard, mask=None, ori
 class _Stepper:
     """Runs the blocks of a device-form loop, `step(block, n_done)` running
     `block(n_done)`, the block after n_done iterations: without `graphs`
-    eagerly; with them, on a side stream, the first block eagerly and each
-    later one as the replay of the CUDA graph captured at its first use for
-    n_done % period (`hopper_kernels.CountedGraph`; the shard's collectives
-    counted in its `tally`). Blocks are stepped inside :meth:`segment`; the
-    graphs outlive it, so that a loop that pauses between segments captures
-    nothing new when it goes on. `captured`: the graphs, by n_done % period."""
+    eagerly; with them, on a side stream, the first block the stepper runs
+    eagerly and each later one as the replay of the CUDA graph captured at
+    its first use for n_done % period (`hopper_kernels.CountedGraph`; the
+    shard's collectives counted in its `tally`). Blocks are stepped inside
+    :meth:`segment`; the graphs outlive it, so that a loop that pauses
+    between segments, or restarts, captures nothing new when it goes on.
+    `run(fn, key)` runs another device program of the caller the same way,
+    eagerly the first time `key` is met and later as its graph. `captured`:
+    the graphs, by n_done % period or key."""
 
     def __init__(self, device, graphs: bool, shard=None, period: int = 2):
         self.device, self.graphs, self.period = device, graphs, period
         self.captured: dict = {}
+        self.ran: set = set()  # the keys of `run` met, and None once a block has run
         if graphs:
             self.side = torch.cuda.Stream(device=device)
             self.pool = torch.cuda.graph_pool_handle()
@@ -732,12 +754,22 @@ class _Stepper:
             caller.wait_stream(self.side)
 
     def step(self, block, n_done: int) -> None:
-        if not self.graphs or n_done == 0:
+        if not self.graphs or None not in self.ran:
+            self.ran.add(None)
             block(n_done)
             return
-        key = n_done % self.period
+        self._replay(lambda: block(n_done), n_done % self.period)
+
+    def run(self, fn, key: str) -> None:
+        if not self.graphs or key not in self.ran:
+            self.ran.add(key)
+            fn()
+            return
+        self._replay(fn, key)
+
+    def _replay(self, fn, key) -> None:
         if key not in self.captured:
-            self.captured[key] = hopper_kernels.CountedGraph(lambda: block(n_done), self.pool, self.tallies)
+            self.captured[key] = hopper_kernels.CountedGraph(fn, self.pool, self.tallies)
         self.captured[key].replay()
 
 

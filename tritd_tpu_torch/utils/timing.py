@@ -88,7 +88,7 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def profiler_trace(log_dir: str):
+def profiler_trace(log_dir: str = "/tmp/tritd_profile"):
     """`torch.profiler` trace of the block (host and, where there is one, the
     CUDA device); on exit the Chrome trace is written to
     `log_dir/trace.json`. Yields the profiler, whose `key_averages()` sums
