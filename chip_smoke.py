@@ -127,13 +127,18 @@ Phases, each of which fails the run by raising:
      (final RRE within 1e-3 of gram's); sofia for 10 epochs. Then SOFIA's
      two kernels (csrc/sofia_kernels.cu) against their plain versions at the
      shapes the main path gives them at taxi, highway and network (the
-     mode-1 and mode-2 grams and the mode-3 sweep, from the stand-ins with
-     10% missing, one mode-1 slice all missing, one observed at one entry),
-     float32 and float64: pinv_rows within PINV_EPS_FACTOR r eps times each
-     gram's condition of its row's scale, the all-zero gram's row exactly
-     zero; the sweep within SWEEP_EPS_FACTOR eps of its largest value; each
-     timed beside its bound, its plain version (the row loop at taxi) and,
-     for pinv_rows, torch.linalg.pinv with the row product.
+     mode-1 and mode-2 grams and the mode-3 step's inputs, from the
+     stand-ins with 10% missing, one mode-1 slice all missing, one observed
+     at one entry), float32 and float64: pinv_rows within PINV_EPS_FACTOR r
+     eps times each gram's condition of its row's scale, the all-zero
+     gram's row exactly zero; mode3_sweep (one launch a call) and, on the
+     same systems, the gauss_seidel_sweep kernel within SWEEP_EPS_FACTOR eps of
+     their largest value; each timed beside its bound and its plain version
+     (the row loop at taxi); pinv_rows also beside torch.linalg.pinv with
+     the row product and its one-pass floor (diagonal grams), mode3_sweep
+     beside its chain bound (n3 (r + 1) FMA latencies at clocks.max.sm), the
+     sweep kernel alone and, at taxi, the split step (the systems in torch,
+     then that kernel: card time and host enqueue).
  10. RC-FCTN's video driver at 240x320x300 with its default route (auto:512)
      for 10 iterations; trpca_tnn on a 64x64x32 slab and rnc_fctn on a
      16x16x8x8 problem, 20 iterations each.
@@ -307,15 +312,19 @@ Phases, each of which fails the run by raising:
      while_loops and its stream scan: first the main path, sofia_init at
      taxi (SOFIA_PRESET, 10 epochs, float32) and in float64 (2 epochs) on
      the CUDA graph route, whose launches of the two kernels are the
-     kernels line's; then sofia_init at taxi (10 epochs) and highway (2
+     kernels line's (two pinv_rows and one mode3_sweep an ALS iteration;
+     no gauss_seidel_sweep, `_mode3_systems` or torch.roll call on it);
+     then sofia_init at taxi (10 epochs) and highway (2
      epochs, a depth cut) on the graph route and without graphs, in turns
      graph, eager, eager, graph: factors, X, O and err_hist bitwise, at
      most SOFIA_CAPTURES captures a call, the synchronizing calls, ms an
      epoch (events); the ALS loop alone (taxi, 20 iterations, tol 0), ms an
-     iteration; sofia_stream_device at taxi on both routes (4 runs),
+     iteration, one mode3_sweep launch an iteration; sofia_init at taxi at
+     r = 4 (2 epochs), graph route against the route without graphs, in
+     turns, bitwise; sofia_stream_device at taxi on both routes (4 runs),
      bitwise, ms a frame (events around the scan); then taxi's float32
      sofia_init on the card against float64 on the CPU (err_hist rtol
-     1e-3), the sweep (rtol 1e-3, atol 1e-4) and a 100x100 stream (rtol
+     1e-3), the mode-3 step (rtol 1e-3, atol 1e-4) and a 100x100 stream (rtol
      1e-3, atol 1e-3 max|X|) likewise.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
@@ -337,9 +346,12 @@ launches of phases 3, 5, 12, 17 and 19; pointer_launches, those of them
 through the pointer entry; batch_launches, phase 22's through the batched
 entry; batch_ms, batch_pointer_ms and batch_bound_ms, phase 2's batched
 timings at 4 x taxi), each naming the .cu file that holds its entry
-point, then SOFIA's two kernels in float32 and float64 (phase 9's taxi
-records, phase 24's main-path launches), each naming the reference
-function it stands for; the last line is
+point, then SOFIA's two kernels of the main path, pinv_rows and
+mode3_sweep, in float32 and float64 (phase 9's taxi records, with
+pinv_rows' floor_ms and mode3_sweep's sweep_kernel_ms and split_step_ms,
+all measured in the run; phase 24's main-path launches; the chain bound,
+an assumed FMA latency over the clock, stays on phase 9's own lines), each
+naming the reference function it stands for; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
 """
@@ -3551,20 +3563,24 @@ def phase23() -> None:
         dist.destroy_process_group()
 
 
-# SOFIA's two kernels (ops/sofia_kernels.py): the datasets of the slice, at
+# SOFIA's kernels (ops/sofia_kernels.py): the datasets of the slice, at
 # their full widths, whose main-path shapes the checks of phase 9 take, and
-# the reference functions each kernel stands for.
+# the reference functions each kernel stands for (mode3_sweep: the whole
+# mode-3 step, its systems and the scan of its sweep at :175).
 SOFIA_DATASETS = ("taxi", "highway", "network")
-SOFIA_REPLACES = {"pinv_rows": "tritd_tpu/baselines/sofia.py:69", "gauss_seidel_sweep": "tritd_tpu/baselines/sofia.py:175"}
+SOFIA_REPLACES = {"pinv_rows": "tritd_tpu/baselines/sofia.py:69", "mode3_sweep": "tritd_tpu/baselines/sofia.py:121"}
 SOFIA_TAGS = {torch.float32: "f32", torch.float64: "f64"}
 # pinv_rows against torch's SVD pinv: each row within PINV_EPS_FACTOR * r eps
 # of its largest value times the condition of the eigenvalues its gram keeps
 # (two backward-stable solves of one system differ by about that); the
-# sweep within SWEEP_EPS_FACTOR eps of the largest value (one chain of
-# products and sums in two orders)
+# mode-3 step and the sweep alone within SWEEP_EPS_FACTOR eps of the largest
+# value (one chain of products and sums in two orders)
 PINV_EPS_FACTOR = 64
 SWEEP_EPS_FACTOR = 256
 SOFIA_PLAIN_REPS = 4  # turns of the plain sweep, a Python loop over the rows
+# the chain bound of the mode-3 step: n3 rows of r + 1 dependent FMAs, at
+# these latencies (cycles; assumed, not measured) over the SM clock
+FMA_LATENCY_CYCLES = {torch.float32: 4, torch.float64: 8}
 
 
 def _sofia_problem(name: str, dtype, seed: int = 0):
@@ -3572,7 +3588,8 @@ def _sofia_problem(name: str, dtype, seed: int = 0):
     with 10% missing and uniform factors of rank SOFIA_PRESET.rank: the
     mode-1 and mode-2 right-hand sides and grams (mode-1 slice 0 all
     missing, a zero gram; slice 1 observed at one entry, a rank-one gram)
-    and the mode-3 sweep's right-hand sides and inverses; and the period."""
+    and the mode-3 step's old rows, right-hand sides and grams; and the
+    period."""
     from tritd_tpu_torch.baselines import sofia
 
     x_np, spec, _prov = load_dataset(name)
@@ -3590,22 +3607,37 @@ def _sofia_problem(name: str, dtype, seed: int = 0):
             sofia._masked_row_systems(y.transpose(0, 1).contiguous(), om.transpose(0, 1).contiguous(), kr(u1, u3))]
     rhs_base, gram_base = sofia._masked_row_systems(torch.movedim(y, 2, 0).contiguous(),
                                                     torch.movedim(om, 2, 0).contiguous(), kr(u1, u2))
-    m = spec.sofia_period
-    sweep = sofia._mode3_systems(u3, rhs_base, gram_base, SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2, m)
-    return rows, sweep, m
+    return rows, (u3, rhs_base.contiguous(), gram_base.contiguous()), spec.sofia_period
 
 
 def _sofia_bound(kind: str, n: int, r: int, dtype) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time for one call on n
-    systems of rank r, its inputs read and its output written once (rhs,
-    the r x r matrices, the rows out), against the least arithmetic any
-    method needs: a pinv r^3 + 4 r^2 a system (one factorization's worth
-    and the two products), a sweep step 2 r^2 + 4 r."""
+    systems of rank r, its inputs read and its output written once (pinv:
+    rhs, the grams, the rows out; the mode-3 step: the old rows, rhs_base,
+    the grams, the rows out), against the least arithmetic any method
+    needs: a pinv r^3 + 4 r^2 a system (one factorization's worth and the
+    two products), a mode-3 row r^3 + 2 r^2 + 8 r (an inverse, the row
+    product, the right-hand side and the coupling)."""
     size = torch.empty((), dtype=dtype).element_size()
-    by_bytes = n * (2 * r + r * r) * size / PEAK_BYTES_PER_S * 1e3
-    ops = n * ((r**3 + 4 * r * r) if kind == "pinv_rows" else (2 * r * r + 4 * r))
+    per = (2 * r + r * r) if kind == "pinv_rows" else (3 * r + r * r)
+    by_bytes = n * per * size / PEAK_BYTES_PER_S * 1e3
+    ops = n * ((r**3 + 4 * r * r) if kind == "pinv_rows" else (r**3 + 2 * r * r + 8 * r))
     by_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _sm_clocks() -> tuple[float, float]:
+    """(clocks.sm, clocks.max.sm) in MHz, as nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    now, top = (float(v) for v in out.split(","))
+    return now, top
+
+
+def _chain_bound_ms(n3: int, r: int, dtype, mhz: float) -> float:
+    """The least time of the mode-3 step's dependent path: n3 rows of r + 1
+    FMA latencies at `mhz`."""
+    return n3 * (r + 1) * FMA_LATENCY_CYCLES[dtype] / (mhz * 1e6) * 1e3
 
 
 def _check_pinv(tag, rhs, gram, zero_gram: bool) -> tuple[float, float]:
@@ -3636,17 +3668,32 @@ def _check_pinv(tag, rhs, gram, zero_gram: bool) -> tuple[float, float]:
     return float(err.max()), ratio
 
 
-def _check_sweep(tag, rhs0, inv, m) -> float:
+def _check_mode3(tag, args, m) -> tuple[float, tuple, float]:
+    """mode3_sweep against its plain version, and the gauss_seidel_sweep kernel alone on
+    the systems of the same inputs against the same rows (the plain version
+    is gauss_seidel_sweep_torch on those systems); one mode3_sweep launch a
+    call. Returns the mode-3 step's max abs error, those systems (rhs0,
+    inv) and the sweep's max abs error."""
     from tritd_tpu_torch.ops import sofia_kernels
 
     lam1, lam2 = SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2
-    got = sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)
-    want = sofia_kernels.gauss_seidel_sweep_torch(rhs0, inv, lam1, lam2, m)
+    hopper_kernels.reset_launch_counts()
+    got = sofia_kernels.mode3_sweep(*args, lam1, lam2, m)
+    launched = {k: n for k, n in hopper_kernels.SOFIA_LAUNCHES.items() if n}
+    if launched != {f"mode3_sweep[{SOFIA_TAGS[args[0].dtype]}]": 1}:
+        raise AssertionError(f"{tag}: one mode3_sweep launch a call, counted {launched}")
+    want = sofia_kernels.mode3_sweep_torch(*args, lam1, lam2, m)
+    rhs0, inv = sofia_kernels._mode3_systems(*args, lam1, lam2, m)
+    old = sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)
     torch.cuda.synchronize()
-    err, scale = float((got - want).abs().max()), float(want.abs().max())
-    if not err <= SWEEP_EPS_FACTOR * torch.finfo(rhs0.dtype).eps * scale:
-        raise AssertionError(f"{tag}: max |error| {err:.3e} of {scale:.3e}, limit {SWEEP_EPS_FACTOR} eps")
-    return err
+    scale, limit = float(want.abs().max()), SWEEP_EPS_FACTOR * torch.finfo(rhs0.dtype).eps
+    errs = {}
+    for name, x in (("mode3_sweep", got), ("gauss_seidel_sweep", old)):
+        errs[name] = float((x - want).abs().max())
+        if not (errs[name] <= limit * scale and torch.isfinite(x).all()):
+            raise AssertionError(f"{tag} {name}: max |error| {errs[name]:.3e} of {scale:.3e}, limit "
+                                 f"{SWEEP_EPS_FACTOR} eps")
+    return errs["mode3_sweep"], (rhs0, inv), errs["gauss_seidel_sweep"]
 
 
 def _sofia_kernels() -> dict:
@@ -3654,54 +3701,69 @@ def _sofia_kernels() -> dict:
     shapes the main path gives it at taxi, highway and network, in float32
     and float64 (phase 9); timed beside its bound, its plain version and,
     for pinv_rows, torch.linalg.pinv and the row product (the one PyTorch
-    call for its function), at each shape (the plain sweep, a Python loop
-    of the rows, at taxi). Returns the taxi records of the kernels line,
-    by (name, dtype tag)."""
+    call for its function) and its one-pass floor (the same count of
+    diagonal grams, which one Jacobi pass ends), at each shape; the mode-3
+    step beside its chain bound, the gauss_seidel_sweep kernel alone on its
+    systems and, at taxi, the split step (those systems in torch, then that
+    kernel) and the
+    plain version (a Python loop of the rows). Returns the taxi records of
+    the kernels line, by (name, dtype tag)."""
     from tritd_tpu_torch.ops import sofia_kernels
 
     records = {}
+    lam1, lam2 = SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2
     for dtype in (torch.float32, torch.float64):
         tag = SOFIA_TAGS[dtype]
         for name in SOFIA_DATASETS:
-            rows, (rhs0, inv), m = _sofia_problem(name, dtype)
-            r = rhs0.shape[1]
+            rows, args, m = _sofia_problem(name, dtype)
+            n3, r = args[0].shape
             for mode, (rhs, gram) in enumerate(rows, 1):
                 label = f"phase9 pinv_rows[{tag}] {name} mode {mode} ({gram.shape[0]} grams, r={r})"
                 max_abs, ratio = _check_pinv(label, rhs, gram, zero_gram=mode == 1)
                 rtol = 10.0 * r * torch.finfo(dtype).eps
+                diag = torch.diag_embed(torch.diagonal(gram, dim1=1, dim2=2) + 1.0).contiguous()
                 plain = lambda rhs=rhs, gram=gram, rtol=rtol: sofia_kernels.pinv_rows_torch(rhs, gram, rtol)  # noqa: E731
                 calls = {"kernel": lambda rhs=rhs, gram=gram, rtol=rtol: sofia_kernels.pinv_rows(rhs, gram, rtol),
+                         "floor": lambda rhs=rhs, diag=diag, rtol=rtol: sofia_kernels.pinv_rows(rhs, diag, rtol),
                          "library": lambda gram=gram, rhs=rhs, rtol=rtol: torch.bmm(
                              rhs[:, None, :], torch.linalg.pinv(gram, rtol=rtol))}
                 ms, plain_ms, _copy, _host = _time_pair(plain, calls, 1 << 20, reps=8)
                 bound_ms, bound_by = _sofia_bound("pinv_rows", gram.shape[0], r, dtype)
                 print(f"{label}: max_abs_err={max_abs:.3e} (worst row {ratio:.2f} eps x condition x scale, limit "
                       f"{PINV_EPS_FACTOR * r}){', the zero gram row exactly 0' if mode == 1 else ''}; "
-                      f"kernel={ms['kernel'] * 1e3:.1f} us "
+                      f"kernel={ms['kernel'] * 1e3:.1f} us (one-pass floor {ms['floor'] * 1e3:.1f} us) "
                       f"plain={plain_ms * 1e3:.1f} us torch.linalg.pinv+bmm={ms['library'] * 1e3:.1f} us "
                       f"bound={bound_ms * 1e3:.4f} us by {bound_by} (events)", flush=True)
                 if name == "taxi" and mode == 1:
                     records["pinv_rows", tag] = {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": plain_ms,
                                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                                 "library_ms": ms["library"]}
-            label = f"phase9 gauss_seidel_sweep[{tag}] {name} (n3={rhs0.shape[0]}, r={r}, m={m})"
-            max_abs = _check_sweep(label, rhs0, inv, m)
-            lam1, lam2 = SOFIA_PRESET.lambda1, SOFIA_PRESET.lambda2
-            kernel = {"kernel": lambda rhs0=rhs0, inv=inv, m=m: sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)}
+                                                 "library_ms": ms["library"], "floor_ms": ms["floor"]}
+            label = f"phase9 mode3_sweep[{tag}] {name} (n3={n3}, r={r}, m={m})"
+            max_abs, (rhs0, inv), old_err = _check_mode3(label, args, m)
+            calls = {"kernel": lambda args=args, m=m: sofia_kernels.mode3_sweep(*args, lam1, lam2, m),
+                     "old": lambda rhs0=rhs0, inv=inv, m=m: sofia_kernels.gauss_seidel_sweep(rhs0, inv, lam1, lam2, m)}
             plain = None
             if name == "taxi":
-                plain = lambda rhs0=rhs0, inv=inv, m=m: sofia_kernels.gauss_seidel_sweep_torch(  # noqa: E731
-                    rhs0, inv, lam1, lam2, m)
-            ms, plain_ms, _copy, _host = _time_pair(plain, kernel, 1 << 20, reps=SOFIA_PLAIN_REPS if plain else 8)
-            bound_ms, bound_by = _sofia_bound("gauss_seidel_sweep", rhs0.shape[0], r, dtype)
-            print(f"{label}: max_abs_err={max_abs:.3e} (limit {SWEEP_EPS_FACTOR} eps of max |row|); "
-                  f"kernel={ms['kernel'] * 1e3:.1f} us ({ms['kernel'] * 1e3 / rhs0.shape[0]:.3f} us a row) "
-                  + (f"plain={plain_ms * 1e3:.1f} us " if plain else "")
-                  + f"bound={bound_ms * 1e3:.4f} us by {bound_by}; the chain of {rhs0.shape[0]} dependent rows "
-                  f"(events)", flush=True)
+                calls["old_step"] = lambda args=args, m=m: sofia_kernels.gauss_seidel_sweep(
+                    *sofia_kernels._mode3_systems(*args, lam1, lam2, m), lam1, lam2, m)
+                plain = lambda args=args, m=m: sofia_kernels.mode3_sweep_torch(*args, lam1, lam2, m)  # noqa: E731
+            ms, plain_ms, _copy, host = _time_pair(plain, calls, 1 << 20, reps=SOFIA_PLAIN_REPS if plain else 8)
+            mhz, top_mhz = _sm_clocks()
+            bound_ms, bound_by = _sofia_bound("mode3_sweep", n3, r, dtype)
+            chain_ms = _chain_bound_ms(n3, r, dtype, top_mhz)
+            print(f"{label}: max_abs_err={max_abs:.3e} (limit {SWEEP_EPS_FACTOR} eps of max |row|; the sweep kernel "
+                  f"{old_err:.3e}); kernel={ms['kernel'] * 1e3:.1f} us ({ms['kernel'] * 1e3 / n3:.4f} us a row), "
+                  f"one launch; the sweep kernel alone on its systems {ms['old'] * 1e3:.1f} us"
+                  + (f", the split step (its systems in torch, then that kernel) {ms['old_step'] * 1e3:.1f} us of the card "
+                     f"({host['old_step'] * 1e3:.1f} us of host enqueue; the kernel's {host['kernel'] * 1e3:.1f}), "
+                     f"plain={plain_ms * 1e3:.1f} us" if plain else "")
+                  + f"; bound={bound_ms * 1e3:.4f} us by {bound_by}, chain bound {chain_ms * 1e3:.2f} us ({n3} x "
+                  f"{r + 1} FMAs of {FMA_LATENCY_CYCLES[dtype]} cycles at clocks.max.sm {top_mhz:.0f} MHz; "
+                  f"clocks.sm {mhz:.0f} MHz read after) (events)", flush=True)
             if name == "taxi":
-                records["gauss_seidel_sweep", tag] = {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": plain_ms,
-                                                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                records["mode3_sweep", tag] = {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": plain_ms,
+                                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                                               "sweep_kernel_ms": ms["old"], "split_step_ms": ms["old_step"]}
     return records
 
 
@@ -3711,6 +3773,8 @@ SOFIA_INIT_RTOL = 1e-3  # float32 on the card against float64 on the CPU: err_hi
 SOFIA_SWEEP_TOL = (1e-3, 1e-4)  # the sweep, float32 on the card against float64 on the CPU (rtol, atol)
 SOFIA_STREAM_RTOL = 1e-3  # the stream, the same, atol SOFIA_STREAM_RTOL * max |X|
 SOFIA_CAPTURES = 3  # most graphs a sofia_init call may capture: the ALS start, an ALS iteration, the epoch step
+SOFIA_WIDE_RANK, SOFIA_WIDE_EPOCHS = 4, 2  # the graph route above r = 3: taxi, 2 epochs (a depth cut)
+SOFIA_MAIN_KERNELS = ("pinv_rows", "mode3_sweep")
 
 
 def _sofia_data(name: str):
@@ -3724,17 +3788,21 @@ def _sofia_data(name: str):
     return y, mask, x, load_dataset(name)[1].sofia_period
 
 
-def _sofia_init_route(name: str, graphs: bool, dtype=torch.float32) -> dict:
-    """sofia_init's device form at a dataset, SOFIA_PRESET, its epochs, from
-    a seeded uniform init, on one route, watched (`_watched`)."""
+def _sofia_init_route(name: str, graphs: bool, dtype=torch.float32, rank: int | None = None,
+                      epochs: int | None = None) -> dict:
+    """sofia_init's device form at a dataset, SOFIA_PRESET (or another
+    rank), its epochs, from a seeded uniform init, on one route, watched
+    (`_watched`)."""
     from tritd_tpu_torch.baselines import sofia
 
     y, mask, x, m = _sofia_data(name)
     p = SOFIA_PRESET
-    init = tuple(torch.rand((n, p.rank), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    rank = rank or p.rank
+    init = tuple(torch.rand((n, rank), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
                  for n in y.shape)
-    return _watched(lambda: sofia._init_run(y.to(dtype), mask, p.rank, m, p.lambda1, p.lambda2, p.lambda3,
-                                            x.to(dtype), SOFIA_EPOCHS[name], p.tol, 300, None, init, graphs))
+    return _watched(lambda: sofia._init_run(y.to(dtype), mask, rank, m, p.lambda1, p.lambda2, p.lambda3,
+                                            x.to(dtype), epochs or SOFIA_EPOCHS[name], p.tol, 300, None, init,
+                                            graphs))
 
 
 def _same_sofia(a, b) -> bool:
@@ -3759,16 +3827,38 @@ def phase24() -> dict:
                  for n in y.shape)
     kw = dict(r=p.rank, m=m, lam1=p.lambda1, lam2=p.lambda2, lam3=p.lambda3, tol=p.tol, u_init=init)
     # the main path: the public entry point on its graph route, float32
-    # (10 epochs) and float64 (2), the counts zeroed just before
-    for key in counts:
-        counts[key] = 0
-    main = sofia.sofia_init(y, mask, origin=x, max_epoch=SOFIA_EPOCHS["taxi"], **kw)
-    sofia.sofia_init(y.double(), mask, origin=x.double(), max_epoch=2, dtype=torch.float64, **kw)
+    # (10 epochs) and float64 (2), the counts zeroed just before; neither
+    # the plain systems (`_mode3_systems`, torch.roll) nor the sweep kernel
+    # may run on it
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    plain_calls = {"_mode3_systems": 0, "torch.roll": 0}
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            plain_calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    systems, roll = sofia_kernels._mode3_systems, torch.roll
+    sofia_kernels._mode3_systems, torch.roll = counted("_mode3_systems", systems), counted("torch.roll", roll)
+    try:
+        for key in counts:
+            counts[key] = 0
+        main = sofia.sofia_init(y, mask, origin=x, max_epoch=SOFIA_EPOCHS["taxi"], **kw)
+        sofia.sofia_init(y.double(), mask, origin=x.double(), max_epoch=2, dtype=torch.float64, **kw)
+    finally:
+        sofia_kernels._mode3_systems, torch.roll = systems, roll
     launches = {(key.split("[")[0], key.split("[")[1][:-1]): n for key, n in counts.items()}
-    if not all(launches.values()):
-        raise AssertionError(f"phase24: a SOFIA kernel was not launched on the main path: {launches}")
+    on_path = {key: n for key, n in launches.items() if key[0] in SOFIA_MAIN_KERNELS}
+    if not all(on_path.values()) or any(n for key, n in launches.items() if key not in on_path) or any(
+            plain_calls.values()):
+        raise AssertionError(f"phase24: the main path's SOFIA launches {counts}, plain calls {plain_calls}")
+    if any(launches["pinv_rows", tag] != 2 * launches["mode3_sweep", tag] for tag in ("f32", "f64")):
+        raise AssertionError(f"phase24: not two pinv_rows launches a mode3_sweep launch: {counts}")
     print(f"phase24 main path: sofia_init taxi f32 ({len(main[3])} epochs) and f64 (2 epochs) on the graph "
-          f"route: launches {counts}", flush=True)
+          f"route: launches {counts}: one mode3_sweep launch an ALS iteration (beside two pinv_rows), no "
+          f"gauss_seidel_sweep, {plain_calls}", flush=True)
 
     for name in ("taxi", "highway"):
         runs = {}
@@ -3793,17 +3883,41 @@ def phase24() -> dict:
               f"peak {graph[-1]['peak_mib']:.1f} / {eager[-1]['peak_mib']:.1f} MiB; err_hist "
               f"{np.round(graph[0]['res'][3], 6).tolist()} ({CARD[0]})", flush=True)
 
-    # an ALS iteration, the loop alone (tol 0)
+    # an ALS iteration, the loop alone (tol 0): one mode3_sweep launch an
+    # iteration on either route
     u = tuple(torch.as_tensor(v, device="cuda").float() for v in init)
+    hopper_kernels.reset_launch_counts()
     als = {g: [_watched(lambda g=g: sofia._als_loop(y, mask, *u, m, p.lambda1, p.lambda2, SOFIA_ALS_ITERS, 0.0,
                                                     graphs=g)) for _ in range(2)] for g in (True, False)}
     if not all(_same_sofia(r_["res"], als[True][0]["res"]) for r_ in (*als[True], *als[False])):
         raise AssertionError("phase24 sofia ALS loop: the routes differ")
+    want = {key: 0 for key in counts}
+    want.update({"mode3_sweep[f32]": 4 * SOFIA_ALS_ITERS, "pinv_rows[f32]": 8 * SOFIA_ALS_ITERS})
+    if counts != want:
+        raise AssertionError(f"phase24 sofia ALS loop: launches {counts}, want {want}")
     print(f"phase24 sofia ALS loop taxi, {SOFIA_ALS_ITERS} iterations, tol 0: graph "
           f"{[round(r_['ms'] / SOFIA_ALS_ITERS, 4) for r_ in als[True]]} ms an iteration "
           f"({_split_text(als[True][-1], SOFIA_ALS_ITERS - 1)}, {als[True][-1]['syncs']} synchronizing calls), eager "
           f"{[round(r_['ms'] / SOFIA_ALS_ITERS, 4) for r_ in als[False]]} ({als[False][-1]['syncs']} synchronizing "
-          f"calls), bitwise", flush=True)
+          f"calls), bitwise; one mode3_sweep launch an iteration ({counts['mode3_sweep[f32]']} in 4 x "
+          f"{SOFIA_ALS_ITERS})", flush=True)
+
+    # above r = 3 the mode-3 step is the kernel too: the graph route at r = 4
+    runs = {}
+    for graphs in (True, False, False, True):
+        runs.setdefault(graphs, []).append(_sofia_init_route("taxi", graphs, rank=SOFIA_WIDE_RANK,
+                                                             epochs=SOFIA_WIDE_EPOCHS))
+    graph, eager = runs[True], runs[False]
+    if not all(_same_sofia(r_["res"], graph[0]["res"]) for r_ in (*graph[1:], *eager)):
+        raise AssertionError(f"phase24 sofia_init taxi r={SOFIA_WIDE_RANK}: the routes differ")
+    if not all(1 <= g["graphs"] <= SOFIA_CAPTURES for g in graph) or any(e["graphs"] for e in eager):
+        raise AssertionError(f"phase24 sofia_init taxi r={SOFIA_WIDE_RANK}: captures {[g['graphs'] for g in graph]}"
+                             f" / {[e['graphs'] for e in eager]}")
+    print(f"phase24 sofia_init taxi r={SOFIA_WIDE_RANK} ({SOFIA_WIDE_EPOCHS} epochs): graph route "
+          f"({graph[0]['graphs']} captures a call) bitwise the route without graphs (factors, X, O, err_hist; 2 "
+          f"runs each); graph {[round(g['ms'] / SOFIA_WIDE_EPOCHS, 3) for g in graph]} ms an epoch, eager "
+          f"{[round(e['ms'] / SOFIA_WIDE_EPOCHS, 3) for e in eager]}; err_hist "
+          f"{np.round(graph[0]['res'][3], 6).tolist()}", flush=True)
 
     # the stream at taxi, both routes; its scan timed apart
     frames = []
@@ -3851,7 +3965,7 @@ def phase24() -> dict:
 
 
 def _sofia_sweep_and_stream_against_the_cpu() -> None:
-    """The Gauss-Seidel sweep over taxi's 500 time rows and the stream over
+    """The mode-3 step over taxi's 500 time rows and the stream over
     100x100 frames, float32 on the card against the same code in float64
     on the CPU."""
     from tritd_tpu_torch.baselines import sofia
@@ -3865,7 +3979,8 @@ def _sofia_sweep_and_stream_against_the_cpu() -> None:
     got = sofia._mode3_gauss_seidel(*[a.float().cuda() for a in args], 0.1, 0.001, m)
     rtol, atol = SOFIA_SWEEP_TOL
     torch.testing.assert_close(got.cpu().double(), want, rtol=rtol, atol=atol)
-    print(f"phase24 sofia gauss-seidel sweep n3={n3} r={r} m={m}: f32 card vs f64 CPU within rtol {rtol}, atol {atol}")
+    print(f"phase24 sofia mode-3 step (mode3_sweep) n3={n3} r={r} m={m}: f32 card vs f64 CPU within rtol {rtol}, "
+          f"atol {atol}")
 
     n, frames = 100, 50
     u1, u2 = (torch.linalg.qr(torch.randn((n, r), generator=gen, dtype=torch.float64))[0] for _ in range(2))

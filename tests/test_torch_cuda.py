@@ -54,11 +54,14 @@ synchronizing call a segment, the saves apart), `tritd_admm_outlier` and
 max_iter and one at the end), `tritd_mals` (one synchronizing call). The
 solve methods "pinv" and "lstsq" take the eager loop on the card: their
 torch forms cannot be captured (a subprocess shows the capture raising).
-SOFIA's two kernels (`ops/sofia_kernels.py`) against their plain versions:
+SOFIA's kernels (`ops/sofia_kernels.py`) against their plain versions:
 the row pinv within 64 r eps times each gram's condition of its row's
 scale (two backward-stable solves of one system), an all-zero gram's row
-exactly zero; the sweep within 256 eps of its largest value. SOFIA's loops
-on the graph route bitwise their device programs without graphs."""
+exactly zero; the mode-3 step (`mode3_sweep`, one launch) and the sweep
+alone within 256 eps of their largest value (one chain of products and
+sums in two orders; the systems well conditioned), a system the mode-3
+step cannot factor NaN from its row on. SOFIA's loops on the graph route
+bitwise their device programs without graphs, at r = 3 and r = 4."""
 
 import contextlib
 import dataclasses
@@ -1111,7 +1114,7 @@ def test_uncaptured_methods_take_the_eager_loop_on_the_card(cuda_device, tmp_pat
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("r", [1, 3, 8, 32])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 9, 32])
 def test_sofia_kernels_match_their_plain_versions(cuda_device, dtype, r):
     """pinv_rows within 64 r eps times each gram's condition of its row's
     scale of torch's pinv, an all-zero gram's row exactly zero; the sweep
@@ -1152,6 +1155,119 @@ def test_sofia_kernels_match_their_plain_versions(cuda_device, dtype, r):
     with pytest.raises(ValueError, match=f"ranks 1 to {sofia_kernels.MAX_RANK}"):
         sofia_kernels.pinv_rows(torch.zeros((2, too_wide), device=cuda_device, dtype=dtype),
                                 torch.zeros((2, too_wide, too_wide), device=cuda_device, dtype=dtype), rtol)
+
+
+SWEEP_EPS_FACTOR = 256  # the mode-3 step against its plain version, eps of its largest value
+
+
+def _mode3_inputs(n3, r, dtype, device, seed=0):
+    """(u3, rhs_base, gram_base): old rows, right-hand sides and grams whose
+    systems are well conditioned (eigenvalues about 0.5 to 3)."""
+    g = torch.Generator().manual_seed(seed + r)
+    b = torch.randn((n3, r, 2 * r), generator=g, dtype=torch.float64)
+    gram = b @ b.transpose(1, 2) / (2 * r) + 0.5 * torch.eye(r, dtype=torch.float64)
+    return tuple(x.to(device, dtype).contiguous() for x in (
+        torch.randn((n3, r), generator=g, dtype=torch.float64), torch.randn((n3, r), generator=g, dtype=torch.float64),
+        gram))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [1, 2, 3, 7, 300], ids=["m1", "m2", "m3", "m7", "m_past_n3"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 17, 32])
+def test_mode3_sweep_matches_its_plain_version(cuda_device, dtype, r, m):
+    """The whole mode-3 step in one launch within SWEEP_EPS_FACTOR eps of its
+    largest value of the systems and the row loop (`mode3_sweep_torch`).
+    Each coupling of the one-thread chain is met: none (m >= n3), row t - 1
+    (m = 1), a row still in registers (m = 2, and m = 3 where it keeps three
+    rows ahead: float32 r <= 4, float64 r <= 3) and the delay line in shared
+    memory (m = 7, and m = 3 where it keeps two)."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    n3, tag = 300, "f32" if dtype == torch.float32 else "f64"
+    args = _mode3_inputs(n3, r, dtype, cuda_device)
+    hopper_kernels.reset_launch_counts()
+    got = sofia_kernels.mode3_sweep(*args, 0.1, 0.001, m)
+    assert hopper_kernels.SOFIA_LAUNCHES == {**dict.fromkeys(hopper_kernels.SOFIA_LAUNCHES, 0), f"mode3_sweep[{tag}]": 1}
+    want = sofia_kernels.mode3_sweep_torch(*args, 0.1, 0.001, m)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= SWEEP_EPS_FACTOR * torch.finfo(dtype).eps * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("r", [3, 5])
+def test_the_one_thread_chain_reads_its_own_rows_where_the_delay_line_does_not_fit(cuda_device, dtype, r):
+    """m = 8500 rows back at r = 3 and 5 (one thread's chain in both dtypes):
+    a power of two of m staged rows, 16384 of 16 bytes or more, passes the
+    shared memory a block may hold, and the chain reads the rows m back from
+    its own stores in out."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    args = _mode3_inputs(9000, r, dtype, cuda_device, seed=6)
+    got = sofia_kernels.mode3_sweep(*args, 0.1, 0.001, 8500)
+    want = sofia_kernels.mode3_sweep_torch(*args, 0.1, 0.001, 8500)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= SWEEP_EPS_FACTOR * torch.finfo(dtype).eps * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_mode3_sweep_reads_its_own_rows_where_the_delay_line_does_not_fit(cuda_device):
+    """r = 32 in float64 at network's period: the m rows back do not fit in
+    shared memory beside the tiles, and the chain reads its own stores."""
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    args = _mode3_inputs(500, 32, torch.float64, cuda_device, seed=5)
+    got = sofia_kernels.mode3_sweep(*args, 0.1, 0.001, 168)
+    want = sofia_kernels.mode3_sweep_torch(*args, 0.1, 0.001, 168)
+    assert float((got - want).abs().max()) <= SWEEP_EPS_FACTOR * torch.finfo(torch.float64).eps * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("r", [4, 17])
+def test_mode3_sweep_turns_the_rows_nan_from_a_system_it_cannot_factor(cuda_device, dtype, r):
+    from tritd_tpu_torch.ops import sofia_kernels
+
+    n3, bad = 200, 77
+    u3, rhs, gram = _mode3_inputs(n3, r, dtype, cuda_device, seed=2)
+    gram[bad] -= 50.0 * torch.eye(r, dtype=dtype, device=cuda_device)
+    got = sofia_kernels.mode3_sweep(u3, rhs, gram, 0.1, 0.001, 7)
+    want = sofia_kernels.mode3_sweep_torch(u3, rhs, gram, 0.1, 0.001, 7)
+    assert torch.isnan(got[bad:]).all() and torch.isnan(want[bad:]).all() and torch.isfinite(got[:bad]).all()
+    err = float((got[:bad] - want[:bad]).abs().max())
+    assert err <= SWEEP_EPS_FACTOR * torch.finfo(dtype).eps * float(want[:bad].abs().max())
+
+
+@pytest.mark.cuda
+def test_sofia_init_at_rank_four_takes_the_graph_route_bitwise(cuda_device, monkeypatch):
+    """Above r = 3 the mode-3 step is the kernel too, so SOFIA replays its
+    graphs: sofia_init on the taxi stand-in at r = 4 (2 epochs), at most
+    three captures, bitwise the same programs without graphs, one mode3_sweep
+    launch an ALS iteration."""
+    from tritd_tpu_torch.baselines import sofia
+    from tritd_tpu_torch.data import load_dataset
+
+    x_np, spec, _prov = load_dataset("taxi")
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=cuda_device)
+    mask = torch.as_tensor(np.random.default_rng(0).random(x_np.shape) > 0.1, device=cuda_device)
+    init = tuple(torch.rand((n, 4), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+                 for n in x_np.shape)
+    args = (x, mask, 4, spec.sofia_period, 0.1, 0.001, 10.0, x, 2, 1e-3, 300, None, init)
+    assert sofia._graph_route(cuda_device, 4)
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        graph = sofia._init_run(*args, True)
+    launches = dict(hopper_kernels.SOFIA_LAUNCHES)
+    eager = sofia._init_run(*args, False)
+    assert 1 <= seen["graphs"] <= 3 and len(graph[3]) == 2
+    for a, b in zip((*graph[0], graph[1], graph[2]), (*eager[0], eager[1], eager[2])):
+        assert torch.equal(a, b)
+    assert np.array_equal(graph[3], eager[3])
+    assert launches["mode3_sweep[f32]"] > 0 and launches["pinv_rows[f32]"] == 2 * launches["mode3_sweep[f32]"]
+    assert launches["gauss_seidel_sweep[f32]"] == 0
 
 
 @pytest.mark.cuda

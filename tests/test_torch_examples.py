@@ -132,6 +132,8 @@ def test_profile_sofia_times_every_stage_on_the_cpu(capsys):
     from tritd_tpu_torch.tools import profile_sofia
 
     out = profile_sofia.main(["--dataset", "taxi", "--device", "cpu", "--epochs", "1", "--reps", "1"])
-    keys = ("epoch_ms", "als_iter_ms", "mode3_sweep_ms", "pinv_rows_ms", "grams_3modes_ms", "recon_fit_ms")
+    keys = ("epoch_ms", "als_iter_ms", "mode3_sweep_ms", "mode3_split_ms", "pinv_rows_ms", "grams_3modes_ms",
+            "recon_fit_ms")
     assert all(out[k] > 0 for k in keys) and out["shape"] == [100, 100, 500] and out["period"] == 7
+    assert out["mode3_sweep_graph_ms"] is None and out["mode3_split_graph_ms"] is None  # no CUDA graph on the CPU
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out

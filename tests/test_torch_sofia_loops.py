@@ -244,9 +244,14 @@ def test_the_kernels_name_their_rank_limit():
 
 
 def test_the_graph_route_is_the_cards_for_ranks_up_to_three():
+    """Since the mode-3 step is one kernel launch, the card's route is the
+    graphs' at every rank the kernels take, up to MAX_RANK (the name keeps
+    the limit it had when torch's batched Cholesky inverted ranks above
+    three); never on the CPU."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert sofia._graph_route(cuda, 3) and sofia._graph_route(cuda, 1)
-    assert not sofia._graph_route(cuda, 4) and not sofia._graph_route(cpu, 3)
+    assert all(sofia._graph_route(cuda, r) for r in range(1, sofia_kernels.MAX_RANK + 1))
+    assert not sofia._graph_route(cuda, sofia_kernels.MAX_RANK + 1)
+    assert not any(sofia._graph_route(cpu, r) for r in (1, 3, 4, sofia_kernels.MAX_RANK))
 
 
 # --- the graph route's control flow with a stand-in CUDA graph ---------------

@@ -31,19 +31,19 @@ The three loops run as the reference's device loops do: the ALS
 on the device. On the card each program is a CUDA graph, captured once a
 call and replayed (`_graph_route`), and the host reads the ALS stop flag
 once an ALS iteration and the epoch's once an epoch, the stream nothing
-before its end; the row pinv and the Gauss-Seidel sweep are the two kernels
-of `ops/sofia_kernels.py`. The CPU runs the same programs without graphs.
+before its end; the row pinv and the mode-3 step (its systems and its
+Gauss-Seidel sweep) are the two kernels of `ops/sofia_kernels.py`. The CPU
+runs the same programs without graphs.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from ..ops import sofia_kernels
 from ..ops.kruskal import input_device, solver_input
+from ..ops.sofia_kernels import _mode3_systems, _spd_inverse  # noqa: F401  (the names the tests use)
 from ..ops.shrinkage import soft_threshold
 from ..solvers import admm
 
@@ -94,52 +94,6 @@ def _pinv_rows(rhs, gram):
     return sofia_kernels.pinv_rows(rhs, gram, 10.0 * r * torch.finfo(gram.dtype).eps)
 
 
-def _spd_inverse(mats: torch.Tensor) -> torch.Tensor:
-    """Batched inverse of symmetric positive-definite r x r matrices.
-
-    The mode-3 systems are gram (PSD) + diag_coef * I with diag_coef >=
-    lambda1 > 0, so pinv == inv exactly (no singular-value truncation can
-    trigger); the closed adjugate form for r <= 3 is then equivalent to the
-    reference's pinv up to rounding, in a few elementwise operations. r > 3
-    goes through a Cholesky factorization, `cholesky_ex`, which reads
-    nothing back to the host: a matrix it cannot factor comes out NaN, as
-    the reference's does."""
-    r = mats.shape[-1]
-    if r == 1:
-        return 1.0 / mats
-    a = mats
-    if r == 2:
-        det = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
-        adj = torch.stack(
-            [a[..., 1, 1], -a[..., 0, 1], -a[..., 1, 0], a[..., 0, 0]], -1
-        ).reshape(a.shape)
-        return adj / det[..., None, None]
-    if r == 3:
-        det = (
-            a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
-            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
-            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0])
-        )
-        adj = torch.stack(
-            [
-                a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1],
-                a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2],
-                a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1],
-                a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2],
-                a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0],
-                a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2],
-                a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0],
-                a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1],
-                a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0],
-            ],
-            -1,
-        ).reshape(a.shape)
-        return adj / det[..., None, None]
-    low, info = torch.linalg.cholesky_ex(a)
-    low = torch.where((info > 0)[..., None, None], torch.full_like(low, math.nan), low)
-    return torch.cholesky_inverse(low)
-
-
 def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
     """Sequential time-mode update with temporal/seasonal Tikhonov coupling
     (`sofia_als.m:100-122`). Row t uses updated rows t-1, t-m and old rows
@@ -149,42 +103,17 @@ def _mode3_gauss_seidel(u3, rhs_base, gram_base, lam1, lam2, m):
     for all rows at once before it:
 
     * the per-row system (Gram + boundary-dependent lam1/lam2 diagonal)
-      does not depend on the swept state: all n3 inverses come from one
-      call of the SPD closed form (the systems are PD, diag_coef >= lam1);
+      does not depend on the swept state: all n3 inverses come from the
+      SPD closed form (the systems are PD, diag_coef >= lam1);
     * reads of NOT-yet-updated rows (t+1, t+m) are reads of the INPUT
       state, folded into rhs0 for all rows at once;
     * reads of already-updated rows (t-1, t-m) are rows of the output
-      written so far: the sweep itself, one launch of the
-      `gauss_seidel_sweep` kernel on the card (a row loop on the CPU,
-      `ops/sofia_kernels.py`)."""
-    rhs0, inv_all = _mode3_systems(u3, rhs_base, gram_base, lam1, lam2, m)
-    return sofia_kernels.gauss_seidel_sweep(rhs0, inv_all, lam1, lam2, m)
+      written so far.
 
-
-def _mode3_systems(u3, rhs_base, gram_base, lam1, lam2, m):
-    """The sweep's inputs (`_mode3_gauss_seidel`): each row's right-hand
-    side with the old rows t+1, t+m folded in, and the inverse of its
-    system, both contiguous."""
-    n3, r = u3.shape
-    dtype, device = u3.dtype, u3.device
-    eye = torch.eye(r, dtype=dtype, device=device)
-    t_idx = torch.arange(n3, device=device)
-
-    has_prev = (t_idx > 0).to(dtype)
-    has_next = (t_idx < n3 - 1).to(dtype)
-    # seasonal: t < m -> only +m; m <= t <= n3-m-1 -> both; else only -m
-    use_fwd = (t_idx < n3 - m).to(dtype)
-    use_bwd = (t_idx >= m).to(dtype)
-    diag_coef = lam1 * (has_prev + has_next) + lam2 * (use_fwd + use_bwd)
-    inv_all = _spd_inverse(gram_base + diag_coef[:, None, None] * eye[None])
-
-    # old-row contributions (rows t+1 / t+m of the INPUT state)
-    rhs0 = (
-        rhs_base
-        + lam1 * has_next[:, None] * torch.roll(u3, -1, dims=0)
-        + lam2 * use_fwd[:, None] * torch.roll(u3, -m, dims=0)
-    )
-    return rhs0.contiguous(), inv_all.contiguous()
+    On the card the whole step is one launch of the `mode3_sweep` kernel
+    (its systems and the sweep); on the CPU its plain version,
+    `_mode3_systems` and a row loop (`ops/sofia_kernels.py`)."""
+    return sofia_kernels.mode3_sweep(u3, rhs_base, gram_base, lam1, lam2, m)
 
 
 def _recon(u1, u2, u3):
@@ -194,12 +123,13 @@ def _recon(u1, u2, u3):
 
 
 def _graph_route(device: torch.device, r: int) -> bool:
-    """Whether SOFIA's loops replay CUDA graphs: on a CUDA device, for r <=
-    3. A larger rank inverts its mode-3 systems by torch's batched
-    Cholesky, which cannot be captured under its default back end on the
-    card (`solvers/admm.py` `run_admm_batch`): it runs the same device
-    form without graphs."""
-    return device.type == "cuda" and r <= 3
+    """Whether SOFIA's loops replay CUDA graphs: on a CUDA device, at every
+    rank its kernels take (`sofia_kernels.MAX_RANK`). Nothing on the card's
+    path reads back to the host: the mode-3 step inverts its systems in the
+    `mode3_sweep` kernel, not by torch's batched Cholesky, which a capture
+    refuses under its default back end (`solvers/admm.py`
+    `run_admm_batch`)."""
+    return device.type == "cuda" and r <= sofia_kernels.MAX_RANK
 
 
 def _fit_stop(k, fit, fit_new, tol: float):

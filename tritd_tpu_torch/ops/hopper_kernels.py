@@ -108,8 +108,9 @@ KERNEL_VARIANTS = _variants()
 LAUNCHES = {f"elementwise_block[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 POINTER_LAUNCHES = {f"elementwise_block_ptr[{v}]": 0 for v in KERNEL_VARIANTS.values()}
 BATCH_LAUNCHES = {f"elementwise_block_batch[{v}]": 0 for v in KERNEL_VARIANTS.values()}
-# Launches of SOFIA's two kernels (`ops/sofia_kernels.py`), by dtype.
-SOFIA_LAUNCHES = {f"{name}[{dt}]": 0 for name in ("pinv_rows", "gauss_seidel_sweep") for dt in ("f32", "f64")}
+# Launches of SOFIA's kernels (`ops/sofia_kernels.py`), by dtype.
+SOFIA_LAUNCHES = {f"{name}[{dt}]": 0 for name in ("pinv_rows", "mode3_sweep", "gauss_seidel_sweep")
+                  for dt in ("f32", "f64")}
 _COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES)
 
 

@@ -4,7 +4,7 @@ Every pointer and the stream are passed as `c_void_p`, sizes as `c_int64`,
 scalars by value in the compute type, or, in a variant's pointer entry
 (`..._ptr`), the three penalties as addresses of values in device memory;
 its batched entry (`..._batch`) takes the entry count after n and the
-penalties as addresses of arrays of one value an entry. SOFIA's two kernels
+penalties as addresses of arrays of one value an entry. SOFIA's kernels
 (`csrc/sofia_kernels.cu`, :mod:`tritd_tpu_torch.ops.sofia_kernels`) take
 their counts as `c_int64`, the rank as `c_int` and their scalars by value.
 Loading the library builds it, so the first CUDA call pays the nvcc
@@ -74,6 +74,11 @@ def bind(path, variants=None) -> ctypes.CDLL:
                 _P, _P, _P, ctypes.c_int64, ctypes.c_int, scalar, scalar, ctypes.c_int64, _P]
             for name in ("pinv_rows", "gauss_seidel_sweep"):
                 getattr(lib, f"tritd_{name}_{tag}").restype = ctypes.c_int
+            if hasattr(lib, f"tritd_mode3_sweep_{tag}"):  # not in a library built from an earlier revision
+                # u3, rhs_base, gram_base, out, n3, r, lam1, lam2, m, stream
+                fn = getattr(lib, f"tritd_mode3_sweep_{tag}")
+                fn.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, scalar, scalar, ctypes.c_int64, _P]
+                fn.restype = ctypes.c_int
     return lib
 
 

@@ -13,8 +13,13 @@ programs without graphs:
   dataset's frames, from seeded factors and Holt-Winters state,
 * `busy_share`: the card's kernel time over the epoch loop's wall time
   (a `torch.profiler` trace; not measured on the CPU),
-* `mode3_sweep_ms`: the mode-3 Gauss-Seidel sweep (its systems and the
-  `gauss_seidel_sweep` kernel),
+* `mode3_sweep_ms`: the mode-3 step, its systems and its Gauss-Seidel sweep
+  (on the card one launch of the `mode3_sweep` kernel), called eagerly,
+  and `mode3_sweep_graph_ms` as one replay of a CUDA graph that holds it;
+  `mode3_split_ms`, `mode3_split_graph_ms` the same for the step split
+  in two, its systems in about thirty torch launches and the
+  `gauss_seidel_sweep` kernel (the graph's replay is their card time
+  without the host's launches),
 * `pinv_rows_ms`: the per-row pinv solve of one mode (`pinv_rows`),
 * `grams_3modes_ms`: the masked right-hand sides and Grams of all three
   modes,
@@ -42,6 +47,7 @@ import torch
 
 from ..baselines import sofia as S
 from ..cli.run_completion import resolve_device
+from ..ops import sofia_kernels
 from ..data import load_dataset, uniform_missing_mask
 from ..utils.config import README_MISSING_RATIO, SOFIA_PRESET
 
@@ -63,6 +69,22 @@ def timed_ms(fn, device, reps: int) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def graph_ms(fn, device, reps: int) -> float | None:
+    """Median ms of one replay of a CUDA graph that holds `fn()`, captured
+    after a warm-up call on a side stream; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed_ms(graph.replay, device, reps)
 
 
 def busy_share(fn, device) -> float | None:
@@ -124,8 +146,19 @@ def profile(dataset: str = "network", device="cuda", epochs: int = 20, reps: int
     of = omega.to(y.dtype)
     yt, ot = torch.movedim(y, 2, 0), torch.movedim(of, 2, 0)
     rhs_base, gram_base = S._masked_row_systems(yt, ot, S._khatri_rao(u1, u2))
-    out["mode3_sweep_ms"] = timed_ms(
-        lambda: S._mode3_gauss_seidel(u3, rhs_base, gram_base, p.lambda1, p.lambda2, m), device, reps)
+    rhs_base, gram_base = rhs_base.contiguous(), gram_base.contiguous()
+
+    def mode3():
+        S._mode3_gauss_seidel(u3, rhs_base, gram_base, p.lambda1, p.lambda2, m)
+
+    def mode3_split():
+        sofia_kernels.gauss_seidel_sweep(*S._mode3_systems(u3, rhs_base, gram_base, p.lambda1, p.lambda2, m),
+                                         p.lambda1, p.lambda2, m)
+
+    out["mode3_sweep_ms"] = timed_ms(mode3, device, reps)
+    out["mode3_sweep_graph_ms"] = graph_ms(mode3, device, reps)
+    out["mode3_split_ms"] = timed_ms(mode3_split, device, reps)
+    out["mode3_split_graph_ms"] = graph_ms(mode3_split, device, reps)
     rhs1, gram1 = S._masked_row_systems(y, of, S._khatri_rao(u2, u3))
     out["pinv_rows_ms"] = timed_ms(lambda: S._pinv_rows(rhs1, gram1), device, reps)
 
