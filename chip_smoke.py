@@ -103,7 +103,7 @@ Phases, each of which fails the run by raising:
      The CPU runs (these references, the controls and taxi's float64 rerun)
      go to CPU_REF_WORKERS spawned worker processes of CPU_REF_THREADS
      threads each as the card solves end, and are held when they return:
-     after phase 24 (`phase3 checks took`), so that they overlap the card's
+     after phase 25 (`phase3 checks took`), so that they overlap the card's
      later phases.
   4. the completion CLI in a subprocess.
   5. checkpointed resume: a subprocess dies right after its step-25
@@ -326,11 +326,29 @@ Phases, each of which fails the run by raising:
      sofia_init on the card against float64 on the CPU (err_hist rtol
      1e-3), the mode-3 step (rtol 1e-3, atol 1e-4) and a 100x100 stream (rtol
      1e-3, atol 1e-3 max|X|) likewise.
+ 25. The Tensor Toolbox's ten solver loops (ops/toolbox_loop.py) at phase
+     15's sizes in float32, tol 0: cp_als, cp_nmu, cp_apr (5 outer
+     iterations of 10 inner sweeps) and cp_arls at taxi, R = 10 (cp_nmu
+     and cp_apr on taxi's rounded absolute values), cp_als_sparse on taxi's
+     COO at 10% and 90%, eig_sshopm, eig_sshopmc and eig_geap (B =
+     teneye) on a 40^4 symmetric tensor, gcp_opt ("count") at
+     TOOLBOX_OPT_SHAPE, R = 5, and cp_sym at 40^4, rank 3; each on the
+     graph route (the default on the card), the device form without graphs
+     and the host loop, in turns graph, no graphs, host loop, graph:
+     bitwise (cp_als_sparse, whose scatter-adds are atomic, within
+     TOOLBOX_SPARSE_ROUTE_TOL), one capture a graph-route call, the
+     synchronizing calls (a flag read after each iteration short of
+     max_iters and the counter at the end; cp_arls one more, its draws'
+     copy to the card), ms an iteration of each route (events), the graph
+     route's time to its first replay and its replays' ms an iteration,
+     peak MiB above what was allocated at the call's start; each held to
+     the same call in float64 on the CPU (in the worker processes of phase
+     3's pool, queued after phase 3's own).
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
 
-Phases 8-11, 15 and 16 launch no kernel of this package but the one inside `triple`
+Phases 8-11, 15, 16 and 25 launch no kernel of this package but the one inside `triple`
 and SOFIA's two: the baselines' SVD, eigh, QR, FFT and GEMMs are
 torch.linalg, torch.fft and torch.matmul, as the reference leaves them to
 its compiler.
@@ -361,6 +379,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import re
@@ -3013,6 +3032,7 @@ def _watched(call) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
@@ -3037,7 +3057,8 @@ def _watched(call) -> dict:
     # that only the garbage collector would free; free them here
     graphs.clear()
     return {"res": res, "ms": start.elapsed_time(end), "syncs": syncs,
-            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, **split}
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "call_peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20, **split}
 
 
 def phase21() -> None:
@@ -4002,6 +4023,211 @@ def _sofia_sweep_and_stream_against_the_cpu() -> None:
           f"{SOFIA_STREAM_RTOL}, atol {SOFIA_STREAM_RTOL} max|X|")
 
 
+# --- phase 25: the Tensor Toolbox's loops on their device form --------------
+
+TOOLBOX_LOOP_RANK = 10
+TOOLBOX_LOOP_CP_SYM_RANK = 3
+# iterations of each call (tol 0: every route and the CPU run as many)
+TOOLBOX_LOOP_ITERS = {"cp_als": 25, "cp_als_sparse 10%": 10, "cp_als_sparse 90%": 10, "cp_nmu": 25, "cp_apr": 5,
+                      "cp_arls": 25, "eig_sshopm": 100, "eig_sshopmc": 100, "eig_geap": 100, "gcp_opt": 100,
+                      "cp_sym": 50}
+# the routes of ops/toolbox_loop.py, in the order they run: the graph route
+# (the default on the card) twice, around the other two
+TOOLBOX_LOOP_TURNS = (("graphs", True), ("no graphs", False), ("host loop", None), ("graphs", True))
+# cp_als_sparse's routes within this of each other (fit; reconstruction over
+# its largest entry): index_add_ adds atomically, in any order
+TOOLBOX_SPARSE_ROUTE_TOL = 1e-4
+# each result held to the CPU float64 call: (key, relative?, tol), phase 15's
+TOOLBOX_LOOP_HELD = {"cp_als": ("fit", False, 1e-4), "cp_als_sparse 10%": ("fit", False, 1e-4),
+                     "cp_als_sparse 90%": ("fit", False, 1e-4), "cp_nmu": ("fit", False, 1e-4),
+                     "cp_apr": ("log_likelihood", True, 1e-4), "cp_arls": ("fit", False, 1e-3),
+                     "eig_sshopm": ("eigval", False, 1e-4), "eig_sshopmc": ("eigval", False, 1e-4),
+                     "eig_geap": ("eigval", False, 1e-4), "gcp_opt": ("objective", True, 0.05),
+                     "cp_sym": ("loss", True, 0.05)}
+
+
+def _toolbox_loop_inputs() -> dict:
+    """The numpy float64 inputs of phase 25 at phase 15's sizes: taxi (and
+    its nonnegative counts, its COO at 10% and 90%), a 40^4 symmetric tensor
+    with three rank-one terms and teneye(4, 40), TOOLBOX_OPT_SHAPE counts."""
+    from tritd_tpu_torch import ops
+
+    x_np, _spec, _prov = load_dataset("taxi")
+    x_np = np.ascontiguousarray(x_np, dtype=np.float64)
+    rng = np.random.default_rng(25)
+    out = {"x": x_np, "shape": x_np.shape, "counts": np.round(np.abs(x_np)),
+           "init": [rng.random((s, TOOLBOX_LOOP_RANK)) for s in x_np.shape]}
+    for keep in (0.10, 0.90):
+        out[f"coo {keep:.0%}"] = _coo(x_np, keep, seed=int(keep * 100))
+    n = TOOLBOX_SYM_N
+    noise = rng.standard_normal((n,) * 4)
+    sym = sum(noise.transpose(p) for p in itertools.permutations(range(4))) / 24.0
+    u = np.linalg.qr(rng.standard_normal((n, 3)))[0]
+    out["a"] = 0.02 * sym + sum(w * np.einsum("i,j,k,l->ijkl", c, c, c, c) for w, c in zip((5.0, 3.0, 2.0), u.T))
+    out["eye"] = ops.teneye(4, n, dtype=torch.float64, device="cpu").numpy()
+    out["x0"] = rng.standard_normal(n)
+    out["x0c"] = out["x0"] + 0.01j * rng.standard_normal(n)
+    out["sym_init"] = (rng.standard_normal(TOOLBOX_LOOP_CP_SYM_RANK),
+                       rng.standard_normal((n, TOOLBOX_LOOP_CP_SYM_RANK)) / np.sqrt(n))
+    shape = TOOLBOX_OPT_SHAPE
+    truth = [rng.random((s, 5)) + 0.1 for s in shape]
+    out["opt_counts"] = np.round(5.0 * np.einsum("ir,jr,kr->ijk", *truth))
+    out["opt_init"] = [0.5 * rng.random((s, 5)) + 0.01 for s in shape]
+    return out
+
+
+def _toolbox_loop_call(name: str, d: dict, max_iters: int) -> dict:
+    """One phase-25 call on the tensors `d` (`_toolbox_loop_inputs()` on a
+    device), at tol 0."""
+    from tritd_tpu_torch import ops
+
+    r = TOOLBOX_LOOP_RANK
+    if name == "cp_als":
+        return ops.cp_als(d["x"], r, max_iters=max_iters, tol=0.0, init_factors=d["init"])
+    if name.startswith("cp_als_sparse"):
+        vals, coords = d["coo " + name.split()[-1]]
+        return ops.cp_als_sparse(vals, coords, d["shape"], r, max_iters=max_iters, tol=0.0, init_factors=d["init"])
+    if name == "cp_nmu":
+        return ops.cp_nmu(d["counts"], r, max_iters=max_iters, tol=0.0, init_factors=d["init"])
+    if name == "cp_apr":
+        return ops.cp_apr(d["counts"], r, max_outer=max_iters, tol=0.0, init_factors=d["init"])
+    if name == "cp_arls":
+        return ops.cp_arls(d["x"], r, max_iters=max_iters, tol=0.0, generator=torch.Generator().manual_seed(25),
+                           init_factors=d["init"])
+    if name == "eig_sshopm":
+        return ops.eig_sshopm(d["a"], shift=1.0, max_iters=max_iters, tol=0.0, x0=d["x0"])
+    if name == "eig_sshopmc":
+        return ops.eig_sshopmc(d["a"], shift=2.0, max_iters=max_iters, tol=0.0, x0=d["x0c"])
+    if name == "eig_geap":
+        return ops.eig_geap(d["a"], d["eye"], shift=1.0, max_iters=max_iters, tol=0.0, x0=d["x0"])
+    if name == "gcp_opt":
+        return ops.gcp_opt(d["opt_counts"], 5, loss="count", max_iters=max_iters, tol=0.0,
+                           init_factors=d["opt_init"])
+    if name == "cp_sym":
+        res = ops.cp_sym(d["a"], TOOLBOX_LOOP_CP_SYM_RANK, max_iters=max_iters, tol=0.0, init=d["sym_init"])
+        return {**res, "loss": (1.0 - res["fit"]) ** 2}
+    raise KeyError(name)
+
+
+def _toolbox_loop_cpu(name: str, arrays: dict, max_iters: int) -> tuple[dict, float]:
+    """In a worker of `_cpu_pool()`: the 0-d results of the phase-25 call
+    `name` in float64 on the CPU (its host loop), and its seconds."""
+    torch.set_num_threads(CPU_REF_THREADS)
+    t0 = time.perf_counter()
+    res = _toolbox_loop_call(name, {k: _to(v, "cpu", torch.float64) for k, v in arrays.items()}, max_iters)
+    return ({k: v.item() for k, v in res.items() if isinstance(v, torch.Tensor) and v.dim() == 0}
+            | {"n_iters": res["n_iters"]}), time.perf_counter() - t0
+
+
+def _toolbox_loop_arrays(name: str, inputs: dict) -> dict:
+    keys = {"cp_als": ("x", "init"), "cp_als_sparse 10%": ("coo 10%", "shape", "init"),
+            "cp_als_sparse 90%": ("coo 90%", "shape", "init"), "cp_nmu": ("counts", "init"), "cp_apr": ("counts", "init"),
+            "cp_arls": ("x", "init"), "eig_sshopm": ("a", "x0"), "eig_sshopmc": ("a", "x0c"),
+            "eig_geap": ("a", "eye", "x0"), "gcp_opt": ("opt_counts", "opt_init"), "cp_sym": ("a", "sym_init")}
+    return {k: inputs[k] for k in keys[name]}
+
+
+def phase25_cpu_references(inputs: dict | None = None) -> dict:
+    """Submits phase 25's CPU float64 calls to the pool: name -> future."""
+    inputs = _toolbox_loop_inputs() if inputs is None else inputs
+    return {name: _cpu_pool().submit(_toolbox_loop_cpu, name, _toolbox_loop_arrays(name, inputs), iters)
+            for name, iters in TOOLBOX_LOOP_ITERS.items()}
+
+
+def _toolbox_routes_differ(name: str, got: dict, want: dict) -> str:
+    """'' when two routes' results agree: bitwise, cp_als_sparse within
+    TOOLBOX_SPARSE_ROUTE_TOL; else what differs."""
+    from tritd_tpu_torch import ops
+
+    if got["n_iters"] != want["n_iters"]:
+        return f"n_iters {got['n_iters']} / {want['n_iters']}"
+    if not name.startswith("cp_als_sparse"):
+        g, w = dict(_named_tensors(got)), dict(_named_tensors(want))
+        return ", ".join(k for k in w if not _same_bits(g[k], w[k]))
+    fit = abs(float(got["fit"]) - float(want["fit"]))
+    full_g, full_w = (ops.ktensor_full(r["factors"], r["weights"]).double() for r in (got, want))
+    rec = float((full_g - full_w).abs().max() / full_w.abs().max())
+    bad = fit > TOOLBOX_SPARSE_ROUTE_TOL or rec > TOOLBOX_SPARSE_ROUTE_TOL
+    return f"|fit diff| {fit:.2e}, reconstruction {rec:.2e}" if bad else ""
+
+
+def _named_tensors(res: dict):
+    for key, value in res.items():
+        if isinstance(value, torch.Tensor):
+            yield key, value
+        elif isinstance(value, (list, tuple)):
+            yield from ((f"{key}.{i}", v) for i, v in enumerate(value))
+
+
+def phase25(refs: dict | None = None) -> list:
+    """The Tensor Toolbox's ten loops (ops/toolbox_loop.py) at phase 15's
+    sizes in float32, each on the graph route (the default), the device
+    form without graphs and the host loop, in turns graph, no graphs, host
+    loop, graph: bitwise (cp_als_sparse within TOOLBOX_SPARSE_ROUTE_TOL),
+    captures (one a graph-route call, none on the others), synchronizing
+    calls, ms an iteration (events), the graph route's time to its first
+    replay and its replays' ms an iteration, peak MiB above the call's
+    start; each held to the same call in float64 on the CPU (its host loop, in the pool's worker
+    processes). Returns the rows for PERF.md."""
+    from tritd_tpu_torch.ops import toolbox_loop
+
+    inputs = _toolbox_loop_inputs()
+    if refs is None:
+        refs = phase25_cpu_references(inputs)
+    rows = []
+    for name, iters in TOOLBOX_LOOP_ITERS.items():
+        _release_cached()
+        card = {k: _to(v, "cuda", torch.float32) for k, v in _toolbox_loop_arrays(name, inputs).items()}
+        for _label, graphs in TOOLBOX_LOOP_TURNS[:3]:  # the libraries' set-up out of the times
+            with toolbox_loop.forced_route(graphs):
+                _toolbox_loop_call(name, card, 2)
+        runs: dict = {}
+        for label, graphs in TOOLBOX_LOOP_TURNS:
+            with toolbox_loop.forced_route(graphs):
+                runs.setdefault(label, []).append(_watched(lambda: _toolbox_loop_call(name, card, iters)))
+        graph = runs["graphs"]
+        res = graph[0]["res"]
+        n = res["n_iters"]
+        differ = {f"{a} vs {b}": _toolbox_routes_differ(name, runs[a][i]["res"], runs[b][j]["res"])
+                  for a, i, b, j in (("graphs", 0, "no graphs", 0), ("graphs", 1, "graphs", 0),
+                                     ("host loop", 0, "no graphs", 0))}
+        want_syncs = (n + 1 if n < iters else n) + (name == "cp_arls")
+        captures = {label: [r["graphs"] for r in rs] for label, rs in runs.items()}
+        syncs = {label: [r["syncs"] for r in rs] for label, rs in runs.items()}
+        if (any(differ.values()) or n != iters or captures != {"graphs": [1, 1], "no graphs": [0], "host loop": [0]}
+                or any(k != want_syncs for k in syncs["graphs"])):
+            raise AssertionError(f"phase25 {name}: routes differ {differ}; n_iters {n} (want {iters}); captures "
+                                 f"{captures}; synchronizing calls {syncs} (graph route: want {want_syncs})")
+        if not all(bool(torch.isfinite(t).all()) for _k, t in _named_tensors(res)):
+            raise AssertionError(f"phase25 {name}: not finite")
+        want, cpu_s = refs[name].result()
+        key, relative, tol = TOOLBOX_LOOP_HELD[name]
+        dist = abs(complex(res[key]) - complex(want[key])) / (abs(complex(want[key])) if relative else 1.0)
+        if not (dist <= tol and want["n_iters"] == n):
+            raise AssertionError(f"phase25 {name}: {key} {complex(res[key])} on the card, {complex(want[key])} on the "
+                                 f"CPU in f64 ({'rel' if relative else 'abs'} diff {dist:.3e}, tol {tol:g}); n_iters "
+                                 f"{n} / {want['n_iters']}")
+        ms = {label: [r["ms"] / n for r in rs] for label, rs in runs.items()}
+        first = [r["before_replays_ms"] for r in graph]
+        replays = [r["replays_ms"] / (n - 1) for r in graph]
+        peak = {label: rs[0]["call_peak_mib"] for label, rs in runs.items()}
+        sparse = f"within {TOOLBOX_SPARSE_ROUTE_TOL:g}" if name.startswith("cp_als_sparse") else "bitwise"
+        value = complex(res[key])
+        print(f"phase25 {name} ({n} iterations, tol 0): ms/iter graph route {ms['graphs'][0]:.4f} / "
+              f"{ms['graphs'][1]:.4f} (events; {first[0]:.2f} / {first[1]:.2f} ms to the first replay, "
+              f"{graph[0]['capture_host_ms']:.2f} ms of capture host time, then {replays[0]:.4f} / {replays[1]:.4f} "
+              f"ms/iter), no graphs {ms['no graphs'][0]:.4f}, host loop {ms['host loop'][0]:.4f}; captures "
+              f"{captures}; synchronizing calls {syncs} (graph route want {want_syncs}); peak MiB above the "
+              f"call's start {', '.join(f'{k} {v:.1f}' for k, v in peak.items())} (all allocated: "
+              f"{graph[0]['peak_mib']:.1f}); routes {sparse} (graph vs no graphs, graph vs "
+              f"graph, host loop vs no graphs); {key} {value if value.imag else value.real} vs CPU f64 "
+              f"{'rel' if relative else 'abs'} diff {dist:.3e} (tol {tol:g}, CPU {cpu_s:.1f} s); {CARD[0]}", flush=True)
+        rows.append({"name": name, "iters": n, "ms": ms, "first_replay_ms": first, "replay_ms": replays,
+                     "syncs": syncs, "peak_mib": peak, "dist": dist})
+        runs = graph = res = card = None
+    return rows
+
+
 def _source_of() -> dict:
     """Variant -> the .cu file of the repo that holds its entry point."""
     where = {}
@@ -4031,6 +4257,7 @@ def _main() -> None:
     phase1()
     records = _timed(2, phase2)
     launches, phase3_checks = _timed(3, phase3)
+    toolbox_refs = phase25_cpu_references()  # after phase 3's in the pool's queue
     _timed(4, phase4)
     for variant, count in _timed(5, phase5).items():
         launches[variant] = launches.get(variant, 0) + count
@@ -4053,7 +4280,8 @@ def _main() -> None:
     batch_launches = _timed(22, phase22)
     _timed(23, phase23)
     sofia_launches = _timed(24, phase24)
-    # phase 3's CPU references ran in worker processes through phases 4-24
+    _timed(25, lambda: phase25(toolbox_refs))
+    # phase 3's CPU references ran in worker processes through phases 4-25
     _timed("3 checks", phase3_checks)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     missing = sorted(variants - {v for v, n in launches.items() if n})

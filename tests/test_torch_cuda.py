@@ -75,6 +75,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_toolbox_loop_cases as toolbox_cases  # noqa: E402
 from tritd_tpu_torch.cli.run_completion import run_method  # noqa: E402
 from tritd_tpu_torch.data.loaders import DatasetSpec, synthetic_traffic  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
@@ -1312,3 +1313,66 @@ def test_sofia_graph_routes_are_their_device_forms_bitwise(cuda_device, monkeypa
     assert seen["graphs"] == 1 and seen["syncs"] == 1  # the frame counter, read at the end
     for a, b in zip(stream, sofia._stream_scan(*state, m, 0.1, 0.001, 0.1, 0.05, True, False)):
         assert torch.equal(a, b)
+
+
+# --- the Tensor Toolbox's loops on their graph route ------------------------
+
+# cp_als_sparse's routes on the card: |fit difference| and the largest
+# difference of the reconstructions over their largest entry, after 40
+# sweeps at tol 0. `index_add_` adds atomically, in an order that changes
+# from run to run; a float32 MTTKRP is held to 1e-4 of its largest entry
+# above for the same reason.
+SPARSE_ROUTE_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", ["early", "tol0"])
+@pytest.mark.parametrize("name", toolbox_cases.NAMES)
+def test_toolbox_loops_graph_route_is_the_device_form(cuda_device, monkeypatch, name, stop):
+    """f32 on the card: the public call takes the graph route (one
+    capture) and is bitwise the device form without graphs, at a tol that
+    stops early and at tol 0 (cp_als_sparse at tol 0 within
+    SPARSE_ROUTE_TOL); synchronizing calls: the flag after each iteration
+    short of max_iters, the counter at the end, and for cp_arls the copy of
+    its draws to the card."""
+    from tritd_tpu_torch.ops import ktensor_full, toolbox_loop
+
+    tol = toolbox_cases.EARLY_TOL[name] if stop == "early" else 0.0
+    data = toolbox_cases.on_device(toolbox_cases.inputs(), cuda_device, torch.float32)
+    toolbox_cases.call(name, tol, data=data, max_iters=3)  # the libraries' set-up outside the watch
+    with _watch(monkeypatch) as seen:
+        graph = toolbox_cases.call(name, tol, data=data)
+    with toolbox_loop.forced_route(False):
+        plain = toolbox_cases.call(name, tol, data=data)
+    n, cap = graph["n_iters"], toolbox_cases.MAX_ITERS[name]
+    assert seen["graphs"] == 1 and (2 <= n < cap if stop == "early" else n == cap)
+    assert seen["syncs"] == (n + 1 if n < cap else n) + (name == "cp_arls")
+    assert all(t.is_cuda for t in toolbox_cases.tensors(graph).values())
+    if name != "cp_als_sparse":
+        assert toolbox_cases.same_bits(graph, plain) == []
+    elif stop == "tol0":
+        assert plain["n_iters"] == n
+        assert abs(float(graph["fit"]) - float(plain["fit"])) <= SPARSE_ROUTE_TOL
+        g, p = (ktensor_full(r["factors"], r["weights"]).double() for r in (graph, plain))
+        assert float((g - p).abs().max() / p.abs().max()) <= SPARSE_ROUTE_TOL
+
+
+@pytest.mark.cuda
+def test_toolbox_loop_capture_that_meets_a_host_sync_raises(cuda_device, monkeypatch):
+    """A read back to the host inside a Toolbox loop's iteration fails its
+    capture, which raises (no fallback to another route); the card is
+    usable after it."""
+    from tritd_tpu_torch.ops import decomp
+
+    real = decomp._kruskal_fit
+
+    def syncing(norm_x, factors, inner):
+        float(inner)
+        return real(norm_x, factors, inner)
+
+    data = toolbox_cases.on_device(toolbox_cases.inputs(), cuda_device, torch.float32)
+    monkeypatch.setattr(decomp, "_kruskal_fit", syncing)
+    with pytest.raises(RuntimeError, match="capturing"):
+        toolbox_cases.call("cp_als", 0.0, data=data)
+    monkeypatch.setattr(decomp, "_kruskal_fit", real)
+    assert toolbox_cases.call("cp_als", 0.0, data=data)["n_iters"] == toolbox_cases.MAX_ITERS["cp_als"]

@@ -10,12 +10,16 @@ gcp_opt}.m``. Shared across all of them:
 
 * Khatri-Rao products are never materialized: the dense MTTKRP is
   `ops/decomp.py`'s; ``cp_arls`` gathers sampled factor rows (O(s·R)).
-* The reference's `lax.while_loop` bodies are Python loops with one host
-  read of the stopping quantity per iteration, tested before each body
-  (`max_iters = 0` returns the init); ``cp_apr``'s inner loop runs exactly
-  `max_inner` sweeps. `n_iters` is a Python int.
-* ``gcp_opt`` uses `torch.optim.Adam`, the same recurrence as the
-  reference's optimizer, so from one init the two follow each other step
+* The reference's `lax.while_loop`s of ``cp_nmu``, ``cp_apr``,
+  ``cp_arls`` and ``gcp_opt`` are loops of `ops/toolbox_loop.py`: on a
+  CUDA tensor one CUDA graph replay an iteration (``cp_apr``: an outer
+  iteration, its `max_inner` inner sweeps unrolled in it as the reference's
+  `fori_loop`), the stopping quantity, the counter and the flag on the
+  card, the flag the one read to the host; on the CPU a host loop of the
+  same iterations. The stop is tested before each body (`max_iters = 0`
+  returns the init). `n_iters` is a Python int.
+* ``gcp_opt`` uses `adam_descent` (`ops/symmetric.py`), optax's Adam
+  recurrence written out, so from one init the two follow each other step
   for step. ``cp_opt``/``cp_wopt`` use this module's L-BFGS
   (`_lbfgs_fit`), built as the reference's optimizer is: ten pairs of
   memory, a first step capped to unit norm, and a zoom line search that
@@ -28,10 +32,12 @@ gcp_opt}.m``. Shared across all of them:
   not on the path or on `n_iters`.
 * Parameters are leaf tensors with `requires_grad`; every returned tensor
   is detached.
-* ``cp_arls`` draws its sample indices from `generator` inside the loop; no
-  argument can make it repeat the reference's draws, so the two are held to
-  the same quality bar, and `arls_mode_solve` to a normal-equation solve on
-  given indices.
+* ``cp_arls`` draws the sample indices of all `max_iters` iterations from
+  `generator` before its loop, in the order the iterations use them, and
+  each iteration reads its own by the device's counter; no argument can
+  make it repeat the reference's draws, so the two are held to the same
+  quality bar, and `arls_mode_solve` to a normal-equation solve on given
+  indices.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ import math
 
 import torch
 
-from .decomp import _hadamard_gram, _kruskal_fit, _scalar, _spd_solve_rows, mttkrp
+from . import toolbox_loop
+from .decomp import _factors_of, _fit_loop, _hadamard_gram, _kruskal_fit, _named, _spd_solve_rows, mttkrp
 from .kruskal import cp_normalize, default_generator, draw, ktensor_full, on_input_device
 from .symmetric import adam_descent
 
@@ -62,17 +69,10 @@ def _normal_init(generator, x, rank, scale=0.1):
 
 
 def _fit_change_loop(sweep, x, factors, max_iters, tol):
-    """factors <- sweep(factors) until the fit changes by less than `tol`."""
+    """factors <- sweep(factors, k) until the fit changes by less than
+    `tol` (`ops/decomp.py`'s `_fit_loop`)."""
     norm_x = torch.linalg.vector_norm(x)
-    fit = _scalar(-math.inf, x)
-    delta, it = math.inf, 0
-    while it < max_iters and delta >= tol:
-        factors = sweep(factors)
-        new_fit = _fit(x, factors, norm_x)
-        delta = float(torch.abs(new_fit - fit))
-        fit = new_fit
-        it += 1
-    return factors, fit, it
+    return _fit_loop(sweep, lambda fs: _fit(x, fs, norm_x), factors, x, max_iters, tol)
 
 
 # ------------------------------------------------------------------- cp_nmu
@@ -88,8 +88,7 @@ def cp_nmu(x, rank, max_iters=200, tol=1e-5, generator=None, init_factors=None):
         init_factors = _uniform_init(generator, x, rank)
     eps = 1e-12
 
-    def sweep(factors):
-        factors = list(factors)
+    def sweep(factors, _k):
         for mode in range(x.ndim):
             num = mttkrp(x, factors, mode)
             den = factors[mode] @ _hadamard_gram(factors, mode)
@@ -136,30 +135,36 @@ def cp_apr(x, rank, max_outer=100, max_inner=10, tol=1e-4, generator=None, init_
         factors[ax], s = _l1_normalize(factors[ax], eps)
         lam = lam * s
 
-    def phi_of(b, mode):
+    def phi_of(factors, b, mode):
         # Phi = (X_(n) ./ max(B Pi^T, eps)) Pi as one MTTKRP of the ratio
         # tensor (`cp_apr.m` "calculatePhi").
         fs = [b if ax == mode else factors[ax] for ax in range(n)]
         m = ktensor_full(fs)
         return mttkrp(x / torch.clamp(m, min=eps), fs, mode)
 
-    kkt = _scalar(math.inf, x)
-    it = 0
-    while it < max_outer and float(kkt) >= tol:
-        kkt = _scalar(0.0, x)
+    def outer(c):
+        # one outer iteration, its inner sweeps unrolled as the reference's
+        # `fori_loop` (`tritd_tpu/ops/cp_variants.py:151`)
+        factors, lam = _factors_of(c, n), c["lam"]
+        kkt = toolbox_loop.full(0.0, x)
         for mode in range(n):
             # redistribute(M, n): absorb the weights into this mode's factor
             # (`cp_apr.m` "M = redistribute(M,n)").
             b = factors[mode] * lam[None, :]
             for _ in range(max_inner):
-                b = b * phi_of(b, mode)
+                b = b * phi_of(factors, b, mode)
             # KKT violation at the updated mode (`cp_apr.m`
             # "kktModeViolations(n) = max|min(B, 1 - Phi)|").
-            phi = phi_of(b, mode)
+            phi = phi_of(factors, b, mode)
             kkt = torch.maximum(kkt, torch.amax(torch.abs(torch.minimum(b, 1.0 - phi))))
             # normalize(M,[],1,n): pull the column sums back into lambda.
             factors[mode], lam = _l1_normalize(b, eps)
-        it += 1
+        return {**_named(factors), "lam": lam, "kkt": kkt}, kkt
+
+    carry = {**_named(map(toolbox_loop.fixed, factors)), "lam": toolbox_loop.fixed(lam),
+             "kkt": toolbox_loop.full(math.inf, x)}
+    carry, it = toolbox_loop.run(outer, carry, max_outer, tol)
+    factors, lam, kkt = _factors_of(carry, n), carry["lam"], carry["kkt"]
     factors[0] = factors[0] * lam[None, :]
     # Poisson log-likelihood (`tt_loglikelihood.m`): sum(X .* log(M) - M).
     m = torch.clamp(ktensor_full(factors), min=eps)
@@ -207,18 +212,22 @@ def cp_arls(x, rank, n_samples=None, max_iters=50, tol=1e-4, generator=None, ini
     if init_factors is None:
         init_factors = _uniform_init(generator, x, rank)
 
-    def sweep(factors):
-        factors = list(factors)
-        for mode in range(x.ndim):
-            # s multi-indices over the other modes, uniform with replacement
-            # (`cp_arls.m` "dense_sample_krp")
-            idx = [
-                torch.randint(
-                    0, x.shape[ax], (n_samples,), generator=generator, device=generator.device
-                ).to(x.device)
-                for ax in range(x.ndim) if ax != mode
-            ]
-            factors[mode] = arls_mode_solve(x, factors, mode, idx)
+    # s multi-indices over the other modes for each mode of each iteration,
+    # uniform with replacement (`cp_arls.m` "dense_sample_krp"), drawn in the
+    # order the iterations use them, then copied to x's device at once
+    n = x.ndim
+    draws = torch.empty((max_iters, n, n - 1, n_samples), dtype=torch.int64, device=generator.device)
+    for it in range(max_iters):
+        for mode in range(n):
+            for i, ax in enumerate(ax for ax in range(n) if ax != mode):
+                draws[it, mode, i] = torch.randint(0, x.shape[ax], (n_samples,), generator=generator,
+                                                   device=generator.device)
+    draws = draws.to(x.device)
+
+    def sweep(factors, k):
+        idx = draws.index_select(0, k.view(1))[0]  # this iteration's, by the counter on the device
+        for mode in range(n):
+            factors[mode] = arls_mode_solve(x, factors, mode, list(idx[mode]))
         return factors
 
     factors, fit, iters = _fit_change_loop(sweep, x, list(init_factors), max_iters, tol)

@@ -5,11 +5,14 @@ algorithm surface (`cp_als.m`, `tucker_als.m`, `hosvd.m`): `mttkrp`,
 PyTorch counterpart of `tritd_tpu/ops/decomp.py`: N-way generic, the same
 update equations, stopping rules and returned dict keys. What differs:
 
-* The reference's `lax.while_loop` bodies run in Python loops here, with one
-  host read of the fit change per iteration. The condition
-  `(it < max_iters) and (delta >= tol)` is tested before each body with
+* `cp_als`'s `lax.while_loop` is a loop of `ops/toolbox_loop.py`: on a
+  CUDA tensor one CUDA graph replay an iteration, the fit, the counter and
+  the stop flag on the card, the flag the one read to the host; on the CPU
+  a host loop of the same iterations. The condition
+  `(it < max_iters) and (delta >= tol)` holds before each body with
   `delta = inf` at entry, so `max_iters = 0` returns the init with
   `fit = -inf`. `n_iters` is a Python int, `fit` a 0-d tensor.
+  `tucker_hooi`'s loop stays a host loop (its `eigh` reads to the host).
 * Contraction orders are written out as two-operand steps (the reference
   leaves them to an einsum path optimizer): `mttkrp` contracts the tensor
   with the largest of the other factors in one GEMM, then folds each
@@ -30,6 +33,7 @@ import math
 
 import torch
 
+from . import toolbox_loop
 from .kruskal import cp_normalize, default_generator, draw, on_input_device
 
 
@@ -91,26 +95,53 @@ def _kruskal_fit(norm_x, factors, inner) -> torch.Tensor:
     return 1.0 - torch.sqrt(resid_sq) / norm_x
 
 
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+def _named(factors) -> dict:
+    """The factors as carried fields u0, u1, ..."""
+    return {f"u{i}": u for i, u in enumerate(factors)}
+
+
+def _factors_of(carry: dict, n: int) -> list:
+    return [carry[f"u{i}"] for i in range(n)]
+
+
+def _fit_loop(sweep, fit_of, factors0, like, max_iters: int, tol: float):
+    """factors <- sweep(factors, k), fit <- fit_of(factors) while the fit
+    changes by tol or more (`cp_als.m`'s stop; the reference's
+    `while_loop` at `tritd_tpu/ops/decomp.py:91`), through
+    `toolbox_loop.run`. Returns (factors, fit, iterations)."""
+    n = len(factors0)
+
+    def iteration(c):
+        factors = sweep(_factors_of(c, n), c["k"])
+        fit = fit_of(factors)
+        return {**_named(factors), "fit": fit}, torch.abs(fit - c["fit"])
+
+    carry = {**_named(map(toolbox_loop.fixed, factors0)), "fit": toolbox_loop.full(-math.inf, like)}
+    carry, it = toolbox_loop.run(iteration, carry, max_iters, tol)
+    return _factors_of(carry, n), carry["fit"], it
+
+
+def _als_sweep(mttkrp_of):
+    """The ALS sweep: each mode's rows solved against the Hadamard of the
+    other Grams, `mttkrp_of(factors, mode)` the right-hand side."""
+    def sweep(factors, _k):
+        for mode in range(len(factors)):
+            rhs = mttkrp_of(factors, mode)  # (n_mode, R)
+            factors[mode] = _spd_solve_rows(_hadamard_gram(factors, mode), rhs)
+        return factors
+
+    return sweep
 
 
 def _cp_als_run(x, factors0, rank: int, max_iters: int, tol: float):
     n = x.ndim
     norm_x = torch.linalg.vector_norm(x)
-    factors = list(factors0)
-    fit = _scalar(-math.inf, x)
-    delta, it = math.inf, 0
-    while it < max_iters and delta >= tol:
-        for mode in range(n):
-            rhs = mttkrp(x, factors, mode)  # (n_mode, R)
-            factors[mode] = _spd_solve_rows(_hadamard_gram(factors, mode), rhs)
+
+    def fit_of(factors):
         inner = (mttkrp(x, factors, n - 1) * factors[n - 1]).sum()
-        new_fit = _kruskal_fit(norm_x, factors, inner)
-        delta = float(torch.abs(new_fit - fit))
-        fit = new_fit
-        it += 1
-    return factors, fit, it
+        return _kruskal_fit(norm_x, factors, inner)
+
+    return _fit_loop(_als_sweep(lambda fs, mode: mttkrp(x, fs, mode)), fit_of, factors0, x, max_iters, tol)
 
 
 @on_input_device("x", sequences=("init_factors",))
@@ -209,7 +240,7 @@ def _hooi_run(x, factors0, ranks, max_iters: int, tol: float):
     n = x.ndim
     norm_x = torch.linalg.vector_norm(x)
     factors = list(factors0)
-    fit = _scalar(-math.inf, x)
+    fit = toolbox_loop.full(-math.inf, x)
     delta, it = math.inf, 0
     while it < max_iters and delta >= tol:
         for mode in range(n):

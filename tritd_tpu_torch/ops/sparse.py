@@ -19,17 +19,18 @@ caller-made coordinates on the host before they reach a device.
 
 Scatter-adds are `index_add_`: on CUDA it adds atomically, so float32 sums
 differ from run to run in the last digits, and `cp_als_sparse`'s `n_iters`
-at `tol > 0` may differ by one from a CPU run.
+at `tol > 0` may differ by one from a CPU run. Its loop is one of
+`ops/toolbox_loop.py` (on the card a CUDA graph replay an iteration, the
+stop flag the one read to the host); two of its runs, one on each route,
+agree within those atomics' rounding, not bitwise.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from .decomp import _hadamard_gram, _scalar, _spd_solve_rows
+from .decomp import _als_sweep, _fit_loop, _hadamard_gram
 from .kruskal import cp_normalize, default_device, default_generator, draw, on_input_device
 
 
@@ -67,15 +68,13 @@ def sp_sub2ind(coords: torch.Tensor, shape) -> torch.Tensor:
     """Row-major linear indices from (nnz, N) subscripts — ``tt_sub2ind``
     semantics under this framework's row-major convention (the MATLAB
     original is column-major; the convention is documented once in
-    ops/fold.py and applied uniformly)."""
-    shape = tuple(int(s) for s in shape)
-    strides = []
-    acc = 1
-    for s in reversed(shape):
-        strides.append(acc)
-        acc *= s
-    strides = torch.tensor(strides[::-1], dtype=coords.dtype, device=coords.device)
-    return (coords * strides[None, :]).sum(dim=1)
+    ops/fold.py and applied uniformly). Horner's scheme over the modes: no
+    table of strides is copied from the host, which would be a synchronizing
+    copy on the card."""
+    flat = torch.zeros(coords.shape[:1], dtype=coords.dtype, device=coords.device)
+    for ax, s in enumerate(shape):
+        flat = flat * int(s) + coords[:, ax]
+    return flat
 
 
 @on_input_device("idx")
@@ -247,20 +246,12 @@ def cp_als_sparse(
             rows = rows * factors[ax][coords[:, ax]]
         return rows.sum(dim=1)
 
-    factors = list(init_factors)
-    fit = _scalar(-math.inf, vals)
-    delta, it = math.inf, 0
-    while it < max_iters and delta >= tol:
-        for mode in range(n):
-            rhs = sp_mttkrp(vals, coords, shape, factors, mode)
-            factors[mode] = _spd_solve_rows(_hadamard_gram(factors, mode), rhs)
+    def fit_of(factors):
         inner = torch.dot(vals, model_at_nonzeros(factors))
-        resid_sq = torch.clamp(
-            norm_x**2 + _hadamard_gram(factors).sum() - 2.0 * inner, min=0.0
-        )
-        new_fit = 1.0 - torch.sqrt(resid_sq) / norm_x
-        delta = float(torch.abs(new_fit - fit))
-        fit = new_fit
-        it += 1
+        resid_sq = torch.clamp(norm_x**2 + _hadamard_gram(factors).sum() - 2.0 * inner, min=0.0)
+        return 1.0 - torch.sqrt(resid_sq) / norm_x
+
+    factors, fit, it = _fit_loop(_als_sweep(lambda fs, mode: sp_mttkrp(vals, coords, shape, fs, mode)), fit_of,
+                                 list(init_factors), vals, max_iters, tol)
     factors, weights = cp_normalize(factors)
     return {"weights": weights, "factors": factors, "fit": fit, "n_iters": it}

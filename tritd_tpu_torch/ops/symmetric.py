@@ -6,14 +6,19 @@ PyTorch counterpart of `tritd_tpu/ops/symmetric.py`. A symmetric tensor is
 a dense tensor with equal mode sizes; a symmetric Kruskal tensor is
 ``(weights, u)`` with one shared factor matrix.
 
-The reference's `lax.while_loop` bodies run in Python loops with one host
-read of the stopping quantity per iteration, tested before each body with
-`delta = inf` at entry (`max_iters = 0` returns the normalized start).
-`n_iters` is a Python int; `converged` a 0-d bool tensor. Random starts
-come from `generator` (default: seed 0); a parity run passes `x0` — or, for
-`cp_sym`, `init=(w0, u0)`, which the reference has no argument for.
-`cp_sym` uses `torch.optim.Adam`, the same recurrence as the reference's
-optimizer (betas 0.9/0.999, eps 1e-8 outside the root).
+The reference's `lax.while_loop`s of the three eigen-iterations and of
+`cp_sym` are loops of `ops/toolbox_loop.py`: on a CUDA tensor one CUDA
+graph replay an iteration, the iterate, the eigenvalue (or the Adam state),
+the change, the counter and the stop flag on the card, the flag the one
+read to the host; on the CPU a host loop of the same iterations. The stop
+is tested before each body with `delta = inf` at entry (`max_iters = 0`
+returns the normalized start). `n_iters` is a Python int; `converged` a
+0-d bool tensor. Random starts come from `generator` (default: seed 0); a
+parity run passes `x0` — or, for `cp_sym`, `init=(w0, u0)`, which the
+reference has no argument for. `cp_sym` and `gcp_opt` descend with
+`adam_descent`: optax's Adam recurrence written out (betas 0.9/0.999, eps
+1e-8 outside the root), the reference's optimizer. `tucker_sym`'s loop
+stays a host loop (its `eigh` reads to the host).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import math
 
 import torch
 
-from .decomp import _leading_basis, _scalar, tucker_ttm
+from . import toolbox_loop
+from .decomp import _leading_basis, tucker_ttm
 from .kruskal import default_generator, draw, ktensor_full, on_input_device
 
 
@@ -69,14 +75,17 @@ def ttsv(a: torch.Tensor, x: torch.Tensor, keep: int = 1) -> torch.Tensor:
 
 
 def _power_loop(step, x, lam, real_like, max_iters: int, tol: float):
-    """x, lam <- step(x, lam) until |change| < tol or `max_iters` steps;
-    `step` returns (newx, newlam, delta as a 0-d tensor)."""
-    delta = _scalar(math.inf, real_like)
-    it = 0
-    while it < max_iters and float(delta) >= tol:
-        x, lam, delta = step(x, lam)
-        it += 1
-    return lam, x, delta, it
+    """x, lam <- step(x, lam) until |change| < tol or `max_iters` steps,
+    through `toolbox_loop.run`; `step` returns (newx, newlam, delta as a 0-d
+    tensor of real_like's dtype). Returns (lam, x, delta, iterations)."""
+    def iteration(c):
+        newx, newlam, delta = step(c["x"], c["lam"])
+        return {"x": newx, "lam": newlam, "delta": delta}, delta
+
+    carry = {"x": toolbox_loop.fixed(x), "lam": toolbox_loop.fixed(lam),
+             "delta": toolbox_loop.full(math.inf, real_like)}
+    carry, it = toolbox_loop.run(iteration, carry, max_iters, tol)
+    return carry["lam"], carry["x"], carry["delta"], it
 
 
 def _random_start(generator, a):
@@ -195,26 +204,47 @@ def eig_geap(
 
 def adam_descent(objective, params, learning_rate, max_iters, tol, project=None):
     """Minimize `objective()` over the leaf tensors `params` with Adam, the
-    reference's loop: each step reads the value at the current point, takes
-    one Adam step from it (then `project(params)` in place, if given), and
-    stops once |value - previous value| < tol or after `max_iters` steps.
-    Returns (value before the last step as a detached 0-d tensor, steps)."""
-    opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    prev = _scalar(math.inf, params[0])
-    delta, it = math.inf, 0
-    while it < max_iters and delta >= tol:
-        opt.zero_grad(set_to_none=True)
-        value = objective()
-        value.backward()
-        opt.step()
-        if project is not None:
-            with torch.no_grad():
-                project(params)
+    reference's loop (`tritd_tpu/ops/symmetric.py:253-271`,
+    `cp_variants.py:459-481`): each step reads the value and its gradient
+    at the current point, takes one Adam step from it (then
+    `project(new params)` in place, if given), and stops once
+    |value - previous value| < tol or after `max_iters` steps. The step is
+    optax's `adam` written out (betas 0.9/0.999, eps 1e-8 outside the root,
+    bias corrections from the step count on the device), the same on every
+    route of `toolbox_loop.run`; `params` are updated in place, so
+    `objective` reads them where it always does. Returns (value before the
+    last step as a detached 0-d tensor, steps)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    names = [f"p{i}" for i in range(len(params))]
+    carry = {"prev": toolbox_loop.full(math.inf, params[0])}
+    for name, p in zip(names, params):
+        carry[name] = p.detach()  # the parameter's own storage
+        carry["m" + name] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+        carry["v" + name] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+
+    def iteration(c):
+        with torch.enable_grad():
+            value = objective()
+            grads = torch.autograd.grad(value, params)
         value = value.detach()
-        delta = float(torch.abs(value - prev))
-        prev = value
-        it += 1
-    return prev, it
+        count = (c["k"] + 1).to(value.dtype)
+        fields = {"prev": value}
+        with torch.no_grad():
+            new = []
+            for name, g in zip(names, grads):
+                m = (1.0 - b1) * g + b1 * c["m" + name]
+                v = (1.0 - b2) * (g * g) + b2 * c["v" + name]
+                m_hat = m / (1.0 - torch.pow(b1, count))
+                v_hat = v / (1.0 - torch.pow(b2, count))
+                new.append(c[name] + (-learning_rate) * (m_hat / (torch.sqrt(v_hat) + eps)))
+                fields["m" + name], fields["v" + name] = m, v
+            if project is not None:
+                project(new)
+        fields.update(zip(names, new))
+        return fields, torch.abs(value - c["prev"])
+
+    carry, it = toolbox_loop.run(iteration, carry, max_iters, tol)
+    return carry["prev"], it
 
 
 @on_input_device("x", sequences=("init",))
