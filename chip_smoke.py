@@ -121,10 +121,23 @@ Phases, each of which fails the run by raising:
      lowrank:64 on a matrix with 20 components above the gate; the host
      proximal library must have built; times of the torch.linalg calls the
      baselines lean on (eigh, svd, the batched complex svd of prox_tnn).
-  9. the SVT baselines (ttnn, ring, fctn) through run_method at the full taxi
-     shape, 10% missing, gram route, 100 iterations, each with an svd control
-     of 10 iterations (err_hist within rtol 1e-3); fctn again with warm:8
-     (final RRE within 1e-3 of gram's); sofia for 10 epochs. Then SOFIA's
+  9. the eigh and SVD drivers of ops/device_linalg.py at the SVT
+     baselines' taxi sizes against torch.linalg on the same matrices
+     (bitwise where it is torch's driver, else within LINALG_EPS_FACTOR n
+     eps ||A||; both timed); then the SVT baselines (ttnn, ring, fctn)
+     through run_method at the full taxi shape, 10% missing, gram and
+     warm:8, 100 iterations on the graph route of baselines/device_loop.py
+     (the card's default), each with an svd control of 10 iterations
+     (gram's err_hist within rtol 1e-3 of it): one capture (two with
+     warm:8), one synchronizing call in the loop a segment and the
+     binding's calls per driver counted; fctn (EAGER_BASELINES: its
+     1000 x 1000 Grams go to Xsyevd, which no graph captures) on the eager
+     loop, no capture. Gram's final RRE within BASELINE_RRE_TOL of two
+     float64 CPU runs', the JAX package's and the port's, fctn warm:8's
+     within 1e-3 of gram's; at 10 iterations the graph route, the graph
+     route again and the device form without graphs bitwise (fctn: the
+     eager loop twice bitwise, the device form within rtol 1e-4); sofia
+     for 10 epochs. Then SOFIA's
      two kernels (csrc/sofia_kernels.cu) against their plain versions at the
      shapes the main path gives them at taxi, highway and network (the
      mode-1 and mode-2 grams and the mode-3 step's inputs, from the
@@ -140,8 +153,10 @@ Phases, each of which fails the run by raising:
      sweep kernel alone and, at taxi, the split step (the systems in torch,
      then that kernel: card time and host enqueue).
  10. RC-FCTN's video driver at 240x320x300 with its default route (auto:512)
-     for 10 iterations; trpca_tnn on a 64x64x32 slab and rnc_fctn on a
-     16x16x8x8 problem, 20 iterations each.
+     for 10 iterations, on the graph route and the device form without
+     graphs: bitwise, one capture, one synchronizing call in the loop;
+     trpca_tnn on a 64x64x32 slab and rnc_fctn on a 16x16x8x8 problem, 20
+     iterations each.
  11. the completion CLI in-process: triple, ttnn, ring and fctn on taxi.
  12. the parallel layer with one rank on NCCL, in this process:
      tritd_admm_sharded on the taxi stand-in (f32, 100 iterations, tol 0,
@@ -332,7 +347,9 @@ Phases, each of which fails the run by raising:
      and cp_apr on taxi's rounded absolute values), cp_als_sparse on taxi's
      COO at 10% and 90%, eig_sshopm, eig_sshopmc and eig_geap (B =
      teneye) on a 40^4 symmetric tensor, gcp_opt ("count") at
-     TOOLBOX_OPT_SHAPE, R = 5, and cp_sym at 40^4, rank 3; each on the
+     TOOLBOX_OPT_SHAPE, R = 5, cp_sym at 40^4, rank 3, and tucker_hooi at
+     taxi, ranks 5, 5, 5 (its eigh through ops/device_linalg.py, whose calls
+     it must make); each on the
      graph route (the default on the card), the device form without graphs
      and the host loop, in turns graph, no graphs, host loop, graph:
      bitwise (cp_als_sparse, whose scatter-adds are atomic, within
@@ -349,9 +366,12 @@ The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
 
 Phases 8-11, 15, 16 and 25 launch no kernel of this package but the one inside `triple`
-and SOFIA's two: the baselines' SVD, eigh, QR, FFT and GEMMs are
-torch.linalg, torch.fft and torch.matmul, as the reference leaves them to
-its compiler.
+and SOFIA's two: the baselines' eigh and SVD are cuSOLVER through
+ops/device_linalg.py on the card (its `info` left unread, as the reference's
+XLA calls leave it), their QR, FFT and GEMMs torch.linalg, torch.fft and
+torch.matmul, as the reference leaves them to its compiler. The binding's
+calls per driver are printed on phase 9, 10 and 25's lines, not on the
+kernels line.
 
 Each solve counts the kernel's launches from zero and must launch its
 variant once per iteration (in phases 13-14 every rank counts its own). On
@@ -547,7 +567,8 @@ CARD = [""]
 T1_ROWS: list = []
 SCALARS = (0.5, 0.7, 1.8)  # mu_l, mu_o, lam
 MU_NEXT = 0.625
-REPS = 20
+REPS = 6  # timing turns of phase 2's variants, their median taken (kept short: the smoke's time limit)
+LINALG_REPS = 5
 BATCH = 10
 SLEEP_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles a second, at or above the H100's SM clock
 RRE_FAMILY = 0.03  # bf16 vs f32 RRE bound of the reference's own test
@@ -1792,12 +1813,145 @@ def _falling(tag, hist) -> np.ndarray:
     return hist
 
 
+# The gram route's final RRE at taxi, 100 iterations, in float64 on the CPU,
+# which the float32 run on the card must land within BASELINE_RRE_TOL of,
+# both: the JAX package's (docs/baseline_rre_reference.py), independent of
+# the port's code, and the port's own (tools/baseline_reference: ttnn
+# 0.3167009, ring 0.3119290, fctn 0.3167008). With torch.linalg.eigh's
+# float32 syevj, whose eigenvectors reconstruct a 500 x 500 Gram only to 4e-4
+# of its norm (tools/capture_linalg), ring ended at 0.313511, 1.6e-3 from
+# either.
+BASELINE_RRE_JAX = {"ttnn": 0.3167009, "ring": 0.3119290, "fctn": 0.3167008}
+BASELINE_RRE = {"ttnn": 0.316701, "ring": 0.311929, "fctn": 0.316701}
+BASELINE_RRE_TOL = 1e-3
+# the routes of baselines/device_loop.py compared at 10 iterations, in turns
+BASELINE_TURNS = (("graphs", True), ("graphs again", True), ("no graphs", False))
+# the baselines whose loop takes the eager loop on the card at taxi: fctn's
+# 1000 x 1000 Grams go to Xsyevd, which no graph captures (device_loop.route)
+EAGER_BASELINES = ("fctn",)
+# a driver of ops/device_linalg.py other than torch.linalg's held to it within
+# this many n eps ||A|| (eigenvalues, singular values, reconstructions)
+LINALG_EPS_FACTOR = 64
+
+
+@contextlib.contextmanager
+def _loop_syncs():
+    """Inside: the synchronizing calls of each baseline loop
+    (`baselines/device_loop.run`), from its first iteration to its result,
+    counted apart from the rest of the call; yields the list of counts."""
+    from tritd_tpu_torch.baselines import device_loop
+
+    counts, real = [], device_loop.run
+
+    def run(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = real(*args, **kwargs)
+        counts.append(sum("called a synchronizing" in str(w.message) for w in seen))
+        return out
+
+    device_loop.run = run
+    try:
+        yield counts
+    finally:
+        device_loop.run = real
+
+
+def _linalg_calls() -> dict:
+    return {k: n for k, n in hopper_kernels.LINALG_CALLS.items() if n}
+
+
+def _hold_linalg_drivers(y: torch.Tensor) -> None:
+    """Each driver ops/device_linalg.py takes at the SVT baselines' taxi
+    sizes against torch.linalg on the same matrix (the taxi tensor's
+    unfoldings and their Grams, as the loops' first SVTs see them):
+    bitwise where it is torch's driver, else within LINALG_EPS_FACTOR n eps
+    ||A||; both timed (events around LINALG_REPS calls after one)."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    eps = torch.finfo(torch.float32).eps
+    unfold = {100: y.reshape(100, -1), 500: y.reshape(-1, 500), 1000: y.reshape(100, 100, 50, 10).permute(
+        0, 2, 1, 3).reshape(5000, 1000)}
+    for n, m in unfold.items():
+        a = m.T @ m if m.shape[0] > m.shape[1] else m @ m.T
+        driver = device_linalg.eigh_driver(n, a.dtype)
+        (w, v), ours = _linalg_us(lambda: device_linalg.eigh(a))
+        (tw, tv), theirs = _linalg_us(lambda: torch.linalg.eigh(a))
+        bound = LINALG_EPS_FACTOR * n * eps * float(torch.linalg.matrix_norm(a, 2))
+        dw = float((w - tw).abs().max())
+        rec = float(torch.linalg.matrix_norm((v * w) @ v.T - a))
+        same = torch.equal(w, tw) and torch.equal(v, tv)
+        torch_driver = device_linalg.torch_eigh_driver(n, a.dtype)
+        if (driver == torch_driver and not same) or dw > bound or rec > bound:
+            raise AssertionError(f"phase9 eigh {n}x{n} {driver} (torch's {torch_driver}): bitwise {same}, "
+                                 f"max |dlambda| {dw:.3e}, reconstruction {rec:.3e}, bound {bound:.3e}")
+        print(f"phase9 eigh f32 {n}x{n} Gram: {driver} {ours:.1f} us, torch.linalg.eigh ({torch_driver}) "
+              f"{theirs:.1f} us; bitwise {same}; max |dlambda| {dw:.3e}, reconstruction {rec:.3e} "
+              f"(bound {LINALG_EPS_FACTOR} n eps ||A|| {bound:.3e}); {CARD[0]}")
+    for m in (unfold[100], unfold[500]):
+        p, q = m.shape
+        driver = device_linalg.svd_driver(p, q, m.dtype)
+        (u, s, vh), ours = _linalg_us(lambda: device_linalg.svd(m))
+        (tu, ts, tvh), theirs = _linalg_us(lambda: torch.linalg.svd(m, full_matrices=False))
+        bound = LINALG_EPS_FACTOR * min(p, q) * eps * float(s.max())
+        ds = float((s - ts).abs().max())
+        rec = float(torch.linalg.matrix_norm((u * s) @ vh - m))
+        same = torch.equal(u, tu) and torch.equal(s, ts) and torch.equal(vh, tvh)
+        if (driver == "gesvdj" and not same) or ds > bound or rec > bound:
+            raise AssertionError(f"phase9 svd {p}x{q} {driver}: bitwise torch's {same}, max |ds| {ds:.3e}, "
+                                 f"reconstruction {rec:.3e}, bound {bound:.3e}")
+        print(f"phase9 svd f32 {p}x{q}: {driver} {ours:.1f} us, torch.linalg.svd (gesvdj) {theirs:.1f} us; bitwise "
+              f"{same}; max |ds| {ds:.3e}, reconstruction {rec:.3e} (bound {bound:.3e}); {CARD[0]}")
+
+
+def _linalg_us(call, reps: int = LINALG_REPS) -> tuple:
+    """(call(), its µs: CUDA events around `reps` more calls)."""
+    out = call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) * 1e3 / reps
+
+
+def _baseline_routes(method: str, svt_method: str, solve) -> None:
+    """At 10 iterations: the graph route twice and the device form without
+    graphs, bitwise; captures and synchronizing calls of each. A row of
+    EAGER_BASELINES takes the eager loop where graphs would run: those two
+    turns bitwise, the device form within rtol 1e-4 of their err_hist (it
+    divides by the penalties on the card, the eager loop by host floats)."""
+    from tritd_tpu_torch.ops import toolbox_loop
+
+    runs = {}
+    for label, graphs in BASELINE_TURNS:
+        with toolbox_loop.forced_route(graphs):
+            runs[label] = solve(method, 10, svt_method)
+    ref = runs["graphs"]["out"]
+    eager = method in EAGER_BASELINES
+    held = [label for label, graphs in BASELINE_TURNS if graphs or not eager]
+    differ = [label for label in held if not all(_same_bits(a, b) for a, b in zip(runs[label]["out"], ref))]
+    if differ:
+        raise AssertionError(f"phase9 {method} {svt_method}, 10 iterations: {differ} not bitwise the first")
+    if eager:
+        np.testing.assert_allclose(runs["no graphs"]["hist"], runs["graphs"]["hist"], rtol=1e-4)
+    route = "eager loop" if eager else "graph route"
+    print(f"phase9 {method} {svt_method} 10 iterations: {route}, {route} again "
+          + ("bitwise, no graphs within rtol 1e-4; " if eager else "and no graphs bitwise; ")
+          + "; ".join(f"{label} {r['ms'] / 10:.3f} ms/iter, {r['graphs']} captures, loop syncs {r['loop_syncs']}"
+                      for label, r in runs.items()))
+
+
 def phase9() -> dict:
-    """The baselines at the full taxi shape, through the CLI's dispatch;
-    then SOFIA's kernels against their plain versions (`_sofia_kernels`,
-    whose records it returns)."""
+    """The baselines at the full taxi shape, through the CLI's dispatch, on
+    the graph route of baselines/device_loop.py (fctn's on the eager loop,
+    EAGER_BASELINES); then SOFIA's kernels against their plain versions
+    (`_sofia_kernels`, whose records it returns)."""
     from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
     from tritd_tpu_torch.cli.run_completion import run_method
+    from tritd_tpu_torch.ops import svt as svt_ops
 
     x, mask, y, prov = _taxi()
     _x_np, spec, _prov = load_dataset("taxi")
@@ -1805,13 +1959,17 @@ def phase9() -> dict:
 
     def solve(method, max_iter, svt_method):
         gen = torch.Generator().manual_seed(0)
-        (x_hat, o, hist), sec, mib = _events(
-            lambda: run_method(method, y, x, mask, spec, gen, max_iter, svt_method=svt_method))
+        hopper_kernels.reset_launch_counts()
+        with _loop_syncs() as loop_syncs:
+            w = _watched(lambda: run_method(method, y, x, mask, spec, gen, max_iter, svt_method=svt_method))
+        x_hat, o, hist = w["res"]
         _on_card(f"phase9 {method} {svt_method}", x_hat, o)
         if x_hat.shape != x.shape or not torch.isfinite(x_hat).all():
             raise AssertionError(f"phase9 {method} {svt_method}: X not finite at the input's shape")
-        return float(rre(x_hat, x)), np.asarray(hist, dtype=np.float64), sec, mib
+        return {"rre": float(rre(x_hat, x)), "hist": np.asarray(hist, dtype=np.float64), "out": (x_hat, o),
+                "loop_syncs": loop_syncs, "calls": _linalg_calls(), **w}
 
+    _hold_linalg_drivers(y)
     # ring's host float64 ranks, once: the solves below find them cached
     t0 = time.perf_counter()
     precompute_freedom_ratio(y, mask)
@@ -1819,26 +1977,60 @@ def phase9() -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     final = {}
     for method in ("ttnn", "ring", "fctn"):
-        _, control, csec, _ = solve(method, 10, "svd")
-        final[method], hist, sec, mib = solve(method, 100, "gram")
-        if _falling(f"phase9 {method} gram", hist).shape != (100,):
-            raise AssertionError(f"phase9 {method}: {hist.shape[0]} iterations")
-        np.testing.assert_allclose(hist[:10], control, rtol=1e-3)
-        print(f"phase9 {method} taxi ({prov}) {shape} 10% missing f32 gram: iters=100 "
-              f"solve={sec:.3f} s (events) {sec * 10:.2f} ms/iter peak_mem={mib:.1f} MiB rre={final[method]:.6f} "
-              f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; svd control, 10 iterations {csec:.3f} s, "
-              f"max rel diff {np.max(np.abs(hist[:10] - control) / control):.2e} (rtol 1e-3)")
-    warm_rre, hist, sec, mib = solve("fctn", 100, "warm:8")
-    if abs(warm_rre - final["fctn"]) > 1e-3:
-        raise AssertionError(f"phase9 fctn warm:8 RRE {warm_rre} vs gram {final['fctn']}, beyond 1e-3")
-    print(f"phase9 fctn taxi warm:8: solve={sec:.3f} s (events) peak_mem={mib:.1f} MiB rre={warm_rre:.6f} "
-          f"(gram {final['fctn']:.6f}, |diff| {abs(warm_rre - final['fctn']):.2e}, limit 1e-3)")
+        control = solve(method, 10, "svd")
+        uncaptured = "svd" in svt_ops.UNCAPTURED_METHODS
+        for svt_method in ("gram", "warm:8"):
+            run = solve(method, 100, svt_method)
+            hist = run["hist"]
+            if _falling(f"phase9 {method} {svt_method}", hist).shape != (100,):
+                raise AssertionError(f"phase9 {method} {svt_method}: {hist.shape[0]} iterations")
+            if svt_method == "gram":  # warm:8 is held by its RRE below
+                np.testing.assert_allclose(hist[:10], control["hist"], rtol=1e-3)
+            eager = method in EAGER_BASELINES
+            if eager:  # Xsyevd reads back inside each call: the eager loop, no capture
+                if run["graphs"] or not run["calls"].get("xsyevd[f32]"):
+                    raise AssertionError(f"phase9 {method} {svt_method}: {run['graphs']} captures (want 0, the "
+                                         f"eager loop), binding calls {run['calls']} (want xsyevd's)")
+            else:
+                segments = 4 if method == "fctn" and svt_method == "warm:8" else 1
+                captures = 2 if svt_method == "warm:8" else 1
+                if run["graphs"] != captures or run["loop_syncs"] != [segments] or not run["calls"]:
+                    raise AssertionError(f"phase9 {method} {svt_method}: {run['graphs']} captures (want {captures}), "
+                                         f"loop syncs {run['loop_syncs']} (want [{segments}]), binding calls "
+                                         f"{run['calls']}")
+            if svt_method == "gram":
+                final[method] = run["rre"]
+                for what, want in (("JAX package's", BASELINE_RRE_JAX), ("port's", BASELINE_RRE)):
+                    if abs(run["rre"] - want[method]) > BASELINE_RRE_TOL:
+                        raise AssertionError(f"phase9 {method} gram RRE {run['rre']} against the {what} float64 "
+                                             f"run's {want[method]}, beyond {BASELINE_RRE_TOL}")
+            elif method == "fctn" and abs(run["rre"] - final["fctn"]) > 1e-3:
+                raise AssertionError(f"phase9 fctn warm:8 RRE {run['rre']} vs gram {final['fctn']}, beyond 1e-3")
+            else:
+                print(f"phase9 {method} warm:8 RRE {run['rre']:.6f} vs gram {final[method]:.6f}: |diff| "
+                      f"{abs(run['rre'] - final[method]):.2e}")
+            print(f"phase9 {method} taxi ({prov}) {shape} 10% missing f32 {svt_method}: iters=100 "
+                  f"{'eager loop' if eager else 'graph route'} "
+                  f"{run['ms']:.1f} ms (events) {run['ms'] / 100:.3f} ms/iter, first replay after "
+                  f"{run.get('before_replays_ms', float('nan')):.1f} ms ({run.get('capture_host_ms', float('nan')):.1f}"
+                  f" ms of capture host time), replays {run.get('replays_ms', float('nan')) / 99:.3f} ms/iter; "
+                  f"captures {run['graphs']}; syncs in the loop {run['loop_syncs']}, outside it {run['syncs']}; "
+                  f"peak_mem={run['peak_mib']:.1f} MiB; binding calls {run['calls']}; rre={run['rre']:.6f} "
+                  f"(gram, float64 CPU runs: JAX {BASELINE_RRE_JAX[method]}, port {BASELINE_RRE[method]}) "
+                  f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; svd "
+                  f"control ({'eager loop' if uncaptured else 'graph route'}), 10 iterations {control['ms']:.1f} ms, "
+                  f"binding calls {control['calls']}, max rel diff "
+                  f"{np.max(np.abs(hist[:10] - control['hist']) / control['hist']):.2e} (rtol 1e-3 on gram); {CARD[0]}",
+                  flush=True)
+            _baseline_routes(method, svt_method, solve)
     # sofia's error against the truth need not fall: the outlier peel anneals
-    sofia_rre, hist, sec, mib = solve("sofia", 10, "svd")
-    if not (hist.size and np.isfinite(hist).all() and sofia_rre < 1.0):
-        raise AssertionError(f"phase9 sofia: rre {sofia_rre}, err_hist {hist}")
-    print(f"phase9 sofia taxi r=3 m={spec.sofia_period}: epochs={hist.shape[0]} solve={sec:.3f} s (events) "
-          f"peak_mem={mib:.1f} MiB rre={sofia_rre:.6f} err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+    sofia = solve("sofia", 10, "svd")
+    hist = sofia["hist"]
+    if not (hist.size and np.isfinite(hist).all() and sofia["rre"] < 1.0):
+        raise AssertionError(f"phase9 sofia: rre {sofia['rre']}, err_hist {hist}")
+    print(f"phase9 sofia taxi r=3 m={spec.sofia_period}: epochs={hist.shape[0]} solve={sofia['ms'] / 1e3:.3f} s "
+          f"(events) peak_mem={sofia['peak_mib']:.1f} MiB rre={sofia['rre']:.6f} err[0]={hist[0]:.4e} "
+          f"err[-1]={hist[-1]:.4e}")
     return _sofia_kernels()
 
 
@@ -1847,6 +2039,7 @@ def phase10() -> None:
     CLI's path at small shapes."""
     from tritd_tpu_torch.baselines import fctn_compose, rc_fctn_driver_video, rnc_fctn, trpca_tnn
     from tritd_tpu_torch.baselines.rc_fctn import resolve_video_svt_method
+    from tritd_tpu_torch.ops import toolbox_loop
     from tritd_tpu_torch.ops.svt import auto_method
 
     v_np, vspec, vprov = load_dataset("highway")
@@ -1858,17 +2051,33 @@ def phase10() -> None:
     routes = [auto_method(p, q, int(route.partition(":")[2])) for p, q in cuts]
     if route != "auto:512" or routes != ["gram", "lowrank:512", "lowrank:512"]:
         raise AssertionError(f"phase10: the video driver's default resolves to {route}, cuts {cuts} to {routes}")
-    (x_hat, sparse, hist), sec, mib = _events(
-        lambda: rc_fctn_driver_video(v, torch.ones_like(v, dtype=torch.bool), vspec.fctn_subdim, origin=v,
-                                     max_iter=10))
+    runs = {}
+    for label, graphs in (("graphs", True), ("no graphs", False)):
+        hopper_kernels.reset_launch_counts()
+        with toolbox_loop.forced_route(graphs), _loop_syncs() as loop_syncs:
+            w = _watched(lambda: rc_fctn_driver_video(v, torch.ones_like(v, dtype=torch.bool), vspec.fctn_subdim,
+                                                      origin=v, max_iter=10))
+        runs[label] = {**w, "loop_syncs": loop_syncs, "calls": _linalg_calls()}
+        _release_cached()
+    graph, plain = runs["graphs"], runs["no graphs"]
+    x_hat, sparse, hist = graph["res"]
     _on_card("phase10 fctn video", x_hat, sparse, hist)
     hist = _falling("phase10 fctn video", hist.cpu().numpy())
     if x_hat.shape != v.shape or not torch.isfinite(x_hat).all():
         raise AssertionError("phase10 fctn video: X not finite at the input's shape")
+    same = all(_same_bits(a, b) for a, b in zip(graph["res"], plain["res"]))
+    if not same or graph["graphs"] != 1 or graph["loop_syncs"] != [1] or not graph["calls"]:
+        raise AssertionError(f"phase10 fctn video: graph route bitwise the route without graphs {same}, "
+                             f"captures {graph['graphs']}, loop syncs {graph['loop_syncs']}, binding calls "
+                             f"{graph['calls']}")
     print(f"phase10 fctn video highway ({vprov}) {'x'.join(map(str, v.shape))} f32 {route} "
-          f"({', '.join(f'{p}x{q} {r}' for (p, q), r in zip(cuts, routes))}): iters=10 solve={sec:.3f} s (events) "
-          f"{sec * 100:.1f} ms/iter peak_mem={mib:.1f} MiB err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
-    del x_hat, sparse
+          f"({', '.join(f'{p}x{q} {r}' for (p, q), r in zip(cuts, routes))}): iters=10, graph route "
+          f"{graph['ms'] / 10:.1f} ms/iter (first replay after {graph.get('before_replays_ms', float('nan')):.1f} ms, "
+          f"replays {graph.get('replays_ms', float('nan')) / 9:.1f} ms/iter), no graphs {plain['ms'] / 10:.1f} "
+          f"ms/iter, bitwise; captures {graph['graphs']}; syncs in the loop {graph['loop_syncs']}, outside it "
+          f"{graph['syncs']}; peak_mem={graph['peak_mib']:.1f} / {plain['peak_mib']:.1f} MiB; binding calls "
+          f"{graph['calls']}; err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; {CARD[0]}")
+    del x_hat, sparse, runs, graph, plain
 
     slab = v[:64, :64, :32].contiguous()
     (low, sp, hist), sec, _ = _events(lambda: trpca_tnn(slab, origin=slab, mu=1e-3, max_iter=20))
@@ -4030,7 +4239,7 @@ TOOLBOX_LOOP_CP_SYM_RANK = 3
 # iterations of each call (tol 0: every route and the CPU run as many)
 TOOLBOX_LOOP_ITERS = {"cp_als": 25, "cp_als_sparse 10%": 10, "cp_als_sparse 90%": 10, "cp_nmu": 25, "cp_apr": 5,
                       "cp_arls": 25, "eig_sshopm": 100, "eig_sshopmc": 100, "eig_geap": 100, "gcp_opt": 100,
-                      "cp_sym": 50}
+                      "cp_sym": 50, "tucker_hooi": 10}
 # the routes of ops/toolbox_loop.py, in the order they run: the graph route
 # (the default on the card) twice, around the other two
 TOOLBOX_LOOP_TURNS = (("graphs", True), ("no graphs", False), ("host loop", None), ("graphs", True))
@@ -4043,7 +4252,7 @@ TOOLBOX_LOOP_HELD = {"cp_als": ("fit", False, 1e-4), "cp_als_sparse 10%": ("fit"
                      "cp_apr": ("log_likelihood", True, 1e-4), "cp_arls": ("fit", False, 1e-3),
                      "eig_sshopm": ("eigval", False, 1e-4), "eig_sshopmc": ("eigval", False, 1e-4),
                      "eig_geap": ("eigval", False, 1e-4), "gcp_opt": ("objective", True, 0.05),
-                     "cp_sym": ("loss", True, 0.05)}
+                     "cp_sym": ("loss", True, 0.05), "tucker_hooi": ("fit", False, 1e-4)}
 
 
 def _toolbox_loop_inputs() -> dict:
@@ -4106,6 +4315,8 @@ def _toolbox_loop_call(name: str, d: dict, max_iters: int) -> dict:
     if name == "cp_sym":
         res = ops.cp_sym(d["a"], TOOLBOX_LOOP_CP_SYM_RANK, max_iters=max_iters, tol=0.0, init=d["sym_init"])
         return {**res, "loss": (1.0 - res["fit"]) ** 2}
+    if name == "tucker_hooi":
+        return ops.tucker_hooi(d["x"], (5, 5, 5), max_iters=max_iters, tol=0.0)
     raise KeyError(name)
 
 
@@ -4123,7 +4334,8 @@ def _toolbox_loop_arrays(name: str, inputs: dict) -> dict:
     keys = {"cp_als": ("x", "init"), "cp_als_sparse 10%": ("coo 10%", "shape", "init"),
             "cp_als_sparse 90%": ("coo 90%", "shape", "init"), "cp_nmu": ("counts", "init"), "cp_apr": ("counts", "init"),
             "cp_arls": ("x", "init"), "eig_sshopm": ("a", "x0"), "eig_sshopmc": ("a", "x0c"),
-            "eig_geap": ("a", "eye", "x0"), "gcp_opt": ("opt_counts", "opt_init"), "cp_sym": ("a", "sym_init")}
+            "eig_geap": ("a", "eye", "x0"), "gcp_opt": ("opt_counts", "opt_init"), "cp_sym": ("a", "sym_init"),
+            "tucker_hooi": ("x",)}
     return {k: inputs[k] for k in keys[name]}
 
 
@@ -4182,9 +4394,13 @@ def phase25(refs: dict | None = None) -> list:
             with toolbox_loop.forced_route(graphs):
                 _toolbox_loop_call(name, card, 2)
         runs: dict = {}
+        hopper_kernels.reset_launch_counts()
         for label, graphs in TOOLBOX_LOOP_TURNS:
             with toolbox_loop.forced_route(graphs):
                 runs.setdefault(label, []).append(_watched(lambda: _toolbox_loop_call(name, card, iters)))
+        calls = _linalg_calls()  # the binding's, on every route (tucker_hooi's eigh)
+        if name == "tucker_hooi" and not calls:
+            raise AssertionError("phase25 tucker_hooi: no call of ops/device_linalg.py's drivers")
         graph = runs["graphs"]
         res = graph[0]["res"]
         n = res["n_iters"]
@@ -4221,7 +4437,8 @@ def phase25(refs: dict | None = None) -> list:
               f"call's start {', '.join(f'{k} {v:.1f}' for k, v in peak.items())} (all allocated: "
               f"{graph[0]['peak_mib']:.1f}); routes {sparse} (graph vs no graphs, graph vs "
               f"graph, host loop vs no graphs); {key} {value if value.imag else value.real} vs CPU f64 "
-              f"{'rel' if relative else 'abs'} diff {dist:.3e} (tol {tol:g}, CPU {cpu_s:.1f} s); {CARD[0]}", flush=True)
+              f"{'rel' if relative else 'abs'} diff {dist:.3e} (tol {tol:g}, CPU {cpu_s:.1f} s)"
+              + (f"; binding calls over the four runs {calls}" if calls else "") + f"; {CARD[0]}", flush=True)
         rows.append({"name": name, "iters": n, "ms": ms, "first_replay_ms": first, "replay_ms": replays,
                      "syncs": syncs, "peak_mib": peak, "dist": dist})
         runs = graph = res = card = None

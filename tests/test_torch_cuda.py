@@ -30,8 +30,8 @@ PyTorch allocates them (16-byte accesses), on views one element past a
 once (each stream has its own partial sums and ticket counter).
 
 The SVT routes and the baselines launch no kernel of this package (they run
-on torch.linalg and torch.matmul); their cases here hold the float32 CUDA
-run to a float64 CPU run of the same code: SVT outputs rtol 1e-4 of ||M||,
+on cuSOLVER through `ops/device_linalg.py` and torch.matmul); their cases
+here hold the float32 CUDA run to a float64 CPU run of the same code: SVT outputs rtol 1e-4 of ||M||,
 err_hist of 10 iterations rtol 1e-3 (float32 rounding carried through the
 discontinuous `>1` gate). The Tensor Toolbox surface launches none either:
 its cases hold float32 on the card to float64 on the CPU on the same numpy
@@ -61,7 +61,16 @@ exactly zero; the mode-3 step (`mode3_sweep`, one launch) and the sweep
 alone within 256 eps of their largest value (one chain of products and
 sums in two orders; the systems well conditioned), a system the mode-3
 step cannot factor NaN from its row on. SOFIA's loops on the graph route
-bitwise their device programs without graphs, at r = 3 and r = 4."""
+bitwise their device programs without graphs, at r = 3 and r = 4.
+
+The binding's eigh and SVD (`ops/device_linalg.py`) against torch.linalg on
+the card: bitwise where it takes torch's driver, else within 64 n eps of the
+matrix's norm (eigenvalues, singular values, reconstructions), an eigh up
+to n = 512 captured in a CUDA graph and replayed bitwise. The SVT
+baselines' loops (`baselines/device_loop.py`) and `tucker_hooi` on the
+graph route: the captures, the synchronizing calls inside the loop, bitwise
+the device form without graphs; with an eigh past the captured limit, the
+eager loop."""
 
 import contextlib
 import dataclasses
@@ -1376,3 +1385,194 @@ def test_toolbox_loop_capture_that_meets_a_host_sync_raises(cuda_device, monkeyp
         toolbox_cases.call("cp_als", 0.0, data=data)
     monkeypatch.setattr(decomp, "_kruskal_fit", real)
     assert toolbox_cases.call("cp_als", 0.0, data=data)["n_iters"] == toolbox_cases.MAX_ITERS["cp_als"]
+
+
+# --- the SVT baselines' loops and tucker_hooi on the card: ops/device_linalg.py,
+# baselines/device_loop.py ---------------------------------------------------
+
+
+def _captured(fn):
+    """fn() captured as a CUDA graph on a side stream after one eager call
+    there, replayed once: the captured call's outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    out = []
+    with torch.cuda.stream(side):
+        fn()
+        graph = hopper_kernels.CountedGraph(lambda: out.append(fn()), torch.cuda.graph_pool_handle())
+        graph.replay()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [100, 300, 500, 512, 1000])
+def test_device_eigh_matches_torch_linalg_and_captures(cuda_device, n, dtype):
+    """The binding's eigh on a Gram against torch.linalg.eigh: bitwise where
+    it takes torch's driver, else eigenvalues and the reconstruction within
+    64 n eps ||A||; up to n = 512 a CUDA graph captures it, and its replay
+    gives the eager call's bits (past it the driver is Xsyevd, torch's,
+    which no graph captures)."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    m = torch.randn((n, 2 * n), generator=gen, device=cuda_device, dtype=dtype)
+    a = m @ m.T
+    w, v = device_linalg.eigh(a)
+    tw, tv = torch.linalg.eigh(a)
+    bound = 64 * n * torch.finfo(dtype).eps * float(torch.linalg.matrix_norm(a, 2))
+    if device_linalg.eigh_driver(n, dtype) == device_linalg.torch_eigh_driver(n, dtype):
+        assert torch.equal(w, tw) and torch.equal(v, tv)
+    assert float((w - tw).abs().max()) <= bound
+    assert float(torch.linalg.matrix_norm((v * w) @ v.T - a)) <= bound
+    if device_linalg.eigh_captures(n):
+        cw, cv = _captured(lambda: device_linalg.eigh(a))
+        assert torch.equal(cw, w) and torch.equal(cv, v)
+    else:
+        assert device_linalg.eigh_driver(n, dtype) == device_linalg.torch_eigh_driver(n, dtype) == "xsyevd"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(100, 5000), (3000, 200), (200, 200)], ids=str)
+def test_device_svd_matches_torch_linalg(cuda_device, shape, dtype):
+    """The binding's thin SVD against torch.linalg.svd: bitwise where it
+    takes torch's driver (gesvdj), else singular values and the
+    reconstruction within 64 k eps s_max; captured and replayed bitwise
+    where the driver can be captured (svt.UNCAPTURED_METHODS otherwise)."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    p, q = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(p + q)
+    a = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    u, s, vh = device_linalg.svd(a)
+    tu, ts, tvh = torch.linalg.svd(a, full_matrices=False)
+    assert u.shape == tu.shape and vh.shape == tvh.shape
+    bound = 64 * min(shape) * torch.finfo(dtype).eps * float(ts.max())
+    if device_linalg.svd_driver(p, q, dtype) == "gesvdj":
+        assert torch.equal(u, tu) and torch.equal(s, ts) and torch.equal(vh, tvh)
+    assert float((s - ts).abs().max()) <= bound
+    assert float(torch.linalg.matrix_norm((u * s) @ vh - a)) <= bound
+    if "svd" not in svt_ops.UNCAPTURED_METHODS:
+        cu, cs, cvh = _captured(lambda: device_linalg.svd(a))
+        assert torch.equal(cu, u) and torch.equal(cs, s) and torch.equal(cvh, vh)
+
+
+BASELINE_LOOP_CASES = ["ttnn gram", "ttnn warm:4", "ring gram", "ring warm:4", "fctn gram", "fctn warm:4",
+                       "fctn video lowrank:16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BASELINE_LOOP_CASES)
+def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch, case):
+    """f32 on the card at (24, 20, 32), the warm threshold lowered to 8: the
+    public call takes the graph route, one capture (two on a warm route:
+    refresh and reuse), no synchronizing call in the loop but one read of
+    the counter a segment (fctn's traffic chunks of 25: two in 30
+    iterations), bitwise the device form without graphs, every eigh or SVD
+    through the binding."""
+    from tritd_tpu_torch.baselines import device_loop
+    from tritd_tpu_torch.ops import toolbox_loop
+
+    method, svt_method = case.split()[0], case.split()[-1]
+    video = "video" in case
+    spec = DatasetSpec("tiny", "video" if video else "traffic", "T", (24, 20, 32), fctn_subdim=4, sofia_period=4)
+    x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(1))).float().to(cuda_device)
+    mask = torch.from_numpy(np.random.default_rng(2).random(spec.shape) > 0.1).to(cuda_device)
+    y = torch.where(mask, x, torch.zeros_like(x))
+    iters = 30 if method == "fctn" else 10
+
+    def call():
+        return run_method(method, y, x, mask, spec, torch.Generator().manual_seed(0), iters, svt_method=svt_method)
+
+    monkeypatch.setattr(svt_ops, "WARM_MIN_DIM", 8)
+    with toolbox_loop.forced_route(False):
+        plain = call()
+    loop_syncs, real_run = [], device_loop.run
+
+    def run(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = real_run(*args, **kwargs)
+        loop_syncs.append(sum("called a synchronizing" in str(w.message) for w in caught))
+        return out
+
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        monkeypatch.setattr(svt_ops, "WARM_MIN_DIM", 8)
+        monkeypatch.setattr(device_loop, "run", run)
+        graph = call()
+    segments = 2 if method == "fctn" and (video or svt_method.startswith("warm")) else 1
+    assert seen["graphs"] == (2 if svt_method.startswith("warm") else 1)
+    assert loop_syncs == [segments]
+    assert any(n for n in hopper_kernels.LINALG_CALLS.values())
+    assert graph[0].is_cuda and np.isfinite(graph[2]).all() and graph[2].shape == (iters,)
+    for g, p in zip(graph, plain):
+        g, p = torch.as_tensor(g), torch.as_tensor(p)
+        assert torch.equal(g.nan_to_num(), p.nan_to_num()) and torch.equal(g.isnan(), p.isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fctn gram", "ttnn warm:4", "hooi"])
+def test_a_loop_whose_eigh_no_graph_captures_takes_the_eager_loop(cuda_device, monkeypatch, case):
+    """With the captured eigh's limit lowered to n = 8, the baselines' loops
+    and tucker_hooi at small shapes have eighs past it, on Xsyevd: the public
+    call takes the eager loop on the card (no capture, chosen before any),
+    every eigh through the binding's Xsyevd, and agrees with the device form
+    without graphs (in the last bits: a host float divides there where a
+    device number does here) within rtol 1e-4."""
+    from tritd_tpu_torch.ops import decomp, device_linalg, toolbox_loop
+
+    method, svt_method = case.split()[0], case.split()[-1]
+    if method == "hooi":
+        x = torch.from_numpy(np.random.default_rng(4).random((12, 10, 14))).float().to(cuda_device)
+
+        def call():
+            res = decomp.tucker_hooi(x, (3, 4, 5), max_iters=4, tol=0.0)
+            return res["core"], res["fit"]
+    else:
+        spec = DatasetSpec("tiny", "traffic", "T", (24, 20, 32), fctn_subdim=4, sofia_period=4)
+        x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(1))).float().to(cuda_device)
+        mask = torch.from_numpy(np.random.default_rng(2).random(spec.shape) > 0.1).to(cuda_device)
+        y = torch.where(mask, x, torch.zeros_like(x))
+
+        def call():
+            out = run_method(method, y, x, mask, spec, torch.Generator().manual_seed(0), 10, svt_method=svt_method)
+            return out[0], torch.as_tensor(out[2])
+
+    def lowered():
+        monkeypatch.setattr(device_linalg, "XSYEV_BATCHED_MAX_N", 8)
+        monkeypatch.setattr(svt_ops, "WARM_MIN_DIM", 8)
+
+    lowered()
+    with toolbox_loop.forced_route(False):
+        plain = call()
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        lowered()
+        eager = call()
+    assert seen["graphs"] == 0 and hopper_kernels.LINALG_CALLS["xsyevd[f32]"] > 0
+    for e, p in zip(eager, plain):
+        assert torch.isfinite(e).all()
+        torch.testing.assert_close(e.cpu(), p.cpu(), rtol=1e-4, atol=1e-4 * float(p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_tucker_hooi_graph_route_is_the_device_form(cuda_device, monkeypatch):
+    """tucker_hooi on the card: one capture, the stop flag read after each
+    iteration short of max_iters and the counter at the end, bitwise the
+    device form without graphs and the host loop of the same call."""
+    from tritd_tpu_torch.ops import decomp, toolbox_loop
+
+    x = torch.from_numpy(np.random.default_rng(4).random((30, 40, 50))).float().to(cuda_device)
+    decomp.tucker_hooi(x, (3, 4, 5), max_iters=2, tol=0.0)  # the libraries' set-up outside the watch
+    with _watch(monkeypatch) as seen:
+        graph = decomp.tucker_hooi(x, (3, 4, 5), max_iters=6, tol=0.0)
+    assert seen["graphs"] == 1 and seen["syncs"] == 6 and graph["n_iters"] == 6
+    for route in (False, None):
+        with toolbox_loop.forced_route(route):
+            other = decomp.tucker_hooi(x, (3, 4, 5), max_iters=6, tol=0.0)
+        assert torch.equal(other["core"], graph["core"]) and torch.equal(other["fit"], graph["fit"])
+        assert all(torch.equal(a, b) for a, b in zip(other["factors"], graph["factors"]))

@@ -203,6 +203,7 @@ ENTRIES = {
 # Public functions of the repaired modules that take no data tensor.
 NO_DATA_TENSOR = {
     "ops.svt.auto_method": "plans from two sizes",
+    "ops.svt.captures": "plans from a route name and sizes",
     "ops.svt.lowrank_sketch": "a constructor: takes dtype and device",
     "ops.svt.warm_spec": "parses a route name",
     "ops.svt.run_warm_blocks": "drives a caller's loop body",

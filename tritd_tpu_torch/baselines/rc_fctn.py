@@ -28,7 +28,9 @@ import torch
 
 from ..ops.kruskal import solver_input
 from ..ops.shrinkage import prox_l1
-from ..ops.svt import run_warm_blocks, svt_ref_compat, svt_ref_compat_warm, warm_spec
+from ..ops.svt import _sketch_for, svt_ref_compat, svt_ref_compat_warm, warm_spec
+from . import device_loop
+from .device_loop import Scalars, write
 from .penalty import grown_penalty
 
 
@@ -79,12 +81,13 @@ def weight_fctn(nway: tuple[int, ...], orders) -> list[float]:
     return [v / total for v in lam]
 
 
-def _rc_fctn_steps(
-    x_noise, ind_obs, origin, carry, k0, lam, f, gamma0, deta0, n_steps,
-    svt_method="svd", warm_cfg=None,
-):
-    """Run `n_steps` iterations from absolute iteration `k0`. In warm mode
-    each call starts a new refresh block (see `run_warm_blocks`)."""
+def _rc_fctn_step(x_noise, ind_obs, origin, err_hist, lam, f, gamma0, deta0, max_iter, svt_method="svd",
+                  warm_cfg=None):
+    """The loop's `step(k, carry, refresh)` (`baselines/device_loop.py`)
+    over the carry fields x, y, e, s, p, q, z<i> (one a bipartition) and
+    b<j> (one a warm basis), writing RSE_real into `err_hist` at k. The
+    penalties of iterations 0..max_iter-1 are a table computed here, and the
+    randomized route's sketches are drawn here, before the loop."""
     nway = tuple(x_noise.shape)
     n = len(nway)
     half = n // 2
@@ -94,58 +97,64 @@ def _rc_fctn_steps(
     mu = [f * a for a in alpha]
     sum_mu = sum(mu)
     dims_l = [math.prod(nway[o] for o in order[:half]) for order in orders]
+    total = math.prod(nway)
 
-    dtype = x_noise.dtype
+    dtype, device = x_noise.dtype, x_noise.device
     ind_mis = 1.0 - ind_obs
     norm_origin = torch.linalg.vector_norm(origin) if origin is not None else None
     # warm_cfg is the (period, indices, thin_sides) spec computed ONCE in
     # rc_fctn(), the same object that sized the carried bases, so index and
     # shape alignment cannot drift between the two.
-    warm = warm_cfg is not None
-    if warm:
-        warm_period, warm_idx, _ = warm_cfg
+    warm_idx = warm_cfg[1] if warm_cfg is not None else ()
+    method = "gram" if warm_cfg is not None else svt_method
+    omegas = [_sketch_for((d, total // d), method, dtype, device) for d in dims_l]
 
-    def body(k, carry, refresh=True):
-        x, y, e, s, p, q, zs, bases, err_hist = carry
+    def penalties(k: int) -> dict:
         gamma = grown_penalty(gamma0, 1.5, k, dtype)
         deta = grown_penalty(deta0, 1.5, k, dtype)
+        return {"gamma": gamma, "deta": deta, "lam_deta": lam / deta, "gamma_deta": gamma + deta,
+                "mu_gamma": sum_mu + gamma, "tt": gamma**2 - (sum_mu + gamma) * (gamma + deta)}
+
+    scalars = Scalars([penalties(k) for k in range(max_iter)], dtype, device)
+
+    def step(k, c: dict, refresh) -> dict:
+        x, y, e, p, q = c["x"], c["y"], c["e"], c["p"], c["q"]
+        zs = [c[f"z{i}"] for i in range(len(orders))]
+        sc = scalars.at(k)
+        gamma, deta = sc["gamma"], sc["deta"]
+        new = {}
         # L_n: SVT over each balanced bipartition (`RC_FCTN.m:68-75`)
         ls = []
-        bases_new = list(bases)
         for i, order in enumerate(orders):
             mat = (x - zs[i] / mu[i]).permute(order).reshape(dims_l[i], -1)
-            if warm and i in warm_idx:
+            if i in warm_idx:
                 j = warm_idx.index(i)
-                mat, bases_new[j] = svt_ref_compat_warm(mat, alpha[i] / mu[i], bases[j], refresh)
+                mat, new[f"b{j}"] = svt_ref_compat_warm(mat, alpha[i] / mu[i], c[f"b{j}"], refresh)
             else:
-                mat = svt_ref_compat(mat, alpha[i] / mu[i], method="gram" if warm else svt_method)
+                mat = svt_ref_compat(mat, alpha[i] / mu[i], method=method, omega=omegas[i])
             shp = tuple(nway[o] for o in order)
             ls.append(mat.reshape(shp).permute(inv_orders[i]))
         # S (`:78`)
-        s = prox_l1(e - q / deta, lam / deta)
+        s = prox_l1(e - q / deta, sc["lam_deta"])
         # joint (X, E) (`:81-89`)
         temp = sum(mu[i] * (ls[i] + zs[i] / mu[i]) for i in range(len(orders)))
         data = gamma * (y + p / gamma)
         m_ = temp + data
         n_ = data + deta * (s + q / deta)
-        tt = gamma**2 - (sum_mu + gamma) * (gamma + deta)
-        x = (gamma * n_ - (gamma + deta) * m_) / tt
-        e = (gamma * m_ - (sum_mu + gamma) * n_) / tt
+        x = (gamma * n_ - sc["gamma_deta"] * m_) / sc["tt"]
+        e = (gamma * m_ - sc["mu_gamma"] * n_) / sc["tt"]
         # observed-entry projection (`:92`)
         y = ind_mis * (x + e - p / gamma) + ind_obs * x_noise
         # duals (`:95-99`)
-        zs = tuple(zs[i] + mu[i] * (ls[i] - x) for i in range(len(orders)))
+        for i in range(len(orders)):
+            new[f"z{i}"] = zs[i] + mu[i] * (ls[i] - x)
         p = p + gamma * (y - x - e)
         q = q + deta * (s - e)
         if origin is not None:
-            err_hist[k] = torch.linalg.vector_norm(x + s - origin) / norm_origin
-        return (x, y, e, s, p, q, zs, tuple(bases_new), err_hist)
+            write(err_hist, k, torch.linalg.vector_norm(x + s - origin) / norm_origin)
+        return {**new, "x": x, "y": y, "e": e, "s": s, "p": p, "q": q}
 
-    if warm:
-        return run_warm_blocks(body, carry, k0, n_steps, warm_period)
-    for k in range(k0, k0 + n_steps):
-        carry = body(k, carry)
-    return carry
+    return step
 
 
 def rc_fctn(
@@ -181,33 +190,30 @@ def rc_fctn(
     x_noise = solver_input(x_noise, device=device)
     ind = solver_input(ind_obs, x_noise.dtype, x_noise.device)
     origin = solver_input(origin, device=x_noise.device)
-    chunk = max_iter if chunk is None else min(chunk, max_iter)
+    chunk = max(1, max_iter if chunk is None else min(chunk, max_iter))
+    dtype, dev = x_noise.dtype, x_noise.device
     zeros = torch.zeros_like(x_noise)
     orders = balanced_bipartitions(x_noise.ndim)
-    bases, warm_cfg = (), None
+    half = x_noise.ndim // 2
+    dims_l = [math.prod(x_noise.shape[o] for o in order[:half]) for order in orders]
+    shapes = _bipartition_shapes(tuple(x_noise.shape), dims_l)
+    bases, warm_cfg = {}, None
     if svt_method.startswith("warm"):
-        half = x_noise.ndim // 2
-        dims_l = [math.prod(x_noise.shape[o] for o in order[:half]) for order in orders]
-        warm_cfg = warm_spec(svt_method, _bipartition_shapes(tuple(x_noise.shape), dims_l))
+        warm_cfg = warm_spec(svt_method, shapes)
         # Identity placeholders; the first iteration of a block refreshes
         # before any reuse. Sized by the SAME spec object the steps consume.
-        bases = tuple(torch.eye(t, dtype=x_noise.dtype, device=x_noise.device) for t in warm_cfg[2])
-    carry = (
-        zeros, x_noise, zeros, zeros, zeros, zeros,
-        tuple(zeros for _ in orders),
-        bases,
-        torch.full((max_iter,), float("nan"), dtype=x_noise.dtype, device=x_noise.device),
-    )
-    k0 = 0
-    while k0 < max_iter:
-        n_steps = min(chunk, max_iter - k0)
-        carry = _rc_fctn_steps(
-            x_noise, ind, origin, carry, k0, float(lam), float(f), float(gamma), float(deta),
-            n_steps, svt_method, warm_cfg,
-        )
-        k0 += n_steps
-    x, _, _, s, _, _, _, _, err_hist = carry
-    return x, s, err_hist
+        bases = {f"b{j}": torch.eye(t, dtype=dtype, device=dev) for j, t in enumerate(warm_cfg[2])}
+    err_hist = torch.full((max_iter,), float("nan"), dtype=dtype, device=dev)
+    step = _rc_fctn_step(x_noise, ind, origin, err_hist, float(lam), float(f), float(gamma), float(deta), max_iter,
+                         svt_method, warm_cfg)
+    carry = {"x": zeros, "y": x_noise, "e": zeros, "s": zeros, "p": zeros, "q": zeros,
+             **{f"z{i}": zeros for i in range(len(orders))}, **bases}
+    # one loop for the whole call, advanced chunk by chunk (one read of the
+    # device's counter each); each chunk starts a new refresh block
+    kinds = device_loop.schedule(max_iter, chunk, warm_cfg[0] if warm_cfg else None)
+    carry = device_loop.run(step, carry, kinds, range(chunk, max_iter + chunk, chunk),
+                            device_loop.route(dev, svt_method, shapes))
+    return carry["x"], carry["s"], err_hist
 
 
 def _split_mode3(x: torch.Tensor, n3: int, n4: int) -> torch.Tensor:

@@ -10,9 +10,12 @@ weights from numerical ranks of the circular unfoldings.
 Setup (host side): L = ceil(N/2) circular-shift unfoldings; lambda auto-set
 from the sampling ratio (`RTRC.m:17-23`); weights 1/Em normalized
 (`RTRC.m:33-35`). Loop (fixed 100 iterations, the reference's convergence
-break is commented out, `RTRC.m:70-72`; no host read inside): SVT each
-circular unfolding, masked data-fidelity x-update, l1 sparse part on
-observed entries, dual ascent, mu*1.1 capped at 1e6.
+break is commented out, `RTRC.m:70-72`): SVT each circular unfolding,
+masked data-fidelity x-update, l1 sparse part on observed entries, dual
+ascent, mu*1.1 capped at 1e6. It runs through `baselines/device_loop.py`:
+on the card one CUDA graph replay an iteration with no read to the host
+before the end, mu and its quotients from a table computed on the host
+(the eager loop where no graph captures the SVT, `device_loop.route`).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch
 
 from ..ops.kruskal import solver_input
 from ..ops.shrinkage import soft_threshold
-from ..ops.svt import run_warm_blocks, svt, svt_warm, warm_spec
+from ..ops.svt import svt, svt_warm, warm_spec
+from . import device_loop
+from .device_loop import Scalars, write
 from .penalty import grown_penalty
 
 
@@ -100,26 +105,37 @@ def _rtrc_run(x_obs, p, origin, mu0, lam, weights, orders, max_iter, svt_method=
     inv_orders = [tuple(int(v) for v in np.argsort(o)) for o in orders]
     dims_l = [math.prod([shape[o] for o in order[: -(-len(shape) // 2)]]) for order in orders]
     total = math.prod(shape)
+    shapes = [(d, total // d) for d in dims_l]
     warm = svt_method.startswith("warm")
+    warm_period, warm_idx, warm_thin = None, (), ()
     if warm:
         # RTRC uses PLAIN soft-threshold SVT (no truncation gate), for which
         # warm reuse is valid: it approximates the basis, not the retained
         # rank (ops/svt.py::svt_warm).
-        warm_period, warm_idx, warm_thin = warm_spec(svt_method, [(d, total // d) for d in dims_l])
+        warm_period, warm_idx, warm_thin = warm_spec(svt_method, shapes)
 
-    def body(i, carry, refresh=True):
-        x, y, w, ls, zs, bases, err_hist = carry
+    def penalties(i: int) -> dict:
         mu = grown_penalty(mu0, 1.1, i, dtype, cap=1e6)
+        return {"mu": mu, "lam_mu": lam / mu, **{f"tau{n_}": weights[n_] / mu for n_ in range(l)}}
+
+    scalars = Scalars([penalties(i) for i in range(max_iter)], dtype, device)
+    err_hist = torch.full((max_iter,), float("nan"), dtype=dtype, device=device)
+
+    def step(i, c: dict, refresh) -> dict:
+        x, y, w = c["x"], c["y"], c["w"]
+        zs = [c[f"z{n_}"] for n_ in range(l)]
+        sc = scalars.at(i)
+        mu = sc["mu"]
+        new = {}
         # SVT each circular-shift unfolding (`RTRC.m:45-54`)
         ls_new = []
-        bases_new = list(bases)
         for n_ in range(l):
             m = (x - zs[n_] / mu).permute(orders[n_]).reshape(dims_l[n_], -1)
-            if warm and n_ in warm_idx:
+            if n_ in warm_idx:
                 wi = warm_idx.index(n_)
-                m, bases_new[wi] = svt_warm(m, weights[n_] / mu, bases[wi], refresh)
+                m, new[f"b{wi}"] = svt_warm(m, sc[f"tau{n_}"], c[f"b{wi}"], refresh)
             else:
-                m = svt(m, weights[n_] / mu, method="gram" if warm else svt_method)
+                m = svt(m, sc[f"tau{n_}"], method="gram" if warm else svt_method)
             shp = tuple(shape[o] for o in orders[n_])
             ls_new.append(m.reshape(shp).permute(inv_orders[n_]))
         l_cs = sum(ls_new)
@@ -127,27 +143,20 @@ def _rtrc_run(x_obs, p, origin, mu0, lam, weights, orders, max_iter, svt_method=
         # x update: masked data fidelity (`:56-58`)
         x = (l_cs + z_cs / mu + p * (x_obs - y - w / mu)) / (l + p)
         # y update: sparse part on observed entries (`:60`)
-        y = soft_threshold(p * (x_obs - x - w / mu), lam / mu)
+        y = soft_threshold(p * (x_obs - x - w / mu), sc["lam_mu"])
         # duals (`:62-66`)
-        zs_new = tuple(zs[n_] + mu * (ls_new[n_] - x) for n_ in range(l))
+        for n_ in range(l):
+            new[f"z{n_}"] = zs[n_] + mu * (ls_new[n_] - x)
         w = w + mu * p * (x + y - x_obs)
         if origin is not None:
-            err_hist[i] = torch.linalg.vector_norm(x - origin) / norm_origin
-        return (x, y, w, tuple(ls_new), zs_new, tuple(bases_new), err_hist)
+            write(err_hist, i, torch.linalg.vector_norm(x - origin) / norm_origin)
+        return {**new, "x": x, "y": y, "w": w}
 
-    bases0 = tuple(torch.eye(t, dtype=dtype, device=device) for t in warm_thin) if warm else ()
-    carry = (
-        x_obs, zeros, zeros,
-        tuple(x_obs for _ in range(l)), tuple(zeros for _ in range(l)), bases0,
-        torch.full((max_iter,), float("nan"), dtype=dtype, device=device),
-    )
-    if warm:
-        carry = run_warm_blocks(body, carry, 0, max_iter, warm_period)
-    else:
-        for i in range(max_iter):
-            carry = body(i, carry)
-    x, y, _, _, _, _, err_hist = carry
-    return x, y, err_hist
+    carry = {"x": x_obs, "y": zeros, "w": zeros, **{f"z{n_}": zeros for n_ in range(l)},
+             **{f"b{wi}": torch.eye(t, dtype=dtype, device=device) for wi, t in enumerate(warm_thin)}}
+    carry = device_loop.run(step, carry, device_loop.schedule(max_iter, max_iter, warm_period), [max_iter],
+                            device_loop.route(device, svt_method, shapes))
+    return carry["x"], carry["y"], err_hist
 
 
 def precompute_freedom_ratio(tnsr: torch.Tensor, p_mask: torch.Tensor, device=None):

@@ -14,8 +14,14 @@ l1-shrink the sparse clone Y, closed-form joint (Z, S) solve, dual ascent,
 The unfoldings are row-major reshapes; SVT is invariant under the
 consistent row/column permutation relating them to MATLAB's column-major
 reshapes, so results are identical. The loop runs on the device of the
-input without a host read: the penalties are host scalars in the run's
-dtype and the histories are device tensors written by index.
+input, through `baselines/device_loop.py`: on the CPU a host loop; on the
+card one CUDA graph replay an iteration (two graphs with `warm:K`, refresh
+and reuse), the penalties a table computed on the host before the loop and
+read by the device's counter, the histories written at the counter, and no
+read to the host before the loop's end (the SVT's eigh and SVD through
+`ops/device_linalg.py`); the eager loop where no graph captures the SVT
+route at these unfoldings (`device_loop.route`: the `svd` route, an eigh
+past n = 512).
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import torch
 
 from ..ops.kruskal import solver_input
 from ..ops.shrinkage import soft_threshold
-from ..ops.svt import run_warm_blocks, svt_ref_compat, svt_ref_compat_warm, warm_spec
+from ..ops.svt import svt_ref_compat, svt_ref_compat_warm, warm_spec
+from . import device_loop
+from .device_loop import Scalars, write
 from .penalty import grown_penalty
 
 
@@ -75,53 +83,61 @@ def tt_trpca(
     dtype, device = x_noise.dtype, x_noise.device
     zeros = torch.zeros_like(x_noise)
     norm_origin = torch.linalg.vector_norm(origin) if origin is not None else None
+    shapes = [(d, total // d) for d in dim_l]
     warm = svt_method.startswith("warm")
+    warm_period, warm_idx, warm_thin = None, (), ()
     if warm:
-        warm_period, warm_idx, warm_thin = warm_spec(svt_method, [(d, total // d) for d in dim_l])
+        warm_period, warm_idx, warm_thin = warm_spec(svt_method, shapes)
 
-    def body(k, carry, refresh=True):
-        z, s, e, j, cs, bases, err_hist, rel_hist = carry
+    def penalties(k: int) -> dict:
+        # the penalties grow in the run's dtype, as the reference's do; the
+        # other scalars are the host's double arithmetic on them
+        gam = grown_penalty(gamma, 1.1, k, dtype)
+        det = grown_penalty(deta, 1.1, k, dtype)
+        return {"gam": gam, "det": det, "lam_det": lam / det, "gam_det": gam + det, "beta_gam": sum_beta + gam,
+                "tt": gam**2 - (sum_beta + gam) * (gam + det)}
+
+    scalars = Scalars([penalties(k) for k in range(max_iter)], dtype, device)
+    err_hist = torch.full((max_iter,), float("nan"), dtype=dtype, device=device)
+    rel_hist = err_hist.clone()
+
+    def step(k, c: dict, refresh) -> dict:
+        z, s, e, j = c["z"], c["s"], c["e"], c["j"]
+        cs = [c[f"c{m}"] for m in range(ncuts)]
+        new = {}
         # U_n: SVT on each sequential TT unfolding (`TT_TRPCA.m:45-48`)
         us = []
-        bases_new = list(bases)
         for m in range(ncuts):
             mat = (z - cs[m] / beta[m]).reshape(dim_l[m], -1)
-            if warm and m in warm_idx:
+            if m in warm_idx:
                 w = warm_idx.index(m)
-                mat, bases_new[w] = svt_ref_compat_warm(mat, alpha[m] / beta[m], bases[w], refresh)
+                mat, new[f"b{w}"] = svt_ref_compat_warm(mat, alpha[m] / beta[m], c[f"b{w}"], refresh)
             else:
                 mat = svt_ref_compat(mat, alpha[m] / beta[m], method="gram" if warm else svt_method)
             us.append(mat.reshape(nway))
-        # the penalties grow in the run's dtype, as the reference's do
-        gam = grown_penalty(gamma, 1.1, k, dtype)
-        det = grown_penalty(deta, 1.1, k, dtype)
+        sc = scalars.at(k)
+        gam, det = sc["gam"], sc["det"]
         # Y: l1 shrink of the sparse clone (`:51`)
-        y = soft_threshold(s - j / det, lam / det)
+        y = soft_threshold(s - j / det, sc["lam_det"])
         # closed-form joint (Z, S) solve (`:53-62`)
         temp = sum(beta[m] * (us[m] + cs[m] / beta[m]) for m in range(ncuts))
         data = gam * (x_noise + e / gam)
         ee = temp + data
         ff = data + det * (y + j / det)
-        tt = gam**2 - (sum_beta + gam) * (gam + det)
-        z_new = (gam * ff - (gam + det) * ee) / tt
-        s_new = (gam * ee - (sum_beta + gam) * ff) / tt
+        z_new = (gam * ff - sc["gam_det"] * ee) / sc["tt"]
+        s_new = (gam * ee - sc["beta_gam"] * ff) / sc["tt"]
         # dual ascent (`:64-70`)
-        cs_new = tuple(cs[m] + beta[m] * (us[m] - z_new) for m in range(ncuts))
-        e = e + gam * (x_noise - z_new - s_new)
-        j = j + det * (y - s_new)
-        rel_hist[k] = torch.linalg.vector_norm(z_new - z) / (torch.linalg.vector_norm(z) + 1e-30)
+        for m in range(ncuts):
+            new[f"c{m}"] = cs[m] + beta[m] * (us[m] - z_new)
+        new["e"] = e + gam * (x_noise - z_new - s_new)
+        new["j"] = j + det * (y - s_new)
+        write(rel_hist, k, torch.linalg.vector_norm(z_new - z) / (torch.linalg.vector_norm(z) + 1e-30))
         if origin is not None:
-            err_hist[k] = torch.linalg.vector_norm(origin - z_new) / norm_origin
-        return (z_new, s_new, e, j, cs_new, tuple(bases_new), err_hist, rel_hist)
+            write(err_hist, k, torch.linalg.vector_norm(origin - z_new) / norm_origin)
+        return {**new, "z": z_new, "s": s_new}
 
-    bases0 = tuple(torch.eye(t, dtype=dtype, device=device) for t in warm_thin) if warm else ()
-    nan_hist = torch.full((max_iter,), float("nan"), dtype=dtype, device=device)
-    carry = (zeros, zeros, zeros, zeros, tuple(zeros for _ in range(ncuts)), bases0,
-             nan_hist, nan_hist.clone())
-    if warm:
-        carry = run_warm_blocks(body, carry, 0, max_iter, warm_period)
-    else:
-        for k in range(max_iter):
-            carry = body(k, carry)
-    z, s, _, _, _, _, err_hist, _ = carry
-    return z, s, err_hist, max_iter
+    carry = {"z": zeros, "s": zeros, "e": zeros, "j": zeros, **{f"c{m}": zeros for m in range(ncuts)},
+             **{f"b{w}": torch.eye(t, dtype=dtype, device=device) for w, t in enumerate(warm_thin)}}
+    carry = device_loop.run(step, carry, device_loop.schedule(max_iter, max_iter, warm_period), [max_iter],
+                            device_loop.route(device, svt_method, shapes))
+    return carry["z"], carry["s"], err_hist, max_iter

@@ -5,14 +5,16 @@ algorithm surface (`cp_als.m`, `tucker_als.m`, `hosvd.m`): `mttkrp`,
 PyTorch counterpart of `tritd_tpu/ops/decomp.py`: N-way generic, the same
 update equations, stopping rules and returned dict keys. What differs:
 
-* `cp_als`'s `lax.while_loop` is a loop of `ops/toolbox_loop.py`: on a
-  CUDA tensor one CUDA graph replay an iteration, the fit, the counter and
-  the stop flag on the card, the flag the one read to the host; on the CPU
-  a host loop of the same iterations. The condition
-  `(it < max_iters) and (delta >= tol)` holds before each body with
-  `delta = inf` at entry, so `max_iters = 0` returns the init with
-  `fit = -inf`. `n_iters` is a Python int, `fit` a 0-d tensor.
-  `tucker_hooi`'s loop stays a host loop (its `eigh` reads to the host).
+* `cp_als`'s and `tucker_hooi`'s `lax.while_loop`s are loops of
+  `ops/toolbox_loop.py`: on a CUDA tensor one CUDA graph replay an
+  iteration, the fit, the counter and the stop flag on the card, the flag
+  the one read to the host; on the CPU a host loop of the same iterations.
+  The condition `(it < max_iters) and (delta >= tol)` holds before each
+  body with `delta = inf` at entry, so `max_iters = 0` returns the init
+  with `fit = -inf`. `n_iters` is a Python int, `fit` a 0-d tensor. HOOI's
+  `eigh` is `ops/device_linalg.py`'s on the card (cuSOLVER, `info` left
+  unread), which a graph can capture up to n = 512: a tensor with a longer
+  mode takes the host loop on the card.
 * Contraction orders are written out as two-operand steps (the reference
   leaves them to an einsum path optimizer): `mttkrp` contracts the tensor
   with the largest of the other factors in one GEMM, then folds each
@@ -33,7 +35,7 @@ import math
 
 import torch
 
-from . import toolbox_loop
+from . import device_linalg, toolbox_loop
 from .kruskal import cp_normalize, default_generator, draw, on_input_device
 
 
@@ -195,9 +197,15 @@ def cp_als(
 def _leading_basis(x: torch.Tensor, mode: int, rank: int) -> torch.Tensor:
     """Top-`rank` left singular vectors of unfold(x, mode), via eigh on the
     (n_mode, n_mode) Gram (no SVD of the fat unfolding)."""
+    return _descending_basis(x, mode)[:, :rank]
+
+
+def _descending_basis(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """Every left singular vector of unfold(x, mode), leading first: the
+    (n_mode, n_mode) matrix that :func:`_leading_basis` cuts."""
     xm = x.movedim(mode, 0).reshape(x.shape[mode], -1)
-    _w, v = torch.linalg.eigh(xm @ xm.T)  # ascending eigenvalues
-    return v.flip(1)[:, :rank]
+    _w, v = device_linalg.eigh(xm @ xm.T)  # ascending eigenvalues
+    return v.flip(1)
 
 
 @on_input_device("x")
@@ -236,28 +244,36 @@ def tucker_ttm(x: torch.Tensor, factors, transpose: bool = False) -> torch.Tenso
     return x
 
 
-def _hooi_run(x, factors0, ranks, max_iters: int, tol: float):
+def _hooi_run(x, bases0, ranks, max_iters: int, tol: float):
+    """HOOI from the full descending bases `bases0`, each factor the view of
+    a basis's first ranks[mode] columns that `_leading_basis` gives, in
+    eigh's layout, so that the GEMMs see what they saw in a host loop."""
     n = x.ndim
     norm_x = torch.linalg.vector_norm(x)
-    factors = list(factors0)
-    fit = toolbox_loop.full(-math.inf, x)
-    delta, it = math.inf, 0
-    while it < max_iters and delta >= tol:
+
+    def iteration(c):
+        bases = [c[f"v{mode}"] for mode in range(n)]
         for mode in range(n):
             # Project all other modes, then take the leading basis of the
             # result's mode unfolding (`tucker_als.m` core iteration).
-            proj = [factors[ax] if ax != mode else None for ax in range(n)]
+            proj = [bases[ax][:, :ranks[ax]] if ax != mode else None for ax in range(n)]
             y = tucker_ttm(x, proj, transpose=True)
-            factors[mode] = _leading_basis(y, mode, ranks[mode])
-        core = tucker_ttm(x, factors, transpose=True)
+            bases[mode] = _descending_basis(y, mode)
+        core = tucker_ttm(x, [v[:, :r] for v, r in zip(bases, ranks)], transpose=True)
         # ||X - [core; U]||^2 = ||X||^2 - ||core||^2 for orthonormal U.
         resid_sq = torch.clamp(norm_x**2 - (core**2).sum(), min=0.0)
-        new_fit = 1.0 - torch.sqrt(resid_sq) / norm_x
-        delta = float(torch.abs(new_fit - fit))
-        fit = new_fit
-        it += 1
+        fit = 1.0 - torch.sqrt(resid_sq) / norm_x
+        return {**{f"v{mode}": v for mode, v in enumerate(bases)}, "fit": fit}, torch.abs(fit - c["fit"])
+
+    # the buffers keep eigh's column-major layout (copied into in place)
+    carry = {f"v{mode}": v.detach().clone() for mode, v in enumerate(bases0)}
+    carry["fit"] = toolbox_loop.full(-math.inf, x)
+    # an eigh past n = 512 cannot be captured: then the host loop
+    captures = all(device_linalg.eigh_captures(side) for side in x.shape)
+    carry, it = toolbox_loop.run(iteration, carry, max_iters, tol, captures)
+    factors = [carry[f"v{mode}"][:, :r] for mode, r in enumerate(ranks)]
     core = tucker_ttm(x, factors, transpose=True)
-    return core, factors, fit, it
+    return core, factors, carry["fit"], it
 
 
 @on_input_device("x")
@@ -270,8 +286,9 @@ def tucker_hooi(
     """Tucker decomposition by HOOI (`tucker_als.m` semantics: HOSVD init,
     per-mode projected leading basis, fit-change stop)."""
     ranks = tuple(int(r) for r in ranks)
-    init = tucker_hosvd(x, ranks)["factors"]
-    core, factors, fit, iters = _hooi_run(x, init, ranks, max_iters, tol)
+    # the HOSVD init's factors are these bases' leading columns
+    bases = [_descending_basis(x, mode) for mode in range(x.ndim)]
+    core, factors, fit, iters = _hooi_run(x, bases, ranks, max_iters, tol)
     return {
         "core": core,
         "factors": factors,

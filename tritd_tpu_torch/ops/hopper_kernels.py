@@ -111,7 +111,11 @@ BATCH_LAUNCHES = {f"elementwise_block_batch[{v}]": 0 for v in KERNEL_VARIANTS.va
 # Launches of SOFIA's kernels (`ops/sofia_kernels.py`), by dtype.
 SOFIA_LAUNCHES = {f"{name}[{dt}]": 0 for name in ("pinv_rows", "mode3_sweep", "gauss_seidel_sweep")
                   for dt in ("f32", "f64")}
-_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES)
+# Calls of the cuSOLVER drivers behind `ops/device_linalg.py`, by dtype: no
+# kernel of this package, counted the same way (a graph's replays too).
+LINALG_CALLS = {f"{name}[{dt}]": 0 for name in ("xsyevbatched", "xsyevd", "gesvdj")
+                for dt in ("f32", "f64")}
+_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES, LINALG_CALLS)
 
 
 def reset_launch_counts() -> None:

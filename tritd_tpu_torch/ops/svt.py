@@ -15,7 +15,7 @@ Routes (``method``), all reconstructing through the computed orthonormal
 basis, so the output does not depend on the signs or the rotations inside
 clusters that `torch.linalg` happens to return:
 
-* ``"svd"`` (default): `torch.linalg.svd`, backward-stable.
+* ``"svd"`` (default): a thin SVD, backward-stable.
 * ``"gram"``: eigh of the thin-side k x k Gram (k = min(p, q)) plus two
   GEMMs, never forming the long singular factor:
 
@@ -44,12 +44,23 @@ clusters that `torch.linalg` happens to return:
 
 The routing constants keep the reference's values: they decide which route
 runs, and so what the result is.
+
+On a CUDA tensor every eigh and SVD goes through :mod:`.device_linalg`
+(cuSOLVER with its `info` left on the card: a CUDA graph can capture an
+eigh up to n = 512, no larger one and no SVD, so the "svd" route is in
+UNCAPTURED_METHODS and :func:`captures` tells a loop which routes and
+shapes a graph can hold); on the CPU through `torch.linalg`, as before. The randomized route's QRs stay
+`torch.linalg.qr`, which captures and replays bitwise.
+A loop that runs an SVT route under a CUDA graph draws the randomized
+route's sketch before the loop (:func:`_sketch_for`) and passes it in: the
+sketch's generator cannot be captured.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import device_linalg
 from .kruskal import on_input_device
 from .shrinkage import soft_threshold
 
@@ -60,6 +71,30 @@ LOWRANK_MIN_DIM = 2048
 LOWRANK_BUDGET = 1024
 #: Seed of the randomized path's sketch; each shape folds its own offset in.
 LOWRANK_SEED = 20260821
+#: SVT routes that a CUDA graph cannot capture: a loop that runs one takes
+#: the eager loop on the card, chosen before any capture
+#: (`baselines/device_loop.py::route`). "svd": cuSOLVER's SVD drivers
+#: (gesvdj, gesvd, gesvdp) read back to the host inside the call at every
+#: size the baselines cut (`tools/capture_linalg`).
+UNCAPTURED_METHODS: tuple[str, ...] = ("svd",)
+
+
+def captures(method: str, shapes) -> bool:
+    """Whether a CUDA graph can capture the SVT route `method` on a matrix
+    of each of `shapes`: a route not in UNCAPTURED_METHODS whose eighs (the
+    thin side's Gram; the randomized route's budget x budget matrix) are
+    all of a size `device_linalg.eigh_captures`. A loop that runs an SVT
+    route asks before its capture (`baselines/device_loop.py::route`)."""
+    if method in UNCAPTURED_METHODS:
+        return False
+    for shape in shapes:
+        side, resolved = min(shape), (method if method.startswith("warm") else _resolve(method, shape))
+        if resolved.startswith("lowrank"):
+            _, _, budget = resolved.partition(":")
+            side = min(int(budget) if budget else LOWRANK_BUDGET, side)
+        if not device_linalg.eigh_captures(side):
+            return False
+    return True
 
 
 def auto_method(p: int, q: int, budget: int = LOWRANK_BUDGET) -> str:
@@ -121,24 +156,45 @@ def _lowrank_apply(m: torch.Tensor, shrink, budget: int, omega: torch.Tensor | N
         y = m @ (m.T @ y)
     qmat = torch.linalg.qr(y)[0]                     # p x b orthonormal range
     bmat = qmat.T @ m                                # b x q
-    _, u_hat = torch.linalg.eigh(bmat @ bmat.T)      # b x b
+    _, u_hat = device_linalg.eigh(bmat @ bmat.T)     # b x b
     proj = u_hat.T @ bmat                            # rows are s_i * v_i^T
     s = torch.sqrt(torch.sum(proj * proj, dim=1))    # refined s (see gram path)
     return (qmat @ (u_hat * _rescale(s, shrink)[None, :])) @ proj
 
 
-def _apply_spectral(m: torch.Tensor, shrink, method: str, truncating: bool = False) -> torch.Tensor:
+def _resolve(method: str, shape) -> str:
+    """An "auto[:budget]" route resolved for a matrix of `shape`; any other
+    route as it is."""
+    if method == "auto" or method.startswith("auto:"):
+        _, _, budget = method.partition(":")
+        return auto_method(*shape, **({"budget": int(budget)} if budget else {}))
+    return method
+
+
+def _sketch_for(shape, method: str, dtype, device) -> torch.Tensor | None:
+    """The sketch the randomized route draws for a matrix of `shape` (the
+    same numbers, `lowrank_sketch`), or None where `method` does not
+    resolve to that route there."""
+    method = _resolve(method, shape)
+    if not method.startswith("lowrank"):
+        return None
+    _, _, budget = method.partition(":")
+    p, q = sorted(shape)
+    return lowrank_sketch(p, q, min(int(budget) if budget else LOWRANK_BUDGET, p), dtype, device)
+
+
+def _apply_spectral(m: torch.Tensor, shrink, method: str, truncating: bool = False,
+                    omega: torch.Tensor | None = None) -> torch.Tensor:
     """Reconstruct with shrunk singular values: shrink(s) maps the singular
     values to their replacements (zeros drop the component). `truncating`
     declares that `shrink` zeroes the tail of the spectrum (the ref-compat
     `>1` gate), the validity condition of the lowrank route; plain
     soft-thresholding keeps every s > tau, so the route would silently drop
-    surviving tail components."""
-    if method == "auto" or method.startswith("auto:"):
-        _, _, budget = method.partition(":")
-        method = auto_method(*m.shape, **({"budget": int(budget)} if budget else {}))
+    surviving tail components. `omega`: the randomized route's sketch,
+    drawn by the caller (:func:`_sketch_for`)."""
+    method = _resolve(method, m.shape)
     if method == "svd":
-        u, s, vt = torch.linalg.svd(m, full_matrices=False)
+        u, s, vt = device_linalg.svd(m)
         return (u * shrink(s)[None, :]) @ vt
     if method.startswith("lowrank"):
         if not truncating:
@@ -150,7 +206,7 @@ def _apply_spectral(m: torch.Tensor, shrink, method: str, truncating: bool = Fal
                 " svt_ref_compat."
             )
         _, _, budget = method.partition(":")
-        return _lowrank_apply(m, shrink, int(budget) if budget else LOWRANK_BUDGET)
+        return _lowrank_apply(m, shrink, int(budget) if budget else LOWRANK_BUDGET, omega)
     if method != "gram":
         raise ValueError(
             f"unknown SVT method {method!r}; use 'gram', 'svd',"
@@ -158,11 +214,11 @@ def _apply_spectral(m: torch.Tensor, shrink, method: str, truncating: bool = Fal
         )
     p, q = m.shape
     if p <= q:
-        _, u = torch.linalg.eigh(m @ m.T)
+        _, u = device_linalg.eigh(m @ m.T)
         proj = u.T @ m  # rows are s_i * v_i^T for the computed basis
         s = torch.sqrt(torch.sum(proj * proj, dim=1))  # refined s, module docstring
         return (u * _rescale(s, shrink)[None, :]) @ proj
-    _, v = torch.linalg.eigh(m.T @ m)
+    _, v = device_linalg.eigh(m.T @ m)
     proj = m @ v  # columns are s_i * u_i for the computed basis
     s = torch.sqrt(torch.sum(proj * proj, dim=0))
     return proj @ (v.T * _rescale(s, shrink)[:, None])
@@ -217,9 +273,15 @@ def run_warm_blocks(body, carry, k0: int, n_steps: int, period: int):
     that chunks its iterations starts a new block with each chunk, so with
     chunks of 25 and period 8 the refreshes fall at offsets 0, 8, 16 and 24
     of each chunk: `k % period == 0` on the absolute k is another schedule."""
-    for j in range(n_steps):
-        carry = body(k0 + j, carry, j % period == 0)
+    for j, refresh in enumerate(_refresh_schedule(n_steps, period)):
+        carry = body(k0 + j, carry, refresh)
     return carry
+
+
+def _refresh_schedule(n_steps: int, period: int) -> list[bool]:
+    """Whether each of `n_steps` iterations of one block refreshes
+    (:func:`run_warm_blocks`'s schedule)."""
+    return [j % period == 0 for j in range(n_steps)]
 
 
 def _warm_apply(m, shrink, basis, refresh_now: bool):
@@ -229,7 +291,7 @@ def _warm_apply(m, shrink, basis, refresh_now: bool):
     if p < q:
         out, basis = _warm_apply(m.T, shrink, basis, refresh_now)
         return out.T, basis
-    v = torch.linalg.eigh(m.T @ m)[1] if refresh_now else basis
+    v = device_linalg.eigh(m.T @ m)[1] if refresh_now else basis
     proj = m @ v  # columns are s_i * u_i when v is current
     s = torch.sqrt(torch.sum(proj * proj, dim=0))
     return proj @ (v.T * _rescale(s, shrink)[:, None]), v
@@ -271,10 +333,12 @@ def svt_ref_compat_warm(m: torch.Tensor, tau, basis: torch.Tensor, refresh_now: 
 
 
 @on_input_device("m")
-def svt_ref_compat(m: torch.Tensor, tau, method: str = "svd") -> torch.Tensor:
+def svt_ref_compat(m: torch.Tensor, tau, method: str = "svd", *, omega: torch.Tensor | None = None) -> torch.Tensor:
     """SVT with the reference's ``r = sum(soft(S,tau) > 1)`` truncation quirk
     (`TTNN/Functions/SVT.m:5-12`): shrunken values <= 1 are zeroed entirely.
 
     The reference slices the rank-r head of the descending spectrum; zeroing
-    every shrunken value <= 1 is order-independent and equivalent."""
-    return _apply_spectral(m, _ref_compat_shrink(tau), method, truncating=True)
+    every shrunken value <= 1 is order-independent and equivalent. `omega`:
+    the randomized route's sketch, drawn by a caller that runs this under a
+    CUDA graph (:func:`_sketch_for`, before its loop)."""
+    return _apply_spectral(m, _ref_compat_shrink(tau), method, truncating=True, omega=omega)

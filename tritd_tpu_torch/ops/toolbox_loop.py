@@ -50,13 +50,14 @@ def forced_route(graphs: bool | None):
         _FORCED.reset(token)
 
 
-def route(device: torch.device) -> bool | None:
+def route(device: torch.device, captures: bool = True) -> bool | None:
     """The route of a loop on `device`: the forced one, else graphs on a
-    CUDA device and the host loop elsewhere."""
+    CUDA device and the host loop elsewhere; but the host loop in place of
+    graphs where an iteration makes a call that a CUDA graph cannot capture
+    (`captures` False), chosen before any capture."""
     forced = _FORCED.get()
-    if forced:
-        return forced[0]
-    return True if device.type == "cuda" else None
+    graphs = forced[0] if forced else (True if device.type == "cuda" else None)
+    return None if graphs and not captures else graphs
 
 
 def fixed(x: torch.Tensor) -> torch.Tensor:
@@ -71,12 +72,13 @@ def full(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
-def run(iteration, carry: dict, max_iters: int, tol: float) -> tuple[dict, int]:
+def run(iteration, carry: dict, max_iters: int, tol: float, captures: bool = True) -> tuple[dict, int]:
     """Runs `iteration` from `carry` (name -> tensor, each updated in place)
     while fewer than `max_iters` iterations ran and the last quantity was
     >= tol (at the start the quantity is +inf), on the route of
-    :func:`route`; returns the carry (with `k` and `done`) and the
-    iterations run."""
+    :func:`route` (`captures`: whether a CUDA graph can capture the
+    iteration); returns the carry (with `k` and `done`) and the iterations
+    run."""
     device = next(iter(carry.values())).device
     carry = {**carry, "k": torch.zeros((), dtype=torch.int64, device=device),
              "done": torch.zeros((), dtype=torch.bool, device=device)}
@@ -87,7 +89,7 @@ def run(iteration, carry: dict, max_iters: int, tol: float) -> tuple[dict, int]:
 
     if not (max_iters > 0 and math.inf >= tol):  # the cond at the entry
         return carry, 0
-    graphs = route(device)
+    graphs = route(device, captures)
     if graphs is None:
         it = 0
         while True:

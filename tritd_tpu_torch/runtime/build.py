@@ -6,7 +6,10 @@ The library is built on first CUDA use, never at import, from
 flags, so an edited file builds anew. Each `.cu` is compiled to an object
 by its own nvcc process, all started together, and the objects are linked
 into one library: the elementwise block's 82 instantiations are spread over
-eight files, so the build takes about as long as its largest file. Unlike
+eight files, so the build takes about as long as its largest file. The link
+adds cuSOLVER (`csrc/device_linalg.cu`) from the toolkit's `lib64`, with that
+directory as the library's run path; a process that has loaded a
+libcusolver of the same soname already (torch's) resolves to that one. Unlike
 `tritd_tpu/runtime/build.py`, which returns None and lets callers fall
 back, a failed build raises with nvcc's output: a CUDA tensor has no other
 route.
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+LINK_LIBS = ("-lcusolver",)
 
 
 def sources() -> list[Path]:
@@ -44,15 +48,26 @@ def headers() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for src in (*sources(), *headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtritd_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+
+
+def link_flags() -> tuple[str, ...]:
+    """The libraries the kernels' library links against, from the toolkit's
+    `lib64`, which also becomes its run path."""
+    lib = Path(_cuda_home()) / "lib64"
+    return (f"-L{lib}", *LINK_LIBS, "-Xlinker", f"-rpath={lib}")
+
+
 def find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cuda_home = _cuda_home()
     candidate = Path(cuda_home) / "bin" / "nvcc"
     nvcc = shutil.which("nvcc") or (str(candidate) if candidate.exists() else None)
     if nvcc is None:
@@ -77,7 +92,7 @@ def compile_library(srcs, out: Path, extra_flags=(), work_dir: Path | None = Non
         for cmd, proc, (stdout, stderr) in zip(cmds, procs, outputs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{stdout}{stderr}")
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs), *link_flags()]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")

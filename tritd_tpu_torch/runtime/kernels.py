@@ -6,7 +6,9 @@ scalars by value in the compute type, or, in a variant's pointer entry
 its batched entry (`..._batch`) takes the entry count after n and the
 penalties as addresses of arrays of one value an entry. SOFIA's kernels
 (`csrc/sofia_kernels.cu`, :mod:`tritd_tpu_torch.ops.sofia_kernels`) take
-their counts as `c_int64`, the rank as `c_int` and their scalars by value.
+their counts as `c_int64`, the rank as `c_int` and their scalars by value;
+the cuSOLVER entries of `csrc/device_linalg.cu`
+(:mod:`tritd_tpu_torch.ops.device_linalg`) are declared by `_bind_linalg`.
 Loading the library builds it, so the first CUDA call pays the nvcc
 compile; importing this module does not.
 """
@@ -79,7 +81,38 @@ def bind(path, variants=None) -> ctypes.CDLL:
                 fn = getattr(lib, f"tritd_mode3_sweep_{tag}")
                 fn.argtypes = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, scalar, scalar, ctypes.c_int64, _P]
                 fn.restype = ctypes.c_int
+    if hasattr(lib, "tritd_linalg_create"):  # not in a library built from an earlier revision
+        _bind_linalg(lib)
     return lib
+
+
+def _bind_linalg(lib: ctypes.CDLL) -> None:
+    """The cuSOLVER entry points of `csrc/device_linalg.cu`: handles and
+    pointers `c_void_p`, the dtype code `c_int`, the 64-bit API's sizes
+    `c_int64` and workspace bytes `c_size_t`, gesvdj's sizes and lwork
+    `c_int`; each returns cuSOLVER's status."""
+    i64, i32, size, out_size, out_int = (ctypes.c_int64, ctypes.c_int, ctypes.c_size_t,
+                                         ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int))
+    argtypes = {
+        "tritd_linalg_version": [],
+        "tritd_linalg_provider": [ctypes.c_char_p, i32],
+        "tritd_linalg_create": [ctypes.POINTER(_P), ctypes.POINTER(_P)],
+        "tritd_gesvdj_info_create": [ctypes.POINTER(_P), ctypes.c_double, i32],
+        # handle, params, dt, n, a, w, dev bytes, host bytes
+        "tritd_xsyevd_buffer": [_P, _P, i32, i64, _P, _P, out_size, out_size],
+        # handle, params, dt, n, a, w, work, dev bytes, host work, host bytes, info, stream
+        "tritd_xsyevd": [_P, _P, i32, i64, _P, _P, _P, size, _P, size, _P, _P],
+        "tritd_xsyevbatched_buffer": [_P, _P, i32, i64, _P, _P, out_size, out_size],
+        "tritd_xsyevbatched": [_P, _P, i32, i64, _P, _P, _P, size, _P, size, _P, _P],
+        # handle, gesvdj info, dt, m, n, a, s, u, v, lwork
+        "tritd_gesvdj_buffer": [_P, _P, i32, i32, i32, _P, _P, _P, _P, out_int],
+        # handle, gesvdj info, dt, m, n, a, s, u, v, work, lwork, info, stream
+        "tritd_gesvdj": [_P, _P, i32, i32, i32, _P, _P, _P, _P, _P, i32, _P, _P],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
 
 
 @functools.cache

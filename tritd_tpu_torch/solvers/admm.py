@@ -505,12 +505,21 @@ class _DeviceLoop:
     as the reference's ALS `while_loop` starts anew in each epoch of
     SOFIA's: its graph is kept, and its stepper can run the caller's other
     device programs (`_Stepper.run`) on the same side stream and memory
-    pool."""
+    pool.
+
+    `kinds` (one iteration a block): a function of the iterations done, k,
+    giving the kind of the block that runs next, a hashable the block is a
+    function of besides its parity (the SVT baselines' warm refresh). Each
+    block is then `iteration(carry, data, out, kind)`, and the stepper keeps
+    one graph a (parity, kind), each kind's first block eager
+    (`_Stepper.run`)."""
 
     def __init__(self, iteration, carry: dict, data: tuple, max_iter: int, device, graphs: bool, k: int = 0,
-                 unroll: int = 1, shard=None, stops: bool = True):
+                 unroll: int = 1, shard=None, stops: bool = True, kinds=None):
+        if kinds is not None and unroll != 1:
+            raise ValueError("a loop with kinds of blocks runs one iteration a block")
         self.iteration, self.carry, self.data, self.max_iter = iteration, carry, data, max_iter
-        self.k0, self.unroll, self.stops = k, unroll, stops
+        self.k0, self.unroll, self.stops, self.kinds = k, unroll, stops, kinds
         self.sets = [tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in data)
                      for _ in range(2)]
         self.stepper = _Stepper(device, graphs, shard, period=2 if data else 1)
@@ -538,12 +547,13 @@ class _DeviceLoop:
         """The data-sized tensors after n_done of this loop's iterations."""
         return self.sets[n_done % 2] if n_done else self.data
 
-    def _block(self, done_before: int) -> None:
-        """`unroll` iterations from the state after `done_before` of them."""
+    def _block(self, done_before: int, *kind) -> None:
+        """`unroll` iterations from the state after `done_before` of them
+        (of the given kind, with `kinds`)."""
         new: dict = {}
         for i in range(self.unroll):
             n = done_before + i
-            new.update(self.iteration({**self.carry, **new}, self._data(n), self.sets[(n + 1) % 2]))
+            new.update(self.iteration({**self.carry, **new}, self._data(n), self.sets[(n + 1) % 2], *kind))
         for f, x in new.items():
             self.carry[f].copy_(x)
 
@@ -569,7 +579,12 @@ class _DeviceLoop:
         than k_end and max_iter; returns :meth:`_result`."""
         with self.stepper.segment():
             while self.running and self.k < min(k_end, self.max_iter):
-                self.stepper.step(self._block, self.n_done)
+                if self.kinds is None:
+                    self.stepper.step(self._block, self.n_done)
+                else:
+                    kind = self.kinds(self.k)
+                    self.stepper.run(functools.partial(self._block, self.n_done, kind),
+                                     (self.n_done % self.stepper.period, kind))
                 self._after_block()
                 self.n_done += self.unroll
                 if self.stops and self.k < self.max_iter:
@@ -726,14 +741,17 @@ class _Stepper:
     between segments, or restarts, captures nothing new when it goes on.
     `run(fn, key)` runs another device program of the caller the same way,
     eagerly the first time `key` is met and later as its graph. `captured`:
-    the graphs, by n_done % period or key."""
+    the graphs, by n_done % period or key. Every stepper of a device runs
+    on that device's one side stream (`_side_stream`): a new stream would
+    hold memory of its own (cuBLAS's workspace) for the life of the
+    process."""
 
     def __init__(self, device, graphs: bool, shard=None, period: int = 2):
         self.device, self.graphs, self.period = device, graphs, period
         self.captured: dict = {}
         self.ran: set = set()  # the keys of `run` met, and None once a block has run
         if graphs:
-            self.side = torch.cuda.Stream(device=device)
+            self.side = _side_stream(device)
             self.pool = torch.cuda.graph_pool_handle()
             self.tallies = () if shard is None else (shard.tally,)
 
@@ -771,6 +789,21 @@ class _Stepper:
         if key not in self.captured:
             self.captured[key] = hopper_kernels.CountedGraph(fn, self.pool, self.tallies)
         self.captured[key].replay()
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """The side stream of the device-form loops on the CUDA `device`, one a
+    device for the life of the process (a device of another type, which
+    only a stand-in of the graph route meets, gets a new one each time)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.cuda.Stream(device=device)
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[device]
 
 
 def _print_disp(disp_hist: torch.Tensor, k_from: int, k_to: int) -> None:

@@ -1,12 +1,15 @@
 """Device memory that stays allocated after each graph-route call of a loop.
 
 Every call of a device-form loop on the graph route (`solvers.admm._Stepper`)
-runs its blocks on a new side stream (`torch.cuda.Stream()`). This tool calls
-`ops.cp_als` (60x70x80, R = 5, 5 iterations) once without graphs and then
-`--calls` times on the graph route, then runs one 256x256 GEMM on each of
-`--streams` new streams, and prints after each step, as one JSON line, the
-MiB that `torch.cuda.memory_allocated()` reads after a synchronize and a
-garbage collection. Needs a CUDA device.
+runs its blocks on a side stream, the device's one (`admm._side_stream`):
+a stream that cuBLAS has run on holds its workspace for the life of the
+process, so a new stream a call held more memory with every call. This
+tool calls `ops.cp_als` (60x70x80, R = 5, 5 iterations) once without
+graphs and then `--calls` times on the graph route, then runs one 256x256
+GEMM on each of `--streams` new streams, and prints after each step, as one
+JSON line, the MiB that `torch.cuda.memory_allocated()` reads after a
+synchronize and a garbage collection: flat over the graph-route calls,
+32 MiB more a new stream. Needs a CUDA device.
 
     python -m tritd_tpu_torch.tools.side_stream_memory [--calls 5] [--streams 4]
 """
