@@ -116,27 +116,39 @@ Phases, each of which fails the run by raising:
      tritd_als and tritd_mals on the taxi stand-in, each on its graph
      route.
   7. the video CLI in a subprocess at 240x320x300, 100 iterations.
-  8. the SVT routes on the card, float32, at 100x50000 and 1000x5000: gram
-     and a warm refresh against the svd route within 1e-4 of ||M||, and
+  8. the SVT routes on the card, float32, at 100x50000 and 1000x5000: gram,
+     a warm refresh and the svd route with gesvdj's SVD against the svd route
+     (the Jacobi kernel) within 1e-4 of ||M||, and
      lowrank:64 on a matrix with 20 components above the gate; the host
      proximal library must have built; times of the torch.linalg calls the
      baselines lean on (eigh, svd, the batched complex svd of prox_tnn).
-  9. the eigh and SVD drivers of ops/device_linalg.py at the SVT
-     baselines' taxi sizes against torch.linalg on the same matrices
-     (bitwise where it is torch's driver, else within LINALG_EPS_FACTOR n
-     eps ||A||; both timed); then the SVT baselines (ttnn, ring, fctn)
-     through run_method at the full taxi shape, 10% missing, gram and
-     warm:8, 100 iterations on the graph route of baselines/device_loop.py
-     (the card's default), each with an svd control of 10 iterations
-     (gram's err_hist within rtol 1e-3 of it): one capture (two with
-     warm:8), one synchronizing call in the loop a segment and the
-     binding's calls per driver counted; fctn (EAGER_BASELINES: its
-     1000 x 1000 Grams go to Xsyevd, which no graph captures) on the eager
-     loop, no capture. Gram's final RRE within BASELINE_RRE_TOL of two
-     float64 CPU runs', the JAX package's and the port's, fctn warm:8's
-     within 1e-3 of gram's; at 10 iterations the graph route, the graph
-     route again and the device form without graphs bitwise (fctn: the
-     eager loop twice bitwise, the device form within rtol 1e-4); sofia
+  9. the eigh drivers of ops/device_linalg.py at the SVT baselines' taxi
+     sizes against torch.linalg on the same matrices (bitwise where it is
+     torch's driver, else within LINALG_EPS_FACTOR n eps ||A||; both
+     timed); the Jacobi SVD kernel (csrc/jacobi_svd.cu) at every taxi
+     unfolding in float32 and float64 against torch.linalg.svd in float64
+     (JACOBI_LIMITS s_max on singular values, reconstruction and vectors
+     over their gap, orthonormal within sqrt(m) eps more; short of its cap
+     of sweeps), a captured call replayed twice bitwise, timed beside its
+     bound and
+     torch.linalg.svd, and its plain version on the same inputs in the CPU
+     pool, held the same way and to the kernel's singular values when it
+     returns ("9 checks", after phase 25); then the SVT
+     baselines (ttnn, ring, fctn) through run_method at the full taxi shape,
+     10% missing, svd, gram and warm:8, 100 iterations on the graph route
+     of baselines/device_loop.py (the card's default; gram's err_hist
+     within rtol 1e-3 of svd's over the first 10 iterations): one capture
+     (two with warm:8), one synchronizing call in the loop a segment, the
+     binding's calls per driver and the Jacobi kernel's launches counted
+     (the svd rows: only the kernel's, none stopped at its cap of sweeps,
+     `device_linalg.jacobi_capped`); fctn's gram and warm:8
+     (EAGER_BASELINES: its 1000 x 1000 Grams go to Xsyevd, which no graph
+     captures) on the eager loop, no capture. The svd and gram rows' final
+     RRE within BASELINE_RRE_TOL of the JAX package's float64 gram run's
+     (gram's also of the port's), fctn warm:8's within 1e-3 of gram's; at
+     10 iterations the graph route, the graph route again and the device
+     form without graphs bitwise (fctn gram and warm:8: the eager loop
+     twice bitwise, the device form within rtol 1e-4); sofia
      for 10 epochs. Then SOFIA's
      two kernels (csrc/sofia_kernels.cu) against their plain versions at the
      shapes the main path gives them at taxi, highway and network (the
@@ -155,6 +167,10 @@ Phases, each of which fails the run by raising:
  10. RC-FCTN's video driver at 240x320x300 with its default route (auto:512)
      for 10 iterations, on the graph route and the device form without
      graphs: bitwise, one capture, one synchronizing call in the loop;
+     trpca_snn at the taxi stand-in (SNN_ITERS iterations, float32) on the
+     graph route and the device form without graphs, bitwise, every SVD the
+     Jacobi kernel's, none stopped at its cap, and SNN_F64_ITERS in float64
+     on the graph route;
      trpca_tnn on a 64x64x32 slab and rnc_fctn on a 16x16x8x8 problem, 20
      iterations each.
  11. the completion CLI in-process: triple, ttnn, ring and fctn on taxi.
@@ -388,8 +404,11 @@ point, then SOFIA's two kernels of the main path, pinv_rows and
 mode3_sweep, in float32 and float64 (phase 9's taxi records, with
 pinv_rows' floor_ms and mode3_sweep's sweep_kernel_ms and split_step_ms,
 all measured in the run; phase 24's main-path launches; the chain bound,
-an assumed FMA latency over the clock, stays on phase 9's own lines), each
-naming the reference function it stands for; the last line is
+an assumed FMA latency over the clock, stays on phase 9's own lines), then
+the Jacobi SVD in float32 and float64 (phase 9's 5000x1000 record, every
+taxi unfolding's under "shapes"; the launches of phase 9's svd rows and
+phase 10's trpca_snn graph-route runs), each naming the reference function
+it stands for; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
 """
@@ -567,15 +586,16 @@ CARD = [""]
 T1_ROWS: list = []
 SCALARS = (0.5, 0.7, 1.8)  # mu_l, mu_o, lam
 MU_NEXT = 0.625
-REPS = 6  # timing turns of phase 2's variants, their median taken (kept short: the smoke's time limit)
+REPS = 4  # timing turns of phase 2's variants, their median taken (kept short: the smoke's time limit)
 LINALG_REPS = 5
 BATCH = 10
 SLEEP_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles a second, at or above the H100's SM clock
 RRE_FAMILY = 0.03  # bf16 vs f32 RRE bound of the reference's own test
-# The card's published peaks (H100 SXM data sheet): device memory rate, and
-# the float32 and float64 rates outside the tensor cores.
+# The card's published peaks (H100 SXM data sheet): device memory rate, the
+# float32 rate outside the tensor cores and the float64 rate through them
+# (DMMA; 34 TFLOP/s outside them): the card's peak for each type.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # Arithmetic of the block per element: r1 3, r2 2, o 4, the shrink 5, the
 # two residuals 3, the duals 4, the two sums of squares 4, T' 3.
 BLOCK_FLOPS_PER_ELEMENT = 28
@@ -1738,6 +1758,14 @@ LINALG_EIGH_SIZES = (512, 1024, 2016, 4800)
 LINALG_SVD_SHAPES = ((100, 50000), (10000, 500), (50000, 100), (5000, 1000), (1000, 5000))
 
 
+def _gesvdj_route(m: torch.Tensor, shrink) -> torch.Tensor:
+    """The SVT's svd route with gesvdj's SVD in place of the Jacobi kernel."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    u, s, vh, _info = device_linalg.svd_with_info(m)
+    return (u * shrink(s)[None, :]) @ vh
+
+
 def phase8() -> None:
     """The SVT routes on the card, and the torch.linalg calls under them."""
     from tritd_tpu_torch.baselines.trpca import prox_tnn
@@ -1761,11 +1789,15 @@ def phase8() -> None:
             methods = ("svd", "gram", "lowrank:64") if name == "svt_ref_compat" else ("svd", "gram")
             for method in methods:  # the library's one-time set-up stays out of the times
                 exact(m, SVT_TAU, method)
+            _gesvdj_route(m, svt_ops._plain_shrink(SVT_TAU))
             want, svd_s, _ = _events(lambda: exact(m, SVT_TAU, "svd"))
             gram, gram_s, _ = _events(lambda: exact(m, SVT_TAU, "gram"))
             fresh, basis = warm(m, SVT_TAU, torch.eye(k, device="cuda"), True)
             stale, _ = warm(m, SVT_TAU, basis, False)
-            routes = {"gram": gram, "warm refresh": fresh, "warm stale on the same matrix": stale}
+            # the svd route is the Jacobi kernel at these shapes; gesvdj's route beside it
+            shrink = (svt_ops._ref_compat_shrink if name == "svt_ref_compat" else svt_ops._plain_shrink)(SVT_TAU)
+            gesvdj, gesvdj_s, _ = _events(lambda: _gesvdj_route(m, shrink))
+            routes = {"gesvdj svd": gesvdj, "gram": gram, "warm refresh": fresh, "warm stale on the same matrix": stale}
             if name == "svt_ref_compat":
                 routes["lowrank:64"], low_s, _ = _events(lambda: exact(m, SVT_TAU, "lowrank:64"))
             _on_card(f"phase8 {name} {p}x{q}", want, *routes.values())
@@ -1777,7 +1809,7 @@ def phase8() -> None:
             if bad or abs(norm - norm_want) > 1e-3 * norm_want:
                 raise AssertionError(f"phase8 {name} {p}x{q}: beyond atol {atol:.3e} of the svd route: {bad}; "
                                      f"||svd route|| {norm} against {norm_want} from the spectrum")
-            times = f"svd {svd_s * 1e3:.1f} ms, gram {gram_s * 1e3:.1f} ms" + (
+            times = f"svd (jacobi) {svd_s * 1e3:.1f} ms, gesvdj {gesvdj_s * 1e3:.1f} ms, gram {gram_s * 1e3:.1f} ms" + (
                 f", lowrank:64 {low_s * 1e3:.1f} ms" if name == "svt_ref_compat" else "")
             print(f"phase8 {name} {p}x{q} f32 against the svd route (atol {atol:.3e} = 1e-4 ||M||): "
                   + ", ".join(f"{r} {d:.3e}" for r, d in diffs.items()) + f"; {times} (events, second call)")
@@ -1862,11 +1894,12 @@ def _linalg_calls() -> dict:
 
 
 def _hold_linalg_drivers(y: torch.Tensor) -> None:
-    """Each driver ops/device_linalg.py takes at the SVT baselines' taxi
-    sizes against torch.linalg on the same matrix (the taxi tensor's
-    unfoldings and their Grams, as the loops' first SVTs see them):
-    bitwise where it is torch's driver, else within LINALG_EPS_FACTOR n eps
-    ||A||; both timed (events around LINALG_REPS calls after one)."""
+    """Each eigh driver ops/device_linalg.py takes at the SVT baselines'
+    taxi sizes against torch.linalg on the same matrix (the Grams of the
+    taxi tensor's unfoldings, as the loops' first SVTs see them): bitwise
+    where it is torch's driver, else within LINALG_EPS_FACTOR n eps ||A||;
+    both timed (events around LINALG_REPS calls after one). The SVD's
+    driver at these sizes, the Jacobi kernel: `_jacobi_kernel`."""
     from tritd_tpu_torch.ops import device_linalg
 
     eps = torch.finfo(torch.float32).eps
@@ -1888,20 +1921,6 @@ def _hold_linalg_drivers(y: torch.Tensor) -> None:
         print(f"phase9 eigh f32 {n}x{n} Gram: {driver} {ours:.1f} us, torch.linalg.eigh ({torch_driver}) "
               f"{theirs:.1f} us; bitwise {same}; max |dlambda| {dw:.3e}, reconstruction {rec:.3e} "
               f"(bound {LINALG_EPS_FACTOR} n eps ||A|| {bound:.3e}); {CARD[0]}")
-    for m in (unfold[100], unfold[500]):
-        p, q = m.shape
-        driver = device_linalg.svd_driver(p, q, m.dtype)
-        (u, s, vh), ours = _linalg_us(lambda: device_linalg.svd(m))
-        (tu, ts, tvh), theirs = _linalg_us(lambda: torch.linalg.svd(m, full_matrices=False))
-        bound = LINALG_EPS_FACTOR * min(p, q) * eps * float(s.max())
-        ds = float((s - ts).abs().max())
-        rec = float(torch.linalg.matrix_norm((u * s) @ vh - m))
-        same = torch.equal(u, tu) and torch.equal(s, ts) and torch.equal(vh, tvh)
-        if (driver == "gesvdj" and not same) or ds > bound or rec > bound:
-            raise AssertionError(f"phase9 svd {p}x{q} {driver}: bitwise torch's {same}, max |ds| {ds:.3e}, "
-                                 f"reconstruction {rec:.3e}, bound {bound:.3e}")
-        print(f"phase9 svd f32 {p}x{q}: {driver} {ours:.1f} us, torch.linalg.svd (gesvdj) {theirs:.1f} us; bitwise "
-              f"{same}; max |ds| {ds:.3e}, reconstruction {rec:.3e} (bound {bound:.3e}); {CARD[0]}")
 
 
 def _linalg_us(call, reps: int = LINALG_REPS) -> tuple:
@@ -1917,12 +1936,211 @@ def _linalg_us(call, reps: int = LINALG_REPS) -> tuple:
     return out, start.elapsed_time(end) * 1e3 / reps
 
 
+# the Jacobi SVD's checks (phase 9), against torch.linalg.svd of the matrix
+# in float64, the kernel on the card and its plain version on the CPU each:
+# singular values and the reconstruction within JACOBI_LIMITS s_max, both
+# sides orthonormal within the rotation test's tolerance sqrt(m) eps plus
+# that, each singular vector up to sign where its gap to its neighbours
+# exceeds JACOBI_GAP s_max, within JACOBI_LIMITS s_max / gap; the two's
+# singular values within twice it of each other. JACOBI_LIMITS are the
+# largest readings at the taxi unfoldings (float32 ds 9.4e-7, rec 3.7e-7,
+# vectors 2.5e-6; float64 ds 3.8e-13, rec 5.1e-14, vectors 3.4e-15; PERF.md
+# section 6) times 4 to 10. torch.linalg.svd (gesvdj, the library call) is
+# held within JACOBI_EPS_FACTOR k eps s_max (it reads up to 8.1e-5 on the
+# singular values in float32). Timed by events around one call, the median
+# of JACOBI_TURNS (torch.linalg.svd's of JACOBI_LIBRARY_TURNS; the plain
+# version by the host clock in the CPU pool)
+JACOBI_LIMITS = {torch.float32: 1e-5, torch.float64: 4e-12}
+JACOBI_EPS_FACTOR = 64
+JACOBI_GAP = 1e-3
+JACOBI_TURNS = 5
+JACOBI_LIBRARY_TURNS = 3
+JACOBI_REPLACES = "tritd_tpu/ops/svt.py:143"  # jnp.linalg.svd in the reference's svd route: no Pallas kernel
+JACOBI_HEADLINE = "5000x1000"  # the kernels line's shape: fctn's, the largest thin side
+
+
+def _taxi_unfoldings(y: torch.Tensor) -> dict:
+    """The unfoldings the SVT baselines cut the taxi tensor into, by shape:
+    ttnn's and trpca_snn's, ring's, fctn's (its 4-way bipartitions, both
+    ways round)."""
+    n1, n2, n3 = y.shape
+    fctn = y.reshape(n1, n2, n3 // 10, 10).permute(0, 2, 1, 3).reshape(n1 * n3 // 10, n2 * 10)
+    mats = [y.reshape(n1, -1), y.reshape(-1, n3), y.permute(2, 0, 1).reshape(n3, -1), y.permute(1, 2, 0).reshape(-1, n1),
+            fctn, fctn.T]
+    return {"x".join(map(str, m.shape)): m.contiguous() for m in mats}
+
+
+def _jacobi_bound(p: int, q: int, dtype) -> tuple[float, str]:
+    """The least ms an SVD of a p x q matrix could take: reading A once and
+    writing U, s and V once, against the flops of one Golub-Kahan
+    bidiagonalization, 4 m k^2 - 4 k^3 / 3, at the dtype's peak."""
+    k, m = min(p, q), max(p, q)
+    size = torch.finfo(dtype).bits // 8
+    by_bytes = (p * q + p * k + k + k * q) * size / PEAK_BYTES_PER_S
+    by_flops = (4 * m * k * k - 4 * k ** 3 / 3) / PEAK_FLOPS[dtype]
+    return max(by_bytes, by_flops) * 1e3, "bytes" if by_bytes >= by_flops else "operations"
+
+
+def _svd_distance(tag, a, got, ref, bound: float) -> dict:
+    """`got` (u, s, vh) of `a` held to `ref`, torch.linalg.svd of `a` in
+    float64, within `bound` s_max (the limits above); returns the distances."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    k, m = min(a.shape), max(a.shape)
+    u, s, vh = (x.double() for x in got)
+    ru, rs, rvh = ref
+    smax = float(rs[0])
+    keep = s > 0
+    orth = max(float((b.mT @ b - torch.eye(b.shape[1], dtype=torch.float64, device=b.device)).abs().max())
+               for b in (u[:, keep], vh[keep].mT))
+    out = {"ds": float((s - rs).abs().max()) / smax,
+           "rec": float(torch.linalg.matrix_norm((u * s) @ vh - a.double())) / (smax * k ** 0.5), "orth": orth}
+    gaps = torch.minimum(torch.cat([rs.new_tensor([float("inf")]), rs[:-1] - rs[1:]]),
+                         torch.cat([rs[:-1] - rs[1:], rs.new_tensor([float("inf")])]))
+    vec = 0.0
+    for i in torch.nonzero(gaps > JACOBI_GAP * smax).flatten().tolist():
+        for mine, theirs in ((u[:, i], ru[:, i]), (vh[i], rvh[i])):
+            sign = 1.0 if float(mine @ theirs) >= 0 else -1.0
+            vec = max(vec, float((mine - sign * theirs).abs().max()) * float(gaps[i]) / smax)
+    out["vectors"] = vec
+    limits = {"ds": bound, "rec": bound, "orth": device_linalg.jacobi_tol(m, a.dtype) + bound, "vectors": bound}
+    bad = {key: (out[key], limits[key]) for key in limits if not out[key] <= limits[key]}
+    if bad:
+        raise AssertionError(f"{tag}: beyond its limits against torch.linalg.svd in float64: {bad}")
+    return out
+
+
+def _median_ms(call, turns: int) -> float:
+    times = []
+    for _ in range(turns):
+        _, sec, _ = _events(call)
+        times.append(sec * 1e3)
+    return statistics.median(times)
+
+
+def _plain_jacobi(a_np: np.ndarray) -> tuple:
+    """In a worker of `_cpu_pool()`: the plain version of the Jacobi SVD
+    (`jacobi_svd_torch`) of `a_np` on the CPU in its dtype, held to
+    torch.linalg.svd of it in float64 there (`_svd_distance`); (its singular
+    values, its distances, its seconds)."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    a = torch.from_numpy(a_np)
+    t0 = time.perf_counter()
+    u, s, vh = device_linalg.jacobi_svd_torch(a)
+    seconds = time.perf_counter() - t0
+    ref = torch.linalg.svd(a.double(), full_matrices=False)
+    label = f"phase9 jacobi_svd_torch[{a.dtype}] {'x'.join(map(str, a.shape))} (CPU)"
+    return s.numpy(), _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[a.dtype]), seconds
+
+
+def _jacobi_kernel(y: torch.Tensor) -> tuple:
+    """The Jacobi SVD kernel (csrc/jacobi_svd.cu) at every taxi unfolding,
+    float32 and float64: held to torch.linalg.svd in float64
+    (`_svd_distance`), a captured call replayed twice bitwise the eager
+    call, timed beside its bound and torch.linalg.svd (gesvdj, the library
+    call); its plain version runs on the same inputs in the CPU pool
+    (`_plain_jacobi`: 2-28 s a call on the card, longer than this phase),
+    once for a matrix and its transpose (three of the six unfoldings are
+    the others' transposes; the plain version runs on the tall form).
+    Returns the kernels line's records by (name, dtype tag),
+    JACOBI_HEADLINE's numbers with every shape's under "shapes", and the
+    check that collects the plain version's runs, holds the kernel's
+    singular values to theirs and fills in max_abs_err and plain_ms."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    records, pending = {}, []
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        shapes, tall_forms = {}, []
+        for name, m in _taxi_unfoldings(y).items():
+            a = m.to(dtype)
+            p, q = a.shape
+            label = f"phase9 jacobi_svd[{tag}] {name}"
+            # the plain version runs on the tall form, the same for a matrix and its transpose: one run each
+            tall = a if p >= q else a.T
+            job = next((job for other, job in tall_forms if torch.equal(other, tall)), None)
+            shared = job is not None
+            if not shared:
+                job = _cpu_pool().submit(_plain_jacobi, tall.contiguous().cpu().numpy())
+                tall_forms.append((tall, job))
+            pending.append((tag, name, job, shared))
+            ref = torch.linalg.svd(a.double(), full_matrices=False)
+            u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+            kernel = _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[dtype])
+            if not int(sweeps) < device_linalg.JACOBI_SWEEPS:
+                raise AssertionError(f"{label}: stopped at its cap of {int(sweeps)} sweeps unconverged")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                device_linalg.jacobi_svd(a)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                cu, cs, cvh = device_linalg.jacobi_svd(a)
+            replays = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                replays.append(torch.equal(cu, u) and torch.equal(cs, s) and torch.equal(cvh, vh))
+            del graph, cu, cs, cvh
+            if not all(replays):
+                raise AssertionError(f"{label}: captured replays bitwise the eager call: {replays}")
+            ms = _median_ms(lambda: device_linalg.jacobi_svd(a), JACOBI_TURNS)
+            torch.linalg.svd(a, full_matrices=False)
+            library_ms = _median_ms(lambda: torch.linalg.svd(a, full_matrices=False), JACOBI_LIBRARY_TURNS)
+            torch_f = _svd_distance(f"{label} torch.linalg.svd", a, torch.linalg.svd(a, full_matrices=False), ref,
+                                    JACOBI_EPS_FACTOR * min(p, q) * torch.finfo(dtype).eps)
+            bound_ms, bound_by = _jacobi_bound(p, q, dtype)
+            shapes[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                            "sweeps": int(sweeps), "s": s.cpu().numpy(),
+                            "limit": 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])}
+            print(f"{label}: {int(sweeps)} sweeps; kernel {ms:.3f} ms, torch.linalg.svd (gesvdj) {library_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by} (events); against torch.linalg.svd in float64 (ds/s_max, "
+                  f"rec/(s_max sqrt k), orth, vectors x gap/s_max): kernel {_fmt(kernel)}, torch {_fmt(torch_f)}; "
+                  f"captured replays bitwise {replays}; {CARD[0]}", flush=True)
+        records["jacobi_svd", tag] = {"shape": JACOBI_HEADLINE, "shapes": shapes}
+        del tall_forms
+
+    def check() -> None:
+        for tag, name, future, shared in pending:
+            plain_s, plain, seconds = future.result()
+            row = records["jacobi_svd", tag]["shapes"][name]
+            max_abs = float(np.max(np.abs(row.pop("s").astype(np.float64) - plain_s)))
+            limit = row.pop("limit")
+            if not max_abs <= limit:
+                raise AssertionError(f"phase9 jacobi_svd[{tag}] {name}: singular values {max_abs:.3e} from the plain "
+                                     f"version's, limit {limit:.3e}")
+            row.update(max_abs_err=max_abs, plain_ms=seconds * 1e3, plain_device="cpu")
+            print(f"phase9 jacobi_svd[{tag}] {name}: |s - plain s| {max_abs:.3e} (limit {limit:.3e}); plain version "
+                  f"on the CPU ({CPU_REF_THREADS} threads) {seconds:.1f} s"
+                  + (" (its run on the transpose, the same tall form)" if shared else "")
+                  + f", against torch.linalg.svd in float64 {_fmt(plain)}", flush=True)
+        for tag in ("f32", "f64"):
+            record = records["jacobi_svd", tag]
+            record.update({key: value for key, value in record["shapes"][JACOBI_HEADLINE].items()})
+
+    return records, check
+
+
+def _fmt(d: dict) -> str:
+    return "{" + ", ".join(f"{k} {v:.2e}" for k, v in d.items()) + "}"
+
+
+def _eager_row(method: str, svt_method: str) -> bool:
+    """Whether a baseline row takes the eager loop on the card at taxi:
+    fctn's eighs of its 1000 x 1000 Grams (gram, warm:8) go to Xsyevd, which
+    no graph captures; its svd route's SVDs are the Jacobi kernel's."""
+    return method in EAGER_BASELINES and svt_method != "svd"
+
+
 def _baseline_routes(method: str, svt_method: str, solve) -> None:
     """At 10 iterations: the graph route twice and the device form without
-    graphs, bitwise; captures and synchronizing calls of each. A row of
-    EAGER_BASELINES takes the eager loop where graphs would run: those two
-    turns bitwise, the device form within rtol 1e-4 of their err_hist (it
-    divides by the penalties on the card, the eager loop by host floats)."""
+    graphs, bitwise; captures and synchronizing calls of each. A row that
+    takes the eager loop (`_eager_row`) takes it where graphs would run:
+    those two turns bitwise, the device form within rtol 1e-4 of their
+    err_hist (it divides by the penalties on the card, the eager loop by
+    host floats)."""
     from tritd_tpu_torch.ops import toolbox_loop
 
     runs = {}
@@ -1930,7 +2148,7 @@ def _baseline_routes(method: str, svt_method: str, solve) -> None:
         with toolbox_loop.forced_route(graphs):
             runs[label] = solve(method, 10, svt_method)
     ref = runs["graphs"]["out"]
-    eager = method in EAGER_BASELINES
+    eager = _eager_row(method, svt_method)
     held = [label for label, graphs in BASELINE_TURNS if graphs or not eager]
     differ = [label for label in held if not all(_same_bits(a, b) for a, b in zip(runs[label]["out"], ref))]
     if differ:
@@ -1944,14 +2162,18 @@ def _baseline_routes(method: str, svt_method: str, solve) -> None:
                       for label, r in runs.items()))
 
 
-def phase9() -> dict:
+def phase9() -> tuple:
     """The baselines at the full taxi shape, through the CLI's dispatch, on
-    the graph route of baselines/device_loop.py (fctn's on the eager loop,
-    EAGER_BASELINES); then SOFIA's kernels against their plain versions
-    (`_sofia_kernels`, whose records it returns)."""
+    the graph route of baselines/device_loop.py (fctn's gram and warm:8 on
+    the eager loop, `_eager_row`); before them the Jacobi SVD kernel at the
+    taxi unfoldings (`_jacobi_kernel`); after them SOFIA's kernels against
+    their plain versions (`_sofia_kernels`). Returns the kernels line's
+    records of both by (name, dtype tag), the Jacobi kernel's launches on
+    the main path (the svd rows' 100 iterations) and the check of its plain
+    version's runs in the CPU pool."""
     from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
     from tritd_tpu_torch.cli.run_completion import run_method
-    from tritd_tpu_torch.ops import svt as svt_ops
+    from tritd_tpu_torch.ops import device_linalg
 
     x, mask, y, prov = _taxi()
     _x_np, spec, _prov = load_dataset("taxi")
@@ -1960,33 +2182,35 @@ def phase9() -> dict:
     def solve(method, max_iter, svt_method):
         gen = torch.Generator().manual_seed(0)
         hopper_kernels.reset_launch_counts()
+        capped = device_linalg.jacobi_capped(y.device)
+        capped.zero_()
         with _loop_syncs() as loop_syncs:
             w = _watched(lambda: run_method(method, y, x, mask, spec, gen, max_iter, svt_method=svt_method))
+        if int(capped):
+            raise AssertionError(f"phase9 {method} {svt_method}: {int(capped)} Jacobi SVDs stopped at their cap")
         x_hat, o, hist = w["res"]
         _on_card(f"phase9 {method} {svt_method}", x_hat, o)
         if x_hat.shape != x.shape or not torch.isfinite(x_hat).all():
             raise AssertionError(f"phase9 {method} {svt_method}: X not finite at the input's shape")
         return {"rre": float(rre(x_hat, x)), "hist": np.asarray(hist, dtype=np.float64), "out": (x_hat, o),
-                "loop_syncs": loop_syncs, "calls": _linalg_calls(), **w}
+                "loop_syncs": loop_syncs, "calls": _linalg_calls(),
+                "jacobi": dict(hopper_kernels.JACOBI_SVD_LAUNCHES), **w}
 
     _hold_linalg_drivers(y)
+    records, jacobi_check = _jacobi_kernel(y)
     # ring's host float64 ranks, once: the solves below find them cached
     t0 = time.perf_counter()
     precompute_freedom_ratio(y, mask)
     print(f"phase9 ring freedom ratio (host float64 matrix_rank of 10000x500 and 50000x100): "
           f"{time.perf_counter() - t0:.2f} s")
-    final = {}
+    final, main_launches = {}, {}
     for method in ("ttnn", "ring", "fctn"):
-        control = solve(method, 10, "svd")
-        uncaptured = "svd" in svt_ops.UNCAPTURED_METHODS
-        for svt_method in ("gram", "warm:8"):
+        for svt_method in ("svd", "gram", "warm:8"):
             run = solve(method, 100, svt_method)
             hist = run["hist"]
             if _falling(f"phase9 {method} {svt_method}", hist).shape != (100,):
                 raise AssertionError(f"phase9 {method} {svt_method}: {hist.shape[0]} iterations")
-            if svt_method == "gram":  # warm:8 is held by its RRE below
-                np.testing.assert_allclose(hist[:10], control["hist"], rtol=1e-3)
-            eager = method in EAGER_BASELINES
+            eager = _eager_row(method, svt_method)
             if eager:  # Xsyevd reads back inside each call: the eager loop, no capture
                 if run["graphs"] or not run["calls"].get("xsyevd[f32]"):
                     raise AssertionError(f"phase9 {method} {svt_method}: {run['graphs']} captures (want 0, the "
@@ -1994,34 +2218,46 @@ def phase9() -> dict:
             else:
                 segments = 4 if method == "fctn" and svt_method == "warm:8" else 1
                 captures = 2 if svt_method == "warm:8" else 1
-                if run["graphs"] != captures or run["loop_syncs"] != [segments] or not run["calls"]:
+                calls = run["jacobi"]["jacobi_svd[f32]"] if svt_method == "svd" else sum(run["calls"].values())
+                if run["graphs"] != captures or run["loop_syncs"] != [segments] or not calls:
                     raise AssertionError(f"phase9 {method} {svt_method}: {run['graphs']} captures (want {captures}), "
                                          f"loop syncs {run['loop_syncs']} (want [{segments}]), binding calls "
-                                         f"{run['calls']}")
-            if svt_method == "gram":
-                final[method] = run["rre"]
-                for what, want in (("JAX package's", BASELINE_RRE_JAX), ("port's", BASELINE_RRE)):
+                                         f"{run['calls']}, Jacobi launches {run['jacobi']}")
+            if svt_method == "svd":
+                if run["calls"]:  # every SVD of the row is the kernel's: no gesvdj, no eigh
+                    raise AssertionError(f"phase9 {method} svd: binding calls {run['calls']} beside the kernel's")
+                for key, n in run["jacobi"].items():
+                    main_launches[key] = main_launches.get(key, 0) + n
+                svd_hist = hist
+            if svt_method in ("svd", "gram"):
+                final[method, svt_method] = run["rre"]
+                wants = (("JAX package's", BASELINE_RRE_JAX),) + ((("port's", BASELINE_RRE),) if svt_method == "gram"
+                                                                  else ())
+                for what, want in wants:
                     if abs(run["rre"] - want[method]) > BASELINE_RRE_TOL:
-                        raise AssertionError(f"phase9 {method} gram RRE {run['rre']} against the {what} float64 "
-                                             f"run's {want[method]}, beyond {BASELINE_RRE_TOL}")
-            elif method == "fctn" and abs(run["rre"] - final["fctn"]) > 1e-3:
-                raise AssertionError(f"phase9 fctn warm:8 RRE {run['rre']} vs gram {final['fctn']}, beyond 1e-3")
-            else:
-                print(f"phase9 {method} warm:8 RRE {run['rre']:.6f} vs gram {final[method]:.6f}: |diff| "
-                      f"{abs(run['rre'] - final[method]):.2e}")
+                        raise AssertionError(f"phase9 {method} {svt_method} RRE {run['rre']} against the {what} "
+                                             f"float64 gram run's {want[method]}, beyond {BASELINE_RRE_TOL}")
+            if svt_method == "gram":  # within rtol 1e-3 of the svd row over the first 10 iterations
+                np.testing.assert_allclose(hist[:10], svd_hist[:10], rtol=1e-3)
+            elif svt_method == "warm:8":
+                if method == "fctn" and abs(run["rre"] - final["fctn", "gram"]) > 1e-3:
+                    raise AssertionError(f"phase9 fctn warm:8 RRE {run['rre']} vs gram {final['fctn', 'gram']}, "
+                                         f"beyond 1e-3")
+                print(f"phase9 {method} warm:8 RRE {run['rre']:.6f} vs gram {final[method, 'gram']:.6f}: |diff| "
+                      f"{abs(run['rre'] - final[method, 'gram']):.2e}")
             print(f"phase9 {method} taxi ({prov}) {shape} 10% missing f32 {svt_method}: iters=100 "
                   f"{'eager loop' if eager else 'graph route'} "
                   f"{run['ms']:.1f} ms (events) {run['ms'] / 100:.3f} ms/iter, first replay after "
                   f"{run.get('before_replays_ms', float('nan')):.1f} ms ({run.get('capture_host_ms', float('nan')):.1f}"
                   f" ms of capture host time), replays {run.get('replays_ms', float('nan')) / 99:.3f} ms/iter; "
                   f"captures {run['graphs']}; syncs in the loop {run['loop_syncs']}, outside it {run['syncs']}; "
-                  f"peak_mem={run['peak_mib']:.1f} MiB; binding calls {run['calls']}; rre={run['rre']:.6f} "
-                  f"(gram, float64 CPU runs: JAX {BASELINE_RRE_JAX[method]}, port {BASELINE_RRE[method]}) "
-                  f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; svd "
-                  f"control ({'eager loop' if uncaptured else 'graph route'}), 10 iterations {control['ms']:.1f} ms, "
-                  f"binding calls {control['calls']}, max rel diff "
-                  f"{np.max(np.abs(hist[:10] - control['hist']) / control['hist']):.2e} (rtol 1e-3 on gram); {CARD[0]}",
-                  flush=True)
+                  f"peak_mem={run['peak_mib']:.1f} MiB; binding calls {run['calls']}; Jacobi launches "
+                  f"{ {k: n for k, n in run['jacobi'].items() if n} }; rre={run['rre']:.6f} (float64 CPU gram "
+                  f"runs: JAX {BASELINE_RRE_JAX[method]}, port {BASELINE_RRE[method]}) err[0]={hist[0]:.4e} "
+                  f"err[-1]={hist[-1]:.4e}"
+                  + (f"; max rel diff to the svd row over 10 iterations "
+                     f"{np.max(np.abs(hist[:10] - svd_hist[:10]) / svd_hist[:10]):.2e} (rtol 1e-3)"
+                     if svt_method == "gram" else "") + f"; {CARD[0]}", flush=True)
             _baseline_routes(method, svt_method, solve)
     # sofia's error against the truth need not fall: the outlier peel anneals
     sofia = solve("sofia", 10, "svd")
@@ -2031,12 +2267,13 @@ def phase9() -> dict:
     print(f"phase9 sofia taxi r=3 m={spec.sofia_period}: epochs={hist.shape[0]} solve={sofia['ms'] / 1e3:.3f} s "
           f"(events) peak_mem={sofia['peak_mib']:.1f} MiB rre={sofia['rre']:.6f} err[0]={hist[0]:.4e} "
           f"err[-1]={hist[-1]:.4e}")
-    return _sofia_kernels()
+    return {**records, **_sofia_kernels()}, main_launches, jacobi_check
 
 
-def phase10() -> None:
-    """RC-FCTN's video protocol at full width, and the two baselines off the
-    CLI's path at small shapes."""
+def phase10() -> dict:
+    """RC-FCTN's video protocol at full width, trpca_snn at taxi on both
+    device routes (`_trpca_snn_routes`, whose Jacobi launches it returns),
+    and the two other baselines off the CLI's path at small shapes."""
     from tritd_tpu_torch.baselines import fctn_compose, rc_fctn_driver_video, rnc_fctn, trpca_tnn
     from tritd_tpu_torch.baselines.rc_fctn import resolve_video_svt_method
     from tritd_tpu_torch.ops import toolbox_loop
@@ -2079,6 +2316,8 @@ def phase10() -> None:
           f"{graph['calls']}; err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; {CARD[0]}")
     del x_hat, sparse, runs, graph, plain
 
+    launches = _trpca_snn_routes()
+
     slab = v[:64, :64, :32].contiguous()
     (low, sp, hist), sec, _ = _events(lambda: trpca_tnn(slab, origin=slab, mu=1e-3, max_iter=20))
     _on_card("phase10 trpca_tnn", low, sp, hist)
@@ -2097,6 +2336,65 @@ def phase10() -> None:
     hist = _falling("phase10 rnc_fctn", hist)
     print(f"phase10 rnc_fctn 16x16x8x8, 20% missing: iters={n_it} solve={sec:.3f} s (events) "
           f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
+    return launches
+
+
+# trpca_snn at taxi (phase 10): iterations of each float32 route, and of the
+# float64 graph-route run whose launches are the kernels line's float64 ones
+SNN_ITERS = 20
+SNN_F64_ITERS = 5
+SNN_MU = 1e-3  # the reference's default 1e-4 leaves L zero for the first iterations at taxi's scale
+
+
+def _trpca_snn_routes() -> dict:
+    """trpca_snn at the taxi stand-in (its unfoldings 100x50000 twice and
+    500x10000, the svd SVT): float32 on the graph route and the device form
+    without graphs, bitwise, one capture, one synchronizing call in the
+    loop, every SVD the Jacobi kernel's; float64 on the graph route. Returns
+    the Jacobi kernel's launches of the graph-route runs (the main path)."""
+    from tritd_tpu_torch.baselines import trpca_snn
+    from tritd_tpu_torch.ops import device_linalg, toolbox_loop
+
+    _x, _mask, y, _prov = _taxi()
+    runs, launches = {}, {}
+    capped = device_linalg.jacobi_capped(y.device)
+    for label, graphs, dtype, iters in (("graphs", True, torch.float32, SNN_ITERS),
+                                        ("no graphs", False, torch.float32, SNN_ITERS),
+                                        ("graphs f64", True, torch.float64, SNN_F64_ITERS)):
+        hopper_kernels.reset_launch_counts()
+        capped.zero_()
+        with toolbox_loop.forced_route(graphs), _loop_syncs() as loop_syncs:
+            w = _watched(lambda: trpca_snn(y.to(dtype), mu=SNN_MU, max_iter=iters))
+        if int(capped):
+            raise AssertionError(f"phase10 trpca_snn {label}: {int(capped)} Jacobi SVDs stopped at their cap")
+        runs[label] = {**w, "loop_syncs": loop_syncs, "calls": _linalg_calls(),
+                       "jacobi": {k: n for k, n in hopper_kernels.JACOBI_SVD_LAUNCHES.items() if n}}
+        if graphs:
+            for key, n in runs[label]["jacobi"].items():
+                launches[key] = launches.get(key, 0) + n
+        low, e, hist = w["res"]
+        _on_card(f"phase10 trpca_snn {label}", low, e, hist)
+        hist = hist.cpu().numpy()
+        if not (np.isfinite(hist).all() and torch.isfinite(low).all() and hist.shape == (iters,)):
+            raise AssertionError(f"phase10 trpca_snn {label}: not finite: err_hist {hist}")
+        if (runs[label]["calls"] or not runs[label]["jacobi"] or w["graphs"] != (1 if graphs else 0)
+                or loop_syncs != [1]):
+            raise AssertionError(f"phase10 trpca_snn {label}: captures {w['graphs']}, loop syncs {loop_syncs}, "
+                                 f"binding calls {runs[label]['calls']}, Jacobi launches {runs[label]['jacobi']}")
+        _release_cached()
+    same = all(_same_bits(a, b) for a, b in zip(runs["graphs"]["res"], runs["no graphs"]["res"]))
+    if not same:
+        raise AssertionError("phase10 trpca_snn taxi f32: the graph route is not bitwise the device form without graphs")
+    hist = runs["graphs"]["res"][2].cpu().numpy()
+    print(f"phase10 trpca_snn taxi {'x'.join(map(str, y.shape))} f32 mu={SNN_MU}: iters={SNN_ITERS}, graph route "
+          f"{runs['graphs']['ms'] / SNN_ITERS:.2f} ms/iter (first replay after "
+          f"{runs['graphs'].get('before_replays_ms', float('nan')):.1f} ms, replays "
+          f"{runs['graphs'].get('replays_ms', float('nan')) / (SNN_ITERS - 1):.2f} ms/iter), no graphs "
+          f"{runs['no graphs']['ms'] / SNN_ITERS:.2f} ms/iter, bitwise; Jacobi launches {runs['graphs']['jacobi']}; "
+          f"peak_mem={runs['graphs']['peak_mib']:.1f} MiB; err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; f64 graph "
+          f"route {SNN_F64_ITERS} iterations {runs['graphs f64']['ms'] / SNN_F64_ITERS:.2f} ms/iter, Jacobi launches "
+          f"{runs['graphs f64']['jacobi']}; {CARD[0]}", flush=True)
+    return launches
 
 
 def phase11() -> None:
@@ -4480,9 +4778,10 @@ def _main() -> None:
         launches[variant] = launches.get(variant, 0) + count
     for n, phase in ((6, phase6), (7, phase7), (8, phase8)):
         _timed(n, phase)
-    sofia_records = _timed(9, phase9)
-    for n, phase in ((10, phase10), (11, phase11)):
-        _timed(n, phase)
+    records9, jacobi_launches, jacobi_check = _timed(9, phase9)
+    for key, n in _timed(10, phase10).items():
+        jacobi_launches[key] = jacobi_launches.get(key, 0) + n
+    _timed(11, phase11)
     for variant, count in _timed(12, phase12).items():
         launches[variant] = launches.get(variant, 0) + count
     for n, phase in ((13, phase13), (14, phase14), (15, phase15), (16, phase16)):
@@ -4500,7 +4799,10 @@ def _main() -> None:
     _timed(25, lambda: phase25(toolbox_refs))
     # phase 3's CPU references ran in worker processes through phases 4-25
     _timed("3 checks", phase3_checks)
+    _timed("9 checks", jacobi_check)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
+    if set(jacobi_launches) != set(hopper_kernels.JACOBI_SVD_LAUNCHES) or not all(jacobi_launches.values()):
+        raise AssertionError(f"the Jacobi SVD's launches on the main path (phases 9, 10): {jacobi_launches}")
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:
         raise AssertionError(f"kernel variants not launched by the main path: {missing}; "
@@ -4524,7 +4826,15 @@ def _main() -> None:
         "replaces": SOFIA_REPLACES[name],
         "launches": sofia_launches[name, tag],
         **record,
-    } for (name, tag), record in sofia_records.items()]}))
+    } for (name, tag), record in records9.items() if name in SOFIA_REPLACES] + [{
+        "name": name,
+        "variant": tag,
+        "route": "cuda",
+        "source": "tritd_tpu_torch/csrc/jacobi_svd.cu",
+        "replaces": JACOBI_REPLACES,
+        "launches": jacobi_launches.get(f"{name}[{tag}]", 0),
+        **record,
+    } for (name, tag), record in records9.items() if name == "jacobi_svd"]}))
     print(json.dumps({"ok": True, "device": device}))
 
 

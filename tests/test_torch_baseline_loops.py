@@ -1,6 +1,6 @@
 """PyTorch port: the SVT baselines' loops (`tt_trpca`, `rtrc`, `rc_fctn`,
-`baselines/device_loop.py`) and `tucker_hooi`'s (`ops/toolbox_loop.py`) on
-their three routes, on the CPU.
+`trpca_snn`, `baselines/device_loop.py`) and `tucker_hooi`'s
+(`ops/toolbox_loop.py`) on their three routes, on the CPU.
 
 The device form without graphs (forced) must give the host loop's bits: the
 same operations, the host's scalars rounded to the run's dtype either way.
@@ -35,8 +35,10 @@ jttnn, ttnn = (importlib.import_module(f"{p}.baselines.ttnn") for p in ("tritd_t
 jrtrc, rtrc = (importlib.import_module(f"{p}.baselines.rtrc") for p in ("tritd_tpu", "tritd_tpu_torch"))
 jfctn, fctn = (importlib.import_module(f"{p}.baselines.rc_fctn") for p in ("tritd_tpu", "tritd_tpu_torch"))
 jdecomp, decomp = (importlib.import_module(f"{p}.ops.decomp") for p in ("tritd_tpu", "tritd_tpu_torch"))
+jtrpca, trpca = (importlib.import_module(f"{p}.baselines.trpca") for p in ("tritd_tpu", "tritd_tpu_torch"))
 jsvt, tsvt = (importlib.import_module(f"{p}.ops.svt") for p in ("tritd_tpu", "tritd_tpu_torch"))
 device_loop = importlib.import_module("tritd_tpu_torch.baselines.device_loop")
+device_linalg = importlib.import_module("tritd_tpu_torch.ops.device_linalg")
 penalty = importlib.import_module("tritd_tpu_torch.baselines.penalty")
 
 RTOL = 1e-7
@@ -44,7 +46,9 @@ SUBDIM = 4
 SHAPE = (12, 10, 16)
 ITERS = 12
 CHUNK = 5
-CASES = ("tt_trpca", "rtrc", "fctn_traffic_warm", "fctn_video_lowrank", "tucker_hooi")
+CASES = ("tt_trpca", "rtrc", "fctn_traffic_warm", "fctn_video_lowrank", "tucker_hooi", "trpca_snn")
+# trpca_snn's arguments: test_torch_baselines.py's parity case
+SNN_ARGS = {"alpha": (1.0, 0.8, 1.2), "mu": 1e-3}
 
 
 @pytest.fixture(autouse=True)
@@ -109,6 +113,9 @@ def _torch_call(name):
         xh, s, hist = fctn.rc_fctn_driver_video(_t(y), _t(mask), SUBDIM, origin=_t(x), max_iter=ITERS,
                                                 svt_method="lowrank:6")
         return {"x": xh, "s": s, "hist": hist}
+    if name == "trpca_snn":
+        low, e, hist = trpca.trpca_snn(_t(y), max_iter=ITERS, **SNN_ARGS)
+        return {"l": low, "e": e, "hist": hist}
     out = decomp.tucker_hooi(_t(x), (3, 4, 5), max_iters=20, tol=1e-9)
     return {"core": out["core"], **{f"u{m}": u for m, u in enumerate(out["factors"])}, "fit": out["fit"],
             "n_iters": torch.tensor(out["n_iters"])}
@@ -135,6 +142,9 @@ def _jax_call(name):
             xh, s, hist = jfctn.rc_fctn_driver_video(jnp.asarray(y), jnp.asarray(mask), SUBDIM, origin=jnp.asarray(x),
                                                      max_iter=ITERS, svt_method="lowrank:6")
             return {"x": xh, "s": s, "hist": hist}
+        if name == "trpca_snn":
+            low, e, hist = jtrpca.trpca_snn(jnp.asarray(y), max_iter=ITERS, **SNN_ARGS)
+            return {"l": low, "e": e, "hist": hist}
         out = jdecomp.tucker_hooi(jnp.asarray(x), (3, 4, 5), max_iters=20, tol=1e-9)
         return {"core": out["core"], **{f"u{m}": u for m, u in enumerate(out["factors"])}, "fit": out["fit"],
                 "n_iters": out["n_iters"]}
@@ -296,19 +306,24 @@ def test_histories_are_nan_past_the_iterations_run():
 
 
 def test_an_uncaptured_svt_route_takes_the_host_loop(monkeypatch):
-    """The "svd" route, named in `svt.UNCAPTURED_METHODS` (no SVD driver of
-    cuSOLVER can be captured), takes the host loop where graphs would run,
-    chosen before any capture; the others keep the graph route, and a forced
-    route wins."""
+    """The "svd" route takes the graph route where every unfolding's thin
+    side is at most `device_linalg.SVD_JACOBI_MAX_K` (the Jacobi SVD, which
+    a graph captures: the taxi cuts), and the host loop where graphs would
+    run past it (gesvdj reads back to the host: the video cut, thin side
+    4800), chosen before any capture; a forced route wins."""
     cuda, taxi = torch.device("cuda", 0), [(100, 50000), (10000, 500)]
-    assert tsvt.UNCAPTURED_METHODS == ("svd",)
-    assert device_loop.route(cuda, "svd", taxi) is None and device_loop.route(cuda, "gram", taxi) is True
+    video = [(76800, 300), (4800, 4800), (3600, 6400)]
+    assert not hasattr(tsvt, "UNCAPTURED_METHODS")
+    assert device_loop.route(cuda, "svd", taxi) is True and device_loop.route(cuda, "gram", taxi) is True
+    assert device_loop.route(cuda, "svd", video) is None and device_loop.route(cuda, "auto:512", video) is True
     assert device_loop.route(cuda, "warm:8", taxi) is True
     assert device_loop.route(torch.device("cpu"), "gram", taxi) is None
     with toolbox_loop.forced_route(False):
-        assert device_loop.route(cuda, "svd", taxi) is False
-    monkeypatch.setattr(tsvt, "UNCAPTURED_METHODS", ())
-    assert device_loop.route(cuda, "svd", taxi) is True
+        assert device_loop.route(cuda, "svd", video) is False
+    monkeypatch.setattr(device_linalg, "SVD_JACOBI_MAX_K", 499)
+    assert device_loop.route(cuda, "svd", taxi) is None
+    monkeypatch.setattr(device_linalg, "SVD_JACOBI_MAX_K", 4800)
+    assert device_loop.route(cuda, "svd", video) is True
 
 
 # (route, unfoldings, whether a graph captures it): the baselines' cuts at
@@ -324,7 +339,12 @@ CAPTURE_CASES = [
     ("lowrank:64", [(3000, 4000)], True),
     ("gram", [(512, 9000)], True),
     ("gram", [(9000, 513)], False),
-    ("svd", [(10, 20)], False),
+    ("svd", [(10, 20)], True),                                            # the Jacobi SVD
+    ("svd", [(100, 50000), (10000, 500)], True),                          # ttnn at taxi
+    ("svd", [(500, 10000), (5000, 1000), (5000, 1000)], True),            # fctn at taxi
+    ("svd", [(1024, 9000)], True),                                        # the Jacobi SVD's limit
+    ("svd", [(9000, 1025)], False),                                       # gesvdj past it
+    ("svd", [(76800, 300), (4800, 4800), (3600, 6400)], False),           # the video cut
 ]
 
 
@@ -333,7 +353,8 @@ def test_a_loop_whose_eigh_no_graph_captures_takes_the_host_loop(method, shapes,
     """`svt.captures`: a graph holds the route only where every eigh it
     runs is of n <= 512 (cuSOLVER's batched syev; Xsyevd past it reads back
     to the host), so fctn's taxi loop, whose 1000 x 1000 Grams go to
-    Xsyevd, takes the host loop on the card, chosen before any capture; a
+    Xsyevd, takes the host loop on the card, chosen before any capture; the
+    svd route where every SVD's thin side is at most SVD_JACOBI_MAX_K; a
     forced device form without graphs stays that."""
     cuda = torch.device("cuda", 0)
     assert tsvt.captures(method, shapes) is want

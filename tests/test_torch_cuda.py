@@ -66,11 +66,18 @@ bitwise their device programs without graphs, at r = 3 and r = 4.
 The binding's eigh and SVD (`ops/device_linalg.py`) against torch.linalg on
 the card: bitwise where it takes torch's driver, else within 64 n eps of the
 matrix's norm (eigenvalues, singular values, reconstructions), an eigh up
-to n = 512 captured in a CUDA graph and replayed bitwise. The SVT
-baselines' loops (`baselines/device_loop.py`) and `tucker_hooi` on the
+to n = 512 and an SVD up to a thin side of SVD_JACOBI_MAX_K captured in a
+CUDA graph and replayed bitwise. The hand-written Jacobi SVD
+(`csrc/jacobi_svd.cu`) against its plain version on the same CUDA tensor
+and against torch.linalg.svd of the matrix in float64: singular values
+within 64 k eps s_max of the latter (each, and the two within twice that of
+each other), the reconstruction within that times sqrt(k) (Frobenius), the
+vectors orthonormal within the rotation test's tolerance sqrt(m) eps plus
+64 k eps. The SVT baselines'
+loops (`baselines/device_loop.py`), `trpca_snn` and `tucker_hooi` on the
 graph route: the captures, the synchronizing calls inside the loop, bitwise
-the device form without graphs; with an eigh past the captured limit, the
-eager loop."""
+the device form without graphs; with an eigh or SVD past the captured
+limit, the eager loop."""
 
 import contextlib
 import dataclasses
@@ -1436,32 +1443,150 @@ def test_device_eigh_matches_torch_linalg_and_captures(cuda_device, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("shape", [(100, 5000), (3000, 200), (200, 200)], ids=str)
+@pytest.mark.parametrize("shape", [(100, 5000), (3000, 200), (200, 200), (1100, 1300)], ids=str)
 def test_device_svd_matches_torch_linalg(cuda_device, shape, dtype):
     """The binding's thin SVD against torch.linalg.svd: bitwise where it
-    takes torch's driver (gesvdj), else singular values and the
-    reconstruction within 64 k eps s_max; captured and replayed bitwise
-    where the driver can be captured (svt.UNCAPTURED_METHODS otherwise)."""
+    takes torch's driver (gesvdj, past SVD_JACOBI_MAX_K), else singular
+    values and the reconstruction within 64 k eps s_max (the Jacobi SVD);
+    captured and replayed bitwise where the driver can be captured
+    (`device_linalg.svd_captures`)."""
     from tritd_tpu_torch.ops import device_linalg
 
     p, q = shape
     gen = torch.Generator(device=cuda_device).manual_seed(p + q)
     a = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    hopper_kernels.reset_launch_counts()
     u, s, vh = device_linalg.svd(a)
     tu, ts, tvh = torch.linalg.svd(a, full_matrices=False)
     assert u.shape == tu.shape and vh.shape == tvh.shape
     bound = 64 * min(shape) * torch.finfo(dtype).eps * float(ts.max())
-    if device_linalg.svd_driver(p, q, dtype) == "gesvdj":
+    driver = device_linalg.svd_driver(p, q, dtype)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    if driver == "gesvdj":
         assert torch.equal(u, tu) and torch.equal(s, ts) and torch.equal(vh, tvh)
+        assert hopper_kernels.LINALG_CALLS[f"gesvdj[{tag}]"] == 1
+    else:
+        assert driver == "jacobi" and hopper_kernels.JACOBI_SVD_LAUNCHES[f"jacobi_svd[{tag}]"] == 1
     assert float((s - ts).abs().max()) <= bound
     assert float(torch.linalg.matrix_norm((u * s) @ vh - a)) <= bound
-    if "svd" not in svt_ops.UNCAPTURED_METHODS:
+    if device_linalg.svd_captures(p, q):
         cu, cs, cvh = _captured(lambda: device_linalg.svd(a))
+        assert torch.equal(cu, u) and torch.equal(cs, s) and torch.equal(cvh, vh)
+    else:
+        assert driver == "gesvdj"
+
+
+# The Jacobi SVD's limits against torch.linalg.svd in float64, in s_max:
+# chip_smoke.py's JACOBI_LIMITS (its readings at the taxi unfoldings times 4
+# to 10), which 64 k eps (1.5e-2 at k = 1000 in float32) would overshoot
+# by 10^3.
+JACOBI_LIMITS = {torch.float32: 1e-5, torch.float64: 4e-12}
+
+
+def _svd_held(a, u, s, vh, ref):
+    """(u, s, vh) of `a` against `ref`, torch.linalg.svd of `a` in float64:
+    singular values within JACOBI_LIMITS s_max, the reconstruction's
+    Frobenius norm within that times sqrt(k), both sides orthonormal within
+    sqrt(m) eps + JACOBI_LIMITS (on the columns of nonzero singular
+    values)."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    k, m = min(a.shape), max(a.shape)
+    bound = JACOBI_LIMITS[a.dtype]
+    smax = float(ref[1][0])
+    u, s, vh = u.double(), s.double(), vh.double()
+    assert float((s - ref[1]).abs().max()) <= bound * smax
+    assert float(torch.linalg.matrix_norm((u * s) @ vh - a.double())) <= bound * smax * k ** 0.5
+    keep = s > 0
+    for basis in (u[:, keep], vh[keep].mT):
+        eye = torch.eye(basis.shape[1], dtype=torch.float64, device=a.device)
+        assert float((basis.mT @ basis - eye).abs().max()) <= device_linalg.jacobi_tol(m, a.dtype) + bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(100, 50000), (10000, 500), (5000, 1000), (1000, 5000)], ids=str)
+def test_jacobi_svd_matches_its_plain_version_and_torch(cuda_device, shape, dtype):
+    """The kernel at the taxi unfoldings' shapes (a low-rank matrix plus
+    noise, as the SVT sees) against its plain version on the same tensor
+    and torch.linalg.svd in float64 (`_svd_held`); one launch a call; a
+    captured call replayed twice gives the eager call's bits."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    p, q = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(p * 7 + q)
+    a = (torch.randn((p, 10), generator=gen, device=cuda_device, dtype=dtype)
+         @ torch.randn((10, q), generator=gen, device=cuda_device, dtype=dtype) * 10
+         + torch.randn((p, q), generator=gen, device=cuda_device, dtype=dtype))
+    ref = torch.linalg.svd(a.double(), full_matrices=False)
+    hopper_kernels.reset_launch_counts()
+    capped = device_linalg.jacobi_capped(a.device)
+    capped.zero_()
+    u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert hopper_kernels.JACOBI_SVD_LAUNCHES[f"jacobi_svd[{tag}]"] == 1
+    assert 1 < int(sweeps) < device_linalg.JACOBI_SWEEPS and int(capped) == 0
+    assert u.dtype == s.dtype == vh.dtype == dtype and u.is_cuda
+    _svd_held(a, u, s, vh, ref)
+    pu, ps, pvh = device_linalg.jacobi_svd_torch(a)
+    _svd_held(a, pu, ps, pvh, ref)
+    assert float((s.double() - ps.double()).abs().max()) <= 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        device_linalg.jacobi_svd(a)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        cu, cs, cvh = device_linalg.jacobi_svd(a)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
         assert torch.equal(cu, u) and torch.equal(cs, s) and torch.equal(cvh, vh)
 
 
+@pytest.mark.cuda
+def test_a_jacobi_svd_stopped_at_its_cap_is_counted_and_fails_the_loop(cuda_device, monkeypatch):
+    """With the cap lowered to one sweep, a call that still rotates in it
+    adds one to `jacobi_capped` (a replay too), a converged one nothing, and
+    trpca_snn's device loop raises at its segment's end."""
+    from tritd_tpu_torch.baselines import trpca
+    from tritd_tpu_torch.ops import device_linalg
+
+    a = torch.randn((300, 40), generator=torch.Generator(device=cuda_device).manual_seed(3), device=cuda_device)
+    capped = device_linalg.jacobi_capped(cuda_device)
+    capped.zero_()
+    device_linalg.jacobi_svd(a)
+    assert int(capped) == 0
+    monkeypatch.setattr(device_linalg, "JACOBI_SWEEPS", 1)
+    _u, _s, _vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+    assert int(sweeps) == 1 and int(capped) == 1
+    _captured(lambda: device_linalg.jacobi_svd(a))
+    assert int(capped) == 3  # the eager call before the capture and the replay
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((12, 10, 16))).float().to(cuda_device)
+    with pytest.raises(RuntimeError, match="stopped at 1 sweeps"):
+        trpca.trpca_snn(x, alpha=(1.0, 0.8, 1.2), mu=1e-3, max_iter=4)
+
+
+@pytest.mark.cuda
+def test_jacobi_svd_of_a_zero_and_a_rank_one_matrix(cuda_device):
+    """A zero matrix: zero singular values, its tall-side vectors zero, the
+    other side the identity (no rotation); a rank-one matrix: one value."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    u, s, vh = device_linalg.jacobi_svd(torch.zeros((70, 20), device=cuda_device))
+    assert torch.equal(s, torch.zeros_like(s)) and torch.equal(u, torch.zeros_like(u))
+    assert torch.equal(vh, torch.eye(20, device=cuda_device))
+    x = torch.arange(1.0, 41.0, device=cuda_device, dtype=torch.float64)
+    a = x[:, None] * x[None, :30]
+    u, s, vh = device_linalg.jacobi_svd(a)
+    ref = torch.linalg.svd(a, full_matrices=False)
+    assert float((s - ref[1]).abs().max()) <= 1e-12 * float(ref[1][0])
+    assert float(torch.linalg.matrix_norm((u * s) @ vh - a)) <= 1e-12 * float(torch.linalg.matrix_norm(a))
+
+
 BASELINE_LOOP_CASES = ["ttnn gram", "ttnn warm:4", "ring gram", "ring warm:4", "fctn gram", "fctn warm:4",
-                       "fctn video lowrank:16"]
+                       "fctn video lowrank:16", "ttnn svd", "ring svd", "fctn svd"]
 
 
 @pytest.mark.cuda
@@ -1472,7 +1597,7 @@ def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch,
     refresh and reuse), no synchronizing call in the loop but one read of
     the counter a segment (fctn's traffic chunks of 25: two in 30
     iterations), bitwise the device form without graphs, every eigh or SVD
-    through the binding."""
+    through the binding (on the svd route the Jacobi SVD, no gesvdj)."""
     from tritd_tpu_torch.baselines import device_loop
     from tritd_tpu_torch.ops import toolbox_loop
 
@@ -1507,7 +1632,11 @@ def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch,
     segments = 2 if method == "fctn" and (video or svt_method.startswith("warm")) else 1
     assert seen["graphs"] == (2 if svt_method.startswith("warm") else 1)
     assert loop_syncs == [segments]
-    assert any(n for n in hopper_kernels.LINALG_CALLS.values())
+    if svt_method == "svd":
+        assert hopper_kernels.JACOBI_SVD_LAUNCHES["jacobi_svd[f32]"] > 0
+        assert not any(hopper_kernels.LINALG_CALLS.values())
+    else:
+        assert any(n for n in hopper_kernels.LINALG_CALLS.values())
     assert graph[0].is_cuda and np.isfinite(graph[2]).all() and graph[2].shape == (iters,)
     for g, p in zip(graph, plain):
         g, p = torch.as_tensor(g), torch.as_tensor(p)
@@ -1515,12 +1644,13 @@ def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["fctn gram", "ttnn warm:4", "hooi"])
+@pytest.mark.parametrize("case", ["fctn gram", "ttnn warm:4", "hooi", "ttnn svd"])
 def test_a_loop_whose_eigh_no_graph_captures_takes_the_eager_loop(cuda_device, monkeypatch, case):
-    """With the captured eigh's limit lowered to n = 8, the baselines' loops
-    and tucker_hooi at small shapes have eighs past it, on Xsyevd: the public
-    call takes the eager loop on the card (no capture, chosen before any),
-    every eigh through the binding's Xsyevd, and agrees with the device form
+    """With the captured eigh's limit lowered to n = 8 (the Jacobi SVD's to
+    a thin side of 8), the baselines' loops and tucker_hooi at small shapes
+    have eighs (SVDs) past it, on Xsyevd (gesvdj): the public call takes the
+    eager loop on the card (no capture, chosen before any), every eigh (SVD)
+    through the binding's Xsyevd (gesvdj), and agrees with the device form
     without graphs (in the last bits: a host float divides there where a
     device number does here) within rtol 1e-4."""
     from tritd_tpu_torch.ops import decomp, device_linalg, toolbox_loop
@@ -1544,6 +1674,7 @@ def test_a_loop_whose_eigh_no_graph_captures_takes_the_eager_loop(cuda_device, m
 
     def lowered():
         monkeypatch.setattr(device_linalg, "XSYEV_BATCHED_MAX_N", 8)
+        monkeypatch.setattr(device_linalg, "SVD_JACOBI_MAX_K", 8)
         monkeypatch.setattr(svt_ops, "WARM_MIN_DIM", 8)
 
     lowered()
@@ -1553,10 +1684,36 @@ def test_a_loop_whose_eigh_no_graph_captures_takes_the_eager_loop(cuda_device, m
     with _watch(monkeypatch) as seen:
         lowered()
         eager = call()
-    assert seen["graphs"] == 0 and hopper_kernels.LINALG_CALLS["xsyevd[f32]"] > 0
+    driver = "gesvdj" if svt_method == "svd" else "xsyevd"
+    assert seen["graphs"] == 0 and hopper_kernels.LINALG_CALLS[f"{driver}[f32]"] > 0
     for e, p in zip(eager, plain):
         assert torch.isfinite(e).all()
         torch.testing.assert_close(e.cpu(), p.cpu(), rtol=1e-4, atol=1e-4 * float(p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_trpca_snn_graph_route_is_the_device_form(cuda_device, monkeypatch):
+    """trpca_snn on the card (f32, 12 x 10 x 16, 12 iterations): one
+    capture, its SVDs the Jacobi SVD (no gesvdj), bitwise the device form
+    without graphs."""
+    from tritd_tpu_torch.baselines import trpca
+    from tritd_tpu_torch.ops import toolbox_loop
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((12, 10, 16))).float().to(cuda_device)
+
+    def call():
+        return trpca.trpca_snn(x, alpha=(1.0, 0.8, 1.2), mu=1e-3, max_iter=12)
+
+    with toolbox_loop.forced_route(False):
+        plain = call()
+    hopper_kernels.reset_launch_counts()
+    with _watch(monkeypatch) as seen:
+        graph = call()
+    assert seen["graphs"] == 1
+    assert hopper_kernels.JACOBI_SVD_LAUNCHES["jacobi_svd[f32]"] > 0 and not any(hopper_kernels.LINALG_CALLS.values())
+    assert torch.isfinite(graph[2]).all() and graph[0].is_cuda
+    for g, p in zip(graph, plain):
+        assert torch.equal(g, p)
 
 
 @pytest.mark.cuda

@@ -47,17 +47,19 @@ def test_cpu_eigh_and_svd_are_torch_linalg_bitwise(dtype):
 def test_driver_choice_follows_the_probe(n, want, dtype):
     """An eigh goes to cuSOLVER's batched syev, which a CUDA graph captures,
     up to n = 512, and to Xsyevd, torch.linalg.eigh's driver there (its
-    bits), past it, where no cuSOLVER driver captures; the SVD keeps
-    torch's gesvdj, which no graph captures."""
+    bits), past it, where no cuSOLVER driver captures; the SVD at the
+    baselines' taxi cuts takes the hand-written Jacobi SVD, which a graph
+    captures, and gesvdj (torch's) past its limit, which none does."""
     assert device_linalg.eigh_driver(n, dtype) == want
     assert device_linalg.eigh_captures(n) is (want == "xsyevbatched")
     assert device_linalg.XSYEV_BATCHED_MAX_N == 512
     if n > 512:
         assert device_linalg.torch_eigh_driver(n, dtype) == want
-    assert device_linalg.svd_driver(100, 50000, dtype) == "gesvdj"
+    assert device_linalg.svd_driver(100, 50000, dtype) == "jacobi"
+    assert device_linalg.svd_driver(4800, 4800, dtype) == "gesvdj"
     assert device_linalg.torch_eigh_driver(500, torch.float32) == "syevj"
     assert device_linalg.torch_eigh_driver(500, torch.float64) == "xsyevd"
-    assert device_linalg.EIGH_DRIVERS == ("xsyevbatched", "xsyevd") and device_linalg.SVD_DRIVERS == ("gesvdj",)
+    assert device_linalg.EIGH_DRIVERS == ("xsyevbatched", "xsyevd") and device_linalg.SVD_DRIVERS == ("jacobi", "gesvdj")
 
 
 def _c_parameters() -> dict:

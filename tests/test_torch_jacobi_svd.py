@@ -1,0 +1,276 @@
+"""PyTorch port: the one-sided Jacobi SVD of `ops/device_linalg.py` on the
+CPU, through its plain version `jacobi_svd_torch` (the kernel,
+`csrc/jacobi_svd.cu`, runs on the card only: `tests/test_torch_cuda.py`,
+smoke phase 9).
+
+Held at float64 to `torch.linalg.svd` and to the JAX package's
+`jnp.linalg.svd` on numpy inputs from a seed: |ds| <= 1e-12 s_max, the
+reconstruction within 1e-12 ||A|| (Frobenius), the vectors orthonormal to
+1e-12, and each singular vector equal up to sign where its gap to the
+neighbouring singular values exceeds 1e-6 s_max, within the first-order
+perturbation bound 1e-12 s_max / gap (at least 1e-12). The columns of the side made from the
+tall form's columns that belong to a zero singular value are zero (U is
+W / s where s is not 0), so that side's orthonormality is held on the
+columns of nonzero singular values; torch and JAX complete it to a basis.
+The `svd` SVT route through the plain version is held to the JAX package's
+`svt_ref_compat(..., method="svd")` and `svt(..., "svd")` at atol 1e-10
+||M||. Then the driver choice at the limit, the plan and tournament the
+kernel shares, and the ctypes declarations against the source.
+"""
+
+import importlib
+import re
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from tritd_tpu_torch.baselines import device_loop  # noqa: E402
+from tritd_tpu_torch.ops import device_linalg, hopper_kernels  # noqa: E402
+from tritd_tpu_torch.runtime import build, kernels  # noqa: E402
+
+jsvt, tsvt = (importlib.import_module(f"{p}.ops.svt") for p in ("tritd_tpu", "tritd_tpu_torch"))
+
+TOL = 1e-12
+GAP = 1e-6
+SVT_ATOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _with_spectrum(p, q, spectrum, seed):
+    rng = np.random.default_rng(seed)
+    k = min(p, q)
+    u = np.linalg.qr(rng.standard_normal((p, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((q, k)))[0]
+    return (u * np.asarray(spectrum, dtype=np.float64)) @ v.T
+
+
+def _matrix(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "tall":
+        return rng.standard_normal((60, 20))
+    if name == "wide":
+        return rng.standard_normal((20, 60))
+    if name == "square":
+        return rng.standard_normal((33, 33))
+    if name == "k1 tall":
+        return rng.standard_normal((25, 1))
+    if name == "k1 wide":
+        return rng.standard_normal((1, 25))
+    if name == "rank deficient":
+        return rng.standard_normal((40, 5)) @ rng.standard_normal((5, 30))
+    if name == "repeated":
+        return _with_spectrum(45, 24, [5.0] * 4 + [3.0] * 6 + [2.0] * 3 + list(np.linspace(1.5, 0.1, 11)), 3)
+    if name == "zero":
+        return np.zeros((12, 9))
+    if name == "1000 wide":
+        return rng.standard_normal((8, 1000))
+    raise ValueError(name)
+
+
+CASES = ("tall", "wide", "square", "k1 tall", "k1 wide", "rank deficient", "repeated", "zero", "1000 wide")
+
+
+def _check_against(a, got, want):
+    """`got` (u, s, vh) of `a` held to `want` (u, s, vh, numpy float64)."""
+    u, s, vh = (np.asarray(x, dtype=np.float64) for x in got)
+    wu, ws, wvh = want
+    k = min(a.shape)
+    smax = float(ws[0])
+    assert u.shape == (a.shape[0], k) and s.shape == (k,) and vh.shape == (k, a.shape[1])
+    assert np.all(np.diff(s) <= 0)
+    assert np.max(np.abs(s - ws)) <= TOL * smax
+    assert np.linalg.norm((u * s) @ vh - a) <= TOL * np.linalg.norm(a)
+    nonzero = s > 0
+    tall = a.shape[0] >= a.shape[1]
+    # the side made from the tall form's columns: u for a tall input, vh for a wide one
+    made, other = (u[:, nonzero], vh.T) if tall else (vh[nonzero].T, u)
+    for basis in (made, other):
+        if basis.shape[1]:
+            assert np.max(np.abs(basis.T @ basis - np.eye(basis.shape[1]))) <= TOL
+    assert np.all((u if tall else vh.T)[:, ~nonzero] == 0)
+    padded = np.concatenate([[np.inf], ws, [np.inf]])
+    for i in range(k):
+        gap = min(abs(padded[i + 1] - padded[i]), abs(padded[i + 1] - padded[i + 2]))
+        if smax == 0 or gap <= GAP * smax:
+            continue
+        atol = TOL * max(1.0, smax / gap)
+        for mine, theirs in ((u[:, i], wu[:, i]), (vh[i], wvh[i])):
+            sign = np.sign(mine @ theirs) or 1.0
+            assert np.max(np.abs(mine - sign * theirs)) <= atol
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_jacobi_matches_torch_and_jax_at_float64(name):
+    a = _matrix(name)
+    got = device_linalg.jacobi_svd_torch(torch.from_numpy(a))
+    tu, ts, tvh = torch.linalg.svd(torch.from_numpy(a), full_matrices=False)
+    _check_against(a, got, (tu.numpy(), ts.numpy(), tvh.numpy()))
+    with jax.enable_x64(True):
+        ju, js, jvh = jnp.linalg.svd(jnp.asarray(a), full_matrices=False)
+        want = (np.asarray(ju), np.asarray(js), np.asarray(jvh))
+    _check_against(a, got, want)
+
+
+@pytest.mark.parametrize("name", ["tall", "wide", "repeated"])
+def test_plain_jacobi_at_float32(name):
+    """float32 (its inner rotations in float64) within 64 k eps of
+    torch.linalg.svd's float64 values and orthonormal to the rotation
+    test's tolerance, sqrt(m) eps, and 64 k eps."""
+    a = _matrix(name)
+    a32 = torch.from_numpy(a).float()
+    u, s, vh = (x.double() for x in device_linalg.jacobi_svd_torch(a32))
+    assert u.dtype == s.dtype == vh.dtype == torch.float64
+    want = torch.linalg.svd(a32.double(), full_matrices=False)[1]
+    k, m = min(a.shape), max(a.shape)
+    eps = torch.finfo(torch.float32).eps
+    bound = 64 * k * eps
+    assert float((s - want).abs().max()) <= bound * float(want[0])
+    assert float(torch.linalg.matrix_norm((u * s) @ vh - a32.double())) <= bound * float(torch.linalg.matrix_norm(a32.double()))
+    for basis in (u, vh.mT):
+        assert float((basis.mT @ basis - torch.eye(k, dtype=torch.float64)).abs().max()) <= (
+            device_linalg.jacobi_tol(m, torch.float32) + bound)
+
+
+def test_the_sweeps_stop_at_the_first_without_a_rotation():
+    """A matrix whose columns are already orthogonal takes one sweep; a
+    random one more, and fewer than the cap."""
+    a = torch.from_numpy(_matrix("tall"))
+    u, s, vh, sweeps = device_linalg._jacobi_torch(a)
+    assert 1 < sweeps < device_linalg.JACOBI_SWEEPS
+    assert device_linalg._jacobi_torch((u * s).contiguous())[3] == 1
+    assert device_linalg._jacobi_torch(torch.zeros(7, 5, dtype=torch.float64))[3] == 1
+
+
+def _svt_input(p, q, seed):
+    k = min(p, q)
+    return _with_spectrum(p, q, np.concatenate([np.linspace(40.0, 6.0, k // 3), np.linspace(2.9, 0.05, k - k // 3)]),
+                          seed)
+
+
+@pytest.mark.parametrize("shape", [(40, 90), (90, 40), (30, 30)])
+def test_svd_route_through_the_plain_version_matches_jax(shape, monkeypatch):
+    """The SVT's svd route with its SVD the plain Jacobi (on the card the
+    kernel) against the JAX package's svd route: both the ref-compat
+    operator (>1 gate) and plain soft-thresholding, tau between the
+    spectrum's values."""
+    m = _svt_input(*shape, seed=shape[0])
+    monkeypatch.setattr(tsvt.device_linalg, "svd", device_linalg.jacobi_svd_torch)
+    atol = SVT_ATOL * np.linalg.norm(m)
+    for tau in (2.0, 0.5):
+        with jax.enable_x64(True):
+            want_compat = np.asarray(jsvt.svt_ref_compat(jnp.asarray(m), tau, method="svd"))
+            want_plain = np.asarray(jsvt.svt(jnp.asarray(m), tau, "svd"))
+        got_compat = tsvt.svt_ref_compat(torch.from_numpy(m), tau, method="svd").numpy()
+        got_plain = tsvt.svt(torch.from_numpy(m), tau, "svd").numpy()
+        np.testing.assert_allclose(got_compat, want_compat, rtol=0, atol=atol)
+        np.testing.assert_allclose(got_plain, want_plain, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("p, q, want", [(1024, 5000, "jacobi"), (1025, 5000, "gesvdj"), (5000, 1024, "jacobi"),
+                                        (5000, 1025, "gesvdj"), (1, 7, "jacobi"), (4800, 4800, "gesvdj")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_svd_driver_at_the_limit(p, q, want, dtype):
+    """Up to a thin side of SVD_JACOBI_MAX_K the Jacobi SVD, which a graph
+    captures; past it gesvdj, which none does: the svd route of a loop
+    with such an unfolding takes the eager loop on the card."""
+    assert device_linalg.SVD_JACOBI_MAX_K == 1024
+    assert device_linalg.svd_driver(p, q, dtype) == want
+    assert device_linalg.svd_captures(p, q) is (want == "jacobi")
+    assert tsvt.captures("svd", [(p, q)]) is (want == "jacobi")
+    cuda = torch.device("cuda", 0)
+    assert device_loop.route(cuda, "svd", [(100, 50000), (p, q)]) is (True if want == "jacobi" else None)
+    assert device_linalg.SVD_DRIVERS == ("jacobi", "gesvdj")
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 32, 64])
+def test_tournament_meets_every_pair_once_in_disjoint_rounds(n):
+    rounds = device_linalg.jacobi_tournament(n)
+    assert len(rounds) == n - 1 and all(len(r) == n // 2 for r in rounds)
+    for r in rounds:
+        assert sorted(x for pair in r for x in pair) == list(range(n))
+    met = [frozenset(pair) for r in rounds for pair in r]
+    assert len(set(met)) == len(met) == n * (n - 1) // 2
+
+
+@pytest.mark.parametrize("nb", [2, 4, 8, 64])
+def test_a_sweep_rotates_every_pair_of_columns_once(nb):
+    """The inner rounds (every pair of the 32 indices at an outer sweep's
+    first round, the 256 across the two blocks after), each of disjoint
+    pairs, met with the outer tournament: every pair of the nb * 16
+    columns once a sweep, the cyclic Jacobi ordering by blocks."""
+    b = device_linalg.JACOBI_BLOCK
+    met = []
+    for r, rnd in enumerate(device_linalg.jacobi_tournament(nb)):
+        inner = device_linalg.jacobi_inner_rounds(r == 0)
+        assert len(inner) == (2 * b - 1 if r == 0 else b)
+        for pairs in inner:
+            assert sorted(x for pair in pairs for x in pair) == list(range(2 * b))
+        for blocks in rnd:
+            cols = [blocks[0] * b + i for i in range(b)] + [blocks[1] * b + i for i in range(b)]
+            met += [frozenset((cols[x], cols[y])) for pairs in inner for x, y in pairs]
+    assert len(met) == len(set(met)) == nb * b * (nb * b - 1) // 2
+
+
+@pytest.mark.parametrize("p, q", [(100, 50000), (10000, 500), (50000, 100), (5000, 1000), (1000, 5000), (500, 10000),
+                                  (1, 1), (17, 3), (3, 70), (1024, 1100)])
+@pytest.mark.parametrize("sms", [132, 16])
+def test_plan_covers_the_matrix(p, q, sms):
+    """The plan covers the matrix on a card of `sms` SMs, with more slices
+    on more SMs, up to JACOBI_MAX_SLICES and the tiles."""
+    plan = device_linalg.jacobi_plan(p, q, sms)
+    k, m = min(p, q), max(p, q)
+    assert (plan.k, plan.m, plan.wide, plan.ldv) == (k, m, p < q, k)
+    assert plan.nb % 2 == 0 and plan.nb >= 2 and plan.nb * device_linalg.JACOBI_BLOCK >= k
+    assert (plan.nb - 2) * device_linalg.JACOBI_BLOCK < k
+    assert plan.ldw % device_linalg.JACOBI_TILE == 0 and m <= plan.ldw < m + device_linalg.JACOBI_TILE
+    tiles = plan.ldw // device_linalg.JACOBI_TILE
+    assert (plan.slices - 1) * plan.per_slice < tiles <= plan.slices * plan.per_slice
+    assert 1 <= plan.slices <= device_linalg.JACOBI_MAX_SLICES
+    assert plan.slices >= device_linalg.jacobi_plan(p, q, 1).slices
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """Checked before the library is loaded, so on the CPU too."""
+    a = torch.zeros(10, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        device_linalg.jacobi_svd(a)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        device_linalg.jacobi_svd(torch.zeros(10, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        device_linalg.jacobi_svd(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="both sides"):
+        device_linalg.jacobi_svd_torch(torch.zeros(0, 4))
+    assert set(hopper_kernels.JACOBI_SVD_LAUNCHES) == {"jacobi_svd[f32]", "jacobi_svd[f64]"}
+
+
+def _source():
+    return (build.SRC_DIR / "jacobi_svd.cu").read_text()
+
+
+def test_binding_declares_every_c_entry_with_its_parameters():
+    counts = {fn: 0 if params.strip() in ("", "void") else params.count(",") + 1
+              for fn, params in re.findall(r"^int (tritd_\w+)\(([^)]*)\)", _source(), re.M)}
+    assert set(counts) == {"tritd_jacobi_block", "tritd_jacobi_tile", "tritd_jacobi_svd_f32", "tritd_jacobi_svd_f64"}
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in counts})
+    kernels._bind_jacobi(lib)
+    for name, n in counts.items():
+        assert len(getattr(lib, name).argtypes) == n, name
+
+
+def test_source_constants_are_the_modules():
+    src = _source()
+    assert int(re.search(r"constexpr int kBlock = (\d+);", src).group(1)) == device_linalg.JACOBI_BLOCK
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == device_linalg.JACOBI_TILE

@@ -15,7 +15,10 @@ None off the warm route). :func:`run` drives it along one of three routes
 * `False`, the device form without graphs (`solvers.admm._DeviceLoop` with
   no stop): `k` the 0-d counter on the device, the carried fields copied in
   place into contiguous buffers, the counter read once at the end of each
-  segment.
+  segment (on the card with the Jacobi SVD's count of calls that stopped
+  at its cap of sweeps unconverged, in the same read: a segment that adds
+  to it raises, as `torch.linalg.svd` raises where its SVD fails to
+  converge).
 * `True`, the device form with graphs (a CUDA device): the same, each
   iteration a CUDA graph replay, one graph a kind of iteration (refresh or
   reuse), each kind's first iteration eager on the side stream. Where a
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import svt as svt_ops, toolbox_loop
+from ..ops import device_linalg, svt as svt_ops, toolbox_loop
 from ..solvers import admm
 
 
@@ -61,8 +64,9 @@ class Scalars:
 def route(device: torch.device, svt_method: str, shapes) -> bool | None:
     """The route of a baseline's loop on `device` (`toolbox_loop.route`),
     but the eager host loop where a CUDA graph cannot capture the SVT route
-    on the loop's unfoldings, of `shapes` (`svt.captures`: the `svd` route,
-    an eigh past n = 512), chosen before any capture."""
+    on the loop's unfoldings, of `shapes` (`svt.captures`: an SVD of a thin
+    side past `device_linalg.SVD_JACOBI_MAX_K`, an eigh past n = 512),
+    chosen before any capture."""
     return toolbox_loop.route(device, svt_ops.captures(svt_method, shapes))
 
 
@@ -100,8 +104,35 @@ def run(step, carry: dict, kinds: list, segments, graphs: bool | None) -> dict:
     def iteration(c: dict, _data, _out, refresh) -> dict:
         return {**step(c["k"], c, refresh), "k": c["k"] + 1}
 
-    loop = admm._DeviceLoop(iteration, fixed, (), max_iter, device, graphs, stops=False,
-                            kinds=lambda k: kinds[k])
+    loop = _Loop(iteration, fixed, (), max_iter, device, graphs, stops=False, kinds=lambda k: kinds[k])
     for end in segments:
         fixed, _data = loop.advance(end)
     return {name: fixed[name] for name in carry}
+
+
+class _Loop(admm._DeviceLoop):
+    """The device form of :func:`run`; on the card its end-of-segment read
+    also reads how many of the segment's Jacobi SVDs stopped at their cap
+    (`device_linalg.jacobi_capped`, against its value at the segment's
+    start, copied on the device), and raises if any did."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        device = self.carry["k"].device
+        self.capped = device_linalg.jacobi_capped(device) if device.type == "cuda" else None
+
+    def advance(self, k_end: int):
+        if self.capped is not None:
+            self.capped_before = self.capped.clone()
+        return super().advance(k_end)
+
+    def _result(self):
+        if self.capped is None:
+            return super()._result()
+        k, capped = torch.stack((self.carry["k"], (self.capped - self.capped_before).to(torch.int64))).tolist()
+        if capped:
+            raise RuntimeError(f"{capped} Jacobi SVD call(s) of this segment stopped at "
+                               f"{device_linalg.JACOBI_SWEEPS} sweeps without converging")
+        if k != self.k:
+            raise AssertionError(f"the counter on the device reads {k} after {self.k} iterations")
+        return self.carry, self._data(self.n_done)

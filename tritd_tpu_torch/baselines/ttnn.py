@@ -20,8 +20,8 @@ and reuse), the penalties a table computed on the host before the loop and
 read by the device's counter, the histories written at the counter, and no
 read to the host before the loop's end (the SVT's eigh and SVD through
 `ops/device_linalg.py`); the eager loop where no graph captures the SVT
-route at these unfoldings (`device_loop.route`: the `svd` route, an eigh
-past n = 512).
+route at these unfoldings (`device_loop.route`: an SVD of a thin side past
+`device_linalg.SVD_JACOBI_MAX_K`, an eigh past n = 512).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """`eigh` and a thin `svd` for the device loops: on the card, calls that
-read nothing back to the host, so that a CUDA graph can capture the eigh.
+read nothing back to the host, so that a CUDA graph can capture them.
 
 The reference's `jnp.linalg.eigh` and `jnp.linalg.svd` (`tritd_tpu/ops/
 svt.py`, `ops/decomp.py`) are XLA library calls, which XLA lowers to
@@ -24,29 +24,35 @@ of one, is captured and replays bitwise, and only up to n = 512. So
 Xsyevd, the driver `torch.linalg.eigh` takes there (and its bits), above
 it, which a graph cannot capture: a loop whose eighs are larger takes the
 eager loop on the card (:func:`eigh_captures`, chosen before any capture).
-:func:`svd_driver` takes gesvdj, the driver `torch.linalg.svd` takes, so
-that the SVD keeps torch's bits; a graph cannot capture it, which
-`ops/svt.py::UNCAPTURED_METHODS` records.
+:func:`svd_driver` takes the hand-written one-sided Jacobi SVD
+(:func:`jacobi_svd`, `csrc/jacobi_svd.cu`), which a graph captures, where
+the thin side is at most SVD_JACOBI_MAX_K, and gesvdj, the driver
+`torch.linalg.svd` takes (and its bits), past it, which none does
+(:func:`svd_captures`).
 
 Layout: a row-major (p, q) tensor is the column-major (q, p) matrix, so
 each call passes the transpose that makes the driver see the matrix torch
 would hand it, and reads U and V back as views. `CALLS` counts the cuSOLVER
-calls per driver and dtype (`hopper_kernels.LINALG_CALLS`); a graph's
-replays count too.
+calls per driver and dtype (`hopper_kernels.LINALG_CALLS`), `JACOBI_LAUNCHES`
+the Jacobi SVD's (`hopper_kernels.JACOBI_SVD_LAUNCHES`); a graph's replays
+count too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import hopper_kernels
 
 EIGH_DRIVERS = ("xsyevbatched", "xsyevd")
-SVD_DRIVERS = ("gesvdj",)
+SVD_DRIVERS = ("jacobi", "gesvdj")
 CALLS = hopper_kernels.LINALG_CALLS
+JACOBI_LAUNCHES = hopper_kernels.JACOBI_SVD_LAUNCHES
 _TAGS = {torch.float32: "f32", torch.float64: "f64"}
 _CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -55,6 +61,30 @@ _CODES = {torch.float32: 0, torch.float64: 1}
 XSYEV_BATCHED_MAX_N = 512
 # torch.linalg.svd's gesvdj: the tolerance eps and 400 sweeps
 GESVDJ_SWEEPS = 400
+
+#: The largest thin side min(p, q) the Jacobi SVD takes on the card: 64
+#: blocks of JACOBI_BLOCK columns. It covers the baselines' taxi cuts (thin
+#: sides 100, 500, 1000); a sweep is 3 (nb - 1) + 1 launches of nb blocks, so
+#: at the video cut's 4800 a graph would hold 18 000 launches an SVD, and the
+#: Jacobi's work (64 m k a round, ~k / 8 rounds a sweep) grows as m k^2: past
+#: the limit the SVD keeps gesvdj and its loop the eager loop.
+SVD_JACOBI_MAX_K = 1024
+#: Columns of the tall form a block holds: a pair of blocks is one thread
+#: block's 32 x 32 problem (csrc/jacobi_svd.cu's kBlock).
+JACOBI_BLOCK = 16
+#: Columns of the transposed tall form a Gram step loads at once; its rows
+#: are padded to a multiple (csrc/jacobi_svd.cu's kTile).
+JACOBI_TILE = 64
+#: Sweeps the Jacobi SVD launches; those after convergence return at once.
+#: Random and low-rank-plus-noise matrices took 7-14 on the CPU rehearsals.
+#: A call still rotating in its last sweep is counted (:func:`jacobi_capped`).
+JACOBI_SWEEPS = 20
+#: Gram blocks a round aims for on each SM of the card (four of 256
+#: threads), and the most slices one pair's columns are cut into: the
+#: rotation step sums the slices' partial Grams, and at 131 slices (100 x
+#: 50000 on 132 SMs) that sum took more than half of its 43 us.
+JACOBI_GRAM_BLOCKS_PER_SM = 4
+JACOBI_MAX_SLICES = 32
 
 _STATUS = {1: "NOT_INITIALIZED", 2: "ALLOC_FAILED", 3: "INVALID_VALUE", 4: "ARCH_MISMATCH", 5: "MAPPING_ERROR",
            6: "EXECUTION_FAILED", 7: "INTERNAL_ERROR", 8: "MATRIX_TYPE_NOT_SUPPORTED", 9: "NOT_SUPPORTED"}
@@ -78,8 +108,15 @@ def eigh_captures(n: int) -> bool:
 
 
 def svd_driver(p: int, q: int, dtype: torch.dtype) -> str:
-    """The driver :func:`svd` takes for a (p, q) matrix on the card."""
-    return "gesvdj"
+    """The driver :func:`svd` takes for a (p, q) matrix on the card: the
+    Jacobi SVD up to a thin side of SVD_JACOBI_MAX_K, gesvdj past it."""
+    return "jacobi" if svd_captures(p, q) else "gesvdj"
+
+
+def svd_captures(p: int, q: int) -> bool:
+    """Whether a CUDA graph can capture :func:`svd` of a (p, q) matrix on
+    the card: the Jacobi SVD reads nothing back; gesvdj does."""
+    return min(p, q) <= SVD_JACOBI_MAX_K
 
 
 @functools.cache
@@ -192,11 +229,12 @@ def eigh_with_info(a: torch.Tensor):
 def svd_with_info(a: torch.Tensor):
     """(u, s, vh, info): the thin SVD of `a` (p, q) by gesvdj, s descending,
     u (p, k), vh (k, q) with k = min(p, q), info cuSOLVER's 0-d int32 on
-    the card, unread. A CUDA tensor only."""
+    the card, unread. A CUDA tensor only; any size (:func:`svd` takes it
+    past SVD_JACOBI_MAX_K)."""
     _matrix(a, "svd")
     p, q = a.shape
     k = min(p, q)
-    driver = svd_driver(p, q, a.dtype)
+    driver = "gesvdj"
     device, dtype, dt = a.device, a.dtype, _CODES[a.dtype]
     lib = _library()
     with torch.cuda.device(device):
@@ -241,7 +279,250 @@ def svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     nothing read back."""
     if a.device.type == "cpu":
         return torch.linalg.svd(a, full_matrices=False)
+    _matrix(a, "svd")
+    if svd_driver(*a.shape, a.dtype) == "jacobi":
+        return jacobi_svd(a.contiguous())
     u, s, vh, _info = svd_with_info(a)
+    return u, s, vh
+
+
+class JacobiPlan(NamedTuple):
+    """The geometry of the Jacobi SVD of a (p, q) matrix: its tall form W
+    (m x k) held as Wt, nb blocks of JACOBI_BLOCK rows (nb even, at least 2;
+    the rows past k zero) of ldw columns (m zero-padded to whole tiles), Vt
+    nb JACOBI_BLOCK x ldv; a round's Gram cuts each pair's tiles into
+    `slices` runs of `per_slice`."""
+
+    k: int
+    m: int
+    wide: bool
+    nb: int
+    ldw: int
+    ldv: int
+    slices: int
+    per_slice: int
+
+
+def jacobi_plan(p: int, q: int, sms: int) -> JacobiPlan:
+    """The plan of a (p, q) matrix on a card of `sms` SMs (the slices
+    only depend on them)."""
+    k, m = min(p, q), max(p, q)
+    nb = max(2, -(-k // JACOBI_BLOCK))
+    nb += nb % 2
+    ldw = -(-m // JACOBI_TILE) * JACOBI_TILE
+    tiles = ldw // JACOBI_TILE
+    want = max(1, min(-(-(JACOBI_GRAM_BLOCKS_PER_SM * sms) // (nb // 2)), JACOBI_MAX_SLICES, tiles))
+    per_slice = -(-tiles // want)
+    return JacobiPlan(k, m, p < q, nb, ldw, k, -(-tiles // per_slice), per_slice)
+
+
+def jacobi_tournament(n: int) -> list[list[tuple[int, int]]]:
+    """The round-robin tournament of n players (n even): n - 1 rounds of
+    n / 2 disjoint pairs, every pair once (csrc/jacobi_svd.cu's
+    `tournament_pair`)."""
+    return [[(0 if i == 0 else 1 + (i - 1 + r) % (n - 1), 1 + (n - 2 - i + r) % (n - 1)) for i in range(n // 2)]
+            for r in range(n - 1)]
+
+
+def jacobi_inner_rounds(first: bool) -> list[list[tuple[int, int]]]:
+    """The rounds of a pair's inner sweep over its 2 JACOBI_BLOCK indices:
+    at the first round of an outer sweep every pair of them (the
+    tournament's 2b - 1 rounds), at the others the b^2 pairs across the two
+    blocks only (b rounds, index i of the first block with b + (i + r) mod b
+    of the second), so that a sweep rotates every pair of columns once, the
+    cyclic Jacobi ordering by blocks (csrc/jacobi_svd.cu's `inner_pair`)."""
+    b = JACOBI_BLOCK
+    if first:
+        return jacobi_tournament(2 * b)
+    return [[(i, b + (i + r) % b) for i in range(b)] for r in range(b)]
+
+
+def jacobi_tol(m: int, dtype: torch.dtype) -> float:
+    """The rotation test's tolerance: a pair of columns p, q of the tall
+    form rotates where |w_p . w_q| > tol ||w_p|| ||w_q||; sqrt(m) eps, as
+    LAPACK's gesvj."""
+    return math.sqrt(m) * torch.finfo(dtype).eps
+
+
+def _inner_schedule(rounds, device) -> tuple[list, torch.Tensor]:
+    """`rounds` (:func:`jacobi_inner_rounds`) on `device`: each round's first
+    and second indices, and the (n, n) mask of the pairs the sweep tests."""
+    pairs = torch.tensor(rounds, device=device)  # (rounds, n / 2, 2)
+    n = 2 * pairs.shape[1]
+    tested = torch.zeros((n, n), dtype=torch.bool, device=device)
+    tested[pairs[..., 0], pairs[..., 1]] = True
+    return [(rnd[:, 0], rnd[:, 1]) for rnd in pairs], tested | tested.mT
+
+
+def _inner_sweep(g: torch.Tensor, tol: float, angle: torch.dtype, schedule) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sweep of cyclic Jacobi over each of the symmetric (n, n) float64
+    matrices g (pairs, n, n), in place, in the order of `schedule`
+    (:func:`_inner_schedule`: n / 2 disjoint rotations a round), each
+    rotation where |g_pq| > tol sqrt(g_pp) sqrt(g_qq), t = e / (d + sign(d)
+    hypot(d, e)) with d = g_qq - g_pp, e = 2 g_pq, in the dtype `angle` (the
+    input's), c = rsqrt(1 + t^2), s = c t in float64; returns the
+    accumulated rotation R (g's old value is R^T g R) and whether each
+    matrix rotated. The kernel's `rotate_kernel`, the same formulas in the
+    same order (its square roots, hypot and rsqrt are the card's)."""
+    rounds, tested = schedule
+    pairs, n, _ = g.shape
+    r = torch.eye(n, dtype=g.dtype, device=g.device).expand(pairs, n, n).clone()
+    diag = g.diagonal(dim1=1, dim2=2).sqrt()
+    rotated = torch.zeros(pairs, dtype=torch.bool, device=g.device)
+    if not bool(((g.abs() > tol * diag[:, :, None] * diag[:, None, :]) & tested).any()):
+        return r, rotated  # no pair of the sweep passes the test: it rotates nothing
+    for ip, iq in rounds:
+        al, be, ga = g[:, ip, ip], g[:, iq, iq], g[:, ip, iq]
+        rot = ga.abs() > tol * al.sqrt() * be.sqrt()
+        if not bool(rot.any()):  # a round that rotates nothing changes nothing
+            continue
+        rotated |= rot.any(dim=1)
+        d, e = (be - al).to(angle), (2.0 * ga).to(angle)
+        t = torch.where(rot, (e / (d + torch.copysign(torch.hypot(d, e), d))).to(torch.float64), 0.0)
+        c = torch.rsqrt(1.0 + t * t)
+        s = c * t
+        gp, gq = g[:, :, ip], g[:, :, iq]
+        g[:, :, ip], g[:, :, iq] = c[:, None, :] * gp - s[:, None, :] * gq, s[:, None, :] * gp + c[:, None, :] * gq
+        c, s = c[..., None], s[..., None]
+        gp, gq, rp, rq = g[:, ip, :], g[:, iq, :], r[:, ip, :], r[:, iq, :]
+        g[:, ip, :], g[:, iq, :] = c * gp - s * gq, s * gp + c * gq
+        r[:, ip, :], r[:, iq, :] = c * rp - s * rq, s * rp + c * rq
+        g[:, ip, ip], g[:, iq, iq] = al - t * ga, be + t * ga
+        zero = torch.where(rot, 0.0, ga)
+        g[:, ip, iq], g[:, iq, ip] = zero, zero
+    return r, rotated
+
+
+def _jacobi_torch(a: torch.Tensor):
+    """(u, s, vh, sweeps) of :func:`jacobi_svd_torch`; sweeps those that
+    ran, the last one the sweep without a rotation (or JACOBI_SWEEPS)."""
+    p, q = a.shape
+    plan = jacobi_plan(p, q, 1)  # the slices of the Grams are the kernel's alone
+    dtype, device, b = a.dtype, a.device, JACOBI_BLOCK
+    k, rows = plan.k, plan.nb * b
+    wt = torch.zeros((rows, plan.m), dtype=dtype, device=device)
+    wt[:k] = a if plan.wide else a.mT
+    vt = torch.zeros((rows, k), dtype=dtype, device=device)
+    vt[:k] = torch.eye(k, dtype=dtype, device=device)
+    tol = jacobi_tol(plan.m, dtype)
+    block = torch.arange(b, device=device)
+    rounds = [torch.tensor(rnd, device=device) for rnd in jacobi_tournament(plan.nb)]
+    inner = [_inner_schedule(jacobi_inner_rounds(first), device) for first in (True, False)]
+    sweeps = 0
+    for _ in range(JACOBI_SWEEPS):
+        sweeps += 1
+        any_rotated = False
+        for ri, rnd in enumerate(rounds):
+            idx = (rnd[:, :, None] * b + block).reshape(len(rnd), 2 * b)
+            x, y = wt[idx], vt[idx]
+            r, rotated = _inner_sweep((x @ x.mT).to(torch.float64), tol, dtype, inner[ri > 0])
+            if bool(rotated.any()):
+                any_rotated = True
+                r, keep = r.to(dtype), rotated[:, None, None]
+                wt[idx] = torch.where(keep, r @ x, x)
+                vt[idx] = torch.where(keep, r @ y, y)
+        if not any_rotated:
+            break
+    sig = torch.linalg.vector_norm(wt[:k].to(torch.float64), dim=1).to(dtype)
+    order = torch.sort(sig, descending=True, stable=True).indices
+    s = sig[order]
+    wn = torch.where(s[:, None] > 0, wt[order] / s[:, None], torch.zeros((), dtype=dtype, device=device))
+    vs = vt[order]
+    u, vh = (vs.mT, wn) if plan.wide else (wn.mT, vs)
+    return u, s, vh, sweeps
+
+
+def jacobi_svd_torch(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`jacobi_svd`, on any device: the same
+    blocks, tournament, rotation test, inner rounds and cap in torch ops (the
+    Grams as batched products, so other sums than the kernel's). It stops
+    at the first sweep without a rotation, as the kernel's later launches
+    do nothing. A column of U made from a zero singular value is zero."""
+    _matrix(a, "jacobi_svd_torch")
+    if min(a.shape) < 1:
+        raise ValueError(f"jacobi_svd_torch takes a matrix with both sides >= 1, got {tuple(a.shape)}")
+    u, s, vh, _sweeps = _jacobi_torch(a)
+    return u, s, vh
+
+
+_CAPPED: dict = {}
+
+
+def jacobi_capped(device: torch.device) -> torch.Tensor:
+    """The 0-d int32 count on `device` of the Jacobi SVD's calls that
+    stopped at JACOBI_SWEEPS sweeps without converging (an approximate
+    answer): each such call, a graph's replays too, adds one on the card.
+    It is kept across calls and read by whoever reads anything else
+    (`baselines.device_loop.run` at each segment's end); set it to 0 with
+    `zero_()`. Made, as 0, at its first use, which a capture may not be."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device.index not in _CAPPED:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("jacobi_capped: make the count (an eager call) before a capture")
+        _CAPPED[device.index] = torch.zeros((), dtype=torch.int32, device=device)
+    return _CAPPED[device.index]
+
+
+@functools.cache
+def _jacobi_library():
+    lib = _library()
+    if (lib.tritd_jacobi_block(), lib.tritd_jacobi_tile()) != (JACOBI_BLOCK, JACOBI_TILE):
+        raise RuntimeError(f"the library's Jacobi SVD has blocks of {lib.tritd_jacobi_block()} and tiles of "
+                           f"{lib.tritd_jacobi_tile()}, this module assumes {JACOBI_BLOCK} and {JACOBI_TILE}")
+    return lib
+
+
+def jacobi_svd_with_sweeps(a: torch.Tensor):
+    """(u, s, vh, sweeps) of :func:`jacobi_svd`, sweeps a 0-d int32 on the
+    card: the sweeps that ran (JACOBI_SWEEPS if it did not converge, which
+    :func:`jacobi_capped` counts)."""
+    _matrix(a, "jacobi_svd")
+    if a.device.type != "cuda" or not a.is_contiguous():
+        raise ValueError(f"jacobi_svd takes a contiguous CUDA tensor, got one on {a.device} "
+                         f"(contiguous {a.is_contiguous()})")
+    p, q = a.shape
+    if not 1 <= min(p, q) <= SVD_JACOBI_MAX_K:
+        raise ValueError(f"jacobi_svd takes a thin side of 1 to {SVD_JACOBI_MAX_K}, got {tuple(a.shape)}")
+    plan = jacobi_plan(p, q, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    capped = jacobi_capped(a.device)
+    k, m, rows, pairs, dtype, device = plan.k, plan.m, plan.nb * JACOBI_BLOCK, plan.nb // 2, a.dtype, a.device
+    tag = _TAGS[dtype]
+    lib = _jacobi_library()
+    with torch.cuda.device(device):
+        empty = functools.partial(torch.empty, dtype=dtype, device=device)
+        wt, vt = empty((rows, plan.ldw)), empty((rows, plan.ldv))
+        partial, rmat, sig = empty((pairs, plan.slices, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK)), empty(
+            (pairs, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK)), empty(k)
+        flags = torch.empty(pairs + 3, dtype=torch.int32, device=device)
+        s, wn, vs = empty(k), empty((k, m)), empty((k, k))
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        err = getattr(lib, f"tritd_jacobi_svd_{tag}")(
+            a.data_ptr(), p, q, wt.data_ptr(), plan.ldw, vt.data_ptr(), plan.ldv, partial.data_ptr(),
+            rmat.data_ptr(), flags.data_ptr(), flags[pairs:].data_ptr(), capped.data_ptr(), sig.data_ptr(),
+            s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb, plan.slices, plan.per_slice, JACOBI_SWEEPS,
+            jacobi_tol(m, dtype), stream)
+    if err:
+        from ..runtime import kernels
+
+        kernels.check(err, f"jacobi_svd[{tag}] launch")
+    JACOBI_LAUNCHES[f"jacobi_svd[{tag}]"] += 1
+    u, vh = (vs.mT, wn) if plan.wide else (wn.mT, vs)
+    return u, s, vh, flags[pairs + 2]
+
+
+def jacobi_svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u, s, vh) as `torch.linalg.svd(a, full_matrices=False)`, by the
+    hand-written one-sided Jacobi SVD (`csrc/jacobi_svd.cu`): a
+    contiguous float32 or float64 CUDA matrix whose thin side is at most
+    SVD_JACOBI_MAX_K; it raises on anything else (the plain version,
+    :func:`jacobi_svd_torch`, runs anywhere). One call is one launch of
+    the kernel family (JACOBI_LAUNCHES), a fixed sequence of launches on
+    torch's current stream that reads nothing back, so a CUDA graph can
+    capture it. Singular values descending; the vectors of a zero one are
+    zero on the side made from the tall form's columns."""
+    u, s, vh, _sweeps = jacobi_svd_with_sweeps(a)
     return u, s, vh
 
 

@@ -115,7 +115,10 @@ SOFIA_LAUNCHES = {f"{name}[{dt}]": 0 for name in ("pinv_rows", "mode3_sweep", "g
 # kernel of this package, counted the same way (a graph's replays too).
 LINALG_CALLS = {f"{name}[{dt}]": 0 for name in ("xsyevbatched", "xsyevd", "gesvdj")
                 for dt in ("f32", "f64")}
-_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES, LINALG_CALLS)
+# Launches of the hand-written Jacobi SVD (`ops/device_linalg.py::jacobi_svd`,
+# `csrc/jacobi_svd.cu`), by dtype: one a call, its whole sequence of sweeps.
+JACOBI_SVD_LAUNCHES = {f"jacobi_svd[{dt}]": 0 for dt in ("f32", "f64")}
+_COUNTS = (LAUNCHES, POINTER_LAUNCHES, BATCH_LAUNCHES, SOFIA_LAUNCHES, LINALG_CALLS, JACOBI_SVD_LAUNCHES)
 
 
 def reset_launch_counts() -> None:

@@ -46,10 +46,11 @@ The routing constants keep the reference's values: they decide which route
 runs, and so what the result is.
 
 On a CUDA tensor every eigh and SVD goes through :mod:`.device_linalg`
-(cuSOLVER with its `info` left on the card: a CUDA graph can capture an
-eigh up to n = 512, no larger one and no SVD, so the "svd" route is in
-UNCAPTURED_METHODS and :func:`captures` tells a loop which routes and
-shapes a graph can hold); on the CPU through `torch.linalg`, as before. The randomized route's QRs stay
+(cuSOLVER with its `info` left on the card, and the hand-written Jacobi
+SVD: a CUDA graph can capture an eigh up to n = 512 and an SVD up to a thin
+side of `device_linalg.SVD_JACOBI_MAX_K`, no larger one, and :func:`captures`
+tells a loop which routes and shapes a graph can hold); on the CPU through
+`torch.linalg`, as before. The randomized route's QRs stay
 `torch.linalg.qr`, which captures and replays bitwise.
 A loop that runs an SVT route under a CUDA graph draws the randomized
 route's sketch before the loop (:func:`_sketch_for`) and passes it in: the
@@ -71,22 +72,18 @@ LOWRANK_MIN_DIM = 2048
 LOWRANK_BUDGET = 1024
 #: Seed of the randomized path's sketch; each shape folds its own offset in.
 LOWRANK_SEED = 20260821
-#: SVT routes that a CUDA graph cannot capture: a loop that runs one takes
-#: the eager loop on the card, chosen before any capture
-#: (`baselines/device_loop.py::route`). "svd": cuSOLVER's SVD drivers
-#: (gesvdj, gesvd, gesvdp) read back to the host inside the call at every
-#: size the baselines cut (`tools/capture_linalg`).
-UNCAPTURED_METHODS: tuple[str, ...] = ("svd",)
 
 
 def captures(method: str, shapes) -> bool:
     """Whether a CUDA graph can capture the SVT route `method` on a matrix
-    of each of `shapes`: a route not in UNCAPTURED_METHODS whose eighs (the
-    thin side's Gram; the randomized route's budget x budget matrix) are
-    all of a size `device_linalg.eigh_captures`. A loop that runs an SVT
-    route asks before its capture (`baselines/device_loop.py::route`)."""
-    if method in UNCAPTURED_METHODS:
-        return False
+    of each of `shapes`: the "svd" route where every SVD is of a shape
+    `device_linalg.svd_captures` (the Jacobi SVD's; gesvdj past it reads
+    back to the host), any other where its eighs (the thin side's Gram; the
+    randomized route's budget x budget matrix) are all of a size
+    `device_linalg.eigh_captures`. A loop that runs an SVT route asks
+    before its capture (`baselines/device_loop.py::route`)."""
+    if method == "svd":
+        return all(device_linalg.svd_captures(*shape) for shape in shapes)
     for shape in shapes:
         side, resolved = min(shape), (method if method.startswith("warm") else _resolve(method, shape))
         if resolved.startswith("lowrank"):

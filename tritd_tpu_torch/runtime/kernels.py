@@ -7,8 +7,9 @@ its batched entry (`..._batch`) takes the entry count after n and the
 penalties as addresses of arrays of one value an entry. SOFIA's kernels
 (`csrc/sofia_kernels.cu`, :mod:`tritd_tpu_torch.ops.sofia_kernels`) take
 their counts as `c_int64`, the rank as `c_int` and their scalars by value;
-the cuSOLVER entries of `csrc/device_linalg.cu`
-(:mod:`tritd_tpu_torch.ops.device_linalg`) are declared by `_bind_linalg`.
+the cuSOLVER entries of `csrc/device_linalg.cu` and the Jacobi SVD's of
+`csrc/jacobi_svd.cu` (:mod:`tritd_tpu_torch.ops.device_linalg`) are
+declared by `_bind_linalg` and `_bind_jacobi`.
 Loading the library builds it, so the first CUDA call pays the nvcc
 compile; importing this module does not.
 """
@@ -83,7 +84,26 @@ def bind(path, variants=None) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
     if hasattr(lib, "tritd_linalg_create"):  # not in a library built from an earlier revision
         _bind_linalg(lib)
+    if hasattr(lib, "tritd_jacobi_block"):  # not in a library built from an earlier revision
+        _bind_jacobi(lib)
     return lib
+
+
+def _bind_jacobi(lib: ctypes.CDLL) -> None:
+    """The Jacobi SVD's entry points of `csrc/jacobi_svd.cu`: pointers and
+    the stream `c_void_p`, sizes `c_int64`, the plan's counts `c_int`, the
+    tolerance `c_double`; each launcher returns `cudaGetLastError()`."""
+    i64, i32 = ctypes.c_int64, ctypes.c_int
+    for name in ("tritd_jacobi_block", "tritd_jacobi_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    for tag in ("f32", "f64"):
+        fn = getattr(lib, f"tritd_jacobi_svd_{tag}")
+        # a, p, q, wt, ldw, vt, ldv, partial, rmat, rotated, state, capped, sig, s, wn, vs, nb, slices,
+        # per_slice, sweeps, tol, stream
+        fn.argtypes = [_P, i64, i64, _P, i64, _P, i64, _P, _P, _P, _P, _P, _P, _P, _P, _P, i32, i32, i32, i32,
+                       ctypes.c_double, _P]
+        fn.restype = i32
 
 
 def _bind_linalg(lib: ctypes.CDLL) -> None:

@@ -3,15 +3,21 @@ baselines' sizes: the probe behind `ops/device_linalg.py`'s choice of
 driver.
 
 Two parts. First the binding itself (`eigh` at each n in f32 and f64, `svd`
-in f32), each size in the driver `device_linalg` takes there, one JSON line
-a size: the driver, the device and host workspace bytes its `*_bufferSize`
+in f32: its gesvdj row and the hand-written Jacobi SVD's, `jacobi`, which
+`device_linalg` takes at these shapes), each size in the driver
+`device_linalg` takes there, one JSON line a size: the driver, the device and host workspace bytes its `*_bufferSize`
 asks for (a host workspace means host work inside the call), whether a
 `torch.cuda.CUDAGraph` capture of the call succeeds (the error text if
 not), whether a replay gives the eager call's bits (twice), the eager and
 replay µs (CUDA events around `--reps` calls), the µs of
 `torch.linalg.eigh` / `svd` on the same matrix and whether the binding
 gives its bits, the largest |Δλ| (|Δs|) / ||A|| against torch's result and
-both reconstruction errors ||V diag(w) V^T - A|| / ||A||. Then captures of
+both reconstruction errors ||V diag(w) V^T - A|| / ||A||; for the Jacobi
+SVD also the sweeps it ran, one replay's device time by kernel (a
+torch.profiler trace) and the replay µs and sweeps of a matrix whose
+columns are already orthogonal (U S of the first call: few sweeps rotate,
+the other sweeps' launches return at once, so the cost of the sweeps
+after convergence). Then captures of
 `torch.linalg.qr` at the randomized route's sizes (bitwise replays), of
 `torch.linalg.eigh` and `svd` themselves (the error text), and which
 libcusolver file serves the binding (`dladdr`) beside the cuSOLVER files
@@ -35,6 +41,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -115,18 +122,25 @@ def _linalg_case(op: str, shape, dtype, reps: int) -> dict:
         torch_call = lambda: torch.linalg.eigh(a)  # noqa: E731
     else:
         a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
-        driver, key = device_linalg.svd_driver(*shape, dtype), tuple(shape)
-        call = lambda: device_linalg.svd_with_info(a)  # noqa: E731
+        if op == "jacobi":  # the hand-written Jacobi SVD; its last output the sweeps it ran
+            driver, key = "jacobi", None
+            call = lambda: device_linalg.jacobi_svd_with_sweeps(a)  # noqa: E731
+        else:
+            driver, key = "gesvdj", tuple(shape)
+            call = lambda: device_linalg.svd_with_info(a)  # noqa: E731
         torch_call = lambda: torch.linalg.svd(a, full_matrices=False)  # noqa: E731
     row = {"op": op, "driver": driver, "shape": list(a.shape), "dtype": str(dtype).removeprefix("torch.")}
     eager = call()
     torch.cuda.synchronize()
-    sizes = device_linalg._device(a.device).sizes[(driver, dtype, key)]
-    if isinstance(sizes, tuple):
-        row["device_workspace_bytes"], row["host_workspace_bytes"] = sizes
+    if op == "jacobi":
+        row["sweeps"] = int(eager[-1])
     else:
-        row["device_workspace_bytes"], row["host_workspace_bytes"] = sizes * a.element_size(), 0
-    row["info"] = int(eager[-1])
+        sizes = device_linalg._device(a.device).sizes[(driver, dtype, key)]
+        if isinstance(sizes, tuple):
+            row["device_workspace_bytes"], row["host_workspace_bytes"] = sizes
+        else:
+            row["device_workspace_bytes"], row["host_workspace_bytes"] = sizes * a.element_size(), 0
+        row["info"] = int(eager[-1])
     want = torch_call()
     row["bitwise_torch"] = _same(eager[:-1], want)
     norm = torch.linalg.matrix_norm(a)
@@ -136,7 +150,7 @@ def _linalg_case(op: str, shape, dtype, reps: int) -> dict:
         row["max_dlambda_rel"] = _rel((w - want[0]).abs().max(), norm)
         row["recon_rel"] = _rel(torch.linalg.matrix_norm((v * w) @ v.T - a), norm)
         row["torch_recon_rel"] = _rel(torch.linalg.matrix_norm((want[1] * want[0]) @ want[1].T - a), norm)
-    else:
+    else:  # svd, jacobi
         u, s, vh = eager[:3]
         row["finite"] = bool(torch.isfinite(s).all() and torch.isfinite(u).all() and torch.isfinite(vh).all())
         row["max_ds_rel"] = _rel((s - want[1]).abs().max(), norm)
@@ -159,7 +173,34 @@ def _linalg_case(op: str, shape, dtype, reps: int) -> dict:
         torch.cuda.synchronize()
         row[key] = _same(captured[:-1], eager[:-1])
     row["replay_us"] = _events_us(graph.replay, reps)
+    if op == "jacobi":
+        row["kernels"] = _by_kernel(graph)
+        u, s, vh = eager[:3]
+        done = ((u * s) if a.shape[0] >= a.shape[1] else (s[:, None] * vh)).contiguous()
+        floor, out, _err = _capture(lambda: device_linalg.jacobi_svd_with_sweeps(done))
+        floor.replay()
+        torch.cuda.synchronize()
+        row["converged_input_sweeps"] = int(out[-1])
+        row["converged_input_replay_us"] = _events_us(floor.replay, reps)
     return row
+
+
+def _by_kernel(graph) -> list[dict]:
+    """One replay of `graph` by kernel, from a torch.profiler trace of the
+    card: calls, device ms and µs a call, the longest first."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        ms = (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)) / 1e3
+        if e.count:  # "void (anonymous namespace)::rotate_kernel<float>(...)" -> rotate_kernel
+            found = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key.split("::")[-1])
+            rows.append({"kernel": found.group(1) if found else e.key[:60], "calls": e.count, "ms": ms,
+                         "us_a_call": ms * 1e3 / e.count})
+    return sorted(rows, key=lambda r: -r["ms"])
 
 
 def _torch_cases(reps: int) -> list[dict]:
@@ -220,13 +261,14 @@ def _worker(group: str, reps: int) -> None:
     op, tag = group.split(":")
     dtype = {"f32": torch.float32, "f64": torch.float64}[tag]
     for shape in ([(n,) for n in EIGH_SIZES] if op == "eigh" else SVD_SHAPES):
-        try:
-            row = _linalg_case(op, shape, dtype, reps)
-        except Exception as err:  # one size's failure is a finding, not the end of the group
-            torch.cuda.synchronize()
-            row = {"op": op, "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-                   "error": f"{type(err).__name__}: {str(err)[:300]}"}
-        print("CASE " + json.dumps(row), flush=True)
+        for case in ("jacobi", "svd") if op == "svd" else (op,):
+            try:
+                row = _linalg_case(case, shape, dtype, reps)
+            except Exception as err:  # one size's failure is a finding, not the end of the group
+                torch.cuda.synchronize()
+                row = {"op": case, "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+                       "error": f"{type(err).__name__}: {str(err)[:300]}"}
+            print("CASE " + json.dumps(row), flush=True)
 
 
 def _probe_drivers() -> list[dict]:

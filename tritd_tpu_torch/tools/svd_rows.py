@@ -1,0 +1,97 @@
+"""What the taxi `svd` rows of the SVT baselines take on the card, in this
+tree or another: ttnn, ring and fctn with `svt_method="svd"` through
+`cli.run_completion.run_method` at the taxi stand-in (10% missing, as
+chip_smoke.py's phase 9 cuts it), float32, `--iters` iterations, ms an
+iteration by events around the call (after a 2-iteration warm-up of the
+same rows), the final RRE and the binding's calls, one JSON line a row,
+for each tree in turns (`--tree . --tree results/parent --tree
+results/parent --tree .` compares a parent in the same call), each in a
+process of its own with DIR first on sys.path, so that DIR's package runs.
+A parent without the Jacobi SVD runs these rows on gesvdj and the eager
+loop.
+
+    python -m tritd_tpu_torch.tools.svd_rows --tree . [--tree results/parent] [--iters 100]
+
+Needs a CUDA device (and nvcc, for the kernels' first build). Prints the
+card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+ROW_METHODS = ("ttnn", "ring", "fctn")
+
+_ROWS = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import tritd_tpu_torch
+from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
+from tritd_tpu_torch.cli.run_completion import run_method
+from tritd_tpu_torch.data import load_dataset, uniform_missing_mask
+from tritd_tpu_torch.metrics.recon import rre
+from tritd_tpu_torch.ops import hopper_kernels
+from tritd_tpu_torch.utils.config import README_MISSING_RATIO
+
+torch.backends.cuda.matmul.allow_tf32 = False
+iters, methods = int(sys.argv[2]), sys.argv[3].split(",")
+x_np, spec, _prov = load_dataset("taxi")
+mask = torch.as_tensor(uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO), device="cuda")
+x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+y = torch.where(mask, x, torch.zeros_like(x))
+precompute_freedom_ratio(y, mask)
+for method in methods:  # the library's build and set-up outside the times
+    run_method(method, y, x, mask, spec, torch.Generator().manual_seed(0), 2, svt_method="svd")
+counts = [hopper_kernels.LINALG_CALLS] + [getattr(hopper_kernels, "JACOBI_SVD_LAUNCHES", {})]
+for method in methods:
+    hopper_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    x_hat, _o, hist = run_method(method, y, x, mask, spec, torch.Generator().manual_seed(0), iters, svt_method="svd")
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    print("ROW " + json.dumps({"tree": sys.argv[1], "package": tritd_tpu_torch.__file__, "method": method,
+                               "iters": iters, "ms_per_iter": ms / iters, "rre": float(rre(x_hat, x)),
+                               "calls": {k: n for c in counts for k, n in c.items() if n}}), flush=True)
+"""
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def rows(trees: list, iters: int) -> None:
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", _ROWS, str(Path(tree).resolve()), str(iters),
+                               ",".join(ROW_METHODS)], capture_output=True, text=True, timeout=1800)
+        got = [line[4:] for line in proc.stdout.splitlines() if line.startswith("ROW ")]
+        if proc.returncode or len(got) != len(ROW_METHODS):
+            raise SystemExit(f"rows of {tree}: exit {proc.returncode}\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        for line in got:
+            print(line, flush=True)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", action="append", help="a tree whose tritd_tpu_torch runs the rows (repeatable)")
+    parser.add_argument("--iters", type=int, default=100)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("svd_rows needs a CUDA device")
+    print(_card(), flush=True)
+    rows(args.tree or ["."], args.iters)
+
+
+if __name__ == "__main__":
+    main()
