@@ -129,11 +129,15 @@ Phases, each of which fails the run by raising:
      unfolding in float32 and float64 against torch.linalg.svd in float64
      (JACOBI_LIMITS s_max on singular values, reconstruction and vectors
      over their gap, orthonormal within sqrt(m) eps more; short of its cap
-     of sweeps), a captured call replayed twice bitwise, timed beside its
-     bound and
-     torch.linalg.svd, and its plain version on the same inputs in the CPU
-     pool, held the same way and to the kernel's singular values when it
-     returns ("9 checks", after phase 25); then the SVT
+     of sweeps), its launches a call (each of JACOBI_KERNELS once, by the
+     library's own launch counts), a captured call replayed twice bitwise, timed beside
+     its bound and torch.linalg.svd, and its plain version on the same
+     inputs in the CPU pool, held the same way and to the kernel's singular
+     values when it returns ("9 checks", after phase 25); the kernel's
+     sweeps on the spectra its cap was read from (tools/jacobi_sweeps:
+     graded, clustered, rank-deficient at the taxi tall forms, normal
+     5000 x 1000 and 5000 x 1024; each converged, within JACOBI_LIMITS of
+     torch.linalg.svd in float64); then the SVT
      baselines (ttnn, ring, fctn) through run_method at the full taxi shape,
      10% missing, svd, gram and warm:8, 100 iterations on the graph route
      of baselines/device_loop.py (the card's default; gram's err_hist
@@ -2049,6 +2053,7 @@ def _jacobi_kernel(y: torch.Tensor) -> tuple:
     check that collects the plain version's runs, holds the kernel's
     singular values to theirs and fills in max_abs_err and plain_ms."""
     from tritd_tpu_torch.ops import device_linalg
+    from tritd_tpu_torch.tools import jacobi_sweeps
 
     records, pending = {}, []
     for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
@@ -2070,6 +2075,9 @@ def _jacobi_kernel(y: torch.Tensor) -> tuple:
             kernel = _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[dtype])
             if not int(sweeps) < device_linalg.JACOBI_SWEEPS:
                 raise AssertionError(f"{label}: stopped at its cap of {int(sweeps)} sweeps unconverged")
+            a_call = jacobi_sweeps.kernels_a_call(lambda: device_linalg.jacobi_svd(a))
+            if a_call != dict.fromkeys(device_linalg.JACOBI_KERNELS, 1):
+                raise AssertionError(f"{label}: a call launched {a_call}, not each of JACOBI_KERNELS once")
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -2093,9 +2101,10 @@ def _jacobi_kernel(y: torch.Tensor) -> tuple:
                                     JACOBI_EPS_FACTOR * min(p, q) * torch.finfo(dtype).eps)
             bound_ms, bound_by = _jacobi_bound(p, q, dtype)
             shapes[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                            "sweeps": int(sweeps), "s": s.cpu().numpy(),
+                            "sweeps": int(sweeps), "launches_a_call": sum(a_call.values()), "s": s.cpu().numpy(),
                             "limit": 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])}
-            print(f"{label}: {int(sweeps)} sweeps; kernel {ms:.3f} ms, torch.linalg.svd (gesvdj) {library_ms:.3f} ms, "
+            print(f"{label}: {int(sweeps)} sweeps, {sum(a_call.values())} launches a call; "
+                  f"kernel {ms:.3f} ms, torch.linalg.svd (gesvdj) {library_ms:.3f} ms, "
                   f"bound {bound_ms:.4f} ms by {bound_by} (events); against torch.linalg.svd in float64 (ds/s_max, "
                   f"rec/(s_max sqrt k), orth, vectors x gap/s_max): kernel {_fmt(kernel)}, torch {_fmt(torch_f)}; "
                   f"captured replays bitwise {replays}; {CARD[0]}", flush=True)
@@ -2125,6 +2134,29 @@ def _jacobi_kernel(y: torch.Tensor) -> tuple:
 
 def _fmt(d: dict) -> str:
     return "{" + ", ".join(f"{k} {v:.2e}" for k, v in d.items()) + "}"
+
+
+def _jacobi_spectra() -> None:
+    """The kernel's sweeps on the spectra its cap was set from
+    (`tools/jacobi_sweeps`: graded, clustered and rank-deficient at
+    5000 x 1000, the tall form that took the most sweeps, and standard
+    normal 5000 x 1000 and 5000 x 1024; `tools/jacobi_sweeps --device cuda`
+    reads every case), float32 and float64: each converged under
+    JACOBI_SWEEPS, its singular values within JACOBI_LIMITS s_max of
+    torch.linalg.svd's in float64."""
+    from tritd_tpu_torch.tools import jacobi_sweeps
+
+    t0 = time.perf_counter()
+    matrices = jacobi_sweeps.cases(("graded", "clustered", "rank-def", "thin"), shapes=((5000, 1000),))
+    made = time.perf_counter() - t0
+    for record in jacobi_sweeps.measure(matrices, (torch.float32, torch.float64), "cuda"):
+        dtype = getattr(torch, record["dtype"])
+        if not record["converged"] or record["ds_over_smax"] > JACOBI_LIMITS[dtype]:
+            raise AssertionError(f"phase9 jacobi_svd on {record['case']} {record['dtype']}: {record}")
+        print(f"phase9 jacobi_svd[{record['dtype']}] {record['case']}: {record['sweeps']} sweeps (cap "
+              f"{record['cap']}), |ds|/s_max {record['ds_over_smax']:.2e}, {record['seconds'] * 1e3:.1f} ms a call "
+              f"with its read of the sweeps; {CARD[0]}", flush=True)
+    print(f"phase9 jacobi_svd spectra: matrices made on the host in {made:.1f} s", flush=True)
 
 
 def _eager_row(method: str, svt_method: str) -> bool:
@@ -2198,6 +2230,7 @@ def phase9() -> tuple:
 
     _hold_linalg_drivers(y)
     records, jacobi_check = _jacobi_kernel(y)
+    _jacobi_spectra()
     # ring's host float64 ranks, once: the solves below find them cached
     t0 = time.perf_counter()
     precompute_freedom_ratio(y, mask)

@@ -1561,7 +1561,7 @@ def test_a_jacobi_svd_stopped_at_its_cap_is_counted_and_fails_the_loop(cuda_devi
     monkeypatch.setattr(device_linalg, "JACOBI_SWEEPS", 1)
     _u, _s, _vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
     assert int(sweeps) == 1 and int(capped) == 1
-    _captured(lambda: device_linalg.jacobi_svd(a))
+    _captured(lambda: device_linalg.jacobi_svd_with_sweeps(a))  # jacobi_svd's eager call would raise
     assert int(capped) == 3  # the eager call before the capture and the replay
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((12, 10, 16))).float().to(cuda_device)
     with pytest.raises(RuntimeError, match="stopped at 1 sweeps"):
@@ -1569,9 +1569,86 @@ def test_a_jacobi_svd_stopped_at_its_cap_is_counted_and_fails_the_loop(cuda_devi
 
 
 @pytest.mark.cuda
+def test_an_eager_jacobi_svd_at_its_cap_raises(cuda_device, monkeypatch):
+    """The first departure from the reference's jnp.linalg.svd, which
+    returns unconverged factors: an eager call on the card that stops at
+    its cap still rotating reads its flag and raises, naming the cap; the
+    same call under a capture reads nothing and only counts (the second
+    departure: its loop raises at the segment's end,
+    test_a_jacobi_svd_stopped_at_its_cap_is_counted_and_fails_the_loop);
+    inside `caller_reads_the_cap` it reads nothing either; a converged
+    call returns."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    a = torch.randn((300, 40), generator=torch.Generator(device=cuda_device).manual_seed(3), device=cuda_device)
+    device_linalg.jacobi_svd(a)
+    monkeypatch.setattr(device_linalg, "JACOBI_SWEEPS", 2)
+    capped = device_linalg.jacobi_capped(cuda_device)
+    capped.zero_()
+    with pytest.raises(RuntimeError, match="stopped at its cap of 2 sweeps"):
+        device_linalg.jacobi_svd(a)
+    with device_linalg.caller_reads_the_cap():
+        device_linalg.jacobi_svd(a)
+    assert int(capped) == 2
+    device_linalg.jacobi_svd(torch.eye(40, device=cuda_device))  # converges in one sweep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["graded", "clustered", "rank-def", "normal"])
+def test_jacobi_svd_on_the_cap_readings_spectra(cuda_device, case, dtype):
+    """The kernel on the spectra its cap was set from (`tools/jacobi_sweeps`;
+    "normal": a standard normal matrix) at 3000 x 300, against its plain
+    version on the same tensor and torch.linalg.svd in float64
+    (`_svd_held`, JACOBI_LIMITS): it converges under the cap, as the plain
+    version does, their singular values within twice the limit."""
+    from tritd_tpu_torch.ops import device_linalg
+    from tritd_tpu_torch.tools import jacobi_sweeps
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "normal":
+        a_np = rng.standard_normal((3000, 300))
+    else:
+        a_np = jacobi_sweeps._with_spectrum(3000, 300, jacobi_sweeps.spectrum(case, 300, np.finfo(np.float64).eps), rng)
+    a = torch.from_numpy(a_np).to(dtype).to(cuda_device)
+    ref = torch.linalg.svd(a.double(), full_matrices=False)
+    u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+    _pu, ps, _pvh, plain_sweeps = device_linalg._jacobi_torch(a)
+    assert 1 < int(sweeps) < device_linalg.JACOBI_SWEEPS and plain_sweeps < device_linalg.JACOBI_SWEEPS
+    _svd_held(a, u, s, vh, ref)
+    assert float((s.double() - ps.double()).abs().max()) <= 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_a_jacobi_svd_call_is_five_launches(cuda_device, dtype):
+    """One call is one count in JACOBI_SVD_LAUNCHES and, by the library's
+    own launch counts (`tritd_jacobi_launches`), the five kernels of
+    `device_linalg.JACOBI_KERNELS`, each once, whatever its sweeps: they
+    run in one launch."""
+    from tritd_tpu_torch.ops import device_linalg
+    from tritd_tpu_torch.tools import jacobi_sweeps
+
+    a = torch.randn((2000, 200), generator=torch.Generator(device=cuda_device).manual_seed(4), device=cuda_device,
+                    dtype=dtype)
+    device_linalg.jacobi_svd(a)
+    hopper_kernels.reset_launch_counts()
+    assert jacobi_sweeps.kernels_a_call(lambda: device_linalg.jacobi_svd(a)) == {
+        name: 1 for name in device_linalg.JACOBI_KERNELS}
+    assert hopper_kernels.JACOBI_SVD_LAUNCHES == {"jacobi_svd[f32]": int(dtype == torch.float32),
+                                                   "jacobi_svd[f64]": int(dtype == torch.float64)}
+
+
+@pytest.mark.cuda
 def test_jacobi_svd_of_a_zero_and_a_rank_one_matrix(cuda_device):
     """A zero matrix: zero singular values, its tall-side vectors zero, the
-    other side the identity (no rotation); a rank-one matrix: one value."""
+    other side the identity (no rotation); a rank-one matrix: one value.
+    This rank-one matrix (every column an exact multiple of one) is one the
+    sweeps do not converge on, the plain version's neither (ROADMAP.md,
+    queue 3): its columns of rounding noise rotate against the large one
+    in every sweep. Its values and reconstruction are read through
+    jacobi_svd_with_sweeps, which stops at the cap; the eager jacobi_svd
+    raises there."""
     from tritd_tpu_torch.ops import device_linalg
 
     u, s, vh = device_linalg.jacobi_svd(torch.zeros((70, 20), device=cuda_device))
@@ -1579,10 +1656,13 @@ def test_jacobi_svd_of_a_zero_and_a_rank_one_matrix(cuda_device):
     assert torch.equal(vh, torch.eye(20, device=cuda_device))
     x = torch.arange(1.0, 41.0, device=cuda_device, dtype=torch.float64)
     a = x[:, None] * x[None, :30]
-    u, s, vh = device_linalg.jacobi_svd(a)
+    u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
     ref = torch.linalg.svd(a, full_matrices=False)
     assert float((s - ref[1]).abs().max()) <= 1e-12 * float(ref[1][0])
     assert float(torch.linalg.matrix_norm((u * s) @ vh - a)) <= 1e-12 * float(torch.linalg.matrix_norm(a))
+    assert int(sweeps) == device_linalg.JACOBI_SWEEPS
+    with pytest.raises(RuntimeError, match="stopped at its cap"):
+        device_linalg.jacobi_svd(a)
 
 
 BASELINE_LOOP_CASES = ["ttnn gram", "ttnn warm:4", "ring gram", "ring warm:4", "fctn gram", "fctn warm:4",

@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from tritd_tpu_torch.baselines import device_loop  # noqa: E402
 from tritd_tpu_torch.ops import device_linalg, hopper_kernels  # noqa: E402
 from tritd_tpu_torch.runtime import build, kernels  # noqa: E402
+from tritd_tpu_torch.tools import jacobi_sweeps  # noqa: E402
 
 jsvt, tsvt = (importlib.import_module(f"{p}.ops.svt") for p in ("tritd_tpu", "tritd_tpu_torch"))
 
@@ -154,6 +155,28 @@ def test_the_sweeps_stop_at_the_first_without_a_rotation():
     assert device_linalg._jacobi_torch(torch.zeros(7, 5, dtype=torch.float64))[3] == 1
 
 
+@pytest.mark.parametrize("shape", [(400, 120), (120, 400)], ids=str)
+@pytest.mark.parametrize("case", ["graded", "clustered", "rank-def"])
+def test_plain_jacobi_converges_on_the_cap_readings_spectra(case, shape):
+    """The spectra the cap was set from (`tools/jacobi_sweeps`: s_i =
+    10^(-8 i / k), groups of 8 equal values, rank k / 4 and an eps tail),
+    at a small size: the plain version converges under JACOBI_SWEEPS and
+    matches torch.linalg.svd and jnp.linalg.svd at float64 with the
+    tolerances above (vectors only where their gap exceeds 1e-6 s_max)."""
+    p, q = shape
+    k = min(shape)
+    s = jacobi_sweeps.spectrum(case, k, np.finfo(np.float64).eps)
+    a = _with_spectrum(p, q, s, sum(map(ord, case)))
+    u, sv, vh, sweeps = device_linalg._jacobi_torch(torch.from_numpy(a))
+    assert 1 < sweeps < device_linalg.JACOBI_SWEEPS
+    tu, ts, tvh = torch.linalg.svd(torch.from_numpy(a), full_matrices=False)
+    _check_against(a, (u, sv, vh), (tu.numpy(), ts.numpy(), tvh.numpy()))
+    with jax.enable_x64(True):
+        ju, js, jvh = jnp.linalg.svd(jnp.asarray(a), full_matrices=False)
+        want = (np.asarray(ju), np.asarray(js), np.asarray(jvh))
+    _check_against(a, (u, sv, vh), want)
+
+
 def _svt_input(p, q, seed):
     k = min(p, q)
     return _with_spectrum(p, q, np.concatenate([np.linspace(40.0, 6.0, k // 3), np.linspace(2.9, 0.05, k - k // 3)]),
@@ -227,19 +250,65 @@ def test_a_sweep_rotates_every_pair_of_columns_once(nb):
 @pytest.mark.parametrize("p, q", [(100, 50000), (10000, 500), (50000, 100), (5000, 1000), (1000, 5000), (500, 10000),
                                   (1, 1), (17, 3), (3, 70), (1024, 1100)])
 @pytest.mark.parametrize("sms", [132, 16])
-def test_plan_covers_the_matrix(p, q, sms):
-    """The plan covers the matrix on a card of `sms` SMs, with more slices
-    on more SMs, up to JACOBI_MAX_SLICES and the tiles."""
-    plan = device_linalg.jacobi_plan(p, q, sms)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_plan_covers_the_matrix(p, q, sms, dtype):
+    """The plan covers the matrix on a card of `sms` SMs: every tile in a
+    CTA's slice, the slice resident in one stage or cut into balanced
+    chunks of a ring of up to JACOBI_RING, a CTA's shared memory within the H100's
+    232,448 bytes, clusters of at most 16 CTAs in teams of at most 8, a
+    team a pair (or clusters of one CTA, several pairs each), at least
+    JACOBI_MIN_SLICE tiles a CTA where the matrix has them, and every CTA
+    of the grid resident at once (one an SM: the grid barrier waits for
+    all of them)."""
+    plan = device_linalg.jacobi_plan(p, q, sms, dtype)
     k, m = min(p, q), max(p, q)
     assert (plan.k, plan.m, plan.wide, plan.ldv) == (k, m, p < q, k)
     assert plan.nb % 2 == 0 and plan.nb >= 2 and plan.nb * device_linalg.JACOBI_BLOCK >= k
     assert (plan.nb - 2) * device_linalg.JACOBI_BLOCK < k
     assert plan.ldw % device_linalg.JACOBI_TILE == 0 and m <= plan.ldw < m + device_linalg.JACOBI_TILE
-    tiles = plan.ldw // device_linalg.JACOBI_TILE
-    assert (plan.slices - 1) * plan.per_slice < tiles <= plan.slices * plan.per_slice
-    assert 1 <= plan.slices <= device_linalg.JACOBI_MAX_SLICES
-    assert plan.slices >= device_linalg.jacobi_plan(p, q, 1).slices
+    tiles, pairs = plan.ldw // device_linalg.JACOBI_TILE, plan.nb // 2
+    slices = plan.cluster * plan.team
+    assert 1 <= plan.cluster <= device_linalg.JACOBI_MAX_CLUSTER and 1 <= plan.team <= device_linalg.JACOBI_MAX_TEAM
+    assert slices <= max(1, tiles // device_linalg.JACOBI_MIN_SLICE)
+    assert plan.clusters == pairs * plan.team or (plan.team == plan.cluster == 1 and plan.clusters < pairs)
+    assert plan.clusters * plan.cluster <= sms
+    per = -(-tiles // slices)
+    size = torch.finfo(dtype).bits // 8
+    row = plan.chunk * device_linalg.JACOBI_TILE + device_linalg.JACOBI_PAD
+    assert plan.smem == device_linalg.JACOBI_FIXED_SMEM[dtype] + plan.stages * 32 * row * size
+    assert plan.smem <= device_linalg.JACOBI_SMEM_LIMIT == 232448
+    if plan.stages == 1:
+        assert plan.chunk == per
+    else:
+        chunks = -(-per // plan.chunk)
+        assert 2 <= plan.stages <= device_linalg.JACOBI_RING and plan.chunk < per and (chunks - 1) * plan.chunk < per
+        assert plan.chunk >= device_linalg.JACOBI_MIN_CHUNK or plan.stages == 2 or plan.chunk == per
+        assert plan.chunk == -(-per // chunks)  # balanced
+    if sms == 132 and (p, q) in ((100, 50000), (10000, 500), (5000, 1000)):
+        assert plan.cluster * plan.clusters >= 128  # the taxi tall forms fill the card
+
+
+def test_plan_takes_the_clusters_the_card_holds():
+    """The H100 holds 7 clusters of 16, 15 of 8, 30 of 4, 66 of 2 (its SMs
+    in GPCs of 16 to 18), fewer than 132 / size: the plan fills the card
+    with the clusters it holds, in teams where it holds fewer large
+    clusters than pairs (taxi's 16 and 32), and at 32 pairs on 16 SMs takes
+    16 clusters of one CTA, two pairs each a round. `active` is
+    cudaOccupancyMaxActiveClusters on the card."""
+    held = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+    def active(cluster, _smem):
+        return held.get(cluster, 0)
+
+    for (p, q), want in {(100, 50000): (4, 7, 112), (10000, 500): (2, 4, 128), (5000, 1000): (2, 2, 128)}.items():
+        plan = device_linalg.jacobi_plan(p, q, 132, torch.float32, active)
+        assert (plan.cluster, plan.team, plan.cluster * plan.clusters) == want
+    plan = device_linalg.jacobi_plan(10000, 500, 132, torch.float32, active)
+    assert plan.stages == 1  # 20 tiles a CTA: the slice resident
+    plan = device_linalg.jacobi_plan(5000, 1000, 16, torch.float64, lambda cluster, _smem: 16 // cluster)
+    assert (plan.cluster, plan.team, plan.clusters) == (1, 1, 16)  # 32 pairs on 16 SMs
+    with pytest.raises(ValueError, match="no CTA"):
+        device_linalg.jacobi_plan(100, 50000, 132, torch.float32, lambda _cluster, _smem: 0)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -263,14 +332,50 @@ def _source():
 def test_binding_declares_every_c_entry_with_its_parameters():
     counts = {fn: 0 if params.strip() in ("", "void") else params.count(",") + 1
               for fn, params in re.findall(r"^int (tritd_\w+)\(([^)]*)\)", _source(), re.M)}
-    assert set(counts) == {"tritd_jacobi_block", "tritd_jacobi_tile", "tritd_jacobi_svd_f32", "tritd_jacobi_svd_f64"}
+    assert set(counts) == {"tritd_jacobi_block", "tritd_jacobi_tile", "tritd_jacobi_sweeps", "tritd_jacobi_fixed_smem",
+                           "tritd_jacobi_active_clusters", "tritd_jacobi_svd_f32", "tritd_jacobi_svd_f64",
+                           "tritd_jacobi_launches", "tritd_jacobi_phase_cycles"}  # the last only in a build with -DTRITD_JACOBI_TRACE
     lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in counts})
     kernels._bind_jacobi(lib)
     for name, n in counts.items():
         assert len(getattr(lib, name).argtypes) == n, name
 
 
-def test_source_constants_are_the_modules():
+def test_launch_counts_follow_jacobi_kernels():
+    """The launcher counts each kernel under its index in
+    `device_linalg.JACOBI_KERNELS` (the order `tritd_jacobi_launches`
+    reports), each once, right after that kernel's launch."""
     src = _source()
-    assert int(re.search(r"constexpr int kBlock = (\d+);", src).group(1)) == device_linalg.JACOBI_BLOCK
-    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == device_linalg.JACOBI_TILE
+    body = src[src.index("int jacobi_svd(const T* a"):]
+    body = body[:body.index("#undef TRITD_LAUNCHED")]
+    steps = re.findall(r"\b(\w+_kernel)<T>|TRITD_LAUNCHED\((\d+)\);", body)
+    kernels_ = device_linalg.JACOBI_KERNELS
+    assert steps == [s for i, name in enumerate(kernels_) for s in ((name, ""), ("", str(i)))]
+    assert int(re.search(r"kKernels = (\d+)", src).group(1)) == len(kernels_)
+
+
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_source_constants_are_the_modules():
+    """The kernel's constants, its cap included, are the module's; the
+    fixed part of a CTA's shared memory is its struct's size (a barrier a
+    stage of the ring, two partial Grams and R in T, the inner pass's two G and two R in
+    double, 16 rotations' c, s and new diagonal, their flags) rounded to
+    128 bytes."""
+    src = _source()
+    assert _constant(src, "kBlock") == device_linalg.JACOBI_BLOCK
+    assert _constant(src, "kTile") == device_linalg.JACOBI_TILE
+    assert _constant(src, "kSweeps") == device_linalg.JACOBI_SWEEPS == device_linalg.JACOBI_SWEEPS_BUILT
+    assert _constant(src, "kPad") == device_linalg.JACOBI_PAD
+    assert _constant(src, "kRing") == device_linalg.JACOBI_RING
+    assert _constant(src, "kMaxTeam") == device_linalg.JACOBI_MAX_TEAM
+    assert _constant(src, "kMaxCluster") == device_linalg.JACOBI_MAX_CLUSTER
+    assert _constant(src, "kSmemLimit") == device_linalg.JACOBI_SMEM_LIMIT
+    assert int(re.search(r"kStateHead = (\d+)", src).group(1)) == device_linalg.JACOBI_STATE_HEAD
+    b = device_linalg.JACOBI_BLOCK
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        fixed = (device_linalg.JACOBI_RING * 8 + 3 * (2 * b) ** 2 * size + 4 * (2 * b) * (2 * b + 1) * 8
+                 + 4 * b * 8 + b * 4 + 4 * 4)
+        assert device_linalg.JACOBI_FIXED_SMEM[dtype] == -(-fixed // 128) * 128

@@ -114,7 +114,8 @@ class _Loop(admm._DeviceLoop):
     """The device form of :func:`run`; on the card its end-of-segment read
     also reads how many of the segment's Jacobi SVDs stopped at their cap
     (`device_linalg.jacobi_capped`, against its value at the segment's
-    start, copied on the device), and raises if any did."""
+    start, copied on the device), and raises if any did: the segment's
+    SVDs, its eager first iterations' too, read nothing themselves."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -122,9 +123,11 @@ class _Loop(admm._DeviceLoop):
         self.capped = device_linalg.jacobi_capped(device) if device.type == "cuda" else None
 
     def advance(self, k_end: int):
-        if self.capped is not None:
-            self.capped_before = self.capped.clone()
-        return super().advance(k_end)
+        if self.capped is None:
+            return super().advance(k_end)
+        self.capped_before = self.capped.clone()
+        with device_linalg.caller_reads_the_cap():  # the eager first iterations read nothing either
+            return super().advance(k_end)
 
     def _result(self):
         if self.capped is None:

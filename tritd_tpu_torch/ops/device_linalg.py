@@ -40,6 +40,7 @@ count too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -64,27 +65,54 @@ GESVDJ_SWEEPS = 400
 
 #: The largest thin side min(p, q) the Jacobi SVD takes on the card: 64
 #: blocks of JACOBI_BLOCK columns. It covers the baselines' taxi cuts (thin
-#: sides 100, 500, 1000); a sweep is 3 (nb - 1) + 1 launches of nb blocks, so
-#: at the video cut's 4800 a graph would hold 18 000 launches an SVD, and the
-#: Jacobi's work (64 m k a round, ~k / 8 rounds a sweep) grows as m k^2: past
-#: the limit the SVD keeps gesvdj and its loop the eager loop.
+#: sides 100, 500, 1000); the Jacobi's work (64 m k a round, ~k / 8 rounds
+#: a sweep) grows as m k^2: past the limit (the video cut's 4800) the SVD
+#: keeps gesvdj and its loop the eager loop.
 SVD_JACOBI_MAX_K = 1024
-#: Columns of the tall form a block holds: a pair of blocks is one thread
-#: block's 32 x 32 problem (csrc/jacobi_svd.cu's kBlock).
+#: Columns of the tall form a block holds: a pair of blocks is one 32 x 32
+#: problem (csrc/jacobi_svd.cu's kBlock).
 JACOBI_BLOCK = 16
-#: Columns of the transposed tall form a Gram step loads at once; its rows
+#: Columns of the transposed tall form a CTA's slice is cut in; its rows
 #: are padded to a multiple (csrc/jacobi_svd.cu's kTile).
 JACOBI_TILE = 64
-#: Sweeps the Jacobi SVD launches; those after convergence return at once.
-#: Random and low-rank-plus-noise matrices took 7-14 on the CPU rehearsals.
-#: A call still rotating in its last sweep is counted (:func:`jacobi_capped`).
-JACOBI_SWEEPS = 20
-#: Gram blocks a round aims for on each SM of the card (four of 256
-#: threads), and the most slices one pair's columns are cut into: the
-#: rotation step sums the slices' partial Grams, and at 131 slices (100 x
-#: 50000 on 132 SMs) that sum took more than half of its 43 us.
-JACOBI_GRAM_BLOCKS_PER_SM = 4
-JACOBI_MAX_SLICES = 32
+#: The most sweeps a call runs (csrc/jacobi_svd.cu's kSweeps): the sweeps
+#: stop on the device at the first that rotates nothing, so a higher cap
+#: costs a converging call nothing. Set from the plain version's readings
+#: (`tools/jacobi_sweeps`, PERF.md section 6): a graded spectrum (8 decades)
+#: needed up to 40 sweeps in float64 at 5000 x 1000, a rank-deficient one
+#: 34, a clustered one 21, standard normal matrices and tt_trpca's taxi
+#: unfoldings after 90 iterations 10-14; 48 is 1.2 times the most, past
+#: LAPACK's 30. A call still rotating in its last sweep is counted
+#: (:func:`jacobi_capped`), and an eager one raises (:func:`jacobi_svd`).
+JACOBI_SWEEPS = 48
+JACOBI_SWEEPS_BUILT = JACOBI_SWEEPS  # the kernel's own cap, its flags' room; a caller may run fewer
+#: The sweep kernel's launch (:func:`jacobi_plan`): clusters of up to
+#: JACOBI_MAX_CLUSTER CTAs (the H100's non-portable size) in teams of up to
+#: JACOBI_MAX_TEAM clusters a pair, each CTA a slice of at least
+#: JACOBI_MIN_SLICE of the pair's tiles where it has them.
+JACOBI_MAX_CLUSTER = 16
+JACOBI_MAX_TEAM = 8
+JACOBI_MIN_SLICE = 4
+#: A CTA's shared memory, at most JACOBI_SMEM_LIMIT bytes: the kernel's
+#: fixed part (JACOBI_FIXED_SMEM by dtype, csrc/jacobi_svd.cu's kFixed) and
+#: its stages of 32 rows of `chunk` tiles, each row padded by JACOBI_PAD
+#: elements; a slice that does not stay resident runs through a ring of up
+#: to JACOBI_RING stages (kRing), two chunks' copies in flight while one is
+#: used, where chunks of JACOBI_MIN_CHUNK tiles fit (float32's 7, not
+#: float64's 3 tiles: at 3 tiles a chunk float64 took 8% longer than two
+#: stages of 5).
+JACOBI_SMEM_LIMIT = 232448
+JACOBI_FIXED_SMEM = {torch.float32: 46720, torch.float64: 59008}
+JACOBI_PAD = 4
+JACOBI_RING = 3
+JACOBI_MIN_CHUNK = 5
+#: The kernel's state: converged, sweeps run, the grid barrier's count, a
+#: pad, then one flag a sweep, then one count a pair (csrc/jacobi_svd.cu's
+#: kStateHead).
+JACOBI_STATE_HEAD = 4
+#: The kernels a call launches, each once: the tall form's and V's set-up,
+#: all sweeps, the norms, the sorted write.
+JACOBI_KERNELS = ("prep_w_kernel", "prep_v_kernel", "sweep_kernel", "norms_kernel", "write_kernel")
 
 _STATUS = {1: "NOT_INITIALIZED", 2: "ALLOC_FAILED", 3: "INVALID_VALUE", 4: "ARCH_MISMATCH", 5: "MAPPING_ERROR",
            6: "EXECUTION_FAILED", 7: "INTERNAL_ERROR", 8: "MATRIX_TYPE_NOT_SUPPORTED", 9: "NOT_SUPPORTED"}
@@ -290,8 +318,13 @@ class JacobiPlan(NamedTuple):
     """The geometry of the Jacobi SVD of a (p, q) matrix: its tall form W
     (m x k) held as Wt, nb blocks of JACOBI_BLOCK rows (nb even, at least 2;
     the rows past k zero) of ldw columns (m zero-padded to whole tiles), Vt
-    nb JACOBI_BLOCK x ldv; a round's Gram cuts each pair's tiles into
-    `slices` runs of `per_slice`."""
+    nb JACOBI_BLOCK x ldv; the sweep kernel's launch: `clusters` clusters
+    of `cluster` CTAs, every one resident at once, in teams of `team`
+    clusters a pair (or one cluster several pairs a round where fewer fit
+    than there are pairs), each CTA a slice of ceil(tiles / (team
+    cluster)) tiles staged in `stages` stages of `chunk` tiles (one: the
+    slice resident; more: a ring of chunks), `smem` bytes of shared
+    memory."""
 
     k: int
     m: int
@@ -299,21 +332,72 @@ class JacobiPlan(NamedTuple):
     nb: int
     ldw: int
     ldv: int
-    slices: int
-    per_slice: int
+    cluster: int
+    team: int
+    clusters: int
+    chunk: int
+    stages: int
+    smem: int
 
 
-def jacobi_plan(p: int, q: int, sms: int) -> JacobiPlan:
-    """The plan of a (p, q) matrix on a card of `sms` SMs (the slices
-    only depend on them)."""
+def _staging(per: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """(chunk, stages, smem) of a CTA's slice of `per` tiles: resident in
+    one stage where it fits, else the fewest balanced chunks of the
+    deepest ring (up to JACOBI_RING stages) whose chunks hold
+    JACOBI_MIN_CHUNK tiles, or of two stages."""
+    size = torch.finfo(dtype).bits // 8
+    fixed = JACOBI_FIXED_SMEM[dtype]
+
+    def stage(chunk: int) -> int:
+        return 2 * JACOBI_BLOCK * (chunk * JACOBI_TILE + JACOBI_PAD) * size
+
+    if fixed + stage(per) <= JACOBI_SMEM_LIMIT:
+        return per, 1, fixed + stage(per)
+    for stages in range(JACOBI_RING, 1, -1):
+        most = ((JACOBI_SMEM_LIMIT - fixed) // (stages * 2 * JACOBI_BLOCK * size) - JACOBI_PAD) // JACOBI_TILE
+        if most >= JACOBI_MIN_CHUNK or stages == 2:
+            chunk = -(-per // -(-per // most))
+            return chunk, stages, fixed + stages * stage(chunk)
+
+
+def jacobi_plan(p: int, q: int, sms: int, dtype: torch.dtype = torch.float32, active=None) -> JacobiPlan:
+    """The plan of a (p, q) matrix of `dtype` on a card of `sms` SMs: of
+    the launches whose every CTA the card holds at once, one team a pair,
+    the one with the most CTAs (at least JACOBI_MIN_SLICE tiles a CTA: a
+    small matrix's rounds are the inner pass's and the barriers' latency,
+    which more CTAs do not cut), then the fewest clusters a team, then the
+    largest cluster; else, where the card holds fewer clusters than pairs,
+    as many clusters of one CTA as it holds.
+    `active(cluster, smem)` is how many clusters of that size and shared
+    memory the card holds at once (on the card
+    cudaOccupancyMaxActiveClusters: the H100 holds 7 of 16, 15 of 8, 30 of
+    4, its SMs being in GPCs of 16 to 18); by default sms // cluster, one
+    CTA an SM."""
     k, m = min(p, q), max(p, q)
     nb = max(2, -(-k // JACOBI_BLOCK))
     nb += nb % 2
     ldw = -(-m // JACOBI_TILE) * JACOBI_TILE
-    tiles = ldw // JACOBI_TILE
-    want = max(1, min(-(-(JACOBI_GRAM_BLOCKS_PER_SM * sms) // (nb // 2)), JACOBI_MAX_SLICES, tiles))
-    per_slice = -(-tiles // want)
-    return JacobiPlan(k, m, p < q, nb, ldw, k, -(-tiles // per_slice), per_slice)
+    tiles, pairs = ldw // JACOBI_TILE, nb // 2
+    if active is None:
+        def active(cluster: int, _smem: int) -> int:
+            return sms // cluster
+    best, key = None, None
+    slices = max(1, tiles // JACOBI_MIN_SLICE)  # the most CTAs a pair
+    for cluster in range(min(JACOBI_MAX_CLUSTER, slices), 0, -1):
+        for team in range(min(JACOBI_MAX_TEAM, slices // cluster), 0, -1):
+            chunk, stages, smem = _staging(-(-tiles // (team * cluster)), dtype)
+            if active(cluster, smem) >= pairs * team:
+                candidate = (pairs * team * cluster, -team, cluster)
+                if key is None or candidate > key:
+                    best, key = (cluster, team, pairs * team, chunk, stages, smem), candidate
+                break
+    if best is None:  # fewer clusters than pairs: clusters of one CTA, several pairs each
+        chunk, stages, smem = _staging(tiles, dtype)
+        fit = min(active(1, smem), pairs)
+        if fit < 1:
+            raise ValueError(f"jacobi_plan: no CTA of {smem} bytes of shared memory fits on the card")
+        best = (1, 1, fit, chunk, stages, smem)
+    return JacobiPlan(k, m, p < q, nb, ldw, k, *best)
 
 
 def jacobi_tournament(n: int) -> list[list[tuple[int, int]]]:
@@ -397,7 +481,7 @@ def _jacobi_torch(a: torch.Tensor):
     """(u, s, vh, sweeps) of :func:`jacobi_svd_torch`; sweeps those that
     ran, the last one the sweep without a rotation (or JACOBI_SWEEPS)."""
     p, q = a.shape
-    plan = jacobi_plan(p, q, 1)  # the slices of the Grams are the kernel's alone
+    plan = jacobi_plan(p, q, 1, dtype=a.dtype)  # the launch is the kernel's alone
     dtype, device, b = a.dtype, a.device, JACOBI_BLOCK
     k, rows = plan.k, plan.nb * b
     wt = torch.zeros((rows, plan.m), dtype=dtype, device=device)
@@ -436,8 +520,10 @@ def jacobi_svd_torch(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch
     """The plain version of :func:`jacobi_svd`, on any device: the same
     blocks, tournament, rotation test, inner rounds and cap in torch ops (the
     Grams as batched products, so other sums than the kernel's). It stops
-    at the first sweep without a rotation, as the kernel's later launches
-    do nothing. A column of U made from a zero singular value is zero."""
+    at the first sweep without a rotation, as the kernel's sweep loop does,
+    and returns at the cap whether it converged or not, as the reference's
+    `jnp.linalg.svd` returns. A column of U made from a zero singular value
+    is zero."""
     _matrix(a, "jacobi_svd_torch")
     if min(a.shape) < 1:
         raise ValueError(f"jacobi_svd_torch takes a matrix with both sides >= 1, got {tuple(a.shape)}")
@@ -465,19 +551,58 @@ def jacobi_capped(device: torch.device) -> torch.Tensor:
     return _CAPPED[device.index]
 
 
+_DEFERRED = 0  # callers inside :func:`caller_reads_the_cap` (a loop that reads jacobi_capped itself)
+
+
+@contextlib.contextmanager
+def caller_reads_the_cap():
+    """Inside it an eager :func:`jacobi_svd` reads nothing back: the caller
+    reads :func:`jacobi_capped` itself (`baselines.device_loop`, once a
+    segment, its eager first iterations included)."""
+    global _DEFERRED
+    _DEFERRED += 1
+    try:
+        yield
+    finally:
+        _DEFERRED -= 1
+
+
 @functools.cache
 def _jacobi_library():
     lib = _library()
-    if (lib.tritd_jacobi_block(), lib.tritd_jacobi_tile()) != (JACOBI_BLOCK, JACOBI_TILE):
-        raise RuntimeError(f"the library's Jacobi SVD has blocks of {lib.tritd_jacobi_block()} and tiles of "
-                           f"{lib.tritd_jacobi_tile()}, this module assumes {JACOBI_BLOCK} and {JACOBI_TILE}")
+    want = {"block": JACOBI_BLOCK, "tile": JACOBI_TILE, "sweeps": JACOBI_SWEEPS_BUILT,
+            "f32 fixed smem": JACOBI_FIXED_SMEM[torch.float32], "f64 fixed smem": JACOBI_FIXED_SMEM[torch.float64]}
+    got = {"block": lib.tritd_jacobi_block(), "tile": lib.tritd_jacobi_tile(), "sweeps": lib.tritd_jacobi_sweeps(),
+           "f32 fixed smem": lib.tritd_jacobi_fixed_smem(0), "f64 fixed smem": lib.tritd_jacobi_fixed_smem(1)}
+    if got != want:
+        raise RuntimeError(f"the library's Jacobi SVD has {got}, this module assumes {want}")
     return lib
 
 
-def jacobi_svd_with_sweeps(a: torch.Tensor):
-    """(u, s, vh, sweeps) of :func:`jacobi_svd`, sweeps a 0-d int32 on the
-    card: the sweeps that ran (JACOBI_SWEEPS if it did not converge, which
-    :func:`jacobi_capped` counts)."""
+@functools.cache
+def _active_clusters(index: int, dtype: torch.dtype, cluster: int, smem: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the sweep kernel on device `index`."""
+    with torch.cuda.device(index):
+        n = _jacobi_library().tritd_jacobi_active_clusters(int(dtype == torch.float64), cluster, smem)
+    if n < 0:
+        from ..runtime import kernels
+
+        kernels.check(-n, f"jacobi_svd[{_TAGS[dtype]}] occupancy of clusters of {cluster}")
+    return n
+
+
+@functools.cache
+def _plan(index: int, p: int, q: int, dtype: torch.dtype) -> JacobiPlan:
+    """:func:`jacobi_plan` on device `index`, its occupancy read there; made
+    once a shape (it is host work the call would wait on)."""
+    return jacobi_plan(p, q, torch.cuda.get_device_properties(index).multi_processor_count, dtype,
+                       functools.partial(_active_clusters, index, dtype))
+
+
+def _jacobi(a: torch.Tensor):
+    """(u, s, vh, state) of :func:`jacobi_svd`, state the kernel's int32s on
+    the card: converged, sweeps run, ... (JACOBI_STATE_HEAD, then a flag a
+    sweep)."""
     _matrix(a, "jacobi_svd")
     if a.device.type != "cuda" or not a.is_contiguous():
         raise ValueError(f"jacobi_svd takes a contiguous CUDA tensor, got one on {a.device} "
@@ -485,31 +610,42 @@ def jacobi_svd_with_sweeps(a: torch.Tensor):
     p, q = a.shape
     if not 1 <= min(p, q) <= SVD_JACOBI_MAX_K:
         raise ValueError(f"jacobi_svd takes a thin side of 1 to {SVD_JACOBI_MAX_K}, got {tuple(a.shape)}")
-    plan = jacobi_plan(p, q, torch.cuda.get_device_properties(a.device).multi_processor_count)
-    capped = jacobi_capped(a.device)
-    k, m, rows, pairs, dtype, device = plan.k, plan.m, plan.nb * JACOBI_BLOCK, plan.nb // 2, a.dtype, a.device
-    tag = _TAGS[dtype]
+    if not 1 <= JACOBI_SWEEPS <= JACOBI_SWEEPS_BUILT:
+        raise ValueError(f"jacobi_svd runs 1 to {JACOBI_SWEEPS_BUILT} sweeps, not {JACOBI_SWEEPS}")
+    dtype, device = a.dtype, a.device
+    index = device.index if device.index is not None else torch.cuda.current_device()
     lib = _jacobi_library()
+    plan = _plan(index, p, q, dtype)
+    capped = jacobi_capped(device)
+    k, m, rows, tag = plan.k, plan.m, plan.nb * JACOBI_BLOCK, _TAGS[dtype]
     with torch.cuda.device(device):
         empty = functools.partial(torch.empty, dtype=dtype, device=device)
-        wt, vt = empty((rows, plan.ldw)), empty((rows, plan.ldv))
-        partial, rmat, sig = empty((pairs, plan.slices, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK)), empty(
-            (pairs, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK)), empty(k)
-        flags = torch.empty(pairs + 3, dtype=torch.int32, device=device)
+        wt, vt, sig = empty((rows, plan.ldw)), empty((rows, plan.ldv)), empty(k)
+        state = torch.empty(JACOBI_STATE_HEAD + JACOBI_SWEEPS + plan.nb // 2, dtype=torch.int32, device=device)
+        gsum = torch.empty((plan.nb // 2, plan.team, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK) if plan.team > 1 else 1,
+                           dtype=torch.float64, device=device)
         s, wn, vs = empty(k), empty((k, m)), empty((k, k))
-        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        stream = torch._C._cuda_getCurrentRawStream(index)
         err = getattr(lib, f"tritd_jacobi_svd_{tag}")(
-            a.data_ptr(), p, q, wt.data_ptr(), plan.ldw, vt.data_ptr(), plan.ldv, partial.data_ptr(),
-            rmat.data_ptr(), flags.data_ptr(), flags[pairs:].data_ptr(), capped.data_ptr(), sig.data_ptr(),
-            s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb, plan.slices, plan.per_slice, JACOBI_SWEEPS,
-            jacobi_tol(m, dtype), stream)
+            a.data_ptr(), p, q, wt.data_ptr(), plan.ldw, vt.data_ptr(), plan.ldv, state.data_ptr(), capped.data_ptr(),
+            gsum.data_ptr(), sig.data_ptr(), s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb, plan.cluster,
+            plan.team, plan.clusters, plan.chunk, plan.stages, plan.smem, JACOBI_SWEEPS, jacobi_tol(m, dtype), stream)
     if err:
         from ..runtime import kernels
 
         kernels.check(err, f"jacobi_svd[{tag}] launch")
     JACOBI_LAUNCHES[f"jacobi_svd[{tag}]"] += 1
     u, vh = (vs.mT, wn) if plan.wide else (wn.mT, vs)
-    return u, s, vh, flags[pairs + 2]
+    return u, s, vh, state
+
+
+def jacobi_svd_with_sweeps(a: torch.Tensor):
+    """(u, s, vh, sweeps) of :func:`jacobi_svd`, sweeps a 0-d int32 on the
+    card: the sweeps that ran, the last the one without a rotation
+    (JACOBI_SWEEPS if it did not converge, which :func:`jacobi_capped`
+    counts); it reads nothing back, even outside a capture."""
+    u, s, vh, state = _jacobi(a)
+    return u, s, vh, state[1]
 
 
 def jacobi_svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -518,11 +654,22 @@ def jacobi_svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     contiguous float32 or float64 CUDA matrix whose thin side is at most
     SVD_JACOBI_MAX_K; it raises on anything else (the plain version,
     :func:`jacobi_svd_torch`, runs anywhere). One call is one launch of
-    the kernel family (JACOBI_LAUNCHES), a fixed sequence of launches on
-    torch's current stream that reads nothing back, so a CUDA graph can
-    capture it. Singular values descending; the vectors of a zero one are
-    zero on the side made from the tall form's columns."""
-    u, s, vh, _sweeps = jacobi_svd_with_sweeps(a)
+    the kernel family (JACOBI_LAUNCHES), five launches on torch's current
+    stream, so a CUDA graph can capture it. Singular values descending; the
+    vectors of a zero one are zero on the side made from the tall form's
+    columns.
+
+    At the cap. Outside a capture, and outside :func:`caller_reads_the_cap`,
+    the call reads whether it converged (one synchronizing read, as
+    `torch.linalg.svd` reads its `info`) and raises RuntimeError if it
+    stopped at JACOBI_SWEEPS sweeps still rotating. Under a capture it reads
+    nothing: the count :func:`jacobi_capped` records the call for the
+    caller's read. The reference's `jnp.linalg.svd` returns in both cases
+    (ROADMAP.md's departures)."""
+    u, s, vh, state = _jacobi(a)
+    if not _DEFERRED and not torch.cuda.is_current_stream_capturing() and not int(state[0]):
+        raise RuntimeError(f"jacobi_svd of a {tuple(a.shape)} {a.dtype} matrix stopped at its cap of "
+                           f"{JACOBI_SWEEPS} sweeps without converging")
     return u, s, vh
 
 

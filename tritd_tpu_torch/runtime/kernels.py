@@ -92,17 +92,28 @@ def bind(path, variants=None) -> ctypes.CDLL:
 def _bind_jacobi(lib: ctypes.CDLL) -> None:
     """The Jacobi SVD's entry points of `csrc/jacobi_svd.cu`: pointers and
     the stream `c_void_p`, sizes `c_int64`, the plan's counts `c_int`, the
-    tolerance `c_double`; each launcher returns `cudaGetLastError()`."""
+    tolerance `c_double`; each launcher returns `cudaGetLastError()` (or
+    `cudaErrorInvalidValue` for a plan it does not take), the occupancy
+    query a count or minus the error."""
     i64, i32 = ctypes.c_int64, ctypes.c_int
-    for name in ("tritd_jacobi_block", "tritd_jacobi_tile"):
+    for name in ("tritd_jacobi_block", "tritd_jacobi_tile", "tritd_jacobi_sweeps"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
+    lib.tritd_jacobi_fixed_smem.argtypes = [i32]  # f64
+    lib.tritd_jacobi_fixed_smem.restype = i32
+    lib.tritd_jacobi_active_clusters.argtypes = [i32, i32, i32]  # f64, cluster, smem
+    lib.tritd_jacobi_active_clusters.restype = i32
+    lib.tritd_jacobi_launches.argtypes = [_P]  # out
+    lib.tritd_jacobi_launches.restype = i32
+    if hasattr(lib, "tritd_jacobi_phase_cycles"):  # a build with -DTRITD_JACOBI_TRACE (tools/jacobi_phases)
+        lib.tritd_jacobi_phase_cycles.argtypes = [_P]  # out
+        lib.tritd_jacobi_phase_cycles.restype = i32
     for tag in ("f32", "f64"):
         fn = getattr(lib, f"tritd_jacobi_svd_{tag}")
-        # a, p, q, wt, ldw, vt, ldv, partial, rmat, rotated, state, capped, sig, s, wn, vs, nb, slices,
-        # per_slice, sweeps, tol, stream
-        fn.argtypes = [_P, i64, i64, _P, i64, _P, i64, _P, _P, _P, _P, _P, _P, _P, _P, _P, i32, i32, i32, i32,
-                       ctypes.c_double, _P]
+        # a, p, q, wt, ldw, vt, ldv, state, capped, gsum, sig, s, wn, vs, nb, cluster, team, clusters, chunk,
+        # stages, smem, sweeps, tol, stream
+        fn.argtypes = [_P, i64, i64, _P, i64, _P, i64, _P, _P, _P, _P, _P, _P, _P, i32, i32, i32, i32, i32, i32, i32,
+                       i32, ctypes.c_double, _P]
         fn.restype = i32
 
 

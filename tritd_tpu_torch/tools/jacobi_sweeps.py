@@ -1,0 +1,188 @@
+"""How many sweeps the Jacobi SVD (`ops/device_linalg.py`) needs on spectra
+the taxi unfoldings do not have: the readings behind its cap,
+`device_linalg.JACOBI_SWEEPS`.
+
+Each case is a matrix made from a seed with numpy (float64, then cast),
+one JSON line a case and dtype: its sweeps, whether it converged under the
+cap, and its singular values' largest distance to `torch.linalg.svd` of the
+same matrix in float64, over s_max. The cases (:func:`cases`):
+
+* graded:     s_i = 10^(-8 i / k);
+* clustered:  groups of 8 equal values, from 1 down to 1e-2;
+* rank-def:   rank k / 4 (values from 1 to 0.1), the rest eps of the dtype;
+  each of these three at the taxi tall forms 50000x100, 10000x500 and
+  5000x1000 (`--shapes` cuts them);
+* thin:       a standard normal 5000 x k for k in THIN_SIDES (the largest
+  thin sides the kernel takes);
+* tt_trpca:   the two unfoldings tt_trpca's svd route hands its SVT at the
+  taxi stand-in (10% missing) after 90 iterations of its loop (the host
+  loop on the CPU, in float32 as the CLI runs it, then cast).
+
+`--device cpu` runs the plain version (`jacobi_svd_torch`, stopped at the
+cap as the kernel is); `--device cuda` the kernel
+(`jacobi_svd_with_sweeps`, which reads nothing back: its count is read
+here), on the same matrices, at most `--cap` sweeps (the module's cap by
+default; a higher one reads what a case needs). A case that stops at the
+cap is reported as such, not raised.
+
+    python -m tritd_tpu_torch.tools.jacobi_sweeps --device cpu [--threads 4] [--dtypes f32,f64]
+        [--cases graded,clustered,rank-def,thin,tt_trpca] [--shapes 50000x100,10000x500,5000x1000] [--cap N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+TALL_FORMS = ((50000, 100), (10000, 500), (5000, 1000))
+THIN_SIDES = (1000, 1024)
+THIN_M = 5000
+CASES = ("graded", "clustered", "rank-def", "thin", "tt_trpca")
+TT_TRPCA_ITERS = 90
+
+
+def _with_spectrum(m: int, k: int, s: np.ndarray, rng) -> np.ndarray:
+    u = np.linalg.qr(rng.standard_normal((m, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((k, k)))[0]
+    return (u * s) @ v.T
+
+
+def spectrum(case: str, k: int, eps: float) -> np.ndarray:
+    """The singular values of a synthetic case of thin side k."""
+    i = np.arange(k)
+    if case == "graded":
+        return 10.0 ** (-8.0 * i / k)
+    if case == "clustered":
+        return np.repeat(np.geomspace(1.0, 1e-2, -(-k // 8)), 8)[:k]
+    if case == "rank-def":
+        r = max(1, k // 4)
+        return np.where(i < r, np.linspace(1.0, 0.1, k)[np.minimum(i * k // r, k - 1)], eps)
+    raise ValueError(case)
+
+
+def _tt_trpca_unfoldings(iters: int) -> dict:
+    """The matrices tt_trpca's svd route hands its SVT after `iters`
+    iterations at the taxi stand-in, on the CPU in float32."""
+    import torch
+
+    from ..baselines import ttnn
+    from ..data import load_dataset, uniform_missing_mask
+    from ..utils.config import README_MISSING_RATIO
+
+    x_np, _spec, _prov = load_dataset("taxi")
+    mask = uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO)
+    y = torch.from_numpy(np.where(mask, x_np, 0.0).astype(np.float32))
+    seen, real = {}, ttnn.svt_ref_compat
+
+    def recorded(mat, tau, **kwargs):
+        seen[tuple(mat.shape)] = mat.clone()
+        return real(mat, tau, **kwargs)
+
+    ttnn.svt_ref_compat = recorded
+    try:
+        ttnn.tt_trpca(y, max_iter=iters + 1, svt_method="svd", device="cpu")
+    finally:
+        ttnn.svt_ref_compat = real
+    return {f"tt_trpca {p}x{q}": mat.double().numpy() for (p, q), mat in seen.items()}
+
+
+def cases(names=CASES, shapes=TALL_FORMS, seed: int = 0) -> dict:
+    """{label: (float64 matrix, spectrum case)} of the cases `names`, each
+    tall form of `shapes` for the synthetic spectra (in float64: the tail
+    of rank-def is float64's eps here and cast's rounding in float32)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in names:
+        if name in ("graded", "clustered", "rank-def"):
+            for m, k in shapes:
+                out[f"{name} {m}x{k}"] = _with_spectrum(m, k, spectrum(name, k, np.finfo(np.float64).eps), rng)
+        elif name == "thin":
+            for k in THIN_SIDES:
+                out[f"thin {THIN_M}x{k}"] = rng.standard_normal((THIN_M, k))
+        elif name == "tt_trpca":
+            out.update(_tt_trpca_unfoldings(TT_TRPCA_ITERS))
+        else:
+            raise ValueError(f"unknown case {name!r}; use some of {CASES}")
+    return out
+
+
+def kernels_a_call(call) -> dict:
+    """How many times `call()` launched each of the Jacobi SVD's kernels
+    (`device_linalg.JACOBI_KERNELS`): the library's own counts of the
+    launches that returned no error (`tritd_jacobi_launches`), set to 0
+    just before the call and read just after it."""
+    import ctypes
+
+    import torch
+
+    from ..ops import device_linalg
+
+    lib = device_linalg._jacobi_library()
+    counts = (ctypes.c_int * len(device_linalg.JACOBI_KERNELS))()
+    lib.tritd_jacobi_launches(counts)
+    call()
+    torch.cuda.synchronize()
+    lib.tritd_jacobi_launches(counts)
+    return dict(zip(device_linalg.JACOBI_KERNELS, counts))
+
+
+def measure(matrices: dict, dtypes, device: str):
+    """One record a matrix and dtype: sweeps, converged (under the cap),
+    the kernel's or plain version's |ds| / s_max against torch.linalg.svd
+    in float64, seconds."""
+    import torch
+
+    from ..ops import device_linalg
+
+    for label, a_np in matrices.items():
+        a64 = torch.from_numpy(a_np)
+        ref = torch.linalg.svd(a64.to(device), full_matrices=False)[1].cpu()
+        for dtype in dtypes:
+            a = a64.to(dtype).to(device).contiguous()
+            if device != "cpu":
+                device_linalg.jacobi_svd_with_sweeps(a)  # its plan's occupancy queries outside the time
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if device == "cpu":
+                _u, s, _vh, n = device_linalg._jacobi_torch(a)
+            else:
+                _u, s, _vh, n = device_linalg.jacobi_svd_with_sweeps(a)
+                n = int(n)
+            seconds = time.perf_counter() - t0
+            ds = float((s.double().cpu() - ref).abs().max() / ref[0])
+            yield {"case": label, "dtype": str(dtype).removeprefix("torch."), "device": device, "sweeps": n,
+                   "converged": n < device_linalg.JACOBI_SWEEPS, "cap": device_linalg.JACOBI_SWEEPS,
+                   "ds_over_smax": ds, "seconds": seconds}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    parser.add_argument("--dtypes", default="f32,f64")
+    parser.add_argument("--cases", default=",".join(CASES))
+    parser.add_argument("--shapes", default=",".join(f"{m}x{k}" for m, k in TALL_FORMS))
+    parser.add_argument("--threads", type=int, default=4)
+    parser.add_argument("--cap", type=int, help="sweeps before a call stops (default JACOBI_SWEEPS)")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from ..ops import device_linalg
+
+    if args.cap:
+        device_linalg.JACOBI_SWEEPS = args.cap
+
+    torch.set_num_threads(args.threads)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda needs a CUDA device")
+    dtypes = [{"f32": torch.float32, "f64": torch.float64}[d] for d in args.dtypes.split(",")]
+    shapes = [tuple(map(int, s.split("x"))) for s in args.shapes.split(",")]
+    for record in measure(cases(args.cases.split(","), shapes), dtypes, args.device):
+        print(json.dumps(record), flush=True)
+
+
+if __name__ == "__main__":
+    main()

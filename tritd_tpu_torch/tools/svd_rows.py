@@ -10,7 +10,14 @@ process of its own with DIR first on sys.path, so that DIR's package runs.
 A parent without the Jacobi SVD runs these rows on gesvdj and the eager
 loop.
 
-    python -m tritd_tpu_torch.tools.svd_rows --tree . [--tree results/parent] [--iters 100]
+With `--kernel`, instead, the Jacobi SVD alone
+(`ops.device_linalg.jacobi_svd`) at the six taxi unfoldings (the taxi
+stand-in's unfoldings at 10% missing, as phase 9 cuts them), float32 and
+float64, beside `torch.linalg.svd` (gesvdj) on the same matrix: ms a call,
+the median of `--turns` calls by events (gesvdj's of three), one JSON line
+an unfolding and dtype, for each tree in turns, in a process of its own.
+
+    python -m tritd_tpu_torch.tools.svd_rows --tree . [--tree results/parent] [--iters 100] [--kernel [--turns 5]]
 
 Needs a CUDA device (and nvcc, for the kernels' first build). Prints the
 card's name and power limit first.
@@ -63,17 +70,63 @@ for method in methods:
 """
 
 
+_KERNEL = r"""
+import json, statistics, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import tritd_tpu_torch
+from tritd_tpu_torch.data import load_dataset, uniform_missing_mask
+from tritd_tpu_torch.ops import device_linalg
+from tritd_tpu_torch.utils.config import README_MISSING_RATIO
+
+torch.backends.cuda.matmul.allow_tf32 = False
+turns = int(sys.argv[2])
+x_np, _spec, _prov = load_dataset("taxi")
+mask = uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO)
+y = torch.as_tensor(np.where(mask, x_np, 0.0), dtype=torch.float32, device="cuda")
+n1, n2, n3 = y.shape
+fctn = y.reshape(n1, n2, n3 // 10, 10).permute(0, 2, 1, 3).reshape(n1 * n3 // 10, n2 * 10)
+mats = [y.reshape(n1, -1), y.reshape(-1, n3), y.permute(2, 0, 1).reshape(n3, -1), y.permute(1, 2, 0).reshape(-1, n1),
+        fctn, fctn.T]
+
+
+def ms(call, n):
+    call()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+for dtype in (torch.float32, torch.float64):
+    for m in mats:
+        a = m.to(dtype).contiguous()
+        print("ROW " + json.dumps({"tree": sys.argv[1], "package": tritd_tpu_torch.__file__,
+                                   "unfolding": "x".join(map(str, a.shape)), "dtype": str(dtype)[6:],
+                                   "kernel_ms": ms(lambda: device_linalg.jacobi_svd(a), turns),
+                                   "gesvdj_ms": ms(lambda: torch.linalg.svd(a, full_matrices=False), 3)}), flush=True)
+"""
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
 
 
-def rows(trees: list, iters: int) -> None:
+def rows(trees: list, iters: int, kernel: bool = False, turns: int = 5) -> None:
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", _ROWS, str(Path(tree).resolve()), str(iters),
-                               ",".join(ROW_METHODS)], capture_output=True, text=True, timeout=1800)
+        args = [str(turns)] if kernel else [str(iters), ",".join(ROW_METHODS)]
+        proc = subprocess.run([sys.executable, "-c", _KERNEL if kernel else _ROWS, str(Path(tree).resolve()), *args],
+                              capture_output=True, text=True, timeout=1800)
         got = [line[4:] for line in proc.stdout.splitlines() if line.startswith("ROW ")]
-        if proc.returncode or len(got) != len(ROW_METHODS):
+        if proc.returncode or len(got) != (12 if kernel else len(ROW_METHODS)):
             raise SystemExit(f"rows of {tree}: exit {proc.returncode}\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
         for line in got:
             print(line, flush=True)
@@ -83,6 +136,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", help="a tree whose tritd_tpu_torch runs the rows (repeatable)")
     parser.add_argument("--iters", type=int, default=100)
+    parser.add_argument("--kernel", action="store_true", help="the Jacobi SVD alone at the six taxi unfoldings")
+    parser.add_argument("--turns", type=int, default=5, help="--kernel: timed calls a matrix")
     args = parser.parse_args(argv)
 
     import torch
@@ -90,7 +145,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("svd_rows needs a CUDA device")
     print(_card(), flush=True)
-    rows(args.tree or ["."], args.iters)
+    rows(args.tree or ["."], args.iters, args.kernel, args.turns)
 
 
 if __name__ == "__main__":
