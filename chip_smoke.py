@@ -381,6 +381,29 @@ Phases, each of which fails the run by raising:
      peak MiB above what was allocated at the call's start; each held to
      the same call in float64 on the CPU (in the worker processes of phase
      3's pool, queued after phase 3's own).
+ 26. (run right after phase 10) The Jacobi SVD on exactly rank-deficient
+     matrices (tools/jacobi_sweeps.EXACT_SMALL: an integer outer product
+     and its transpose, static clips, rank 3 from duplicated columns, zero
+     columns), float32 and float64: each converged within LAPACK's 30
+     sweeps, jacobi_capped 0, held to torch.linalg.svd in float64
+     (JACOBI_LIMITS) and to its plain version on the CPU (the same values
+     zero); the eager jacobi_svd of the 40 x 30 outer product returns. The
+     kernel at the video cut's unfoldings (240 x 320 x 300: 240 x 96000,
+     76800 x 300, 96000 x 240) of the highway stand-in and of its static
+     clip (frame 0 repeated 300 times, made here), float32: its plan at
+     m = 76800 and 96000, sweeps, ms a call against torch.linalg.svd
+     (gesvdj), held to torch.linalg.svd in float64. Then the video
+     protocol's ttnn and ring on the CLIs' default svd route
+     (`cli/run_video.solve`, the video presets, nothing missing, float32)
+     on both clips, cut to VIDEO_SVD_ITERS iterations: the graph route, one
+     capture, no synchronizing call in the loop but the segment's read,
+     every SVD the Jacobi kernel's (no binding call), jacobi_capped 0, ms
+     an iteration; X, the RRE and err_hist held to the port's float64 run
+     of the same iterations on the CPU (phase 3's pool; ring's freedom
+     ratio the card run's, from the float32 data) with relative limits
+     (VIDEO_SVD_X_RTOL; VIDEO_SVD_RTOL and VIDEO_SVD_ATOL, float32's
+     rounding of an RRE), held after phase 25 ("26 checks"). Its svd
+     rows' Jacobi launches join the kernels line's.
 
 The ranks of phases 13-14 share one card and are time-sliced: the seconds
 they print are not scaling numbers.
@@ -410,8 +433,8 @@ pinv_rows' floor_ms and mode3_sweep's sweep_kernel_ms and split_step_ms,
 all measured in the run; phase 24's main-path launches; the chain bound,
 an assumed FMA latency over the clock, stays on phase 9's own lines), then
 the Jacobi SVD in float32 and float64 (phase 9's 5000x1000 record, every
-taxi unfolding's under "shapes"; the launches of phase 9's svd rows and
-phase 10's trpca_snn graph-route runs), each naming the reference function
+taxi unfolding's under "shapes"; the launches of phase 9's svd rows,
+phase 10's trpca_snn graph-route runs and phase 26's video svd rows), each naming the reference function
 it stands for; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the tritd_tpu
 package.
@@ -448,6 +471,7 @@ if Path(tritd_tpu_torch.__file__).resolve().parent.parent != HERE:
 from tritd_tpu_torch.data import load_dataset, uniform_missing_mask  # noqa: E402
 from tritd_tpu_torch.metrics.recon import rre  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
+from tritd_tpu_torch.ops.device_linalg import JACOBI_LIMITS, LAPACK_SWEEPS  # noqa: E402
 from tritd_tpu_torch.ops.designs import triple_product  # noqa: E402
 from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
 from tritd_tpu_torch.runtime import build, kernels  # noqa: E402
@@ -1946,15 +1970,12 @@ def _linalg_us(call, reps: int = LINALG_REPS) -> tuple:
 # sides orthonormal within the rotation test's tolerance sqrt(m) eps plus
 # that, each singular vector up to sign where its gap to its neighbours
 # exceeds JACOBI_GAP s_max, within JACOBI_LIMITS s_max / gap; the two's
-# singular values within twice it of each other. JACOBI_LIMITS are the
-# largest readings at the taxi unfoldings (float32 ds 9.4e-7, rec 3.7e-7,
-# vectors 2.5e-6; float64 ds 3.8e-13, rec 5.1e-14, vectors 3.4e-15; PERF.md
-# section 6) times 4 to 10. torch.linalg.svd (gesvdj, the library call) is
+# singular values within twice it of each other (JACOBI_LIMITS: see
+# ops/device_linalg.py). torch.linalg.svd (gesvdj, the library call) is
 # held within JACOBI_EPS_FACTOR k eps s_max (it reads up to 8.1e-5 on the
 # singular values in float32). Timed by events around one call, the median
 # of JACOBI_TURNS (torch.linalg.svd's of JACOBI_LIBRARY_TURNS; the plain
 # version by the host clock in the CPU pool)
-JACOBI_LIMITS = {torch.float32: 1e-5, torch.float64: 4e-12}
 JACOBI_EPS_FACTOR = 64
 JACOBI_GAP = 1e-3
 JACOBI_TURNS = 5
@@ -2370,6 +2391,195 @@ def phase10() -> dict:
     print(f"phase10 rnc_fctn 16x16x8x8, 20% missing: iters={n_it} solve={sec:.3f} s (events) "
           f"err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}")
     return launches
+
+
+#: Phase 26: the video svd rows' depth cut (the CLI runs 100 iterations),
+#: and how far each row may be from the port's float64 CPU run of as many:
+#: X's Frobenius distance over the CPU run's norm within VIDEO_SVD_X_RTOL
+#: (readings 1.9e-6 to 3.1e-6), and the RRE and each entry of err_hist
+#: within VIDEO_SVD_ATOL + VIDEO_SVD_RTOL times the CPU run's (readings:
+#: relative up to 2.2e-6 on ring highway, absolute up to 1.2e-7 on ring's
+#: static clip, whose RRE of 2.9e-5 is a few float32 roundings of X from
+#: its value; `_hist_diff`). Each limit is about 10 times its largest
+#: reading (PERF.md section 5).
+VIDEO_SVD_ITERS = 5
+VIDEO_SVD_X_RTOL = 3e-5
+VIDEO_SVD_RTOL = 2e-5
+VIDEO_SVD_ATOL = 1e-6
+VIDEO_SVD_METHODS = ("ttnn", "ring")
+
+
+def _video_clips() -> tuple:
+    """The highway stand-in (240 x 320 x 300) and its static clip, frame 0
+    repeated in every frame (made here, nothing fetched): {name: float32
+    numpy}, the spec and the provenance."""
+    v_np, vspec, vprov = load_dataset("highway")
+    v_np = v_np.astype(np.float32)
+    static = np.ascontiguousarray(np.repeat(v_np[:, :, :1], v_np.shape[2], axis=2))
+    return {"highway": v_np, "static": static}, vspec, vprov
+
+
+def _video_svd_cpu(method: str, x32: np.ndarray, spec, iters: int) -> tuple:
+    """In a worker of `_cpu_pool()`: (RRE, err_hist, X, seconds) of the
+    port's float64 run of `method` on the CPU through `cli/run_video.solve`, the
+    svd route (torch.linalg.svd), nothing missing; ring's freedom ratio
+    the card run's, from the float32 data (numpy's float32 matrix_rank
+    counts other ranks than float64's, and so other weights)."""
+    import importlib
+
+    from tritd_tpu_torch.cli.run_video import solve
+
+    rtrc = importlib.import_module("tritd_tpu_torch.baselines.rtrc")  # the module (the package exports the function)
+    torch.set_num_threads(CPU_REF_THREADS)
+    x = torch.from_numpy(x32).double()
+    mask = torch.ones(x.shape, dtype=torch.bool)
+    if method == "ring":
+        p = mask.to(x.dtype)
+        rtrc._FREEDOM_RATIO_CACHE[rtrc._fingerprint(x * p, p)] = rtrc.freedom_ratio(
+            torch.from_numpy(x32) * p.float(), p.float(), use_cache=False)
+    t0 = time.perf_counter()
+    x_hat, _o, hist = solve(method, x, x, mask, spec, 0, iters, svt_method="svd")
+    return float(rre(x_hat, x)), np.asarray(hist, dtype=np.float64), x_hat.numpy(), time.perf_counter() - t0
+
+
+def _exact_families() -> None:
+    """The kernel on the exact families (tools/jacobi_sweeps.EXACT_SMALL),
+    float32 and float64: converged within LAPACK_SWEEPS, jacobi_capped 0,
+    held to torch.linalg.svd in float64 and to its plain version on the
+    CPU; the eager call of the 40 x 30 outer product returns."""
+    from tritd_tpu_torch.ops import device_linalg
+    from tritd_tpu_torch.tools import jacobi_sweeps
+
+    capped = device_linalg.jacobi_capped("cuda")
+    for name in jacobi_sweeps.EXACT_SMALL:
+        a_np = jacobi_sweeps.exact_small(name)
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            a = torch.from_numpy(a_np).to(dtype).cuda()
+            label = f"phase26 jacobi_svd[{tag}] exact {name}"
+            capped.zero_()
+            u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+            ref = torch.linalg.svd(a.double(), full_matrices=False)
+            got = _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[dtype])
+            eu, es, evh = device_linalg.jacobi_svd(a)  # eager: reads its flag, raises at the cap
+            pu, ps, pvh, plain_sweeps = device_linalg._jacobi_torch(a.cpu())
+            ds = float((s.double().cpu() - ps.double()).abs().max())
+            limit = 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])
+            if not (int(sweeps) <= LAPACK_SWEEPS and plain_sweeps <= LAPACK_SWEEPS and int(capped) == 0
+                    and ds <= limit and torch.equal((s == 0).cpu(), ps == 0) and torch.equal(es, s)):
+                raise AssertionError(f"{label}: sweeps {int(sweeps)} (plain {plain_sweeps}), capped {int(capped)}, "
+                                     f"|s - plain s| {ds:.2e} (limit {limit:.2e}), zeros {int((s == 0).sum())} / "
+                                     f"{int((ps == 0).sum())}, eager bitwise {torch.equal(es, s)}")
+            print(f"{label}: {int(sweeps)} sweeps (plain {plain_sweeps}), capped 0, eager call returned; against "
+                  f"torch.linalg.svd in float64 {_fmt(got)}; |s - plain s| {ds:.2e}; values zero "
+                  f"{int((s == 0).sum())} of {s.numel()}", flush=True)
+
+
+def _video_unfoldings(clips: dict) -> None:
+    """The kernel at the video cut's three unfoldings of each clip, float32:
+    its plan, sweeps, ms a call (events, median of 3) against
+    torch.linalg.svd (gesvdj) and held to torch.linalg.svd in float64."""
+    from tritd_tpu_torch.ops import device_linalg
+
+    capped = device_linalg.jacobi_capped("cuda")
+    index = torch.cuda.current_device()
+    for clip, c_np in clips.items():
+        c = torch.from_numpy(c_np).cuda()
+        mats = (c.reshape(c.shape[0], -1), c.reshape(-1, c.shape[2]), c.permute(1, 2, 0).reshape(-1, c.shape[0]))
+        for m in mats:
+            a = m.contiguous()
+            p, q = a.shape
+            label = f"phase26 jacobi_svd[f32] {clip} {p}x{q}"
+            capped.zero_()
+            u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+            ref = torch.linalg.svd(a.double(), full_matrices=False)
+            got = _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[torch.float32])
+            if int(capped) or not int(sweeps) < device_linalg.JACOBI_SWEEPS:
+                raise AssertionError(f"{label}: {int(sweeps)} sweeps, capped {int(capped)}")
+            plan = device_linalg._plan(index, p, q, torch.float32)
+            ms = _median_ms(lambda: device_linalg.jacobi_svd(a), 3)
+            torch.linalg.svd(a, full_matrices=False)
+            library_ms = _median_ms(lambda: torch.linalg.svd(a, full_matrices=False), 1)
+            bound_ms, bound_by = _jacobi_bound(p, q, torch.float32)
+            print(f"{label}: plan m={plan.m} k={plan.k} {plan.clusters} clusters of {plan.cluster} CTAs, teams of "
+                  f"{plan.team}, {plan.stages} stage(s) of {plan.chunk} tiles, {plan.smem} B; {int(sweeps)} sweeps; "
+                  f"kernel {ms:.3f} ms, torch.linalg.svd (gesvdj) {library_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+                  f"{bound_by} (events); values zero {int((s == 0).sum())} of {s.numel()}; against "
+                  f"torch.linalg.svd in float64 {_fmt(got)}; {CARD[0]}", flush=True)
+            del u, s, vh, ref
+        del c, mats, a
+
+
+def phase26() -> tuple:
+    """The Jacobi SVD on the exact families and at the video unfoldings,
+    then the video protocol's ttnn and ring on the svd route at full width
+    on the highway stand-in and its static clip (see the module's
+    docstring). Returns the svd rows' Jacobi launches by key and the check
+    that holds their RREs to the float64 CPU runs."""
+    from tritd_tpu_torch.baselines.rtrc import precompute_freedom_ratio
+    from tritd_tpu_torch.cli.run_video import solve
+    from tritd_tpu_torch.ops import device_linalg
+
+    clips, vspec, vprov = _video_clips()
+    pending = {(method, clip): _cpu_pool().submit(_video_svd_cpu, method, x_np, vspec, VIDEO_SVD_ITERS)
+               for clip, x_np in clips.items() for method in VIDEO_SVD_METHODS}
+    _exact_families()
+    _video_unfoldings(clips)
+    launches, rows = {}, {}
+    capped = device_linalg.jacobi_capped("cuda")
+    for clip, x_np in clips.items():
+        x = torch.from_numpy(x_np).cuda()
+        mask = torch.ones(x.shape, dtype=torch.bool, device="cuda")
+        t0 = time.perf_counter()
+        precompute_freedom_ratio(x, mask)
+        ranks_s = time.perf_counter() - t0
+        for method in VIDEO_SVD_METHODS:
+            label = f"phase26 {method} video {clip} svd"
+            hopper_kernels.reset_launch_counts()
+            capped.zero_()
+            with _loop_syncs() as loop_syncs:
+                w = _watched(lambda: solve(method, x, x, mask, vspec, 0, VIDEO_SVD_ITERS, svt_method="svd"))
+            x_hat, o, hist = w["res"]
+            calls, jacobi = _linalg_calls(), dict(hopper_kernels.JACOBI_SVD_LAUNCHES)
+            _on_card(label, x_hat, o)
+            if x_hat.shape != x.shape or not torch.isfinite(x_hat).all() or not np.isfinite(hist).all():
+                raise AssertionError(f"{label}: X or err_hist not finite at the input's shape")
+            if (int(capped) or w["graphs"] != 1 or loop_syncs != [1] or calls or not jacobi.get("jacobi_svd[f32]")
+                    or len(hist) != VIDEO_SVD_ITERS):
+                raise AssertionError(f"{label}: capped {int(capped)}, captures {w['graphs']} (want 1), loop syncs "
+                                     f"{loop_syncs} (want [1]), binding calls {calls} (want none), Jacobi launches "
+                                     f"{jacobi}, {len(hist)} iterations")
+            for key, n in jacobi.items():
+                launches[key] = launches.get(key, 0) + n
+            rows[method, clip] = float(rre(x_hat, x)), np.asarray(hist, dtype=np.float64), x_hat.cpu().numpy()
+            print(f"{label} ({vprov}) {'x'.join(map(str, x.shape))} f32: iters={VIDEO_SVD_ITERS} (the CLI's 100 cut) "
+                  f"graph route {w['ms'] / VIDEO_SVD_ITERS:.1f} ms/iter (events; first replay after "
+                  f"{w.get('before_replays_ms', float('nan')):.1f} ms, replays "
+                  f"{w.get('replays_ms', float('nan')) / (VIDEO_SVD_ITERS - 1):.1f} ms/iter); captures {w['graphs']}; "
+                  f"syncs in the loop {loop_syncs}, outside it {w['syncs']}; peak_mem={w['peak_mib']:.1f} MiB; "
+                  f"Jacobi launches {jacobi['jacobi_svd[f32]']}, binding calls none, capped 0; ring's host float64 "
+                  f"ranks {ranks_s:.2f} s; rre={rows[method, clip][0]:.6f} err[0]={hist[0]:.4e} err[-1]={hist[-1]:.4e}; "
+                  f"{CARD[0]}", flush=True)
+            del x_hat, o, w
+            _release_cached()
+        del x, mask
+
+    def check() -> None:
+        for (method, clip), future in pending.items():
+            label = f"phase26 {method} video {clip} svd"
+            want, want_hist, want_x, seconds = future.result()
+            got, got_hist, got_x = rows[method, clip]
+            dx = float(np.linalg.norm(got_x - want_x) / np.linalg.norm(want_x))
+            if not dx <= VIDEO_SVD_X_RTOL:
+                raise AssertionError(f"{label}: X at {dx:.3e} of the port's float64 CPU run's norm from it, beyond "
+                                     f"{VIDEO_SVD_X_RTOL}")
+            text = _hist_diff(f"{label} RRE and err_hist", [got, *got_hist], [want, *want_hist],
+                              VIDEO_SVD_ITERS + 1, VIDEO_SVD_RTOL, VIDEO_SVD_ATOL)
+            print(f"{label}: RRE {got:.8f}, the port's float64 CPU run of {VIDEO_SVD_ITERS} iterations {want:.8f} "
+                  f"({CPU_REF_THREADS} threads, {seconds:.1f} s); X's distance over its norm {dx:.3e} (limit "
+                  f"{VIDEO_SVD_X_RTOL}); RRE and err_hist: {text} (rtol {VIDEO_SVD_RTOL}, atol {VIDEO_SVD_ATOL})",
+                  flush=True)
+
+    return launches, check
 
 
 # trpca_snn at taxi (phase 10): iterations of each float32 route, and of the
@@ -4814,6 +5024,9 @@ def _main() -> None:
     records9, jacobi_launches, jacobi_check = _timed(9, phase9)
     for key, n in _timed(10, phase10).items():
         jacobi_launches[key] = jacobi_launches.get(key, 0) + n
+    video_launches, video_check = _timed(26, phase26)
+    for key, n in video_launches.items():
+        jacobi_launches[key] = jacobi_launches.get(key, 0) + n
     _timed(11, phase11)
     for variant, count in _timed(12, phase12).items():
         launches[variant] = launches.get(variant, 0) + count
@@ -4833,9 +5046,10 @@ def _main() -> None:
     # phase 3's CPU references ran in worker processes through phases 4-25
     _timed("3 checks", phase3_checks)
     _timed("9 checks", jacobi_check)
+    _timed("26 checks", video_check)
     variants = set(hopper_kernels.KERNEL_VARIANTS.values())
     if set(jacobi_launches) != set(hopper_kernels.JACOBI_SVD_LAUNCHES) or not all(jacobi_launches.values()):
-        raise AssertionError(f"the Jacobi SVD's launches on the main path (phases 9, 10): {jacobi_launches}")
+        raise AssertionError(f"the Jacobi SVD's launches on the main path (phases 9, 10, 26): {jacobi_launches}")
     missing = sorted(variants - {v for v, n in launches.items() if n})
     if missing or set(records) != variants:
         raise AssertionError(f"kernel variants not launched by the main path: {missing}; "

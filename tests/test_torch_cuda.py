@@ -96,6 +96,7 @@ from tritd_tpu_torch.cli.run_completion import run_method  # noqa: E402
 from tritd_tpu_torch.data.loaders import DatasetSpec, synthetic_traffic  # noqa: E402
 from tritd_tpu_torch.ops import hopper_kernels  # noqa: E402
 from tritd_tpu_torch.ops import svt as svt_ops  # noqa: E402
+from tritd_tpu_torch.ops.device_linalg import JACOBI_LIMITS, LAPACK_SWEEPS  # noqa: E402
 from tritd_tpu_torch.ops.narrow import narrow_cast  # noqa: E402
 from tritd_tpu_torch.runtime import native  # noqa: E402
 from tritd_tpu_torch.solvers import (  # noqa: E402
@@ -1476,13 +1477,6 @@ def test_device_svd_matches_torch_linalg(cuda_device, shape, dtype):
         assert driver == "gesvdj"
 
 
-# The Jacobi SVD's limits against torch.linalg.svd in float64, in s_max:
-# chip_smoke.py's JACOBI_LIMITS (its readings at the taxi unfoldings times 4
-# to 10), which 64 k eps (1.5e-2 at k = 1000 in float32) would overshoot
-# by 10^3.
-JACOBI_LIMITS = {torch.float32: 1e-5, torch.float64: 4e-12}
-
-
 def _svd_held(a, u, s, vh, ref):
     """(u, s, vh) of `a` against `ref`, torch.linalg.svd of `a` in float64:
     singular values within JACOBI_LIMITS s_max, the reconstruction's
@@ -1644,11 +1638,11 @@ def test_jacobi_svd_of_a_zero_and_a_rank_one_matrix(cuda_device):
     """A zero matrix: zero singular values, its tall-side vectors zero, the
     other side the identity (no rotation); a rank-one matrix: one value.
     This rank-one matrix (every column an exact multiple of one) is one the
-    sweeps do not converge on, the plain version's neither (ROADMAP.md,
-    queue 3): its columns of rounding noise rotate against the large one
-    in every sweep. Its values and reconstruction are read through
-    jacobi_svd_with_sweeps, which stops at the cap; the eager jacobi_svd
-    raises there."""
+    sweeps did not converge on before the rotation test's floor (its
+    columns of rounding noise rotated against the large one in every
+    sweep, ROADMAP.md queue 3): now it converges under the cap, the eager
+    jacobi_svd returns, and its result is held to its plain version and to
+    torch.linalg.svd in float64."""
     from tritd_tpu_torch.ops import device_linalg
 
     u, s, vh = device_linalg.jacobi_svd(torch.zeros((70, 20), device=cuda_device))
@@ -1656,17 +1650,52 @@ def test_jacobi_svd_of_a_zero_and_a_rank_one_matrix(cuda_device):
     assert torch.equal(vh, torch.eye(20, device=cuda_device))
     x = torch.arange(1.0, 41.0, device=cuda_device, dtype=torch.float64)
     a = x[:, None] * x[None, :30]
+    capped = device_linalg.jacobi_capped(cuda_device)
+    capped.zero_()
     u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+    assert 1 < int(sweeps) < device_linalg.JACOBI_SWEEPS and int(capped) == 0
     ref = torch.linalg.svd(a, full_matrices=False)
     assert float((s - ref[1]).abs().max()) <= 1e-12 * float(ref[1][0])
     assert float(torch.linalg.matrix_norm((u * s) @ vh - a)) <= 1e-12 * float(torch.linalg.matrix_norm(a))
-    assert int(sweeps) == device_linalg.JACOBI_SWEEPS
-    with pytest.raises(RuntimeError, match="stopped at its cap"):
-        device_linalg.jacobi_svd(a)
+    eu, es, evh = device_linalg.jacobi_svd(a)
+    assert torch.equal(eu, u) and torch.equal(es, s) and torch.equal(evh, vh)
+    pu, ps, pvh = device_linalg.jacobi_svd_torch(a)
+    assert float((s - ps).abs().max()) <= 2 * JACOBI_LIMITS[torch.float64] * float(ref[1][0])
+    assert float(torch.linalg.matrix_norm((pu * ps) @ pvh - (u * s) @ vh)) <= 1e-12 * float(ref[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["outer 40x30", "outer 30x40", "static 60x40", "static 3000x100", "rank3 50x30",
+                                  "zero-cols 40x24"])
+def test_jacobi_svd_converges_on_exactly_rank_deficient_matrices(cuda_device, name, dtype):
+    """The exact families (`tools/jacobi_sweeps.EXACT_SMALL`: an integer
+    outer product and its transpose, static clips, rank 3 from duplicated
+    columns, zero columns) on the card: the kernel converges within
+    LAPACK's 30 sweeps, `jacobi_capped` stays 0, the eager call returns,
+    and the result is held to torch.linalg.svd in float64 (`_svd_held`)
+    and to its plain version (singular values within twice JACOBI_LIMITS,
+    the same values zero)."""
+    from tritd_tpu_torch.ops import device_linalg
+    from tritd_tpu_torch.tools import jacobi_sweeps
+
+    a = torch.from_numpy(jacobi_sweeps.exact_small(name)).to(dtype).to(cuda_device)
+    ref = torch.linalg.svd(a.double(), full_matrices=False)
+    capped = device_linalg.jacobi_capped(cuda_device)
+    capped.zero_()
+    u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
+    assert int(sweeps) <= LAPACK_SWEEPS and int(capped) == 0
+    _svd_held(a, u, s, vh, ref)
+    device_linalg.jacobi_svd(a)
+    _pu, ps, _pvh, plain_sweeps = device_linalg._jacobi_torch(a)
+    assert plain_sweeps <= LAPACK_SWEEPS
+    assert float((s.double() - ps.double()).abs().max()) <= 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])
+    assert torch.equal(s == 0, ps == 0)
 
 
 BASELINE_LOOP_CASES = ["ttnn gram", "ttnn warm:4", "ring gram", "ring warm:4", "fctn gram", "fctn warm:4",
-                       "fctn video lowrank:16", "ttnn svd", "ring svd", "fctn svd"]
+                       "fctn video lowrank:16", "ttnn svd", "ring svd", "fctn svd", "ttnn svd static",
+                       "ring svd static"]
 
 
 @pytest.mark.cuda
@@ -1677,15 +1706,24 @@ def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch,
     refresh and reuse), no synchronizing call in the loop but one read of
     the counter a segment (fctn's traffic chunks of 25: two in 30
     iterations), bitwise the device form without graphs, every eigh or SVD
-    through the binding (on the svd route the Jacobi SVD, no gesvdj)."""
+    through the binding (on the svd route the Jacobi SVD, no gesvdj). A
+    "static" case is a static clip under the video presets: every frame
+    the first, nothing missing, so that the SVT's unfoldings are exactly
+    rank-deficient (rank one past the first iteration); no Jacobi SVD
+    stops at its cap (the segment's read would raise)."""
     from tritd_tpu_torch.baselines import device_loop
-    from tritd_tpu_torch.ops import toolbox_loop
+    from tritd_tpu_torch.ops import device_linalg, toolbox_loop
 
-    method, svt_method = case.split()[0], case.split()[-1]
-    video = "video" in case
-    spec = DatasetSpec("tiny", "video" if video else "traffic", "T", (24, 20, 32), fctn_subdim=4, sofia_period=4)
+    method, *rest = case.split()
+    video, static = "video" in rest, "static" in rest
+    svt_method = next(word for word in rest if word not in ("video", "static"))
+    spec = DatasetSpec("tiny", "video" if video or static else "traffic", "T", (24, 20, 32), fctn_subdim=4,
+                       sofia_period=4)
     x = torch.from_numpy(synthetic_traffic(spec, np.random.default_rng(1))).float().to(cuda_device)
     mask = torch.from_numpy(np.random.default_rng(2).random(spec.shape) > 0.1).to(cuda_device)
+    if static:
+        x = x[:, :, :1].expand(spec.shape).contiguous()
+        mask = torch.ones_like(mask)
     y = torch.where(mask, x, torch.zeros_like(x))
     iters = 30 if method == "fctn" else 10
 
@@ -1705,10 +1743,13 @@ def test_baseline_loops_graph_route_is_the_device_form(cuda_device, monkeypatch,
         return out
 
     hopper_kernels.reset_launch_counts()
+    capped = device_linalg.jacobi_capped(cuda_device)
+    capped.zero_()
     with _watch(monkeypatch) as seen:
         monkeypatch.setattr(svt_ops, "WARM_MIN_DIM", 8)
         monkeypatch.setattr(device_loop, "run", run)
         graph = call()
+    assert int(capped) == 0
     segments = 2 if method == "fctn" and (video or svt_method.startswith("warm")) else 1
     assert seen["graphs"] == (2 if svt_method.startswith("warm") else 1)
     assert loop_syncs == [segments]

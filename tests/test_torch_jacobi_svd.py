@@ -32,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tritd_tpu_torch.baselines import device_loop  # noqa: E402
 from tritd_tpu_torch.ops import device_linalg, hopper_kernels  # noqa: E402
+from tritd_tpu_torch.ops.device_linalg import JACOBI_LIMITS, LAPACK_SWEEPS  # noqa: E402
 from tritd_tpu_torch.runtime import build, kernels  # noqa: E402
 from tritd_tpu_torch.tools import jacobi_sweeps  # noqa: E402
 
@@ -175,6 +176,116 @@ def test_plain_jacobi_converges_on_the_cap_readings_spectra(case, shape):
         ju, js, jvh = jnp.linalg.svd(jnp.asarray(a), full_matrices=False)
         want = (np.asarray(ju), np.asarray(js), np.asarray(jvh))
     _check_against(a, (u, sv, vh), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(jacobi_sweeps.EXACT_SMALL))
+def test_plain_jacobi_converges_on_exactly_rank_deficient_matrices(name, dtype):
+    """The matrices whose rounding columns rotated against each other in
+    every sweep up to the cap before the rotation test's floor
+    (`device_linalg.JACOBI_ROUNDING`): an integer outer product and its
+    transpose, static clips (one column repeated), rank 3 from duplicated
+    columns, zero columns among random ones. The plain version converges
+    within LAPACK's 30 sweeps; its singular values are within
+    JACOBI_LIMITS s_max of torch.linalg.svd of the same matrix in float64
+    (a negligible one returned as 0), the reconstruction within that times
+    sqrt(k) s_max (Frobenius), the side made of the accumulated rotations
+    (V of a tall input) orthogonal and the other orthonormal on the
+    nonzero values, its columns of zero values zero, within sqrt(m) eps +
+    JACOBI_LIMITS."""
+    a = torch.from_numpy(jacobi_sweeps.exact_small(name)).to(dtype)
+    u, s, vh, sweeps = device_linalg._jacobi_torch(a)
+    assert sweeps <= LAPACK_SWEEPS
+    a64 = a.double()
+    ref = torch.linalg.svd(a64, full_matrices=False)[1]
+    k, m = min(a.shape), max(a.shape)
+    bound, smax = JACOBI_LIMITS[dtype], float(ref[0])
+    u, s, vh = u.double(), s.double(), vh.double()
+    assert float((s - ref).abs().max()) <= bound * smax
+    assert float(torch.linalg.matrix_norm((u * s) @ vh - a64)) <= bound * smax * k ** 0.5
+    tall = a.shape[0] >= a.shape[1]
+    rotations, made = (vh.mT, u) if tall else (u, vh.mT)
+    nonzero = s > 0
+    close = device_linalg.jacobi_tol(m, dtype) + bound
+    eye = torch.eye(k, dtype=torch.float64)
+    assert float((rotations.mT @ rotations - eye).abs().max()) <= close
+    kept = made[:, nonzero]
+    assert float((kept.mT @ kept - eye[:kept.shape[1], :kept.shape[1]]).abs().max()) <= close
+    assert torch.equal(made[:, ~nonzero], torch.zeros_like(made[:, ~nonzero]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_a_negligible_singular_value_is_zero_with_a_zero_vector(dtype):
+    """A singular value below JACOBI_NEGLIGIBLE eps s_max is returned as 0
+    and its column of the side made from the tall form's columns is zero
+    (U of a tall input, V of a wide one); one above it is kept, its
+    vector unit."""
+    eps = torch.finfo(dtype).eps
+    below, above = 0.5 * device_linalg.JACOBI_NEGLIGIBLE * eps, 4 * device_linalg.JACOBI_NEGLIGIBLE * eps
+    a_np = _with_spectrum(50, 12, [1.0] * 10 + [above, below], 5)
+    for a in (torch.from_numpy(a_np).to(dtype), torch.from_numpy(a_np.T.copy()).to(dtype)):
+        u, s, vh = device_linalg.jacobi_svd_torch(a)
+        made = u if a.shape[0] >= a.shape[1] else vh.mT
+        assert float(s[-1]) == 0.0 and torch.equal(made[:, -1], torch.zeros_like(made[:, -1]))
+        assert abs(float(s[-2]) / above - 1) < 0.5
+        assert abs(float(torch.linalg.vector_norm(made[:, -2].double())) - 1) < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(400, 120), (120, 400)], ids=str)
+@pytest.mark.parametrize("case", ["graded", "clustered", "rank-def"])
+def test_the_floor_keeps_the_spectra_sweeps(case, shape):
+    """The floor changes nothing that converged: at the cap readings'
+    spectra the plain version takes no more sweeps than without it (within
+    2), in float32 and float64 (without it: the floor set to 0 and nothing
+    negligible)."""
+    p, q = shape
+    a_np = _with_spectrum(p, q, jacobi_sweeps.spectrum(case, min(shape), np.finfo(np.float64).eps),
+                          sum(map(ord, case)))
+    for dtype in (torch.float32, torch.float64):
+        a = torch.from_numpy(a_np).to(dtype)
+        with_floor = device_linalg._jacobi_torch(a)[3]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(device_linalg, "jacobi_floor", lambda _dtype: 0.0)
+            mp.setattr(device_linalg, "jacobi_negligible", lambda _dtype: 0.0)
+            without = device_linalg._jacobi_torch(a)[3]
+        assert with_floor <= without + 2 < device_linalg.JACOBI_SWEEPS
+
+
+@pytest.mark.parametrize("shape", [(400, 120), (120, 400)], ids=str)
+def test_the_floor_costs_float32_at_most_three_times_its_level(shape):
+    """The floor's cost in accuracy: a singular value up to about 3 times
+    the floor (JACOBI_ROUNDING eps s_max) can be spread over columns each
+    under it and lost. On a graded float32 spectrum (down to 1e-8 s_max)
+    the plain version's values are within 3 JACOBI_ROUNDING eps s_max of
+    torch.linalg.svd in float64 (here 4.0e-6 and 4.6e-6 s_max at a 16 eps
+    floor, 1.2e-6 and 1.0e-6 at 4), well within JACOBI_LIMITS."""
+    p, q = shape
+    k = min(shape)
+    a_np = _with_spectrum(p, q, jacobi_sweeps.spectrum("graded", k, np.finfo(np.float64).eps), 7)
+    ref = torch.linalg.svd(torch.from_numpy(a_np), full_matrices=False)[1]
+    s = device_linalg.jacobi_svd_torch(torch.from_numpy(a_np).float())[1].double()
+    eps = torch.finfo(torch.float32).eps
+    bound = 3 * device_linalg.JACOBI_ROUNDING * eps
+    assert bound < JACOBI_LIMITS[torch.float32]
+    assert float((s - ref).abs().max()) <= bound * float(ref[0])
+
+
+def test_svt_of_the_outer_product_through_the_plain_jacobi_matches_jax(monkeypatch):
+    """The `svd` SVT route with its SVD the plain Jacobi (on the card the
+    kernel) on the 40 x 30 integer outer product, which stopped at the cap
+    before the floor, against the JAX package's, both operators, at atol
+    SVT_ATOL ||M|| (float64; tau below and above s_max)."""
+    m = jacobi_sweeps.exact_small("outer 40x30")
+    monkeypatch.setattr(tsvt.device_linalg, "svd", device_linalg.jacobi_svd_torch)
+    atol = SVT_ATOL * np.linalg.norm(m)
+    for tau in (100.0, 2e4):
+        with jax.enable_x64(True):
+            want_compat = np.asarray(jsvt.svt_ref_compat(jnp.asarray(m), tau, method="svd"))
+            want_plain = np.asarray(jsvt.svt(jnp.asarray(m), tau, "svd"))
+        got_compat = tsvt.svt_ref_compat(torch.from_numpy(m), tau, method="svd").numpy()
+        got_plain = tsvt.svt(torch.from_numpy(m), tau, "svd").numpy()
+        np.testing.assert_allclose(got_compat, want_compat, rtol=0, atol=atol)
+        np.testing.assert_allclose(got_plain, want_plain, rtol=0, atol=atol)
 
 
 def _svt_input(p, q, seed):
@@ -362,8 +473,8 @@ def test_source_constants_are_the_modules():
     """The kernel's constants, its cap included, are the module's; the
     fixed part of a CTA's shared memory is its struct's size (a barrier a
     stage of the ring, two partial Grams and R in T, the inner pass's two G and two R in
-    double, 16 rotations' c, s and new diagonal, their flags) rounded to
-    128 bytes."""
+    double, 16 rotations' c, s and new diagonal, the previous round's
+    reference, their flags) rounded to 128 bytes."""
     src = _source()
     assert _constant(src, "kBlock") == device_linalg.JACOBI_BLOCK
     assert _constant(src, "kTile") == device_linalg.JACOBI_TILE
@@ -373,9 +484,10 @@ def test_source_constants_are_the_modules():
     assert _constant(src, "kMaxTeam") == device_linalg.JACOBI_MAX_TEAM
     assert _constant(src, "kMaxCluster") == device_linalg.JACOBI_MAX_CLUSTER
     assert _constant(src, "kSmemLimit") == device_linalg.JACOBI_SMEM_LIMIT
+    assert _constant(src, "kMaxPairs") == device_linalg.JACOBI_MAX_PAIRS
     assert int(re.search(r"kStateHead = (\d+)", src).group(1)) == device_linalg.JACOBI_STATE_HEAD
     b = device_linalg.JACOBI_BLOCK
     for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
         fixed = (device_linalg.JACOBI_RING * 8 + 3 * (2 * b) ** 2 * size + 4 * (2 * b) * (2 * b + 1) * 8
-                 + 4 * b * 8 + b * 4 + 4 * 4)
+                 + 4 * b * 8 + 8 + b * 4 + 4 * 4)
         assert device_linalg.JACOBI_FIXED_SMEM[dtype] == -(-fixed // 128) * 128

@@ -15,10 +15,11 @@
 // u (p, k), vh (k, q). It works on the tall form W (m x k, m >= k): the input,
 // or its transpose, held as Wt (its k columns as rows of length ldw, zero
 // padded to whole tiles and to nb blocks of kBlock rows) beside Vt (the
-// columns of V as rows, V = I at the start). At the end s_j = ||W e_j||,
-// the normalized rows of Wt (zero where s_j = 0) and the rows of Vt, sorted
-// by s, are W's U^T and V^T: for a tall input u = wn^T, vh = vs; for a wide
-// one u = vs^T, vh = wn.
+// columns of V as rows, V = I at the start). At the end s_j = ||W e_j||
+// (0 where it is negligible: below `negligible` s_max), the normalized rows
+// of Wt (zero where s_j = 0) and the rows of Vt, sorted by s, are W's U^T
+// and V^T: for a tall input u = wn^T, vh = vs; for a wide one u = vs^T, vh =
+// wn.
 //
 // A sweep pairs the nb blocks by a round-robin tournament (nb - 1 rounds of
 // nb / 2 disjoint pairs; a zero block makes nb even). All sweeps run in one
@@ -48,7 +49,10 @@
 //      the 256 pairs across the two blocks (16 rounds), so that a sweep
 //      rotates each pair of columns once; each rotation only where |g_pq| >
 //      tol sqrt(g_pp) sqrt(g_qq) (tol = sqrt(m) eps of the input's dtype,
-//      LAPACK's gesvj test), accumulating R = J_31 ... J_1;
+//      LAPACK's gesvj test) and both g_pp and g_qq exceed `rounding` =
+//      (4 eps)^2 times the reference, the largest Gram diagonal so far (the
+//      pair's own and the largest that the previous round's pairs left in
+//      `refs`, each its own reference), accumulating R = J_31 ... J_1;
 //   5. where it rotated, X <- R X (R rounded to the input's dtype) on its
 //      slice of W's and V's rows, written back (float64's W on DMMA), and
 //      the sweep's flag set.
@@ -87,7 +91,23 @@
 //     double to 6e-7;
 //   * no preconditioning QR: torch.linalg.qr of a 4800 x 512 matrix took 5.0
 //     ms on the H100;
-//   * a pair that did not rotate skips its update.
+//   * a pair that did not rotate skips its update;
+//   * the floor of the test. X <- R X leaves rounding of about eps times a
+//     large column in every column it mixes with it; on an exactly
+//     rank-deficient matrix (a static clip's unfolding: one column
+//     repeated) such columns are all that is left beside the large ones.
+//     Without the floor they rotated against each other in every sweep,
+//     each rotation's rounding making new noise, down to underflow (where a
+//     zero diagonal beside a nonzero product passed the test), and the call
+//     stopped at the cap. Under the floor they are left as they are, and
+//     their singular values, at most 4 eps s_max, are returned as 0, their
+//     U columns zero (`negligible`, 8 eps: every column kept was tested
+//     against every other kept one in the last sweep). The floor costs
+//     accuracy (a value up to about 3 times it can be spread over columns
+//     each under it), so it is as low as the exact families allow with a
+//     margin (ops/device_linalg.py::JACOBI_ROUNDING). The reference is the
+//     largest diagonal so far, not the pair's own: a pair of two blocks of
+//     such noise holds nothing larger, and rotated its noise in every sweep.
 // The bound the smoke holds it to is that of an SVD, not of these sweeps.
 
 #include <cooperative_groups.h>
@@ -157,6 +177,7 @@ struct Shared {
     double tree[4][10][64];           // float64 Gram: four warps' tiles, a step of the tree
   } u;
   double rc[kBlock], rs[kBlock], fixed[kBlock][2];  // pair x's c, s, new diagonal
+  double ref;                                       // the previous round's reference (warp 0's)
   int rotating[kBlock];
   int any_round[2], any_pair, stop;  // a round's flag, by its parity; the pair's; the sweep's end
 };
@@ -333,6 +354,8 @@ struct Visit {
   int team, member;  // clusters a pair, this CTA's cluster among them
   double* gsum;      // the team's cluster Grams: [pair][member][kPair * kPair]
   unsigned* count;   // a pair's arrivals of its team's clusters
+  double* refs;      // each pair's reference, by the parity of the round: [2][kMaxPairs]
+  int pairs;         // pairs a round
   unsigned rounds;   // the rounds before this one
   int chunk;         // tiles a stage holds
   int stages;        // 1: the slice resident; 2 to kRing: chunks through a ring
@@ -565,7 +588,7 @@ __device__ __forceinline__ void apply_chunk(const Visit<T>& v, const T* st, int 
 // slices of W and V. Returns whether the pair rotated.
 template <typename T>
 __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& cluster, int parity, bool first,
-                                      double tol) {
+                                      double tol, double rounding) {
   Shared<T>& sh = *v.sh;
   const int tid = threadIdx.x, cs = static_cast<int>(cluster.num_blocks());
   T* part = &sh.part[parity][0][0];
@@ -576,6 +599,10 @@ __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& clus
     __syncthreads();
   }
   stamp(kAtGram, v.last);
+  // warp 0: the previous round's references of every pair (none before the
+  // first round), loaded while the cluster meets
+  double prev = 0.0;
+  if (tid < v.pairs && v.rounds > 0) prev = __ldcg(v.refs + ((v.rounds - 1) & 1u) * kMaxPairs + tid);
   cluster.sync();
   stamp(kAtClusterSync, v.last);
   // the Gram: the cluster's partials summed in rank order, in double; four
@@ -641,7 +668,20 @@ __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& clus
   }
   if (tid < 2) sh.any_round[tid] = 0;
   if (tid == 0) sh.any_pair = 0;
+  if (tid < 32) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) prev = fmax(prev, __shfl_xor_sync(0xffffffffu, prev, o));
+    if (tid == 0) sh.ref = prev;
+  }
   __syncthreads();
+  // The reference: the largest Gram diagonal of the previous round's pairs
+  // and of this one (fmax: NaN dropped); the next round's visits read it. A
+  // column whose diagonal is at most `rounding` times it is rounding (the
+  // update's of a large column): no pair of it is tested.
+  double ref = sh.ref;
+  for (int i = 0; i < kPair; ++i) ref = fmax(ref, G[0][i][i]);
+  if (tid == 0 && v.member == 0 && cluster.block_rank() == 0) v.refs[(v.rounds & 1u) * kMaxPairs + v.pair] = ref;
+  const double low = rounding * ref;
   // The inner pass. A pair whose Gram passes the rotation test on none of
   // the sweep's pairs rotates nothing: it stops there. Else each of the
   // sweep's 31 (16) rounds 16 threads compute the round's rotations from
@@ -657,7 +697,7 @@ __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& clus
 #pragma unroll
   for (int l = 0; l < kEntries; ++l) {
     const int i = i0 + kRowStep * l;
-    off |= (first ? i != j : (i < kBlock) != (j < kBlock)) &&
+    off |= (first ? i != j : (i < kBlock) != (j < kBlock)) && G[0][i][i] > low && G[0][j][j] > low &&
            fabs(G[0][i][j]) > tol * sqrt(G[0][i][i]) * sqrt(G[0][j][j]);
   }
   stamp(kAtSum, v.last);
@@ -671,7 +711,7 @@ __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& clus
     const int2 ra = inner_pair(first, round, a), rb = inner_pair(first, round, b);
     if (tid < kBlock) {  // a == 0 here: pair b's rotation
       const double al = G[cur][rb.x][rb.x], be = G[cur][rb.y][rb.y], ga = G[cur][rb.x][rb.y];
-      const bool rot = fabs(ga) > tol * sqrt(al) * sqrt(be);
+      const bool rot = al > low && be > low && fabs(ga) > tol * sqrt(al) * sqrt(be);
       const double t = rot ? tangent<T>(__dsub_rn(be, al), 2.0 * ga) : 0.0;
       const double c = rsqrt(__dadd_rn(1.0, __dmul_rn(t, t)));
       if (rot) sh.any_round[f] = sh.any_pair = 1;
@@ -760,8 +800,8 @@ __device__ __forceinline__ bool visit(const Visit<T>& v, cg::cluster_group& clus
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     sweep_kernel(T* __restrict__ wt, int64_t ldw, T* __restrict__ vt, int64_t ldv, int k, int nb, int team,
-                 int chunk, int stages, int sweeps, double tol, double* __restrict__ gsum,
-                 int* __restrict__ state) {
+                 int chunk, int stages, int sweeps, double tol, double rounding, double* __restrict__ gsum,
+                 double* __restrict__ refs, int* __restrict__ state) {
   extern __shared__ __align__(128) unsigned char smem[];
   Shared<T>& sh = *reinterpret_cast<Shared<T>*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
@@ -774,7 +814,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   long long last = clock64();
   const int w0 = min(tiles, r * per), v0 = min(k, r * vper);
   Visit<T> v{{wt, ldw, w0, min(tiles, w0 + per)}, {vt, ldv, v0, min(k, v0 + vper)}, make_int2(0, 0), 0, team,
-             member, gsum, reinterpret_cast<unsigned*>(state + kStateHead + sweeps), 0u, chunk, stages,
+             member, gsum, reinterpret_cast<unsigned*>(state + kStateHead + sweeps), refs, pairs, 0u, chunk, stages,
              chunk * kTile + kPad, reinterpret_cast<T*>(smem + kFixed<T>), &sh, &phases, &last};
   if (threadIdx.x == 0) {
     for (int b = 0; b < kRing; ++b) mbar_init(&sh.bar[b]);
@@ -789,7 +829,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = team_id; pair < pairs; pair += teams) {
         v.ab = tournament_pair(nb, round, pair);
         v.pair = pair;
-        if (visit(v, cluster, static_cast<int>(visits++ & 1u), round == 0, tol) && r == 0 && threadIdx.x == 0)
+        if (visit(v, cluster, static_cast<int>(visits++ & 1u), round == 0, tol, rounding) && r == 0 &&
+            threadIdx.x == 0)
           state[kStateHead + ran] = 1;
       }
       stamp(kAtApplyV, &last);  // a visit that did not rotate: its test's end to here
@@ -847,19 +888,30 @@ __device__ __forceinline__ bool before(T si, int i, T sj, int j) {
   return i < j;
 }
 
-// Block j: its rank r among the k values of sig, then s[r], wn[r] = Wt[j] /
-// s (0 where s is not > 0) over m columns and vs[r] = Vt[j] over k.
+// Block j: its rank r among the k values of sig and s_max (fmax: NaN
+// dropped), then s[r] (0 where sig[j] < negligible s_max), wn[r] = Wt[j] / s
+// (0 where s is not > 0) over m columns and vs[r] = Vt[j] over k.
 template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
     write_kernel(const T* __restrict__ wt, int64_t ldw, const T* __restrict__ vt, int64_t ldv,
-                 const T* __restrict__ sig, int k, int64_t m, T* __restrict__ s, T* __restrict__ wn,
-                 T* __restrict__ vs) {
+                 const T* __restrict__ sig, int k, int64_t m, double negligible, T* __restrict__ s,
+                 T* __restrict__ wn, T* __restrict__ vs) {
   __shared__ double buf[kNormThreads];
+  __shared__ double top;
   const int j = blockIdx.x;
-  const T sj = sig[j];
   int count = 0;
-  for (int i = threadIdx.x; i < k; i += kNormThreads) count += before(sig[i], i, sj, j);
+  double most = 0.0;
+  for (int i = threadIdx.x; i < k; i += kNormThreads) {
+    count += before(sig[i], i, sig[j], j);
+    most = fmax(most, static_cast<double>(sig[i]));
+  }
   const int r = static_cast<int>(block_sum(static_cast<double>(count), buf));
+  for (int o = 16; o > 0; o >>= 1) most = fmax(most, __shfl_xor_sync(0xffffffffu, most, o));
+  if (threadIdx.x == 0) top = 0.0;
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) atomicMax(reinterpret_cast<unsigned long long*>(&top), __double_as_longlong(most));
+  __syncthreads();
+  const T sj = static_cast<double>(sig[j]) < negligible * top ? T(0) : sig[j];
   if (threadIdx.x == 0) s[r] = sj;
   const T* w = wt + static_cast<int64_t>(j) * ldw;
   T* out = wn + static_cast<int64_t>(r) * m;
@@ -921,8 +973,9 @@ int g_launches[kKernels];
 
 template <typename T>
 int jacobi_svd(const T* a, int64_t p, int64_t q, T* wt, int64_t ldw, T* vt, int64_t ldv, int* state, int* capped,
-               double* gsum, T* sig, T* s, T* wn, T* vs, int nb, int cluster, int team, int clusters, int chunk,
-               int stages, int smem, int sweeps, double tol, cudaStream_t stream) {
+               double* gsum, double* refs, T* sig, T* s, T* wn, T* vs, int nb, int cluster, int team, int clusters,
+               int chunk, int stages, int smem, int sweeps, double tol, double rounding, double negligible,
+               cudaStream_t stream) {
   const int64_t k = p < q ? p : q, m = p < q ? q : p, rows = static_cast<int64_t>(nb) * kBlock;
   const int pairs = nb / 2;
   if (sweeps < 1 || sweeps > kSweeps || cluster < 1 || cluster > kMaxCluster || team < 1 || team > kMaxTeam ||
@@ -947,13 +1000,13 @@ int jacobi_svd(const T* a, int64_t p, int64_t q, T* wt, int64_t ldw, T* vt, int6
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = sweep_config<T>(cluster, clusters, smem, stream, attr);
   if ((err = cudaLaunchKernelEx(&cfg, sweep_kernel<T>, wt, ldw, vt, ldv, static_cast<int>(k), nb, team, chunk, stages,
-                                sweeps, tol, gsum, state)) != cudaSuccess)
+                                sweeps, tol, rounding, gsum, refs, state)) != cudaSuccess)
     return err;
   TRITD_LAUNCHED(2);
   norms_kernel<T><<<static_cast<unsigned>(k), kNormThreads, 0, stream>>>(wt, ldw, sig, state, capped);
   TRITD_LAUNCHED(3);
   write_kernel<T><<<static_cast<unsigned>(k), kNormThreads, 0, stream>>>(wt, ldw, vt, ldv, sig, static_cast<int>(k), m,
-                                                                         s, wn, vs);
+                                                                         negligible, s, wn, vs);
   TRITD_LAUNCHED(4);
 #undef TRITD_LAUNCHED
   return cudaSuccess;
@@ -1004,31 +1057,36 @@ int tritd_jacobi_active_clusters(int f64, int cluster, int smem) {
 // barrier's count, a flag a sweep, a count a pair), capped (1 int, the
 // count of calls that stopped at the cap, kept by the caller), gsum (nb / 2
 // x team x 32 x 32 doubles: a team's cluster Grams; unused for a team of
-// one), sig (k); all on the device, allocated by the caller. The plan: nb
+// one), refs (2 x 32 doubles: each pair's reference, by the round's
+// parity), sig (k); all on the device, allocated by the caller. The plan: nb
 // blocks, `clusters` clusters of `cluster` CTAs, `team` clusters a pair,
 // `stages` stages of `chunk` tiles, `smem` bytes of shared memory a CTA, at
-// most `sweeps` sweeps. Returns cudaErrorInvalidValue for a plan it does not
-// take, else cudaGetLastError() of the first launch that failed, else 0.
+// most `sweeps` sweeps; the rotation test's tolerance `tol` and floor
+// `rounding` (over the reference), and `negligible` (the fraction of s_max
+// below which a singular value is 0). Returns cudaErrorInvalidValue for a
+// plan it does not take, else cudaGetLastError() of the first launch that
+// failed, else 0.
 int tritd_jacobi_svd_f32(const void* a, int64_t p, int64_t q, void* wt, int64_t ldw, void* vt, int64_t ldv,
-                         void* state, void* capped, void* gsum, void* sig, void* s, void* wn, void* vs, int nb,
-                         int cluster, int team, int clusters, int chunk, int stages, int smem, int sweeps, double tol,
-                         void* stream) {
+                         void* state, void* capped, void* gsum, void* refs, void* sig, void* s, void* wn, void* vs,
+                         int nb, int cluster, int team, int clusters, int chunk, int stages, int smem, int sweeps,
+                         double tol, double rounding, double negligible, void* stream) {
   return jacobi_svd<float>(static_cast<const float*>(a), p, q, static_cast<float*>(wt), ldw, static_cast<float*>(vt),
                            ldv, static_cast<int*>(state), static_cast<int*>(capped), static_cast<double*>(gsum),
-                           static_cast<float*>(sig), static_cast<float*>(s), static_cast<float*>(wn),
-                           static_cast<float*>(vs), nb, cluster, team, clusters, chunk, stages, smem, sweeps, tol,
-                           static_cast<cudaStream_t>(stream));
+                           static_cast<double*>(refs), static_cast<float*>(sig), static_cast<float*>(s),
+                           static_cast<float*>(wn), static_cast<float*>(vs), nb, cluster, team, clusters, chunk, stages,
+                           smem, sweeps, tol, rounding, negligible, static_cast<cudaStream_t>(stream));
 }
 
 int tritd_jacobi_svd_f64(const void* a, int64_t p, int64_t q, void* wt, int64_t ldw, void* vt, int64_t ldv,
-                         void* state, void* capped, void* gsum, void* sig, void* s, void* wn, void* vs, int nb,
-                         int cluster, int team, int clusters, int chunk, int stages, int smem, int sweeps, double tol,
-                         void* stream) {
+                         void* state, void* capped, void* gsum, void* refs, void* sig, void* s, void* wn, void* vs,
+                         int nb, int cluster, int team, int clusters, int chunk, int stages, int smem, int sweeps,
+                         double tol, double rounding, double negligible, void* stream) {
   return jacobi_svd<double>(static_cast<const double*>(a), p, q, static_cast<double*>(wt), ldw,
                             static_cast<double*>(vt), ldv, static_cast<int*>(state), static_cast<int*>(capped),
-                            static_cast<double*>(gsum), static_cast<double*>(sig), static_cast<double*>(s),
-                            static_cast<double*>(wn), static_cast<double*>(vs), nb, cluster, team, clusters, chunk,
-                            stages, smem, sweeps, tol, static_cast<cudaStream_t>(stream));
+                            static_cast<double*>(gsum), static_cast<double*>(refs), static_cast<double*>(sig),
+                            static_cast<double*>(s), static_cast<double*>(wn), static_cast<double*>(vs), nb, cluster,
+                            team, clusters, chunk, stages, smem, sweeps, tol, rounding, negligible,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

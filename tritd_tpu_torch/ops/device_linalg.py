@@ -83,15 +83,54 @@ JACOBI_TILE = 64
 #: 34, a clustered one 21, standard normal matrices and tt_trpca's taxi
 #: unfoldings after 90 iterations 10-14; 48 is 1.2 times the most, past
 #: LAPACK's 30. A call still rotating in its last sweep is counted
-#: (:func:`jacobi_capped`), and an eager one raises (:func:`jacobi_svd`).
+#: (:func:`jacobi_capped`), and an eager one raises (:func:`jacobi_svd`): a
+#: guard, which no matrix of `tools/jacobi_sweeps`' cases reaches since the
+#: rounding floor (JACOBI_ROUNDING).
 JACOBI_SWEEPS = 48
 JACOBI_SWEEPS_BUILT = JACOBI_SWEEPS  # the kernel's own cap, its flags' room; a caller may run fewer
+#: LAPACK dgesvj's cap of sweeps: the most a call on an exactly
+#: rank-deficient matrix (`tools/jacobi_sweeps`' exact families) may take.
+LAPACK_SWEEPS = 30
+#: The limits the kernel and its plain version are held to against
+#: torch.linalg.svd of the same matrix in float64, in s_max: singular values
+#: and the reconstruction (the card tests, `chip_smoke.py`'s phases 9 and
+#: 26, the CPU tests). The largest readings at the taxi unfoldings (float32
+#: ds 9.4e-7, rec 3.7e-7, vectors 2.5e-6; float64 ds 3.8e-13, rec 5.1e-14,
+#: vectors 3.4e-15; PERF.md section 6) times 4 to 10.
+JACOBI_LIMITS = {torch.float32: 1e-5, torch.float64: 4e-12}
+#: The rotation test's floor: a column whose squared norm (its Gram
+#: diagonal) is at most (JACOBI_ROUNDING eps)^2 times the reference, the
+#: largest Gram diagonal seen so far (every pair's of the previous round and
+#: this pair's), is rounding: the test skips its pairs. The update X <- R X
+#: leaves rounding of the large columns in the others, about eps s_max in a
+#: static clip's unfolding and up to 16 eps in rank 3 from duplicated
+#: columns; those above the floor are rotated as any column. Without the
+#: floor such columns of an exactly rank-deficient matrix rotated against
+#: each other in every sweep (each rotation's rounding makes new noise, down
+#: to underflow, where a zero diagonal beside a nonzero product passed the
+#: test), and the call stopped at the cap. Floors of 0.5 to 16 eps took the
+#: same sweeps on the exact families (`tools/jacobi_sweeps --cases exact
+#: --rounding N`); the floor's cost is accuracy: a singular value up to
+#: about 3 times the floor can be spread over columns each under it and
+#: lost (graded float32 10000 x 500 reads 1.2e-6 s_max at 4 eps, 4.9e-6 at
+#: 16, 2.7e-7 without the floor; PERF.md section 6). So the floor is 4 eps,
+#: 4 times the static clip's noise.
+JACOBI_ROUNDING = 4
+#: A singular value below JACOBI_NEGLIGIBLE eps s_max is negligible: it is
+#: returned as 0, and its vector on the side made from the tall form's
+#: columns is zero, as an exact zero's. Twice the floor: every column kept
+#: passed the test against every other kept one in the last sweep, whatever
+#: the rounding of its norm. In float32, 9.5e-7 s_max.
+JACOBI_NEGLIGIBLE = 2 * JACOBI_ROUNDING
 #: The sweep kernel's launch (:func:`jacobi_plan`): clusters of up to
 #: JACOBI_MAX_CLUSTER CTAs (the H100's non-portable size) in teams of up to
 #: JACOBI_MAX_TEAM clusters a pair, each CTA a slice of at least
 #: JACOBI_MIN_SLICE of the pair's tiles where it has them.
 JACOBI_MAX_CLUSTER = 16
 JACOBI_MAX_TEAM = 8
+#: Pairs a round at the largest thin side, SVD_JACOBI_MAX_K (the kernel's
+#: kMaxPairs): the room of its references a pair.
+JACOBI_MAX_PAIRS = SVD_JACOBI_MAX_K // (2 * JACOBI_BLOCK)
 JACOBI_MIN_SLICE = 4
 #: A CTA's shared memory, at most JACOBI_SMEM_LIMIT bytes: the kernel's
 #: fixed part (JACOBI_FIXED_SMEM by dtype, csrc/jacobi_svd.cu's kFixed) and
@@ -428,6 +467,19 @@ def jacobi_tol(m: int, dtype: torch.dtype) -> float:
     return math.sqrt(m) * torch.finfo(dtype).eps
 
 
+def jacobi_floor(dtype: torch.dtype) -> float:
+    """The rotation test's floor over the reference (JACOBI_ROUNDING): a
+    pair rotates only where both Gram diagonals exceed it times the
+    reference."""
+    return (JACOBI_ROUNDING * torch.finfo(dtype).eps) ** 2
+
+
+def jacobi_negligible(dtype: torch.dtype) -> float:
+    """The fraction of s_max below which a singular value is returned as 0
+    (JACOBI_NEGLIGIBLE)."""
+    return JACOBI_NEGLIGIBLE * torch.finfo(dtype).eps
+
+
 def _inner_schedule(rounds, device) -> tuple[list, torch.Tensor]:
     """`rounds` (:func:`jacobi_inner_rounds`) on `device`: each round's first
     and second indices, and the (n, n) mask of the pairs the sweep tests."""
@@ -438,26 +490,32 @@ def _inner_schedule(rounds, device) -> tuple[list, torch.Tensor]:
     return [(rnd[:, 0], rnd[:, 1]) for rnd in pairs], tested | tested.mT
 
 
-def _inner_sweep(g: torch.Tensor, tol: float, angle: torch.dtype, schedule) -> tuple[torch.Tensor, torch.Tensor]:
+def _inner_sweep(g: torch.Tensor, tol: float, angle: torch.dtype, schedule,
+                 low: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One sweep of cyclic Jacobi over each of the symmetric (n, n) float64
     matrices g (pairs, n, n), in place, in the order of `schedule`
     (:func:`_inner_schedule`: n / 2 disjoint rotations a round), each
-    rotation where |g_pq| > tol sqrt(g_pp) sqrt(g_qq), t = e / (d + sign(d)
-    hypot(d, e)) with d = g_qq - g_pp, e = 2 g_pq, in the dtype `angle` (the
-    input's), c = rsqrt(1 + t^2), s = c t in float64; returns the
-    accumulated rotation R (g's old value is R^T g R) and whether each
-    matrix rotated. The kernel's `rotate_kernel`, the same formulas in the
-    same order (its square roots, hypot and rsqrt are the card's)."""
+    rotation where g_pp > low, g_qq > low (`low` (pairs,): the floor times
+    the reference, :func:`jacobi_floor`) and |g_pq| > tol sqrt(g_pp)
+    sqrt(g_qq), t = e / (d + sign(d) hypot(d, e)) with d = g_qq - g_pp, e = 2
+    g_pq, in the dtype `angle` (the input's), c = rsqrt(1 + t^2), s = c t in
+    float64; returns the accumulated rotation R (g's old value is R^T g R)
+    and whether each matrix rotated. The kernel's inner pass, the same
+    formulas in the same order (its square roots, hypot and rsqrt are the
+    card's)."""
     rounds, tested = schedule
     pairs, n, _ = g.shape
     r = torch.eye(n, dtype=g.dtype, device=g.device).expand(pairs, n, n).clone()
+    above = g.diagonal(dim1=1, dim2=2) > low[:, None]
     diag = g.diagonal(dim1=1, dim2=2).sqrt()
     rotated = torch.zeros(pairs, dtype=torch.bool, device=g.device)
-    if not bool(((g.abs() > tol * diag[:, :, None] * diag[:, None, :]) & tested).any()):
+    if not bool(((g.abs() > tol * diag[:, :, None] * diag[:, None, :]) & tested & above[:, :, None]
+                 & above[:, None, :]).any()):
         return r, rotated  # no pair of the sweep passes the test: it rotates nothing
+    low = low[:, None]
     for ip, iq in rounds:
         al, be, ga = g[:, ip, ip], g[:, iq, iq], g[:, ip, iq]
-        rot = ga.abs() > tol * al.sqrt() * be.sqrt()
+        rot = (al > low) & (be > low) & (ga.abs() > tol * al.sqrt() * be.sqrt())
         if not bool(rot.any()):  # a round that rotates nothing changes nothing
             continue
         rotated |= rot.any(dim=1)
@@ -492,6 +550,8 @@ def _jacobi_torch(a: torch.Tensor):
     block = torch.arange(b, device=device)
     rounds = [torch.tensor(rnd, device=device) for rnd in jacobi_tournament(plan.nb)]
     inner = [_inner_schedule(jacobi_inner_rounds(first), device) for first in (True, False)]
+    floor = jacobi_floor(dtype)
+    ref = torch.zeros((), dtype=torch.float64, device=device)  # the largest Gram diagonal of the rounds before
     sweeps = 0
     for _ in range(JACOBI_SWEEPS):
         sweeps += 1
@@ -499,7 +559,11 @@ def _jacobi_torch(a: torch.Tensor):
         for ri, rnd in enumerate(rounds):
             idx = (rnd[:, :, None] * b + block).reshape(len(rnd), 2 * b)
             x, y = wt[idx], vt[idx]
-            r, rotated = _inner_sweep((x @ x.mT).to(torch.float64), tol, dtype, inner[ri > 0])
+            g = (x @ x.mT).to(torch.float64)
+            # a pair's reference: the largest of its diagonal and the last round's (NaN dropped, as fmax does)
+            mine = torch.maximum(g.diagonal(dim1=1, dim2=2).nan_to_num(0.0).amax(dim=1), ref)
+            ref = mine.amax()
+            r, rotated = _inner_sweep(g, tol, dtype, inner[ri > 0], floor * mine)
             if bool(rotated.any()):
                 any_rotated = True
                 r, keep = r.to(dtype), rotated[:, None, None]
@@ -510,6 +574,8 @@ def _jacobi_torch(a: torch.Tensor):
     sig = torch.linalg.vector_norm(wt[:k].to(torch.float64), dim=1).to(dtype)
     order = torch.sort(sig, descending=True, stable=True).indices
     s = sig[order]
+    smax = s.nan_to_num(0.0).amax().double()
+    s = torch.where(s.double() < jacobi_negligible(dtype) * smax, torch.zeros((), dtype=dtype, device=device), s)
     wn = torch.where(s[:, None] > 0, wt[order] / s[:, None], torch.zeros((), dtype=dtype, device=device))
     vs = vt[order]
     u, vh = (vs.mT, wn) if plan.wide else (wn.mT, vs)
@@ -518,12 +584,14 @@ def _jacobi_torch(a: torch.Tensor):
 
 def jacobi_svd_torch(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of :func:`jacobi_svd`, on any device: the same
-    blocks, tournament, rotation test, inner rounds and cap in torch ops (the
-    Grams as batched products, so other sums than the kernel's). It stops
-    at the first sweep without a rotation, as the kernel's sweep loop does,
-    and returns at the cap whether it converged or not, as the reference's
-    `jnp.linalg.svd` returns. A column of U made from a zero singular value
-    is zero."""
+    blocks, tournament, rotation test and floor, inner rounds and cap in
+    torch ops (the Grams as batched products, so other sums than the
+    kernel's). It stops at the first sweep without a rotation, as the
+    kernel's sweep loop does, and returns at the cap whether it converged
+    or not, as the reference's `jnp.linalg.svd` returns. A singular value
+    below JACOBI_NEGLIGIBLE eps s_max is returned as 0; the column of the
+    side made from the tall form's columns (U for a tall input, V for a
+    wide one) that belongs to a zero singular value is zero."""
     _matrix(a, "jacobi_svd_torch")
     if min(a.shape) < 1:
         raise ValueError(f"jacobi_svd_torch takes a matrix with both sides >= 1, got {tuple(a.shape)}")
@@ -624,12 +692,14 @@ def _jacobi(a: torch.Tensor):
         state = torch.empty(JACOBI_STATE_HEAD + JACOBI_SWEEPS + plan.nb // 2, dtype=torch.int32, device=device)
         gsum = torch.empty((plan.nb // 2, plan.team, 2 * JACOBI_BLOCK, 2 * JACOBI_BLOCK) if plan.team > 1 else 1,
                            dtype=torch.float64, device=device)
+        refs = torch.empty((2, JACOBI_MAX_PAIRS), dtype=torch.float64, device=device)
         s, wn, vs = empty(k), empty((k, m)), empty((k, k))
         stream = torch._C._cuda_getCurrentRawStream(index)
         err = getattr(lib, f"tritd_jacobi_svd_{tag}")(
             a.data_ptr(), p, q, wt.data_ptr(), plan.ldw, vt.data_ptr(), plan.ldv, state.data_ptr(), capped.data_ptr(),
-            gsum.data_ptr(), sig.data_ptr(), s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb, plan.cluster,
-            plan.team, plan.clusters, plan.chunk, plan.stages, plan.smem, JACOBI_SWEEPS, jacobi_tol(m, dtype), stream)
+            gsum.data_ptr(), refs.data_ptr(), sig.data_ptr(), s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb,
+            plan.cluster, plan.team, plan.clusters, plan.chunk, plan.stages, plan.smem, JACOBI_SWEEPS,
+            jacobi_tol(m, dtype), jacobi_floor(dtype), jacobi_negligible(dtype), stream)
     if err:
         from ..runtime import kernels
 
@@ -655,9 +725,12 @@ def jacobi_svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     SVD_JACOBI_MAX_K; it raises on anything else (the plain version,
     :func:`jacobi_svd_torch`, runs anywhere). One call is one launch of
     the kernel family (JACOBI_LAUNCHES), five launches on torch's current
-    stream, so a CUDA graph can capture it. Singular values descending; the
+    stream, so a CUDA graph can capture it. Singular values descending; one
+    below JACOBI_NEGLIGIBLE eps s_max is negligible (rounding that the
+    sweeps leave untested, JACOBI_ROUNDING) and returned as 0, and the
     vectors of a zero one are zero on the side made from the tall form's
-    columns.
+    columns (U for a tall input, V for a wide one), where
+    `torch.linalg.svd` completes an orthonormal basis.
 
     At the cap. Outside a capture, and outside :func:`caller_reads_the_cap`,
     the call reads whether it converged (one synchronizing read, as

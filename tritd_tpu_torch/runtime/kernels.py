@@ -92,7 +92,7 @@ def bind(path, variants=None) -> ctypes.CDLL:
 def _bind_jacobi(lib: ctypes.CDLL) -> None:
     """The Jacobi SVD's entry points of `csrc/jacobi_svd.cu`: pointers and
     the stream `c_void_p`, sizes `c_int64`, the plan's counts `c_int`, the
-    tolerance `c_double`; each launcher returns `cudaGetLastError()` (or
+    tolerance, floor and negligible fraction `c_double`; each launcher returns `cudaGetLastError()` (or
     `cudaErrorInvalidValue` for a plan it does not take), the occupancy
     query a count or minus the error."""
     i64, i32 = ctypes.c_int64, ctypes.c_int
@@ -110,10 +110,10 @@ def _bind_jacobi(lib: ctypes.CDLL) -> None:
         lib.tritd_jacobi_phase_cycles.restype = i32
     for tag in ("f32", "f64"):
         fn = getattr(lib, f"tritd_jacobi_svd_{tag}")
-        # a, p, q, wt, ldw, vt, ldv, state, capped, gsum, sig, s, wn, vs, nb, cluster, team, clusters, chunk,
-        # stages, smem, sweeps, tol, stream
-        fn.argtypes = [_P, i64, i64, _P, i64, _P, i64, _P, _P, _P, _P, _P, _P, _P, i32, i32, i32, i32, i32, i32, i32,
-                       i32, ctypes.c_double, _P]
+        # a, p, q, wt, ldw, vt, ldv, state, capped, gsum, refs, sig, s, wn, vs, nb, cluster, team, clusters,
+        # chunk, stages, smem, sweeps, tol, rounding, negligible, stream
+        fn.argtypes = [_P, i64, i64, _P, i64, _P, i64, _P, _P, _P, _P, _P, _P, _P, _P, i32, i32, i32, i32, i32, i32,
+                       i32, i32] + [ctypes.c_double] * 3 + [_P]
         fn.restype = i32
 
 

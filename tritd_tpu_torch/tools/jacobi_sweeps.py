@@ -11,22 +11,32 @@ same matrix in float64, over s_max. The cases (:func:`cases`):
 * clustered:  groups of 8 equal values, from 1 down to 1e-2;
 * rank-def:   rank k / 4 (values from 1 to 0.1), the rest eps of the dtype;
   each of these three at the taxi tall forms 50000x100, 10000x500 and
-  5000x1000 (`--shapes` cuts them);
+  5000x1000 (TALL_FORMS);
 * thin:       a standard normal 5000 x k for k in THIN_SIDES (the largest
   thin sides the kernel takes);
 * tt_trpca:   the two unfoldings tt_trpca's svd route hands its SVT at the
   taxi stand-in (10% missing) after 90 iterations of its loop (the host
-  loop on the CPU, in float32 as the CLI runs it, then cast).
+  loop on the CPU, in float32 as the CLI runs it, then cast);
+* exact:      exactly rank-deficient matrices (:func:`exact_matrix`: an
+  integer outer product, a static clip's unfolding, rank 3 from duplicated
+  columns, zero columns among random ones) at the taxi and video tall forms
+  (TALL_FORMS, VIDEO_TALL_FORMS), the matrices that stopped at the cap before
+  the rotation test's floor (`device_linalg.JACOBI_ROUNDING`).
+
+`--shapes` sets the tall forms of the spectra and the exact families alike.
 
 `--device cpu` runs the plain version (`jacobi_svd_torch`, stopped at the
 cap as the kernel is); `--device cuda` the kernel
 (`jacobi_svd_with_sweeps`, which reads nothing back: its count is read
 here), on the same matrices, at most `--cap` sweeps (the module's cap by
 default; a higher one reads what a case needs). A case that stops at the
-cap is reported as such, not raised.
+cap is reported as such, not raised. `--rounding` sets the rotation test's
+floor (and the negligible bound, twice it) and `--tol-scale` scales its
+tolerance, to read what each costs.
 
     python -m tritd_tpu_torch.tools.jacobi_sweeps --device cpu [--threads 4] [--dtypes f32,f64]
-        [--cases graded,clustered,rank-def,thin,tt_trpca] [--shapes 50000x100,10000x500,5000x1000] [--cap N]
+        [--cases graded,clustered,rank-def,thin,tt_trpca,exact] [--shapes 50000x100,10000x500,5000x1000]
+        [--cap N] [--rounding EPS] [--tol-scale X]
 """
 
 from __future__ import annotations
@@ -38,9 +48,18 @@ import time
 import numpy as np
 
 TALL_FORMS = ((50000, 100), (10000, 500), (5000, 1000))
+#: The video cut's tall forms (240 x 320 x 300): tt_trpca's and ring's
+#: unfoldings 76800 x 300 and 96000 x 240.
+VIDEO_TALL_FORMS = ((76800, 300), (96000, 240))
 THIN_SIDES = (1000, 1024)
 THIN_M = 5000
-CASES = ("graded", "clustered", "rank-def", "thin", "tt_trpca")
+CASES = ("graded", "clustered", "rank-def", "thin", "tt_trpca", "exact")
+EXACT_FAMILIES = ("outer", "static", "rank3", "zero-cols")
+#: The exact families at small sizes (the CPU tests and the card's):
+#: label -> (family, m, k, transposed).
+EXACT_SMALL = {"outer 40x30": ("outer", 40, 30, False), "outer 30x40": ("outer", 40, 30, True),
+               "static 60x40": ("static", 60, 40, False), "static 3000x100": ("static", 3000, 100, False),
+               "rank3 50x30": ("rank3", 50, 30, False), "zero-cols 40x24": ("zero-cols", 40, 24, False)}
 TT_TRPCA_ITERS = 90
 
 
@@ -61,6 +80,33 @@ def spectrum(case: str, k: int, eps: float) -> np.ndarray:
         r = max(1, k // 4)
         return np.where(i < r, np.linspace(1.0, 0.1, k)[np.minimum(i * k // r, k - 1)], eps)
     raise ValueError(case)
+
+
+def exact_matrix(family: str, m: int, k: int, rng) -> np.ndarray:
+    """An exactly rank-deficient m x k matrix (float64) of `family`:
+    "outer" the outer product of 1..m and 1..k (rank one, integers);
+    "static" one standard normal column repeated k times, a static clip's
+    (pixels x frames) unfolding; "rank3" three standard normal columns,
+    column j the (j mod 3)-th; "zero-cols" a standard normal matrix with
+    every fifth column zero."""
+    if family == "outer":
+        return np.outer(np.arange(1.0, m + 1), np.arange(1.0, k + 1))
+    if family == "static":
+        return np.repeat(rng.standard_normal((m, 1)), k, axis=1)
+    if family == "rank3":
+        return np.ascontiguousarray(rng.standard_normal((m, 3))[:, np.arange(k) % 3])
+    if family == "zero-cols":
+        a = rng.standard_normal((m, k))
+        a[:, ::5] = 0.0
+        return a
+    raise ValueError(f"unknown exact family {family!r}; use one of {EXACT_FAMILIES}")
+
+
+def exact_small(label: str, seed: int = 0) -> np.ndarray:
+    """The matrix of EXACT_SMALL[label], from `seed`."""
+    family, m, k, transposed = EXACT_SMALL[label]
+    a = exact_matrix(family, m, k, np.random.default_rng(seed))
+    return np.ascontiguousarray(a.T) if transposed else a
 
 
 def _tt_trpca_unfoldings(iters: int) -> dict:
@@ -89,21 +135,27 @@ def _tt_trpca_unfoldings(iters: int) -> dict:
     return {f"tt_trpca {p}x{q}": mat.double().numpy() for (p, q), mat in seen.items()}
 
 
-def cases(names=CASES, shapes=TALL_FORMS, seed: int = 0) -> dict:
-    """{label: (float64 matrix, spectrum case)} of the cases `names`, each
-    tall form of `shapes` for the synthetic spectra (in float64: the tail
-    of rank-def is float64's eps here and cast's rounding in float32)."""
+def cases(names=CASES, shapes=None, seed: int = 0) -> dict:
+    """{label: float64 matrix} of the cases `names`, the synthetic spectra
+    (in float64: the tail of rank-def is float64's eps here and cast's
+    rounding in float32) and the exact families at each tall form of
+    `shapes`; by default the spectra at TALL_FORMS, the exact families at
+    those and VIDEO_TALL_FORMS."""
     rng = np.random.default_rng(seed)
     out = {}
     for name in names:
         if name in ("graded", "clustered", "rank-def"):
-            for m, k in shapes:
+            for m, k in shapes or TALL_FORMS:
                 out[f"{name} {m}x{k}"] = _with_spectrum(m, k, spectrum(name, k, np.finfo(np.float64).eps), rng)
         elif name == "thin":
             for k in THIN_SIDES:
                 out[f"thin {THIN_M}x{k}"] = rng.standard_normal((THIN_M, k))
         elif name == "tt_trpca":
             out.update(_tt_trpca_unfoldings(TT_TRPCA_ITERS))
+        elif name == "exact":
+            for m, k in shapes or TALL_FORMS + VIDEO_TALL_FORMS:
+                for family in EXACT_FAMILIES:
+                    out[f"exact {family} {m}x{k}"] = exact_matrix(family, m, k, rng)
         else:
             raise ValueError(f"unknown case {name!r}; use some of {CASES}")
     return out
@@ -163,9 +215,14 @@ def main(argv=None) -> None:
     parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
     parser.add_argument("--dtypes", default="f32,f64")
     parser.add_argument("--cases", default=",".join(CASES))
-    parser.add_argument("--shapes", default=",".join(f"{m}x{k}" for m, k in TALL_FORMS))
+    parser.add_argument("--shapes", help="tall forms of the spectra and the exact families, as 5000x1000,... "
+                        "(default: the taxi tall forms, and for exact also the video ones)")
     parser.add_argument("--threads", type=int, default=4)
     parser.add_argument("--cap", type=int, help="sweeps before a call stops (default JACOBI_SWEEPS)")
+    parser.add_argument("--rounding", type=float, help="the rotation test's floor in eps, the negligible bound "
+                        "twice it; 0 turns both off (default JACOBI_ROUNDING)")
+    parser.add_argument("--tol-scale", type=float, default=1.0, help="the rotation test's tolerance sqrt(m) eps "
+                        "times this")
     args = parser.parse_args(argv)
 
     import torch
@@ -174,12 +231,17 @@ def main(argv=None) -> None:
 
     if args.cap:
         device_linalg.JACOBI_SWEEPS = args.cap
+    if args.rounding is not None:
+        device_linalg.JACOBI_ROUNDING, device_linalg.JACOBI_NEGLIGIBLE = args.rounding, 2 * args.rounding
+    if args.tol_scale != 1.0:
+        tol = device_linalg.jacobi_tol
+        device_linalg.jacobi_tol = lambda m, dtype: args.tol_scale * tol(m, dtype)
 
     torch.set_num_threads(args.threads)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a CUDA device")
     dtypes = [{"f32": torch.float32, "f64": torch.float64}[d] for d in args.dtypes.split(",")]
-    shapes = [tuple(map(int, s.split("x"))) for s in args.shapes.split(",")]
+    shapes = [tuple(map(int, s.split("x"))) for s in args.shapes.split(",")] if args.shapes else None
     for record in measure(cases(args.cases.split(","), shapes), dtypes, args.device):
         print(json.dumps(record), flush=True)
 

@@ -14,10 +14,14 @@ With `--kernel`, instead, the Jacobi SVD alone
 (`ops.device_linalg.jacobi_svd`) at the six taxi unfoldings (the taxi
 stand-in's unfoldings at 10% missing, as phase 9 cuts them), float32 and
 float64, beside `torch.linalg.svd` (gesvdj) on the same matrix: ms a call,
-the median of `--turns` calls by events (gesvdj's of three), one JSON line
-an unfolding and dtype, for each tree in turns, in a process of its own.
+the median of `--turns` calls by events (gesvdj's of three), the sweeps of
+a call, one JSON line an unfolding and dtype, for each tree in turns, in a
+process of its own. `--unfoldings video` takes instead the video cut's (240 x 320 x 300): tt_trpca's 240 x
+96000 and 76800 x 300 and ring's 96000 x 240 of the highway stand-in and of
+its static clip (frame 0 repeated 300 times).
 
-    python -m tritd_tpu_torch.tools.svd_rows --tree . [--tree results/parent] [--iters 100] [--kernel [--turns 5]]
+    python -m tritd_tpu_torch.tools.svd_rows --tree . [--tree results/parent] [--iters 100]
+        [--kernel [--turns 5] [--unfoldings taxi|video]]
 
 Needs a CUDA device (and nvcc, for the kernels' first build). Prints the
 card's name and power limit first.
@@ -81,14 +85,20 @@ from tritd_tpu_torch.ops import device_linalg
 from tritd_tpu_torch.utils.config import README_MISSING_RATIO
 
 torch.backends.cuda.matmul.allow_tf32 = False
-turns = int(sys.argv[2])
-x_np, _spec, _prov = load_dataset("taxi")
-mask = uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO)
-y = torch.as_tensor(np.where(mask, x_np, 0.0), dtype=torch.float32, device="cuda")
-n1, n2, n3 = y.shape
-fctn = y.reshape(n1, n2, n3 // 10, 10).permute(0, 2, 1, 3).reshape(n1 * n3 // 10, n2 * 10)
-mats = [y.reshape(n1, -1), y.reshape(-1, n3), y.permute(2, 0, 1).reshape(n3, -1), y.permute(1, 2, 0).reshape(-1, n1),
-        fctn, fctn.T]
+turns, unfoldings = int(sys.argv[2]), sys.argv[3]
+if unfoldings == "taxi":
+    x_np, _spec, _prov = load_dataset("taxi")
+    mask = uniform_missing_mask(np.random.default_rng(0), x_np.shape, README_MISSING_RATIO)
+    y = torch.as_tensor(np.where(mask, x_np, 0.0), dtype=torch.float32, device="cuda")
+    n1, n2, n3 = y.shape
+    fctn = y.reshape(n1, n2, n3 // 10, 10).permute(0, 2, 1, 3).reshape(n1 * n3 // 10, n2 * 10)
+    mats = [("", m) for m in (y.reshape(n1, -1), y.reshape(-1, n3), y.permute(2, 0, 1).reshape(n3, -1),
+                              y.permute(1, 2, 0).reshape(-1, n1), fctn, fctn.T)]
+else:
+    v_np, _spec, _prov = load_dataset("highway")
+    v = torch.as_tensor(v_np, dtype=torch.float32, device="cuda")
+    mats = [(clip, m) for clip, c in (("highway", v), ("static", v[:, :, :1].expand(v.shape).contiguous()))
+            for m in (c.reshape(c.shape[0], -1), c.reshape(-1, c.shape[2]), c.permute(1, 2, 0).reshape(-1, c.shape[0]))]
 
 
 def ms(call, n):
@@ -106,11 +116,12 @@ def ms(call, n):
 
 
 for dtype in (torch.float32, torch.float64):
-    for m in mats:
+    for clip, m in mats:
         a = m.to(dtype).contiguous()
         print("ROW " + json.dumps({"tree": sys.argv[1], "package": tritd_tpu_torch.__file__,
-                                   "unfolding": "x".join(map(str, a.shape)), "dtype": str(dtype)[6:],
-                                   "kernel_ms": ms(lambda: device_linalg.jacobi_svd(a), turns),
+                                   "unfolding": " ".join(filter(None, (clip, "x".join(map(str, a.shape))))),
+                                   "dtype": str(dtype)[6:], "kernel_ms": ms(lambda: device_linalg.jacobi_svd(a), turns),
+                                   "sweeps": int(device_linalg.jacobi_svd_with_sweeps(a)[3]),
                                    "gesvdj_ms": ms(lambda: torch.linalg.svd(a, full_matrices=False), 3)}), flush=True)
 """
 
@@ -120,9 +131,9 @@ def _card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def rows(trees: list, iters: int, kernel: bool = False, turns: int = 5) -> None:
+def rows(trees: list, iters: int, kernel: bool = False, turns: int = 5, unfoldings: str = "taxi") -> None:
     for tree in trees:
-        args = [str(turns)] if kernel else [str(iters), ",".join(ROW_METHODS)]
+        args = [str(turns), unfoldings] if kernel else [str(iters), ",".join(ROW_METHODS)]
         proc = subprocess.run([sys.executable, "-c", _KERNEL if kernel else _ROWS, str(Path(tree).resolve()), *args],
                               capture_output=True, text=True, timeout=1800)
         got = [line[4:] for line in proc.stdout.splitlines() if line.startswith("ROW ")]
@@ -138,6 +149,8 @@ def main(argv=None) -> None:
     parser.add_argument("--iters", type=int, default=100)
     parser.add_argument("--kernel", action="store_true", help="the Jacobi SVD alone at the six taxi unfoldings")
     parser.add_argument("--turns", type=int, default=5, help="--kernel: timed calls a matrix")
+    parser.add_argument("--unfoldings", choices=("taxi", "video"), default="taxi",
+                        help="--kernel: the taxi stand-in's six or the video cut's three of two clips")
     args = parser.parse_args(argv)
 
     import torch
@@ -145,7 +158,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("svd_rows needs a CUDA device")
     print(_card(), flush=True)
-    rows(args.tree or ["."], args.iters, args.kernel, args.turns)
+    rows(args.tree or ["."], args.iters, args.kernel, args.turns, args.unfoldings)
 
 
 if __name__ == "__main__":
