@@ -128,7 +128,7 @@ Phases, each of which fails the run by raising:
      timed); the Jacobi SVD kernel (csrc/jacobi_svd.cu) at every taxi
      unfolding in float32 and float64 against torch.linalg.svd in float64
      (JACOBI_LIMITS s_max on singular values, reconstruction and vectors
-     over their gap, orthonormal within sqrt(m) eps more; short of its cap
+     over their gap, orthonormal within sqrt(k) eps more; short of its cap
      of sweeps), its launches a call (each of JACOBI_KERNELS once, by the
      library's own launch counts), a captured call replayed twice bitwise, timed beside
      its bound and torch.linalg.svd, and its plain version on the same
@@ -387,8 +387,11 @@ Phases, each of which fails the run by raising:
      columns), float32 and float64: each converged within LAPACK's 30
      sweeps, jacobi_capped 0, held to torch.linalg.svd in float64
      (JACOBI_LIMITS) and to its plain version on the CPU (the same values
-     zero); the eager jacobi_svd of the 40 x 30 outer product returns. The
-     kernel at the video cut's unfoldings (240 x 320 x 300: 240 x 96000,
+     zero); each eager jacobi_svd returns. The same for zero columns
+     among standard normal ones at the video cut's tall forms 96000 x 240
+     and 76800 x 300, float32 (the plain version on the card), its
+     readings and sweeps printed. The kernel at the video cut's
+     unfoldings (240 x 320 x 300: 240 x 96000,
      76800 x 300, 96000 x 240) of the highway stand-in and of its static
      clip (frame 0 repeated 300 times, made here), float32: its plan at
      m = 76800 and 96000, sweeps, ms a call against torch.linalg.svd
@@ -1967,7 +1970,7 @@ def _linalg_us(call, reps: int = LINALG_REPS) -> tuple:
 # the Jacobi SVD's checks (phase 9), against torch.linalg.svd of the matrix
 # in float64, the kernel on the card and its plain version on the CPU each:
 # singular values and the reconstruction within JACOBI_LIMITS s_max, both
-# sides orthonormal within the rotation test's tolerance sqrt(m) eps plus
+# sides orthonormal within the rotation test's tolerance sqrt(k) eps plus
 # that, each singular vector up to sign where its gap to its neighbours
 # exceeds JACOBI_GAP s_max, within JACOBI_LIMITS s_max / gap; the two's
 # singular values within twice it of each other (JACOBI_LIMITS: see
@@ -2011,7 +2014,7 @@ def _svd_distance(tag, a, got, ref, bound: float) -> dict:
     float64, within `bound` s_max (the limits above); returns the distances."""
     from tritd_tpu_torch.ops import device_linalg
 
-    k, m = min(a.shape), max(a.shape)
+    k = min(a.shape)
     u, s, vh = (x.double() for x in got)
     ru, rs, rvh = ref
     smax = float(rs[0])
@@ -2028,7 +2031,7 @@ def _svd_distance(tag, a, got, ref, bound: float) -> dict:
             sign = 1.0 if float(mine @ theirs) >= 0 else -1.0
             vec = max(vec, float((mine - sign * theirs).abs().max()) * float(gaps[i]) / smax)
     out["vectors"] = vec
-    limits = {"ds": bound, "rec": bound, "orth": device_linalg.jacobi_tol(m, a.dtype) + bound, "vectors": bound}
+    limits = {"ds": bound, "rec": bound, "orth": device_linalg.jacobi_tol(k, a.dtype) + bound, "vectors": bound}
     bad = {key: (out[key], limits[key]) for key in limits if not out[key] <= limits[key]}
     if bad:
         raise AssertionError(f"{tag}: beyond its limits against torch.linalg.svd in float64: {bad}")
@@ -2444,34 +2447,48 @@ def _video_svd_cpu(method: str, x32: np.ndarray, spec, iters: int) -> tuple:
 
 def _exact_families() -> None:
     """The kernel on the exact families (tools/jacobi_sweeps.EXACT_SMALL),
-    float32 and float64: converged within LAPACK_SWEEPS, jacobi_capped 0,
-    held to torch.linalg.svd in float64 and to its plain version on the
-    CPU; the eager call of the 40 x 30 outer product returns."""
+    float32 and float64, and on zero columns among standard normal ones at
+    the video cut's tall forms (VIDEO_TALL_FORMS, seed 0), float32, where a
+    rotation test's tolerance growing as sqrt(m) stopped the sweeps 5e-6
+    s_max off: converged within LAPACK_SWEEPS, jacobi_capped 0, held to
+    torch.linalg.svd in float64 and to its plain version (the same values
+    zero; on the CPU, at the video forms on the card, where it takes a few
+    seconds); each eager call returns."""
     from tritd_tpu_torch.ops import device_linalg
     from tritd_tpu_torch.tools import jacobi_sweeps
 
+    both = ((torch.float32, "f32"), (torch.float64, "f64"))
+
+    def cases():  # (name, matrix, dtypes, where the plain version runs), made one at a time
+        for name in jacobi_sweeps.EXACT_SMALL:
+            yield f"exact {name}", jacobi_sweeps.exact_small(name), both, "cpu"
+        for m, k in jacobi_sweeps.VIDEO_TALL_FORMS:
+            yield f"zero-cols {m}x{k}", jacobi_sweeps.exact_matrix("zero-cols", m, k, np.random.default_rng(0)), \
+                both[:1], "cuda"
+
     capped = device_linalg.jacobi_capped("cuda")
-    for name in jacobi_sweeps.EXACT_SMALL:
-        a_np = jacobi_sweeps.exact_small(name)
-        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+    for name, a_np, dtypes, plain_on in cases():
+        for dtype, tag in dtypes:
             a = torch.from_numpy(a_np).to(dtype).cuda()
-            label = f"phase26 jacobi_svd[{tag}] exact {name}"
+            label = f"phase26 jacobi_svd[{tag}] {name}"
             capped.zero_()
             u, s, vh, sweeps = device_linalg.jacobi_svd_with_sweeps(a)
             ref = torch.linalg.svd(a.double(), full_matrices=False)
             got = _svd_distance(label, a, (u, s, vh), ref, JACOBI_LIMITS[dtype])
             eu, es, evh = device_linalg.jacobi_svd(a)  # eager: reads its flag, raises at the cap
-            pu, ps, pvh, plain_sweeps = device_linalg._jacobi_torch(a.cpu())
-            ds = float((s.double().cpu() - ps.double()).abs().max())
+            pu, ps, pvh, plain_sweeps = device_linalg._jacobi_torch(a.to(plain_on))
+            ps = ps.to(s.device)
+            ds = float((s.double() - ps.double()).abs().max())
             limit = 2 * JACOBI_LIMITS[dtype] * float(ref[1][0])
             if not (int(sweeps) <= LAPACK_SWEEPS and plain_sweeps <= LAPACK_SWEEPS and int(capped) == 0
-                    and ds <= limit and torch.equal((s == 0).cpu(), ps == 0) and torch.equal(es, s)):
+                    and ds <= limit and torch.equal(s == 0, ps == 0) and torch.equal(es, s)):
                 raise AssertionError(f"{label}: sweeps {int(sweeps)} (plain {plain_sweeps}), capped {int(capped)}, "
                                      f"|s - plain s| {ds:.2e} (limit {limit:.2e}), zeros {int((s == 0).sum())} / "
                                      f"{int((ps == 0).sum())}, eager bitwise {torch.equal(es, s)}")
-            print(f"{label}: {int(sweeps)} sweeps (plain {plain_sweeps}), capped 0, eager call returned; against "
-                  f"torch.linalg.svd in float64 {_fmt(got)}; |s - plain s| {ds:.2e}; values zero "
-                  f"{int((s == 0).sum())} of {s.numel()}", flush=True)
+            print(f"{label}: {int(sweeps)} sweeps (plain {plain_sweeps}, on {plain_on}), capped 0, eager "
+                  f"call returned; against torch.linalg.svd in float64 {_fmt(got)}; |s - plain s| {ds:.2e}; values "
+                  f"zero {int((s == 0).sum())} of {s.numel()}", flush=True)
+            del a, u, s, vh, ref, eu, es, evh, pu, ps, pvh
 
 
 def _video_unfoldings(clips: dict) -> None:

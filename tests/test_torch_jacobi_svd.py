@@ -130,20 +130,53 @@ def test_plain_jacobi_matches_torch_and_jax_at_float64(name):
 def test_plain_jacobi_at_float32(name):
     """float32 (its inner rotations in float64) within 64 k eps of
     torch.linalg.svd's float64 values and orthonormal to the rotation
-    test's tolerance, sqrt(m) eps, and 64 k eps."""
+    test's tolerance, sqrt(k) eps, and 64 k eps."""
     a = _matrix(name)
     a32 = torch.from_numpy(a).float()
     u, s, vh = (x.double() for x in device_linalg.jacobi_svd_torch(a32))
     assert u.dtype == s.dtype == vh.dtype == torch.float64
     want = torch.linalg.svd(a32.double(), full_matrices=False)[1]
-    k, m = min(a.shape), max(a.shape)
+    k = min(a.shape)
     eps = torch.finfo(torch.float32).eps
     bound = 64 * k * eps
     assert float((s - want).abs().max()) <= bound * float(want[0])
     assert float(torch.linalg.matrix_norm((u * s) @ vh - a32.double())) <= bound * float(torch.linalg.matrix_norm(a32.double()))
     for basis in (u, vh.mT):
         assert float((basis.mT @ basis - torch.eye(k, dtype=torch.float64)).abs().max()) <= (
-            device_linalg.jacobi_tol(m, torch.float32) + bound)
+            device_linalg.jacobi_tol(k, torch.float32) + bound)
+
+
+def test_the_tolerance_does_not_grow_with_the_tall_side(monkeypatch):
+    """The rotation test's tolerance is sqrt(k) eps of the dtype, the same
+    for a given thin side k whatever the tall side m; the plain version
+    passes it the thin side, of a tall input and of a wide one."""
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        for k in (1, 64, 240, 1024):
+            assert device_linalg.jacobi_tol(k, dtype) == k ** 0.5 * eps
+    seen = []
+    tol = device_linalg.jacobi_tol
+    monkeypatch.setattr(device_linalg, "jacobi_tol", lambda k, dtype: seen.append(k) or tol(k, dtype))
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal((3000, 24)))
+    for x in (a, a.mT.contiguous()):
+        device_linalg.jacobi_svd_torch(x)
+    assert seen == [24, 24]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_jacobi_float32_at_a_long_tall_side(seed):
+    """Zero columns among standard normal ones (every fifth column zero) at
+    96000 x 64 in float32, the video cut's tall side: the singular values
+    within 4e-7 s_max of torch.linalg.svdvals of the same matrix in float64,
+    in at most 8 sweeps. With LAPACK gesvj's tolerance sqrt(m) eps (1.2e-5
+    at m = 96000) the sweeps stopped at 7.5e-7 to 1.4e-6 s_max on these
+    seeds; sqrt(k) eps reads 1.0e-7 to 1.5e-7 (PERF.md section 6)."""
+    a_np = jacobi_sweeps.exact_matrix("zero-cols", 96000, 64, np.random.default_rng(seed))
+    a = torch.from_numpy(a_np).float()
+    _u, s, _vh, sweeps = device_linalg._jacobi_torch(a)
+    want = torch.linalg.svdvals(a.double())
+    assert sweeps <= 8
+    assert float((s.double() - want).abs().max()) <= 4e-7 * float(want[0])
 
 
 def test_the_sweeps_stop_at_the_first_without_a_rotation():
@@ -191,14 +224,14 @@ def test_plain_jacobi_converges_on_exactly_rank_deficient_matrices(name, dtype):
     (a negligible one returned as 0), the reconstruction within that times
     sqrt(k) s_max (Frobenius), the side made of the accumulated rotations
     (V of a tall input) orthogonal and the other orthonormal on the
-    nonzero values, its columns of zero values zero, within sqrt(m) eps +
+    nonzero values, its columns of zero values zero, within sqrt(k) eps +
     JACOBI_LIMITS."""
     a = torch.from_numpy(jacobi_sweeps.exact_small(name)).to(dtype)
     u, s, vh, sweeps = device_linalg._jacobi_torch(a)
     assert sweeps <= LAPACK_SWEEPS
     a64 = a.double()
     ref = torch.linalg.svd(a64, full_matrices=False)[1]
-    k, m = min(a.shape), max(a.shape)
+    k = min(a.shape)
     bound, smax = JACOBI_LIMITS[dtype], float(ref[0])
     u, s, vh = u.double(), s.double(), vh.double()
     assert float((s - ref).abs().max()) <= bound * smax
@@ -206,7 +239,7 @@ def test_plain_jacobi_converges_on_exactly_rank_deficient_matrices(name, dtype):
     tall = a.shape[0] >= a.shape[1]
     rotations, made = (vh.mT, u) if tall else (u, vh.mT)
     nonzero = s > 0
-    close = device_linalg.jacobi_tol(m, dtype) + bound
+    close = device_linalg.jacobi_tol(k, dtype) + bound
     eye = torch.eye(k, dtype=torch.float64)
     assert float((rotations.mT @ rotations - eye).abs().max()) <= close
     kept = made[:, nonzero]

@@ -48,8 +48,10 @@
 //      every pair of the 32 (the same tournament, 31 rounds), at the others
 //      the 256 pairs across the two blocks (16 rounds), so that a sweep
 //      rotates each pair of columns once; each rotation only where |g_pq| >
-//      tol sqrt(g_pp) sqrt(g_qq) (tol = sqrt(m) eps of the input's dtype,
-//      LAPACK's gesvj test) and both g_pp and g_qq exceed `rounding` =
+//      tol sqrt(g_pp) sqrt(g_qq) (tol = sqrt(k) eps of the input's dtype:
+//      LAPACK gesvj's sqrt(m) eps let float32 values at the video cut's m =
+//      96000 stop 1e-5 s_max off; ops/device_linalg.py::jacobi_tol) and
+//      both g_pp and g_qq exceed `rounding` =
 //      (4 eps)^2 times the reference, the largest Gram diagonal so far (the
 //      pair's own and the largest that the previous round's pairs left in
 //      `refs`, each its own reference), accumulating R = J_31 ... J_1;

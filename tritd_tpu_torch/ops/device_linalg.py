@@ -77,12 +77,14 @@ JACOBI_BLOCK = 16
 JACOBI_TILE = 64
 #: The most sweeps a call runs (csrc/jacobi_svd.cu's kSweeps): the sweeps
 #: stop on the device at the first that rotates nothing, so a higher cap
-#: costs a converging call nothing. Set from the plain version's readings
-#: (`tools/jacobi_sweeps`, PERF.md section 6): a graded spectrum (8 decades)
-#: needed up to 40 sweeps in float64 at 5000 x 1000, a rank-deficient one
-#: 34, a clustered one 21, standard normal matrices and tt_trpca's taxi
-#: unfoldings after 90 iterations 10-14; 48 is 1.2 times the most, past
-#: LAPACK's 30. A call still rotating in its last sweep is counted
+#: costs a converging call nothing. Set from the readings of the plain
+#: version and the kernel (`tools/jacobi_sweeps`, PERF.md section 6; since
+#: the tolerance sqrt(k) eps): a graded spectrum (8 decades) needs up to 40
+#: sweeps in float64 at 5000 x 1000, a rank-deficient one 26, a clustered
+#: one 23, standard normal matrices and tt_trpca's taxi unfoldings after 90
+#: iterations 10-13, the exact families 2-12, standard normal 96000 x k for
+#: k = 1-16 at most 8; 48 is 1.2 times the most, past LAPACK's 30. A call
+#: still rotating in its last sweep is counted
 #: (:func:`jacobi_capped`), and an eager one raises (:func:`jacobi_svd`): a
 #: guard, which no matrix of `tools/jacobi_sweeps`' cases reaches since the
 #: rounding floor (JACOBI_ROUNDING).
@@ -460,11 +462,20 @@ def jacobi_inner_rounds(first: bool) -> list[list[tuple[int, int]]]:
     return [[(i, b + (i + r) % b) for i in range(b)] for r in range(b)]
 
 
-def jacobi_tol(m: int, dtype: torch.dtype) -> float:
+def jacobi_tol(k: int, dtype: torch.dtype) -> float:
     """The rotation test's tolerance: a pair of columns p, q of the tall
-    form rotates where |w_p . w_q| > tol ||w_p|| ||w_q||; sqrt(m) eps, as
-    LAPACK's gesvj."""
-    return math.sqrt(m) * torch.finfo(dtype).eps
+    form (m x k, m >= k) rotates where |w_p . w_q| > tol ||w_p|| ||w_q||;
+    sqrt(k) eps of the dtype, whatever m. The test bounds each off-diagonal
+    of the Gram W^T W relative to its diagonals; what it leaves acts on the
+    singular values through that Gram, of size k, so the values are off by
+    about the tolerance times s_max on near-equal spectra. The Gram of two
+    nearly orthogonal columns rounds at a few eps whatever m is (a running
+    sum of products of mixed signs), so a tolerance that does not grow with
+    m still stops. LAPACK gesvj's sqrt(m) eps let float32 values of zero
+    columns among standard normal ones at 96000 x 240 read 1.1e-5 s_max
+    against the float64 SVD, where sqrt(k) eps reads 3.4e-7 in the same
+    sweeps (PERF.md section 6)."""
+    return math.sqrt(k) * torch.finfo(dtype).eps
 
 
 def jacobi_floor(dtype: torch.dtype) -> float:
@@ -546,7 +557,7 @@ def _jacobi_torch(a: torch.Tensor):
     wt[:k] = a if plan.wide else a.mT
     vt = torch.zeros((rows, k), dtype=dtype, device=device)
     vt[:k] = torch.eye(k, dtype=dtype, device=device)
-    tol = jacobi_tol(plan.m, dtype)
+    tol = jacobi_tol(k, dtype)
     block = torch.arange(b, device=device)
     rounds = [torch.tensor(rnd, device=device) for rnd in jacobi_tournament(plan.nb)]
     inner = [_inner_schedule(jacobi_inner_rounds(first), device) for first in (True, False)]
@@ -699,7 +710,7 @@ def _jacobi(a: torch.Tensor):
             a.data_ptr(), p, q, wt.data_ptr(), plan.ldw, vt.data_ptr(), plan.ldv, state.data_ptr(), capped.data_ptr(),
             gsum.data_ptr(), refs.data_ptr(), sig.data_ptr(), s.data_ptr(), wn.data_ptr(), vs.data_ptr(), plan.nb,
             plan.cluster, plan.team, plan.clusters, plan.chunk, plan.stages, plan.smem, JACOBI_SWEEPS,
-            jacobi_tol(m, dtype), jacobi_floor(dtype), jacobi_negligible(dtype), stream)
+            jacobi_tol(k, dtype), jacobi_floor(dtype), jacobi_negligible(dtype), stream)
     if err:
         from ..runtime import kernels
 

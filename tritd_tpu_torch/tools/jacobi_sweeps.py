@@ -14,6 +14,9 @@ same matrix in float64, over s_max. The cases (:func:`cases`):
   5000x1000 (TALL_FORMS);
 * thin:       a standard normal 5000 x k for k in THIN_SIDES (the largest
   thin sides the kernel takes);
+* narrow:     a standard normal 96000 x k for k in NARROW_SIDES (the video
+  cut's tall side beside the thin sides where the rotation test's
+  tolerance, sqrt(k) eps, is smallest);
 * tt_trpca:   the two unfoldings tt_trpca's svd route hands its SVT at the
   taxi stand-in (10% missing) after 90 iterations of its loop (the host
   loop on the CPU, in float32 as the CLI runs it, then cast);
@@ -23,7 +26,11 @@ same matrix in float64, over s_max. The cases (:func:`cases`):
   (TALL_FORMS, VIDEO_TALL_FORMS), the matrices that stopped at the cap before
   the rotation test's floor (`device_linalg.JACOBI_ROUNDING`).
 
-`--shapes` sets the tall forms of the spectra and the exact families alike.
+`--shapes` sets the tall forms of the spectra and the exact families alike,
+`--families` which exact families run, `--seed` the seed of the draws (one
+generator for all cases in order: `--cases exact --families zero-cols
+--shapes 96000x64 --seed 1` is `exact_matrix("zero-cols", 96000, 64,
+np.random.default_rng(1))`).
 
 `--device cpu` runs the plain version (`jacobi_svd_torch`, stopped at the
 cap as the kernel is); `--device cuda` the kernel
@@ -32,11 +39,12 @@ here), on the same matrices, at most `--cap` sweeps (the module's cap by
 default; a higher one reads what a case needs). A case that stops at the
 cap is reported as such, not raised. `--rounding` sets the rotation test's
 floor (and the negligible bound, twice it) and `--tol-scale` scales its
-tolerance, to read what each costs.
+tolerance (`device_linalg.jacobi_tol`, sqrt(k) eps), to read what each
+costs. `--qr` runs the sweeps on R of the tall form's QR in the dtype.
 
     python -m tritd_tpu_torch.tools.jacobi_sweeps --device cpu [--threads 4] [--dtypes f32,f64]
-        [--cases graded,clustered,rank-def,thin,tt_trpca,exact] [--shapes 50000x100,10000x500,5000x1000]
-        [--cap N] [--rounding EPS] [--tol-scale X]
+        [--cases graded,clustered,rank-def,thin,narrow,tt_trpca,exact] [--shapes 50000x100,10000x500,5000x1000]
+        [--families outer,static,rank3,zero-cols] [--seed N] [--cap N] [--rounding EPS] [--tol-scale X] [--qr]
 """
 
 from __future__ import annotations
@@ -53,7 +61,9 @@ TALL_FORMS = ((50000, 100), (10000, 500), (5000, 1000))
 VIDEO_TALL_FORMS = ((76800, 300), (96000, 240))
 THIN_SIDES = (1000, 1024)
 THIN_M = 5000
-CASES = ("graded", "clustered", "rank-def", "thin", "tt_trpca", "exact")
+NARROW_SIDES = (1, 2, 5, 8, 16)
+NARROW_M = 96000
+CASES = ("graded", "clustered", "rank-def", "thin", "narrow", "tt_trpca", "exact")
 EXACT_FAMILIES = ("outer", "static", "rank3", "zero-cols")
 #: The exact families at small sizes (the CPU tests and the card's):
 #: label -> (family, m, k, transposed).
@@ -135,10 +145,10 @@ def _tt_trpca_unfoldings(iters: int) -> dict:
     return {f"tt_trpca {p}x{q}": mat.double().numpy() for (p, q), mat in seen.items()}
 
 
-def cases(names=CASES, shapes=None, seed: int = 0) -> dict:
+def cases(names=CASES, shapes=None, seed: int = 0, families=EXACT_FAMILIES) -> dict:
     """{label: float64 matrix} of the cases `names`, the synthetic spectra
     (in float64: the tail of rank-def is float64's eps here and cast's
-    rounding in float32) and the exact families at each tall form of
+    rounding in float32) and the exact `families` at each tall form of
     `shapes`; by default the spectra at TALL_FORMS, the exact families at
     those and VIDEO_TALL_FORMS."""
     rng = np.random.default_rng(seed)
@@ -150,11 +160,14 @@ def cases(names=CASES, shapes=None, seed: int = 0) -> dict:
         elif name == "thin":
             for k in THIN_SIDES:
                 out[f"thin {THIN_M}x{k}"] = rng.standard_normal((THIN_M, k))
+        elif name == "narrow":
+            for k in NARROW_SIDES:
+                out[f"narrow {NARROW_M}x{k}"] = rng.standard_normal((NARROW_M, k))
         elif name == "tt_trpca":
             out.update(_tt_trpca_unfoldings(TT_TRPCA_ITERS))
         elif name == "exact":
             for m, k in shapes or TALL_FORMS + VIDEO_TALL_FORMS:
-                for family in EXACT_FAMILIES:
+                for family in families:
                     out[f"exact {family} {m}x{k}"] = exact_matrix(family, m, k, rng)
         else:
             raise ValueError(f"unknown case {name!r}; use some of {CASES}")
@@ -181,10 +194,14 @@ def kernels_a_call(call) -> dict:
     return dict(zip(device_linalg.JACOBI_KERNELS, counts))
 
 
-def measure(matrices: dict, dtypes, device: str):
+def measure(matrices: dict, dtypes, device: str, qr: bool = False):
     """One record a matrix and dtype: sweeps, converged (under the cap),
     the kernel's or plain version's |ds| / s_max against torch.linalg.svd
-    in float64, seconds."""
+    in float64, seconds. With `qr`, the sweeps run on R of
+    torch.linalg.qr of the tall form in the dtype (the QR preconditioning
+    of ROADMAP queue 5, item 6), and the record also holds R's own values
+    (torch.linalg.svd of R in float64) against the reference,
+    `qr_ds_over_smax`: what no sweeps on R can improve."""
     import torch
 
     from ..ops import device_linalg
@@ -194,6 +211,11 @@ def measure(matrices: dict, dtypes, device: str):
         ref = torch.linalg.svd(a64.to(device), full_matrices=False)[1].cpu()
         for dtype in dtypes:
             a = a64.to(dtype).to(device).contiguous()
+            extra = {}
+            if qr:
+                a = torch.linalg.qr(a if a.shape[0] >= a.shape[1] else a.mT)[1].contiguous()
+                r_s = torch.linalg.svd(a.double(), full_matrices=False)[1].cpu()
+                extra = {"qr_ds_over_smax": float((r_s - ref).abs().max() / ref[0])}
             if device != "cpu":
                 device_linalg.jacobi_svd_with_sweeps(a)  # its plan's occupancy queries outside the time
                 torch.cuda.synchronize()
@@ -207,7 +229,7 @@ def measure(matrices: dict, dtypes, device: str):
             ds = float((s.double().cpu() - ref).abs().max() / ref[0])
             yield {"case": label, "dtype": str(dtype).removeprefix("torch."), "device": device, "sweeps": n,
                    "converged": n < device_linalg.JACOBI_SWEEPS, "cap": device_linalg.JACOBI_SWEEPS,
-                   "ds_over_smax": ds, "seconds": seconds}
+                   "ds_over_smax": ds, "seconds": seconds, **extra}
 
 
 def main(argv=None) -> None:
@@ -217,12 +239,16 @@ def main(argv=None) -> None:
     parser.add_argument("--cases", default=",".join(CASES))
     parser.add_argument("--shapes", help="tall forms of the spectra and the exact families, as 5000x1000,... "
                         "(default: the taxi tall forms, and for exact also the video ones)")
+    parser.add_argument("--families", default=",".join(EXACT_FAMILIES), help="the exact families to run")
+    parser.add_argument("--seed", type=int, default=0, help="the seed of the matrices' draws")
     parser.add_argument("--threads", type=int, default=4)
     parser.add_argument("--cap", type=int, help="sweeps before a call stops (default JACOBI_SWEEPS)")
     parser.add_argument("--rounding", type=float, help="the rotation test's floor in eps, the negligible bound "
                         "twice it; 0 turns both off (default JACOBI_ROUNDING)")
-    parser.add_argument("--tol-scale", type=float, default=1.0, help="the rotation test's tolerance sqrt(m) eps "
-                        "times this")
+    parser.add_argument("--qr", action="store_true", help="run the sweeps on R of the tall form's QR in the "
+                        "dtype, and read R's own values too")
+    parser.add_argument("--tol-scale", type=float, default=1.0, help="the rotation test's tolerance "
+                        "(jacobi_tol: sqrt(k) eps of the thin side k) times this")
     args = parser.parse_args(argv)
 
     import torch
@@ -235,14 +261,15 @@ def main(argv=None) -> None:
         device_linalg.JACOBI_ROUNDING, device_linalg.JACOBI_NEGLIGIBLE = args.rounding, 2 * args.rounding
     if args.tol_scale != 1.0:
         tol = device_linalg.jacobi_tol
-        device_linalg.jacobi_tol = lambda m, dtype: args.tol_scale * tol(m, dtype)
+        device_linalg.jacobi_tol = lambda k, dtype: args.tol_scale * tol(k, dtype)
 
     torch.set_num_threads(args.threads)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a CUDA device")
     dtypes = [{"f32": torch.float32, "f64": torch.float64}[d] for d in args.dtypes.split(",")]
     shapes = [tuple(map(int, s.split("x"))) for s in args.shapes.split(",")] if args.shapes else None
-    for record in measure(cases(args.cases.split(","), shapes), dtypes, args.device):
+    matrices = cases(args.cases.split(","), shapes, args.seed, args.families.split(","))
+    for record in measure(matrices, dtypes, args.device, args.qr):
         print(json.dumps(record), flush=True)
 
 
